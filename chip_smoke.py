@@ -25,10 +25,14 @@ Phases, in order; any failure exits non-zero:
      kernel's launch counter must have risen;
   4. timing: K3 on the main path's own PCM (the f16 output of phase 3,
      scaled and clipped as the wire encoder takes it) beside its time on
-     three-tone sinusoids; the pipelined loop (dispatch N+1, finish N,
-     fetch N-1's PCM last) over 6 blocks at C=320 with adpcm; the stage
+     three-tone sinusoids; K2 on the main path's own grids (phase 3's
+     decoded frames through ``vocoder.device.prediction_inputs``), held
+     to its plain version, beside its time on phase 2's random grids;
+     the pipelined loop (dispatch N+1, finish N, fetch N-1's PCM last)
+     over 6 blocks at C=320 with adpcm; the stage
      split of one block; a torch.profiler window over two blocks (kernel
-     times in the pipeline, and the device busy share: device time per
+     times in the pipeline, the port's three kernels by name with their
+     device time per launch, and the device busy share: device time per
      block over the unprofiled pipelined step, since the profiler
      slows the host).
 
@@ -56,7 +60,16 @@ K2_FLOP_PER_HARMONIC = 25    # K2's arithmetic per harmonic and frame
 # per K3 sample, the loop-carried chain: one shared-memory row load
 # (~30 cycles) and 5 dependent integer ops (compare, three selects, mask)
 K3_CHAIN_CYCLES = 30 + 5 * 4
-K2_CHAIN_CYCLES = 230        # per K2 step: a block reduction + its chain
+# per K2 step, the carry's own dependent chain in csrc/imbe_pred.cu, with
+# latencies of ~25 cycles for a warp shuffle, 4 for an FP32 add, multiply
+# or select, and ~55 for __fdiv_rn's fast path: the gather (shuffle +
+# select) 29, the lerp (multiply, add) 8, the mask and the pair sum 8,
+# the butterfly 5 x (shuffle + add) 145, the division 55, pred (subtract,
+# two multiplies) 12, logm (select, add, multiply) 12, the select on act
+# 4.  The per-chunk phases (the scan, the interpolation, voicing and
+# amps) depend on no carry and are not in it.
+K2_CHAIN_CYCLES = 29 + 8 + 8 + 5 * (25 + 4) + 55 + 12 + 12 + 4
+SPIN_CYCLES = 20_000_000     # ~10 ms: the card's lead over the host in cuda_ms
 
 
 def log(*a) -> None:
@@ -64,13 +77,16 @@ def log(*a) -> None:
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
-    """Mean milliseconds per call on the card (CUDA events)."""
+    """Mean milliseconds per call on the card (CUDA events).  The calls
+    queue behind a spin of the card, so a kernel shorter than its
+    wrapper's host time runs back to back and not at the host's pace."""
     import torch
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     a.record()
     for _ in range(reps):
         fn()
@@ -221,7 +237,9 @@ def main() -> int:
     floor_ms = Tn * K2_CHAIN_CYCLES / (clk * 1e3)
     show("imbe_pred", err, k_ms, plain_ms, b_ms, b_by,
          f"; recurrence floor ~{floor_ms:.4f} ms ({Tn} steps x "
-         f"{K2_CHAIN_CYCLES} cycles at {clk:.0f} MHz)")
+         f"{K2_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+         f"{100 * floor_ms / k_ms:.1f}% of it")
+    k2_rand = args
 
     S, T = C, Tn * 160
     tt = torch.arange(T, dtype=torch.float32) / 8000.0
@@ -252,7 +270,7 @@ def main() -> int:
          f"; recurrence floor ~{k3_floor_ms:.4f} ms ({T} samples x "
          f"{K3_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
          f"{100 * k3_floor_ms / k_ms:.1f}% of it")
-    del args, got, want
+    del got, want
 
     # -- 3. the main path at C=320 ------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
@@ -301,6 +319,9 @@ def main() -> int:
                 carry01 = [None if st is None else
                            tuple(t[:2].cpu() for t in st)
                            for st in pipe.voice_state()]
+                k2_carry = pipe.voice_state()[0]
+            if fmt == "f16" and blk == 1:
+                k2_frames, k2_steps = pipe.last_frames, pipe.last_steps
     launches = {fn.__name__: fn.launches for fn in counted}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"launches during the main path: {launches}; peak device memory "
@@ -361,6 +382,31 @@ def main() -> int:
         f"{' / '.join(f'{v:.4f}' for v in k3_ms['sinusoids'])} ms, the "
         f"pipeline's PCM {k3_ms['pipeline PCM'][0]:.4f} ms")
 
+    # K2 on the main path's own grids (f16 block 1: its decoded frames,
+    # scattered as the decoder does, and the carry block 0 left) against
+    # the random grids of phase 2
+    bits, errs, fch, forder = k2_frames
+    grids = vdev.prediction_inputs(
+        bits, errs, torch.as_tensor(fch, device=dev),
+        torch.as_tensor(forder, device=dev), C, k2_steps, tables)
+    k2_in = {"random": k2_rand, "pipeline": (*grids, *k2_carry)}
+    got = vdev.prediction_scan(*k2_in["pipeline"], *consts)
+    want = vdev.prediction_scan_plain(*k2_in["pipeline"], *consts)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    k2_ms = {}
+    for label in ("random", "pipeline", "random"):
+        k2_ms.setdefault(label, []).append(cuda_ms(
+            lambda x=k2_in[label]: vdev.prediction_scan(*x, *consts), 20))
+    log(f"K2 by input [{C},{k2_steps}]: the pipeline's grids max_abs_err "
+        f"{err:.3e} (tol rtol 1e-5, atol 1e-5; {float(grids[-1].mean()):.3f}"
+        f" of steps active); random "
+        f"{' / '.join(f'{v:.4f}' for v in k2_ms['random'])} ms, the "
+        f"pipeline's {k2_ms['pipeline'][0]:.4f} ms")
+    del k2_in, k2_rand, got, want
+
     # the pipelined loop of the JAX package's bench
     pipe = BatchedP25VoicePipeline(C, FS, pcm_fmt="adpcm", tables=tables)
     pipe.fetch_pcm(pipe.decode_block_async(blocks[0]))      # warm
@@ -415,12 +461,13 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
     from torch.autograd import DeviceType
-    dev_us = {}
+    ours = ("fir_disc", "imbe_pred", "adpcm_enc")
+    dev_us, dev_n = {}, {}
     for e in prof.key_averages():            # device-side events only
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
-            key = next((k for k in ("fir_disc", "imbe_pred", "adpcm_enc")
-                        if f"{k}_kernel" in e.key), e.key)
+            key = next((k for k in ours if f"{k}_kernel" in e.key), e.key)
             dev_us[key] = dev_us.get(key, 0.0) + e.self_device_time_total
+            dev_n[key] = dev_n.get(key, 0) + e.count
     busy_ms = sum(dev_us.values()) / 2e3                    # per block
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:12]
     log(f"profile, 2 blocks: device busy {busy_ms:.1f} ms per block = "
@@ -429,6 +476,12 @@ def main() -> int:
         f"{wall_ms / 2:.1f} ms per block (the profiler's overhead "
         f"included); per block: "
         + ", ".join(f"{k[:40]} {v / 2e3:.3f} ms" for k, v in top))
+    # the port's kernels by name, top 12 or not: device time per launch
+    # on the path itself, a reading that does not depend on cuda_ms
+    log("profile, 2 blocks, the port's kernels: " + ", ".join(
+        f"{k} {dev_n[k]} launches, {dev_us[k] / dev_n[k] / 1e3:.4f} ms "
+        f"per launch" if dev_n.get(k) else f"{k} not in the profile"
+        for k in ours))
 
     rows = [("fir_disc", "dsdneo_tpu_torch/csrc/fir_disc.cu",
              "dsdneo_tpu/ops/pallas_frontend.py:123", "fir_discriminate"),

@@ -125,6 +125,7 @@ class BatchedP25VoicePipeline:
         self._dev_synth_state = None
         self._dev_rep_state = None
         self.last_frames = None
+        self.last_steps = None
 
     # -- front end + sync + NID ---------------------------------------------
     def _nid_msgs(self, dibits: torch.Tensor, ch: torch.Tensor,
@@ -308,6 +309,7 @@ class BatchedP25VoicePipeline:
         L = ac.shape[0]
         if L == 0:
             self.last_frames = None
+            self.last_steps = None
             return None
         n_steps = int(forder.max()) + 1
         # shape buckets, as the JAX package pads them: LDUs to 32s,
@@ -341,9 +343,11 @@ class BatchedP25VoicePipeline:
         self._dev_pred_state = (out.f_logm, out.f_L)
         self._dev_synth_state = out.synth
         self._dev_rep_state = out.rep
-        # what was decoded, for checks: bits and counts of the real frames
+        # what was decoded, for checks: bits and counts of the real frames,
+        # and the padded step count the voice grids were built at
         self.last_frames = (out.bits88[:L * 9], out.errs[:L * 9],
                             fch, forder)
+        self.last_steps = Tp
         return out.pcm
 
     def fetch_pcm(self, handle) -> np.ndarray:

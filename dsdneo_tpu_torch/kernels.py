@@ -1,8 +1,8 @@
 """Build and load the port's hand-written kernels and its host decoder.
 
-Every ``csrc/*.cu`` file compiles with ``nvcc`` for Hopper (``sm_90a``),
-one ``nvcc`` per source, all started together, and the objects link into
-ONE shared library with a plain C interface, loaded with ``ctypes``:
+Every ``csrc/*.cu`` file compiles with ONE ``nvcc -shared`` call for
+Hopper (``sm_90a``) into ONE shared library with a plain C interface,
+loaded with ``ctypes``:
 pointers go as ``c_void_p``, the stream is PyTorch's current stream,
 and each C entry point returns ``cudaGetLastError()`` after its launch.
 No source includes PyTorch's headers, so a build takes seconds.
@@ -109,57 +109,47 @@ def _digest(flags: list[str], srcs: list[str]) -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> str:
-    """Start every command at once, wait for all; raise with the log of
-    the first that fails.  Returns the joined output."""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = [p.communicate()[0] for p in procs]
-    for c, p, log in zip(cmds, procs, logs):
-        if p.returncode != 0:
-            raise RuntimeError(f"{os.path.basename(c[0])} failed "
-                               f"({p.returncode}):\n{log}")
-    return "".join(logs)
+def _run(cmd: list[str]) -> str:
+    """Run a compiler; raise with its log if it fails, else return it."""
+    p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f"{os.path.basename(cmd[0])} failed "
+                           f"({p.returncode}):\n{p.stdout}")
+    return p.stdout
 
 
 def _build(lib: _Lib, name: str, flags: list[str], srcs: list[str],
            make) -> str:
     """Build ``srcs`` into ``build/<name>_<hash>.so`` unless it exists.
-    ``make(tmp, so_tmp)`` compiles into the scratch directory ``tmp`` and
-    returns the compilers' output; the directory goes whatever happens,
-    and the library appears under its name only when it is whole."""
+    ``make(out)`` compiles the library to ``out`` in a scratch directory
+    and returns the compiler's output; the directory goes whatever
+    happens, and the library appears under its name only when it is
+    whole."""
     so = os.path.join(BUILD_DIR, f"{name}_{_digest(flags, srcs)}.so")
     t0 = time.perf_counter()
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             out = os.path.join(tmp, "lib.so")
-            lib.build_log = make(tmp, out)
+            lib.build_log = make(out)
             os.replace(out, so)
     lib.build_s = time.perf_counter() - t0
     return so
 
 
 def load():
-    """The kernels' ctypes library, compiled on first call: one ``nvcc -c``
-    per source, all started together, then one link."""
+    """The kernels' ctypes library, compiled on first call by one
+    ``nvcc -shared`` over every source."""
     with _LIB.lock:
         if _LIB.cdll is not None:
             return _LIB.cdll
         nvcc = _nvcc()
         cus = _sources("*.cu")
-
-        def make(tmp, out):
-            objs = [os.path.join(tmp, os.path.basename(s) + ".o")
-                    for s in cus]
-            log = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", o, s]
-                            for s, o in zip(cus, objs)])
-            return log + _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared",
-                                    "-o", out, *objs]])
-
         so = _build(_LIB, "libdsdneo_kernels", NVCC_FLAGS,
-                    _sources("*.cu", "*.cuh"), make)
+                    _sources("*.cu", "*.cuh"),
+                    lambda out: _run([nvcc, *NVCC_FLAGS, "-shared", "-o",
+                                      out, *cus]))
         cdll = ctypes.CDLL(so)
         for fn_name, args in _SIGNATURES.items():
             fn = getattr(cdll, fn_name)
@@ -180,8 +170,7 @@ def load_host():
         cxx = _find("CXX", "c++", "g++")
         srcs = _sources("*.cpp")
         so = _build(_HOST, "libdsdneo_host", CXX_FLAGS, srcs,
-                    lambda tmp, out: _run_all([[cxx, *CXX_FLAGS, "-o", out,
-                                                *srcs]]))
+                    lambda out: _run([cxx, *CXX_FLAGS, "-o", out, *srcs]))
         cdll = ctypes.CDLL(so)
         for fn_name, (args, res) in _HOST_SIGNATURES.items():
             fn = getattr(cdll, fn_name)

@@ -9,6 +9,7 @@ Counterpart of ``dsdneo_tpu/vocoder/device.py`` (``_headers``,
 On a CUDA tensor :func:`prediction_scan` launches ``csrc/imbe_pred.cu``
 (the JAX package's ``lax.scan`` over frame steps as one launch); on a
 CPU tensor it runs :func:`prediction_scan_plain`, a loop over steps.
+:func:`prediction_inputs` builds its grids from decoded frames.
 """
 
 from __future__ import annotations
@@ -136,7 +137,9 @@ def prediction_scan(T, w0, L, K, V, act, prev_logm, prev_L,
     channels: T ``[C, T_n, 56]`` f32, w0 ``[C, T_n]`` f32, L and K
     ``[C, T_n]`` int32, V ``[C, T_n, 12]`` f32, act ``[C, T_n]`` f32,
     prev_logm ``[C, 56]`` f32, prev_L ``[C]`` int32 → (w0s, voiced,
-    amps, f_logm, f_L)."""
+    amps, f_logm, f_L).  On the card every input is contiguous, T and V
+    start on a 16-byte boundary (as a fresh tensor does), and anything
+    else raises."""
     if T.device.type == "cpu":
         return prediction_scan_plain(T, w0, L, K, V, act, prev_logm, prev_L,
                                      pred_decay, amp_scale)
@@ -151,6 +154,10 @@ def prediction_scan(T, w0, L, K, V, act, prev_logm, prev_L,
             ("prev_logm", prev_logm, torch.float32, (C, MAX_L)),
             ("prev_L", prev_L, torch.int32, (C,))):
         kernels.require(a, name, dt, shp)
+    for name, a in (("T", T), ("V", V)):
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel copies its rows in 16-byte "
+                             "pieces; expected a 16-byte aligned start")
     lib = kernels.load()
     dev = T.device
     w0s = torch.empty((C, Tn), dtype=torch.float32, device=dev)
@@ -287,6 +294,33 @@ class VoiceDecodeOut(NamedTuple):
     errs: torch.Tensor      # [F] ECC error counts
 
 
+def _scatter(vals, fch, forder, C: int, n_steps: int, dtype):
+    """``[F, ...]`` per-frame values → ``[C, n_steps, ...]`` grid of
+    ``dtype``, frame f at (fch[f], forder[f]), zeros elsewhere; pad
+    frames use channel C and are dropped."""
+    z = torch.zeros((C + 1, n_steps) + tuple(vals.shape[1:]), dtype=dtype,
+                    device=vals.device)
+    z[fch, forder] = vals.to(dtype)         # duplicates only on pad row C
+    return z[:C]
+
+
+def prediction_inputs(bits88, errs, fch, forder, C: int, n_steps: int,
+                      tables):
+    """Decoded frames (``[F, 88]`` bits, ``[F]`` ECC error counts, their
+    channel and step indices) → the grids K2 takes: (T, w0, L, K, V,
+    act), ``[C, n_steps, ...]``; L and K at least 1, act 1.0 on a frame
+    the decoder uses."""
+    T, w0, L, K = _transforms(bits88, tables)
+    vs = tables.voicing_start
+    V = bits88[:, vs:vs + N_BANDS]
+    good = imbe_frame_good(bits88, errs, tables)
+    f32, i32 = torch.float32, torch.int32
+    scat = lambda v, dt: _scatter(v, fch, forder, C, n_steps, dt)
+    return (scat(T, f32), scat(w0, f32),
+            torch.clamp(scat(L, i32), min=1),
+            torch.clamp(scat(K, i32), min=1), scat(V, f32), scat(good, f32))
+
+
 def _decode_from_frames(frames144, fch, forder, prev_logm, prev_L,
                         C: int, n_steps: int, tables, pcm_fmt: str = "f16",
                         prev_synth=None, rep_state=None) -> VoiceDecodeOut:
@@ -294,34 +328,19 @@ def _decode_from_frames(frames144, fch, forder, prev_logm, prev_L,
     (pad frames use channel C) → wire PCM and the new carries."""
     dev = frames144.device
     bits88, errs = imbe_ecc_batch(frames144, tables)
-    T, w0, L, K = _transforms(bits88, tables)
-    vs = tables.voicing_start
-    V = bits88[:, vs:vs + N_BANDS].to(torch.float32)
-    good = imbe_frame_good(bits88, errs, tables)
-
-    def scat(vals, shape, dtype):
-        z = torch.zeros((C + 1, n_steps) + shape, dtype=dtype, device=dev)
-        z[fch, forder] = vals.to(dtype)     # duplicates only on pad row C
-        return z[:C]
-
-    Ts = scat(T, (MAX_L,), torch.float32)
-    w0s = scat(w0, (), torch.float32)
-    Ls = torch.clamp(scat(L, (), torch.int32), min=1)
-    Ks = torch.clamp(scat(K, (), torch.int32), min=1)
-    Vs = scat(V, (N_BANDS,), torch.float32)
-    act = scat(good, (), torch.float32)
-
+    grids = prediction_inputs(bits88, errs, fch, forder, C, n_steps, tables)
+    act = grids[-1]
     w0o, voiced, amps, f_logm, f_L = prediction_scan(
-        Ts, w0s, Ls, Ks, Vs, act, prev_logm, prev_L,
-        tables.pred_decay, tables.imbe_amp_scale)
+        *grids, prev_logm, prev_L, tables.pred_decay, tables.imbe_amp_scale)
 
     # clean tone codes synthesize one harmonic; act=0 already froze the
     # prediction carry for them
+    scat = lambda v: _scatter(v, fch, forder, C, n_steps, torch.float32)
     is_tone, w0_t, amp_t = imbe_tone_params(bits88, tables)
     tone_f = (is_tone & (errs <= 5)).to(torch.float32)
-    tones = scat(tone_f, (), torch.float32)
-    w0_ts = scat(w0_t * tone_f, (), torch.float32)
-    amp_ts = scat(amp_t * tone_f, (), torch.float32)
+    tones = scat(tone_f)
+    w0_ts = scat(w0_t * tone_f)
+    amp_ts = scat(amp_t * tone_f)
     e0 = torch.zeros((1, 1, MAX_L), dtype=torch.float32, device=dev)
     e0[0, 0, 0] = 1.0
     ton = tones[:, :, None] > 0
@@ -329,7 +348,7 @@ def _decode_from_frames(frames144, fch, forder, prev_logm, prev_L,
     voiced = torch.where(ton, e0, voiced)
     amps = torch.where(ton, e0 * (amp_ts * 0.5)[:, :, None], amps)
 
-    present = scat(torch.ones_like(good), (), torch.float32)
+    present = scat(torch.ones_like(tone_f))
     if rep_state is None:
         rep_state = repeat_state_init(C, dev)
     (w0o, voiced, amps), rep_out = repeat_gate(

@@ -81,7 +81,22 @@ def _pred_inputs(rng, C, Tn):
             (rng.uniform(size=(C, Tn)) > 0.15).astype(np.float32))
 
 
-def test_prediction_plain_matches_jax_two_blocks(tables):
+def _pred_case(rng, C, Tn, case):
+    """Random K2 inputs with the edge of ``case`` written in."""
+    xs = list(_pred_inputs(rng, C, Tn))
+    if case == "constant_L":                      # the narrowest and widest
+        xs[2][0], xs[2][1] = 9, 56
+        xs[3] = np.minimum((xs[2] + 2) // 3, 12).astype(np.int32)
+    elif case == "all_inactive":
+        xs[5][1] = 0.0
+    return xs
+
+
+@pytest.mark.parametrize("case,steps", [
+    ("random", (27, 54)), ("one_step", (1, 1)), ("odd_steps", (31, 31)),
+    ("prev_L_zero", (27, 27)), ("all_inactive", (27, 27)),
+    ("constant_L", (27, 54))])
+def test_prediction_plain_matches_jax_two_blocks(tables, case, steps):
     """K2's plain version over two blocks, the carry passed along."""
     import jax
     import jax.numpy as jnp
@@ -89,11 +104,15 @@ def test_prediction_plain_matches_jax_two_blocks(tables):
     from dsdneo_tpu_torch.vocoder import device as td
     rng = np.random.default_rng(8)
     C = 3
-    pj = (jnp.zeros((C, 56)), jnp.zeros(C, jnp.int32))
-    pt = (torch.zeros(C, 56), torch.zeros(C, dtype=torch.int32))
+    prev = (np.zeros((C, 56), np.float32), np.zeros(C, np.int32))
+    if case in ("prev_L_zero", "all_inactive"):   # a carry to keep or drop
+        prev = (rng.uniform(0, 6, (C, 56)).astype(np.float32),
+                np.array([0, 20, 56], np.int32))
+    pj = tuple(jnp.asarray(a) for a in prev)
+    pt = tuple(_t(a) for a in prev)
     scan = jax.jit(jd._prediction_scan)
-    for Tn in (27, 54):
-        xs = _pred_inputs(rng, C, Tn)
+    for Tn in steps:
+        xs = _pred_case(rng, C, Tn, case)
         want = scan(*(jnp.asarray(a) for a in xs), *pj)
         got = td.prediction_scan(*(_t(a) for a in xs), *pt,
                                  tables.pred_decay, tables.imbe_amp_scale)
@@ -101,6 +120,9 @@ def test_prediction_plain_matches_jax_two_blocks(tables):
             np.testing.assert_allclose(g.numpy(), np.asarray(w),
                                        rtol=RTOL, atol=ATOL)
         pj, pt = want[3:], got[3:]
+    if case == "all_inactive":                    # channel 1's carry frozen
+        np.testing.assert_array_equal(pt[0][1].numpy(), prev[0][1])
+        assert int(pt[1][1]) == prev[1][1]
 
 
 def test_repeat_gate_matches(tables):
@@ -243,6 +265,42 @@ def test_synthesize_one_shot_matches(tables):
     np.testing.assert_allclose(got, want, atol=1e-3 * np.abs(want).max())
 
 
+def _rn32_sum(a, b):
+    """float32 round-to-nearest of a + b for float64 a, b, each exact,
+    with no double rounding (exact rationals where the float64 sum
+    rounds)."""
+    from fractions import Fraction
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)            # TwoSum: s + err == a + b
+    out = s.astype(np.float32)
+    for i in np.flatnonzero(err != 0):
+        x = Fraction(float(a.flat[i])) + Fraction(float(b.flat[i]))
+        lo = np.float32(float(x))
+        cands = [lo, np.nextafter(lo, np.float32(np.inf)),
+                 np.nextafter(lo, np.float32(-np.inf))]
+        out.flat[i] = min(cands, key=lambda c: (abs(Fraction(float(c)) - x),
+                                                int(c.view(np.int32)) & 1))
+    return out
+
+
+def test_k2_index_division_matches_ieee():
+    """``csrc/imbe_pred.cu`` ``interp`` divides l·p_L by L as r = RN(1/L),
+    q0 = RN(n·r), q = RN(q0 + RN(n − q0·L)·r) (two FMAs).  For every l,
+    p_L and L in 1..56 that is IEEE division (``__fdiv_rn``) bit for bit;
+    float64 holds each product exactly."""
+    l = np.arange(1, 57)
+    n = np.unique(l[:, None] * l[None, :]).astype(np.float32)[:, None]
+    L = l.astype(np.float32)[None, :]
+    r = np.float32(1.0) / L
+    q0 = n * r
+    e = (n.astype(np.float64) - q0.astype(np.float64) * L).astype(np.float32)
+    q = _rn32_sum(q0.astype(np.float64),
+                  e.astype(np.float64) * r.astype(np.float64))
+    np.testing.assert_array_equal(q, n / L)
+    assert (q0 != n / L).any()                  # the correction matters
+
+
 @pytest.mark.cuda
 def test_k2_kernel_matches_plain_on_card():
     if not torch.cuda.is_available():
@@ -262,3 +320,77 @@ def test_k2_kernel_matches_plain_on_card():
                                     t.imbe_amp_scale)
     for g, w in zip(got, want):
         torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_*.py)")
+    from dsdneo_tpu_torch import params
+    return params.load("cuda")
+
+
+def _k2_edge_inputs(C, Tn, seed):
+    """K2 inputs with every edge at once: channel 0 at constant L = 9 and
+    no previous L, channel 1 at L = 56, the last of C > 2 never active,
+    and the first 18 steps inactive everywhere."""
+    rng = np.random.default_rng(seed)
+    xs = list(_pred_inputs(rng, C, Tn))
+    xs[2][0] = 9
+    if C > 1:
+        xs[2][1] = 56
+    xs[3] = np.minimum((xs[2] + 2) // 3, 12).astype(np.int32)
+    xs[5][:, :18] = 0.0
+    if C > 2:
+        xs[5][-1] = 0.0
+    prev = (rng.uniform(0, 6, (C, 56)).astype(np.float32),
+            rng.integers(0, 57, C).astype(np.int32))
+    prev[1][0] = 0
+    return [_t(a).cuda() for a in xs], [_t(a).cuda() for a in prev]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [1, 3, 33, 320])
+@pytest.mark.parametrize("Tn", [0, 1, 31, 162, 324])
+def test_k2_kernel_edges_on_card(C, Tn):
+    """Steps off the 32-step chunk, channels off the 4 per block, rows of
+    the [C, Tn] inputs off 16-byte boundaries (odd c at Tn = 162), and
+    the edges of ``_k2_edge_inputs``."""
+    t = _card()
+    from dsdneo_tpu_torch.vocoder import device as td
+    xs, prev = _k2_edge_inputs(C, Tn, seed=C * 1000 + Tn)
+    got = td.prediction_scan(*xs, *prev, t.pred_decay, t.imbe_amp_scale)
+    want = td.prediction_scan_plain(*xs, *prev, t.pred_decay,
+                                    t.imbe_amp_scale)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    if C > 2:                                   # the inactive channel
+        torch.testing.assert_close(got[3][-1], prev[0][-1], rtol=0, atol=0)
+        assert int(got[4][-1]) == int(prev[1][-1])
+
+
+@pytest.mark.cuda
+def test_k2_kernel_unaligned_starts_on_card():
+    """[C, Tn] inputs that start 4 bytes past a 16-byte boundary are
+    taken; T or V off a 16-byte boundary raise."""
+    t = _card()
+    from dsdneo_tpu_torch.vocoder import device as td
+    C, Tn = 5, 97
+    xs, prev = _k2_edge_inputs(C, Tn, seed=7)
+    for i in (1, 2, 3, 5):                      # w0, L, K, act
+        buf = torch.empty(C * Tn + 1, dtype=xs[i].dtype, device="cuda")
+        view = buf[1:].view(C, Tn)
+        view.copy_(xs[i])
+        xs[i] = view
+    consts = (t.pred_decay, t.imbe_amp_scale)
+    got = td.prediction_scan(*xs, *prev, *consts)
+    want = td.prediction_scan_plain(*xs, *prev, *consts)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=RTOL, atol=ATOL)
+    for i, shape in ((0, (C, Tn, 56)), (4, (C, Tn, 12))):
+        bad = list(xs)
+        buf = torch.empty(xs[i].numel() + 1, device="cuda")
+        bad[i] = buf[1:].view(shape)
+        with pytest.raises(ValueError):
+            td.prediction_scan(*bad, *prev, *consts)
