@@ -4,26 +4,49 @@ The JAX package ``dsdneo_tpu`` is the reference; this package mirrors
 its module names so each function's counterpart is easy to find:
 
   - ``device``            card checks and identity (name, power limit)
-  - ``params``            the constant tables (``data/p25p1_tables.npz``)
-                          and the per-channel carries, as tensors
+  - ``params``            the constant tables (``data/p25p1_tables.npz``,
+                          ``data/dmr_tables.npz``) and the per-channel
+                          carries, as tensors
   - ``dsp.frontend``      channel FIR, FM discriminator, power
+  - ``dsp.cqpsk``         CQPSK demodulation: 4th-power carrier estimate,
+                          RRC filter (``dsp.firdes.rrc``), differential
+                          phasor
+  - ``symbols.timing``    windowed O&M decision positions, ``interp``
   - ``ops``               the hand-written CUDA kernels' wrappers:
                           ``fir_discriminate`` (K1), ``audio_wire`` (K3)
   - ``engine.batched``    front end + symbol timing + slicing
   - ``engine.voicebatch`` ``BatchedP25VoicePipeline``: I/Q → PCM
-  - ``fec.device``        batched IMBE voice-frame ECC
-  - ``vocoder.device``    dequantization, prediction (K2), repeat gate
+  - ``engine.dmrbatch``   ``BatchedDmrVoicePipeline``: I/Q → PCM
+  - ``engine.voicestate`` the voice-carry reset the AMBE pipelines share
+  - ``fec.device``        batched IMBE and AMBE+2 voice-frame ECC
+  - ``vocoder.device``    IMBE dequantization, prediction (K2), repeat
+                          gate; the AMBE+2 parameter decode and the tail
+                          every AMBE family shares
   - ``vocoder.synth``     batched harmonic synthesis
-  - ``protocol.p25.encode`` the C4FM test-signal generator
+  - ``protocol.p25.encode``, ``protocol.dmr.encode``
+                          the test-signal generators
+
+Three pipelines, each ``[C, B, 2]`` float32 I/Q blocks in, ``[C, N]``
+PCM out, with the same calls (``frontend_dispatch`` →
+``frontend_finish``, or ``frontend_sync_device`` for both → the host
+pick → ``decode_from_frontend`` → ``fetch_pcm``; ``decode_block`` and
+``decode_block_async`` for all of it; ``reset_voice_state``):
+
+  - ``BatchedP25VoicePipeline(C)``               P25 Phase 1 C4FM voice
+    (kernels K1, K2, K3);
+  - ``BatchedP25VoicePipeline(C, cqpsk=True)``   P25 Phase 1 CQPSK / LSM
+    voice (K2, K3);
+  - ``BatchedDmrVoicePipeline(C)``               DMR BS two-slot voice
+    (K1, K3).
 
 It imports torch and numpy, never JAX and nothing of the JAX package:
-what it needs from there (the NID code's generator polynomial, the host
-ADPCM decoder, the constant tables in ``data/``) it keeps as its own
-copy.  Every function takes its tensors' device from its inputs; CUDA
+what it needs from there (the NID code's generator polynomial, the RRC
+design, the host pickers, the host ADPCM decoder, the constant tables in
+``data/``) it keeps as its own copy.  Every function takes its tensors' device from its inputs; CUDA
 kernels launch for CUDA tensors, their plain PyTorch versions run for
-CPU tensors.  The entry points (``params.load``,
-``BatchedP25VoicePipeline``) run on the card unless the caller names
-another device.
+CPU tensors.  The entry points (``params.load``, ``params.load_dmr``
+and the pipelines) run on the card unless the caller names another
+device.
 """
 
 __version__ = "0.1.0"

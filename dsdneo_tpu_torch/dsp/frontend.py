@@ -15,17 +15,24 @@ import torch.nn.functional as F
 
 def _fir_real(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """'Same'-aligned FIR of real ``[C, N]`` with 1-D taps (group delay
-    removed): ``y[n] = sum_t taps[t] x[n + T//2 - t]``, zero padded."""
+    removed): ``y[n] = sum_t taps[t] x[n + T//2 - t]``, zero padded.
+    Full float32 on the card too: cuDNN's TF32 convolutions are switched
+    off around the call, whatever the process has set."""
     t = taps.shape[0]
     left = (t - 1) // 2
     xp = F.pad(x[:, None, :], (left, t - 1 - left))
     w = taps.flip(0).to(x.dtype)[None, None, :]
-    return F.conv1d(xp, w)[:, 0, :]
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        return F.conv1d(xp, w)[:, 0, :]
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def fir_complex(x: torch.Tensor, taps: torch.Tensor) -> torch.Tensor:
     """Complex FIR with real taps over complex ``[C, N]`` (same length,
-    zero delay)."""
+    zero delay), in full float32 on either device."""
     return torch.complex(_fir_real(x.real.contiguous(), taps),
                          _fir_real(x.imag.contiguous(), taps))
 

@@ -96,10 +96,14 @@ def symbolize_step(d: torch.Tensor, sps: float, n_sym: int,
     norm = (sym - center) / scale * 3.0
 
     if four_level:
-        neg = norm < 0.0
-        outer = norm.abs() > 2.0
-        dibits = torch.where(neg, torch.where(outer, 3, 2),
-                             torch.where(outer, 1, 0))
-    else:
-        dibits = torch.where(norm < 0.0, 3, 1)
-    return dibits.to(torch.uint8), norm
+        return slice_four_level(norm), norm
+    return torch.where(norm < 0.0, 3, 1).to(torch.uint8), norm
+
+
+def slice_four_level(soft: torch.Tensor) -> torch.Tensor:
+    """Soft symbols in the ±1/±3 alphabet → dibits (uint8), thresholds
+    at 0 and ±2: +1 → 0, +3 → 1, −1 → 2, −3 → 3."""
+    neg = soft < 0.0
+    outer = soft.abs() > 2.0
+    return torch.where(neg, torch.where(outer, 3, 2),
+                       torch.where(outer, 1, 0)).to(torch.uint8)

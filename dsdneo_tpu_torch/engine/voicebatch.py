@@ -4,7 +4,10 @@ Counterpart of ``dsdneo_tpu/engine/voicebatch.py``.  Per ``[C, B]``
 block of channels:
 
   1. front end (channel FIR + discriminator through kernel K1, timing,
-     slicing) — ``engine.batched.frontend_step``;
+     slicing) — ``engine.batched.frontend_step``; with ``cqpsk=True``
+     the feed-forward CQPSK chain instead (``dsp.cqpsk.demod_cqpsk``:
+     4th-power carrier estimate, RRC filter, O&M timing, differential
+     phasor), sliced at 0 and ±2;
   2. frame-sync matched filter over the soft symbols, the top
      ``SYNC_TOPK`` candidates per channel (a stable sort, so equal
      scores keep the lower position first, as ``jax.lax.top_k`` does),
@@ -30,7 +33,8 @@ import torch
 
 from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.device import require_cuda
-from dsdneo_tpu_torch.engine.batched import frontend_step
+from dsdneo_tpu_torch.dsp.cqpsk import demod_cqpsk
+from dsdneo_tpu_torch.engine.batched import frontend_step, slice_four_level
 from dsdneo_tpu_torch.ops.audio_wire import wire_expand
 from dsdneo_tpu_torch.params import MAX_L, TILE_BYTES
 from dsdneo_tpu_torch.vocoder.device import (synth_state_init,
@@ -96,8 +100,9 @@ class BatchedP25VoicePipeline:
     NID_TOPK = 48
 
     def __init__(self, C: int, fs: float = 48000.0,
-                 sync_threshold: float = 0.62, pcm_fmt: str = "f16", *,
-                 device=None, tables: params.P25Tables | None = None):
+                 sync_threshold: float = 0.62, cqpsk: bool = False,
+                 pcm_fmt: str = "f16", *, device=None,
+                 tables: params.P25Tables | None = None):
         if pcm_fmt not in ("f16", "adpcm", "mulaw"):
             raise ValueError(f"unknown pcm_fmt {pcm_fmt!r}")
         if device is None:
@@ -112,6 +117,9 @@ class BatchedP25VoicePipeline:
         self.fs = fs
         self.sps = fs / self.tables.symbol_rate
         self.threshold = sync_threshold
+        # everything after the soft symbols (sync, NID, LDU gather, voice
+        # decode) is the same for both modulations
+        self.cqpsk = cqpsk
         self.pcm_fmt = pcm_fmt
         n_pat = self.tables.sync_len
         self._nid_strip = torch.as_tensor(_status_strip_map(n_pat, 32),
@@ -128,6 +136,16 @@ class BatchedP25VoicePipeline:
         self.last_steps = None
 
     # -- front end + sync + NID ---------------------------------------------
+    def _front(self, x: torch.Tensor, n_sym: int):
+        """``[C, B, 2]`` float32 I/Q → (dibits, soft symbols, power)."""
+        t = self.tables
+        if not self.cqpsk:
+            return frontend_step(x, t.taps, self.sps, n_sym, t.four_level)
+        soft, _cfo = demod_cqpsk(torch.view_as_complex(x.contiguous()),
+                                 self.fs, t.symbol_rate, n_sym=n_sym)
+        power = torch.mean(x[..., 0] ** 2 + x[..., 1] ** 2, dim=-1)
+        return slice_four_level(soft), soft, power
+
     def _nid_msgs(self, dibits: torch.Tensor, ch: torch.Tensor,
                   pos: torch.Tensor) -> torch.Tensor:
         """BCH(63,16) ML decode of the NIDs at (channel, sync position)
@@ -153,8 +171,7 @@ class BatchedP25VoicePipeline:
         B = x.shape[1]
         n_sym = int(B // self.sps) - 2
         t = self.tables
-        dibits, soft, _power = frontend_step(x, t.taps, self.sps, n_sym,
-                                             t.four_level)
+        dibits, soft, _power = self._front(x, n_sym)
         sc = correlate_syncs_device(soft, t.sync_levels)       # [C, P, T']
         best_def = torch.argmax(sc, dim=1).to(torch.uint8)
         bs = torch.amax(sc, dim=1)
@@ -177,6 +194,11 @@ class BatchedP25VoicePipeline:
         return (dibits, idx.cpu().numpy().astype(np.int64),
                 vq.cpu().numpy(), dq.cpu().numpy(),
                 msg.cpu().numpy().astype(np.int32), n_sym)
+
+    def frontend_sync_device(self, iq):
+        """Front end, sync filter and NID decode with the candidates on
+        the host and the dibits left on the device."""
+        return self.frontend_finish(self.frontend_dispatch(iq))
 
     # -- host LDU picker ------------------------------------------------------
     def _peak_hits(self, idx, vq, dq):

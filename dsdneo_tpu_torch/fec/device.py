@@ -1,9 +1,13 @@
-"""Batched IMBE voice-frame ECC on tensors.
+"""Batched IMBE and AMBE+2 voice-frame ECC on tensors.
 
-Counterpart of the IMBE part of ``dsdneo_tpu/fec/device.py``
-(``_ml_golay_dec``, ``_imbe_ecc_jit.run``, ``imbe_ecc_batch``): the
-on-air deinterleave, the Golay(23,12) rows with the PN descramble seeded
-by row 0, the Hamming(15,11) rows, and the 7 raw bits of row 7.
+Counterpart of the IMBE and AMBE parts of ``dsdneo_tpu/fec/device.py``
+(``_ml_golay_dec``, ``_imbe_ecc_jit.run``, ``imbe_ecc_batch``,
+``_ambe_ecc_jit.run``, ``ambe_ecc_batch``).  IMBE: the on-air
+deinterleave, the Golay(23,12) rows with the PN descramble seeded by row
+0, the Hamming(15,11) rows, and the 7 raw bits of row 7.  AMBE+2 (DMR,
+NXDN, dPMR, YSF, P25p2, X2-TDMA): the dibit deinterleave, C0 as
+Golay(23,12) plus an overall parity bit, C1 as Golay(23,12) descrambled
+by the PN row of the corrected C0, and the raw C2 and C3 bits.
 
 Golay and Hamming decode by exact ML: a ±1 codebook correlation as one
 float32 matrix product and an argmax (the first maximum, as
@@ -59,3 +63,19 @@ def imbe_ecc_batch(bits144: torch.Tensor, tables):
         parts.append(tables.ecc_param_h[m])
     parts.append(fr[:, 7, :7].flip(-1))
     return torch.cat(parts, dim=1), errs
+
+
+def ambe_ecc_batch(bits72: torch.Tensor, tables):
+    """``[F, 72]`` uint8 on-air bits → (``[F, 49]`` uint8 parameter
+    bits, ``[F]`` int32 error counts: the Golay corrections of C0 and C1
+    plus one for a C0 parity mismatch).  ``tables`` is
+    ``params.DmrTables``."""
+    F = bits72.shape[0]
+    fr = bits72.to(torch.uint8)[:, tables.ambe_gather].reshape(F, 4, 24)
+    m0, errs = _ml_dec(fr[:, 0, :23], tables.golay_pm, tables.golay_cb)
+    errs = errs + (tables.ambe_parity[m0] != fr[:, 0, 23]).to(torch.int32)
+    m1, e1 = _ml_dec(fr[:, 1, :23] ^ tables.ambe_pn[m0], tables.golay_pm,
+                     tables.golay_cb)
+    out = torch.cat([tables.ambe_param[m0], tables.ambe_param[m1],
+                     fr[:, 2, :11], fr[:, 3, :14]], dim=1)
+    return out, errs + e1

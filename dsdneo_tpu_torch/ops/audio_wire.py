@@ -169,11 +169,27 @@ def adpcm_expand(blob: np.ndarray) -> np.ndarray:
 
 def wire_encode(pcm: torch.Tensor, pcm_fmt: str, step_table: torch.Tensor,
                 index_table: torch.Tensor) -> torch.Tensor:
-    """Synthesized ``[C, F, 160]`` PCM → the wire format: f16 as is;
-    µ-law and ADPCM of ``clip(pcm · 0.02, -1, 1)``."""
+    """Synthesized ``[C, F, 160]`` PCM → the wire format as the IMBE
+    path sends it: f16 as is; µ-law and ADPCM of
+    ``clip(pcm · 0.02, -1, 1)``."""
     if pcm_fmt == "f16":
         return pcm.to(torch.float16)
-    p = torch.clamp(pcm * PCM_SCALE, -1.0, 1.0)
+    return wire_encode_scaled(scale_clip(pcm), pcm_fmt, step_table,
+                              index_table)
+
+
+def scale_clip(pcm: torch.Tensor) -> torch.Tensor:
+    """Synthesizer output → wire full scale: ``clip(pcm · 0.02, -1, 1)``."""
+    return torch.clamp(pcm * PCM_SCALE, -1.0, 1.0)
+
+
+def wire_encode_scaled(p: torch.Tensor, pcm_fmt: str,
+                       step_table: torch.Tensor,
+                       index_table: torch.Tensor) -> torch.Tensor:
+    """``[C, F, 160]`` PCM already in [-1, 1] → f16, µ-law or ADPCM (the
+    AMBE paths send every format at wire scale)."""
+    if pcm_fmt == "f16":
+        return p.to(torch.float16)
     if pcm_fmt == "adpcm":
         return adpcm_compress(p.reshape(p.shape[0], -1).contiguous(),
                               step_table, index_table)

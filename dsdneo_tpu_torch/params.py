@@ -1,12 +1,14 @@
-"""Constant tables and per-channel carries of the P25p1 voice path.
+"""Constant tables and per-channel carries of the voice paths.
 
 The system runs no model: its "weights" are the constant tables below,
 which ``tools/export_torch_tables.py`` builds from the JAX package's own
-functions into ``data/p25p1_tables.npz``, and its state is the
+functions into ``data/p25p1_tables.npz`` (P25 Phase 1) and
+``data/dmr_tables.npz`` (DMR and the AMBE core), and its state is the
 per-channel carry of the voice decoder (prediction, synthesis and
-frame-repeat).  :func:`from_numpy` carries the tables across onto a
-device; :func:`state_from_numpy` carries a JAX pipeline's three carries
-across, so a block decoded by the JAX package can continue in the port.
+frame-repeat).  :func:`from_numpy` and :func:`dmr_from_numpy` carry the
+tables across onto a device; :func:`state_from_numpy` carries a JAX
+pipeline's carries across, so a block decoded by the JAX package can
+continue in the port.
 
 The BCH(63,16) NID codebook (65,536 words) is expanded at load time from
 its generator polynomial (:func:`bch_63_16_codebook`) instead of being
@@ -22,8 +24,9 @@ import torch
 
 from dsdneo_tpu_torch.device import require_cuda
 
-TABLES_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          "data", "p25p1_tables.npz")
+_DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+TABLES_NPZ = os.path.join(_DATA, "p25p1_tables.npz")
+DMR_TABLES_NPZ = os.path.join(_DATA, "dmr_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -63,7 +66,63 @@ def bch_63_16_codebook() -> np.ndarray:
     return np.concatenate([msgs, parity], axis=1)
 
 
-class P25Tables:
+class _VoiceTables:
+    """What the table sets share: the numpy originals in ``np`` (host-side
+    code reads them), the front end's constants, the PCM wire and
+    synthesis tables as tensors on ``device``, and the test vector."""
+
+    def __init__(self, tables: dict[str, np.ndarray], device):
+        self._dev = torch.device(device)
+        self.np = {k: np.asarray(v) for k, v in tables.items()}
+        t = self.np
+
+        # front end
+        self.taps = self.f32(t["taps"])
+        self.symbol_rate = float(t["symbol_rate"])
+        self.four_level = bool(t["four_level"])
+        self.sync_levels = self.f32(t["sync_levels"])          # [P, 24]
+        self.sync_inverted = tuple(bool(x) for x in t["sync_inverted"])
+        self.sync_len = int(t["sync_levels"].shape[1])
+        self.golay_cb = self.u8(t["golay_codebook"])           # [4096, 23]
+        self.golay_pm = self.f32(1.0 - 2.0 * t["golay_codebook"])
+
+        # PCM wire
+        self.adpcm_step = self.i32(t["adpcm_step"])
+        self.adpcm_index = self.i32(t["adpcm_index"])
+
+        # synthesis noise grid; the per-bin phase offset is the JAX
+        # synth's own f64 expression, cast to f32 as it casts it
+        self.synth_bin_w = self.f32(t["synth_bin_w"])          # [79]
+        self.synth_bin_cos = self.f32(t["synth_bin_cos"])      # [79, 160]
+        self.synth_bin_sin = self.f32(t["synth_bin_sin"])
+        kk = np.arange(N_BINS)
+        self.synth_bin_l = self.i64(kk % MAX_L)
+        self.synth_phi_off = self.f32(
+            (2.399963 * (kk // MAX_L) * (kk + 3)).astype(np.float32))
+
+    def _as(self, a, dtype):
+        return torch.as_tensor(np.asarray(a, dtype), device=self._dev)
+
+    def f32(self, a):
+        return self._as(a, np.float32)
+
+    def i64(self, a):
+        return self._as(a, np.int64)
+
+    def i32(self, a):
+        return self._as(a, np.int32)
+
+    def u8(self, a):
+        return self._as(a, np.uint8)
+
+    def test_vector(self) -> dict[str, np.ndarray]:
+        """The synthesized stream of the npz and its expected voice
+        bits (the ``tv_`` arrays, without the prefix)."""
+        return {k[len(TV_PREFIX):]: v for k, v in self.np.items()
+                if k.startswith(TV_PREFIX)}
+
+
+class P25Tables(_VoiceTables):
     """Every constant of the P25p1 voice path as tensors on ``device``.
 
     Host-side code (the LDU picker, shape bookkeeping) reads the numpy
@@ -71,29 +130,10 @@ class P25Tables:
     """
 
     def __init__(self, tables: dict[str, np.ndarray], device):
-        dev = torch.device(device)
-        self.np = {k: np.asarray(v) for k, v in tables.items()}
+        super().__init__(tables, device)
         t = self.np
+        f32, i64, u8 = self.f32, self.i64, self.u8
 
-        def f32(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-        def i64(a):
-            return torch.as_tensor(np.asarray(a, np.int64), device=dev)
-
-        def i32(a):
-            return torch.as_tensor(np.asarray(a, np.int32), device=dev)
-
-        def u8(a):
-            return torch.as_tensor(np.asarray(a, np.uint8), device=dev)
-
-        # front end
-        self.taps = f32(t["taps"])
-        self.symbol_rate = float(t["symbol_rate"])
-        self.four_level = bool(t["four_level"])
-        self.sync_levels = f32(t["sync_levels"])               # [P, 24]
-        self.sync_inverted = tuple(bool(x) for x in t["sync_inverted"])
-        self.sync_len = int(t["sync_levels"].shape[1])
         # NID BCH(63,16): ±1 codebook, [65536, 63]
         self.bch_pm = f32(1.0 - 2.0 * bch_63_16_codebook())
 
@@ -103,8 +143,6 @@ class P25Tables:
         self.ecc_seed_of_msg = i64(t["ecc_seed_of_msg"])
         self.ecc_param_g = u8(t["ecc_param_g"])                # [4096, 12]
         self.ecc_param_h = u8(t["ecc_param_h"])                # [2048, 11]
-        self.golay_cb = u8(t["golay_codebook"])                # [4096, 23]
-        self.golay_pm = f32(1.0 - 2.0 * t["golay_codebook"])
         self.h15_cb = u8(t["h15_codebook"])                    # [2048, 15]
         self.h15_pm = f32(1.0 - 2.0 * t["h15_codebook"])
 
@@ -125,24 +163,36 @@ class P25Tables:
         self.tone_b0_min = int(t["tone_b0_min"])
         self.tone_b0_max = int(t["tone_b0_max"])
 
-        # PCM wire
-        self.adpcm_step = i32(t["adpcm_step"])
-        self.adpcm_index = i32(t["adpcm_index"])
 
-        # synthesis noise grid; the per-bin phase offset is the JAX
-        # synth's own f64 expression, cast to f32 as it casts it
-        self.synth_bin_w = f32(t["synth_bin_w"])               # [79]
-        self.synth_bin_cos = f32(t["synth_bin_cos"])           # [79, 160]
-        self.synth_bin_sin = f32(t["synth_bin_sin"])
-        kk = np.arange(N_BINS)
-        self.synth_bin_l = i64(kk % MAX_L)
-        self.synth_phi_off = f32(
-            (2.399963 * (kk // MAX_L) * (kk + 3)).astype(np.float32))
+class DmrTables(_VoiceTables):
+    """Every constant of the DMR voice path and the AMBE core as tensors
+    on ``device``."""
 
-    def test_vector(self) -> dict[str, np.ndarray]:
-        """The synthesized 16-LDU stream and its expected IMBE bits."""
-        return {k[len(TV_PREFIX):]: v for k, v in self.np.items()
-                if k.startswith(TV_PREFIX)}
+    def __init__(self, tables: dict[str, np.ndarray], device):
+        super().__init__(tables, device)
+        t = self.np
+        # EMB gate: QR(16,7,6), [128, 16]
+        self.qr_cb = self.u8(t["qr_codebook"])
+        self.qr_pm = self.f32(1.0 - 2.0 * t["qr_codebook"])
+        # AMBE voice-frame ECC
+        self.ambe_gather = self.i64(t["ambe_gather"].reshape(-1))  # [96]
+        self.ambe_pn = self.u8(t["ambe_pn"])                   # [4096, 23]
+        self.ambe_parity = self.u8(t["ambe_parity"])           # [4096]
+        self.ambe_param = self.u8(t["ambe_param"])             # [4096, 12]
+        # AMBE dequantization (stacked per-L tables)
+        self.ambe_w = self.f32(t["ambe_w"])                    # [48, 31, 56]
+        self.ambe_c = self.f32(t["ambe_c"])                    # [48, 56]
+        self.ambe_assigned = self.f32(t["ambe_assigned"])
+
+
+def _read_npz(path: str) -> dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _device(device):
+    """The caller's device, or the card (raises when there is none)."""
+    return require_cuda() if device is None else device
 
 
 def from_numpy(tables: dict[str, np.ndarray], device) -> P25Tables:
@@ -154,23 +204,34 @@ def from_numpy(tables: dict[str, np.ndarray], device) -> P25Tables:
 def load(device=None) -> P25Tables:
     """The checked-in ``data/p25p1_tables.npz`` on ``device``: the card
     when none is given (raises when there is no card)."""
-    if device is None:
-        device = require_cuda()
-    with np.load(TABLES_NPZ) as z:
-        return from_numpy({k: z[k] for k in z.files}, device)
+    return from_numpy(_read_npz(TABLES_NPZ), _device(device))
+
+
+def dmr_from_numpy(tables: dict[str, np.ndarray], device) -> DmrTables:
+    """numpy tables (the npz, or arrays built by the JAX package) →
+    the port's DMR / AMBE tensors on ``device``."""
+    return DmrTables(tables, device)
+
+
+def load_dmr(device=None) -> DmrTables:
+    """The checked-in ``data/dmr_tables.npz`` on ``device``: the card
+    when none is given (raises when there is no card)."""
+    return dmr_from_numpy(_read_npz(DMR_TABLES_NPZ), _device(device))
 
 
 def state_from_numpy(pred, synth, rep, device):
     """The JAX pipeline's three device carries, fetched with
     ``np.asarray`` → the port's carries on ``device``:
 
-      - ``pred``  = (prev_logm [C, 56] f32, prev_L [C] i32)
+      - ``pred``  = (prev_logm [C, 56] f32, prev_L [C] i32) — or None
+                    for a pipeline with no prediction (AMBE)
       - ``synth`` = (theta [C], w [C], amps [C, 56]) f32
       - ``rep``   = (w0 [C], voiced [C, 56], amps [C, 56], reps [C] i32,
                      valid [C]) — or None for a fresh repeat carry
 
     Returns (pred, synth, rep) as tuples of tensors, in the layout
-    ``BatchedP25VoicePipeline`` keeps them."""
+    ``BatchedP25VoicePipeline`` keeps them; ``(synth, rep)`` is the
+    ``_vstate`` of ``BatchedDmrVoicePipeline``."""
     dev = torch.device(device)
 
     def conv(a):
@@ -178,7 +239,7 @@ def state_from_numpy(pred, synth, rep, device):
         dt = np.int32 if np.issubdtype(a.dtype, np.integer) else np.float32
         return torch.as_tensor(a.astype(dt), device=dev)
 
-    pred_t = tuple(conv(a) for a in pred)
+    pred_t = None if pred is None else tuple(conv(a) for a in pred)
     synth_t = tuple(conv(a) for a in synth)
     rep_t = None if rep is None else tuple(conv(a) for a in rep)
     return pred_t, synth_t, rep_t

@@ -4,7 +4,11 @@
 Counterpart of ``dsdneo_tpu/vocoder/device.py`` (``_headers``,
 ``_transforms``, ``_prediction_scan``, ``imbe_frame_good``,
 ``imbe_tone_params``, ``repeat_gate``, the state helpers,
-``_decode_from_frames`` and ``voice_decode_gather``).
+``_decode_from_frames`` and ``voice_decode_gather``), and of its AMBE+2
+core, the tail every AMBE family shares (``ambe_decode_params``,
+``ambe_tone_params``, ``ambe_frame_mask``, ``ambe_params_gated``,
+``scatter_repeat_synth``, ``voice_state_init``): AMBE has no inter-frame
+prediction, so that tail runs no recurrence.
 
 On a CUDA tensor :func:`prediction_scan` launches ``csrc/imbe_pred.cu``
 (the JAX package's ``lax.scan`` over frame steps as one launch); on a
@@ -22,9 +26,10 @@ import torch
 from dsdneo_tpu_torch import kernels
 from dsdneo_tpu_torch.dsp.frontend import floor_mod
 from dsdneo_tpu_torch.fec.device import imbe_ecc_batch
-from dsdneo_tpu_torch.ops.audio_wire import wire_encode
+from dsdneo_tpu_torch.ops.audio_wire import (scale_clip, wire_encode,
+                                             wire_encode_scaled)
 from dsdneo_tpu_torch.params import L_MIN, MAX_L, TILE_BYTES
-from dsdneo_tpu_torch.vocoder.synth import synthesize_stream
+from dsdneo_tpu_torch.vocoder.synth import fma_f32, synthesize_stream
 
 N_BANDS = 12
 MAX_REPEAT = 3                  # vocoder.glue.MAX_REPEAT
@@ -381,3 +386,120 @@ def voice_decode_gather(dibits, ldu_ch, ldu_pos, offs, fch, forder,
     return _decode_from_frames(frames144, fch, forder, prev_logm, prev_L,
                                C, n_steps, tables, pcm_fmt,
                                prev_synth=prev_synth, rep_state=rep_state)
+
+
+# -- AMBE+2 (3600x2450): parameters, gate, and the shared tail -------------
+def _field(bits: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    """Bits ``[lo, lo+n)`` of every frame as an MSB-first integer."""
+    return (bits[:, lo:lo + n].to(torch.int64)
+            * _weights(n, bits.device)).sum(-1)
+
+
+def ambe_decode_params(bits49: torch.Tensor, tables):
+    """``[F, 49]`` AMBE parameter bits → (ω0 ``[F]``, L ``[F]`` int32,
+    voiced ``[F, 56]``, amps ``[F, 56]``); stateless.  ``tables`` is
+    ``params.DmrTables``.  L is a floor of float32 arithmetic on a power,
+    so every constant below is written the way the JAX package's compiled
+    program holds it."""
+    dev = bits49.device
+    S = bits49.to(torch.float32)
+    b0 = S[:, 0:7] @ _weights(7, dev).to(torch.float32)
+    # pitch period 2^(4.3118 + 0.021336·(b0 + 0.5)) samples, within
+    # [19, 131].  One ulp of ω0 grows to a visible phase error over a
+    # block, so the exponent is rounded once (XLA contracts it into an
+    # FMA) and the power is taken in float64 and rounded: that equals
+    # the JAX package's float32 value for every one of the 128 codes
+    y = fma_f32(torch.full_like(b0, 0.021336), b0 + 0.5,
+                torch.full_like(b0, 4.3118))
+    period = torch.pow(2.0, y.double()).float()
+    w0 = torch.full_like(b0, 2.0 * math.pi) / torch.clamp(period, 19.0, 131.0)
+    L = torch.floor(0.9254 * torch.floor(torch.full_like(w0, math.pi) / w0
+                                         + 0.25)).to(torch.int64)
+    L = torch.clamp(L, L_MIN, MAX_L)
+    li = L - L_MIN
+    Lf = L.to(torch.float32)[:, None]
+
+    lidx = torch.arange(MAX_L, device=dev)[None, :]
+    mask = (lidx < L[:, None]).to(torch.float32)
+    band = torch.clamp((lidx * 5) // L[:, None], max=4)
+    voiced = torch.gather(S[:, 7:12], 1, band) * mask
+
+    gain_idx = S[:, 12:18] @ _weights(6, dev).to(torch.float32)
+    # (g - 32) · 1.3 / 20, the division as the product with 1/20
+    gain = torch.pow(torch.full_like(gain_idx, 10.0),
+                     (gain_idx - 32.0) * 1.3 * 0.05)
+
+    r = _per_frame_matvec(S[:, 18:49], tables.ambe_w, li) + tables.ambe_c[li]
+    amps = torch.where(tables.ambe_assigned[li] > 0,
+                       torch.pow(torch.full_like(r, 10.0), 0.3 * r), 1.0)
+    tilt = torch.exp(-0.02 * torch.arange(MAX_L, dtype=torch.float32,
+                                          device=dev))[None, :]
+    amps = amps * tilt * mask
+    rms = torch.sqrt(torch.sum(amps ** 2, dim=1, keepdim=True)
+                     / torch.clamp(Lf, min=1.0))
+    amps = amps / torch.clamp(rms, min=1e-9) * gain[:, None] * 0.02
+    return w0, L.to(torch.int32), voiced, amps * mask
+
+
+def ambe_tone_params(bits49: torch.Tensor):
+    """AMBE+2 in-band tone fields: pitch code 0x7F with the tone ID
+    repeated → (is_tone ``[F]``, single-harmonic ω0, amplitude);
+    f = 31.25·ID Hz, amplitude AD·75/8000."""
+    id1 = _field(bits49, 7, 7)
+    is_tone = (_field(bits49, 0, 7) == 0x7F) & (id1 == _field(bits49, 21, 7))
+    w0_t = (2.0 * math.pi * TONE_FREQ_STEP_HZ / 8000.0) * id1.to(torch.float32)
+    amp_t = _field(bits49, 14, 7).to(torch.float32) * (TONE_AMP_STEP / 8000.0)
+    return is_tone, w0_t, amp_t
+
+
+def ambe_frame_mask(bits49: torch.Tensor, errs: torch.Tensor, thr: int = 3):
+    """1.0 for a frame that is neither a tone frame nor over the error
+    threshold (the mute-only gate; the pipelines use
+    :func:`ambe_params_gated`)."""
+    is_tone, _w, _a = ambe_tone_params(bits49)
+    return ((errs <= thr) & ~is_tone).to(torch.float32)
+
+
+def ambe_params_gated(bits49: torch.Tensor, errs: torch.Tensor, tables,
+                      thr: int = 3):
+    """``[F, 49]`` bits and ECC error counts → (ω0, voiced, amps, good):
+    voice parameters for voice frames, one harmonic for tone frames (the
+    synthesizer emits 2·A·cos, so A is half the tone amplitude), good = 0
+    for frames over the threshold, which the repeat gate then covers."""
+    w0, _L, voiced, amps = ambe_decode_params(bits49, tables)
+    is_tone, w0_t, amp_t = ambe_tone_params(bits49)
+    e0 = torch.zeros((1, MAX_L), dtype=torch.float32, device=bits49.device)
+    e0[0, 0] = 1.0
+    ton = is_tone[:, None]
+    w0 = torch.where(is_tone, w0_t, w0)
+    voiced = torch.where(ton, e0, voiced)
+    amps = torch.where(ton, e0 * (amp_t * 0.5)[:, None], amps)
+    return w0, voiced, amps, (errs <= thr).to(torch.float32)
+
+
+def voice_state_init(C: int, device):
+    """A fresh (synthesis carry, repeat carry) pair for
+    :func:`scatter_repeat_synth`."""
+    return (synth_state_init(C, device), repeat_state_init(C, device))
+
+
+def scatter_repeat_synth(w0, voiced, amps, good, fch, forder, C: int,
+                         n_steps: int, state, pcm_fmt: str, tables):
+    """The tail of every batched AMBE pipeline: scatter ``[F]`` per-frame
+    parameters onto the ``[C, n_steps]`` grid (pad frames use channel C),
+    apply the bounded frame repeat, synthesize from the carried phase,
+    and encode ``clip(pcm · 0.02, -1, 1)`` in the wire format.  ``state``
+    is the (synthesis, repeat) carry of the previous block; returns
+    (wire, new state)."""
+    f32 = torch.float32
+    scat = lambda v: _scatter(v, fch, forder, C, n_steps, f32)
+    synth_in, rep_in = state
+    (w0r, Vr, Ar), rep_out = repeat_gate(
+        scat(w0), scat(voiced), scat(amps), scat(good),
+        scat(torch.ones_like(good)), rep_in)
+    pcm, t_o, w_o, a_o = synthesize_stream(
+        w0r, Ar, Vr, noise_phases(C, n_steps, w0.device), *synth_in,
+        tables=tables)
+    wire = wire_encode_scaled(scale_clip(pcm), pcm_fmt, tables.adpcm_step,
+                              tables.adpcm_index)
+    return wire, ((t_o, w_o, a_o), rep_out)

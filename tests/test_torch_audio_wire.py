@@ -288,3 +288,25 @@ def test_k3_kernel_edges_on_card(tables, T):
     off = flat[1:].view(33, T)                # 4 bytes past the boundary
     off.copy_(pcm[:33].cuda())
     assert torch.equal(adpcm_compress(off, st, ix).cpu(), want[:33])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_sf", [1, 3, 15, 16])
+def test_k3_kernel_at_dmr_lengths_on_card(tables, n_sf):
+    """K3 at the DMR path's row lengths: ``n_sf`` superframes of 18
+    frames, the step count padded to a multiple of 36 as the pipeline
+    pads it, 160 samples a frame (up to 46,080 samples); 7 streams,
+    bit-identical to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_*.py)")
+    from dsdneo_tpu_torch.ops.audio_wire import (adpcm_compress,
+                                                 adpcm_compress_plain)
+    T = -(-n_sf * 18 // 36) * 36 * 160
+    pcm = torch.from_numpy(_speechlike(7, T, n_sf))
+    want = adpcm_compress_plain(pcm, tables.adpcm_step, tables.adpcm_index)
+    got = adpcm_compress(pcm.cuda(), tables.adpcm_step.cuda(),
+                         tables.adpcm_index.cuda())
+    torch.cuda.synchronize()
+    assert got.shape == (7, T // 2)
+    assert torch.equal(got.cpu(), want)

@@ -212,3 +212,49 @@ def test_k1_kernel_shapes_and_layouts_on_card(ntaps):
         assert got.shape == (c, b) and bool((got[:, 0] == 0).all())
         assert torch.equal(got, planes)
         torch.testing.assert_close(got, want, rtol=0, atol=DISC_TOL)
+
+
+@pytest.mark.cuda
+def test_k1_kernel_at_the_dmr_block_length_on_card():
+    """K1 at [7, 141140], the DMR path's block: the length is no multiple
+    of the 1,024-output tile (137 tiles and 852 outputs), read through
+    the stride-2 views with the DMR path's 143 taps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_*.py)")
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.ops.fir_discriminate import (
+        fir_discriminate, fir_discriminate_plain)
+    taps = params.load_dmr("cuda").taps
+    z = _fm_block(5, 7, 141140, 0.25)
+    iq = torch.as_tensor(np.stack([z.real, z.imag], -1)).cuda()
+    xr, xi = iq[..., 0], iq[..., 1]
+    got = fir_discriminate(xr, xi, taps)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        want = fir_discriminate_plain(xr.contiguous(), xi.contiguous(), taps)
+    torch.cuda.synchronize()
+    assert got.shape == (7, 141140)
+    torch.testing.assert_close(got, want, rtol=0, atol=DISC_TOL)
+
+
+@pytest.mark.cuda
+def test_fir_complex_on_card_is_full_float32():
+    """The CQPSK path's RRC filter on the card against the CPU within
+    1e-5 (TF32 would miss by ~1e-3), with the process's cuDNN TF32
+    switch on before and after."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (on the card: python -m pytest "
+                    "--noconftest -m cuda tests/test_torch_*.py)")
+    from dsdneo_tpu_torch.dsp import firdes
+    from dsdneo_tpu_torch.dsp.frontend import fir_complex
+    x = torch.as_tensor(_fm_block(9, 4, 144000, 0.3))
+    taps = torch.as_tensor(firdes.rrc(10.0, 81, 0.2))
+    want = fir_complex(x, taps)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        got = fir_complex(x.cuda(), taps.cuda())
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert float((got.cpu() - want).abs().max()) <= 1e-5

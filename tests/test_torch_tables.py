@@ -1,8 +1,9 @@
 """The PyTorch port's constant tables and its independence from JAX.
 
-The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz`` must equal
-what ``tools/export_torch_tables.py`` builds from the JAX package now
-(exact), and importing the port must never load JAX.
+The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz`` and
+``dmr_tables.npz`` must equal what ``tools/export_torch_tables.py``
+builds from the JAX package now (exact), and importing the port must
+never load JAX or any module of the JAX package.
 """
 
 import os
@@ -23,7 +24,10 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.ops.audio_wire", "dsdneo_tpu_torch.engine.batched",
     "dsdneo_tpu_torch.engine.voicebatch", "dsdneo_tpu_torch.fec.device",
     "dsdneo_tpu_torch.vocoder.device", "dsdneo_tpu_torch.vocoder.synth",
-    "dsdneo_tpu_torch.protocol.p25.encode")
+    "dsdneo_tpu_torch.protocol.p25.encode", "dsdneo_tpu_torch.dsp.firdes",
+    "dsdneo_tpu_torch.dsp.cqpsk", "dsdneo_tpu_torch.symbols.timing",
+    "dsdneo_tpu_torch.engine.voicestate", "dsdneo_tpu_torch.engine.dmrbatch",
+    "dsdneo_tpu_torch.protocol.dmr.encode")
 
 
 @pytest.fixture(scope="module")
@@ -61,11 +65,60 @@ def test_npz_equals_exporter(exported, stored, group):
         np.testing.assert_array_equal(a, b, err_msg=k)
 
 
+@pytest.fixture(scope="module")
+def dmr_exported():
+    from export_torch_tables import build_dmr_tables
+    return build_dmr_tables()
+
+
+@pytest.mark.parametrize("group", ["front", "ecc", "dequant", "wire_synth",
+                                   "vector"])
+def test_dmr_npz_equals_exporter(dmr_exported, group):
+    """The checked-in ``dmr_tables.npz`` is what the exporter builds from
+    the JAX package now; its test vector is ``synth_voice_stream(8,
+    seed=1)``."""
+    from dsdneo_tpu_torch.params import DMR_TABLES_NPZ
+    with np.load(DMR_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(dmr_exported) == sorted(stored)
+    prefix = {"front": ("taps", "symbol_rate", "four_level", "sync_"),
+              "ecc": ("ambe_g", "ambe_p", "golay_", "qr_"),
+              "dequant": ("ambe_w", "ambe_c", "ambe_a"),
+              "wire_synth": ("adpcm_", "synth_"),
+              "vector": ("tv_",)}[group]
+    keys = [k for k in dmr_exported if k.startswith(prefix)]
+    assert keys
+    for k in keys:
+        a, b = np.asarray(dmr_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    if group == "vector":
+        assert stored["tv_dibits"].shape == (14114,)
+        assert stored["tv_bits49"].shape == (2, 144, 49)
+    if group == "front":
+        assert stored["taps"].shape == (143,)
+        assert stored["sync_inverted"].tolist() == [False, True]
+
+
+def test_dmr_from_numpy_of_jax_arrays_equals_loaded(dmr_exported):
+    from dsdneo_tpu_torch import params
+    a = params.dmr_from_numpy(dmr_exported, "cpu")
+    b = params.load_dmr("cpu")
+    n = 0
+    for name, v in vars(a).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, getattr(b, name)), name
+            n += 1
+    assert n >= 20
+    assert sorted(b.test_vector()) == ["bits49", "dibits", "seeds"]
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
-            + "assert 'jax' not in sys.modules, sorted(m for m in "
-              "sys.modules if m.startswith('jax'))\n"
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+              "assert not bad, bad\n"
               "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -95,6 +148,44 @@ def test_port_runs_without_the_jax_package():
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib')) or m == 'dsdneo_tpu' or "
         "m.startswith('dsdneo_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_dmr_and_cqpsk_paths_run_without_the_jax_package():
+    """Decode a C=2 DMR block (ADPCM) and a C=2 CQPSK block on the CPU:
+    no module of the JAX package, and no jax, is ever loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dsdneo_tpu_torch import params\n"
+        "from dsdneo_tpu_torch.engine.dmrbatch import "
+        "BatchedDmrVoicePipeline\n"
+        "from dsdneo_tpu_torch.engine.voicebatch import "
+        "BatchedP25VoicePipeline\n"
+        "from dsdneo_tpu_torch.protocol.dmr import encode as dmr_encode\n"
+        "from dsdneo_tpu_torch.protocol.p25 import encode\n"
+        "d = params.load_dmr('cpu')\n"
+        "iq = dmr_encode.vector_block(d.test_vector(), (3, 9), (1, 2), "
+        "20000)\n"
+        "p = BatchedDmrVoicePipeline(2, pcm_fmt='adpcm', device='cpu', "
+        "tables=d)\n"
+        "pcm = p.decode_block(iq)\n"
+        "assert pcm.shape == (2, 2 * 18 * 160), pcm.shape\n"
+        "assert np.isfinite(pcm).all() and np.abs(pcm).max() > 0\n"
+        "t = params.load('cpu')\n"
+        "iq = encode.vector_block(t.test_vector(), (30, 77), (1, 2), 12000, "
+        "modulation='cqpsk', cfo_hz=(150.0, -90.0))\n"
+        "q = BatchedP25VoicePipeline(2, cqpsk=True, device='cpu', tables=t)\n"
+        "pcm = q.decode_block(iq)\n"
+        "assert pcm.shape[0] == 2 and pcm.shape[1] > 0, pcm.shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -155,3 +246,6 @@ def test_state_from_numpy_layout():
     assert [t.shape for t in s] == [(C,), (C,), (C, 56)]
     assert r[3].dtype == torch.int32 and r[4].dtype == torch.float32
     assert params.state_from_numpy(pred, synth, None, "cpu")[2] is None
+    # an AMBE pipeline has no prediction carry
+    p, s, r = params.state_from_numpy(None, synth, rep, "cpu")
+    assert p is None and len(s) == 3 and len(r) == 5

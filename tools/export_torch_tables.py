@@ -1,5 +1,7 @@
-"""Export the constant tables and the test vector of the P25p1 voice
-path from the JAX package into ``dsdneo_tpu_torch/data/p25p1_tables.npz``.
+"""Export the constant tables and the test vectors of the ported voice
+paths from the JAX package into ``dsdneo_tpu_torch/data/``:
+``p25p1_tables.npz`` (P25 Phase 1, C4FM and CQPSK) and ``dmr_tables.npz``
+(DMR BS two-slot voice and the AMBE core).
 
 The PyTorch port (``dsdneo_tpu_torch``) never imports JAX, so every
 constant it needs is built here, from the JAX package's own functions,
@@ -15,7 +17,21 @@ as plain numpy arrays:
   - the IMA ADPCM tables (ops.audio_wire);
   - the synthesis noise-grid bases (vocoder.synth).
 
-It also writes one test vector: a synthesized P25p1 dibit stream of 16
+For DMR (:func:`build_dmr_tables`):
+
+  - the 143-tap 12.5 kHz channel low-pass and the mode constants
+    (engine.modes.MODES["dmr"]);
+  - the ±DMR BS voice sync patterns;
+  - the AMBE ECC tables (fec.device._ambe_consts) and the Golay(23,12)
+    codebook;
+  - the QR(16,7,6) codebook of the EMB gate (fec.blockcodes.qr_16_7_6);
+  - the AMBE dequantization tables (vocoder.device._ambe_tables);
+  - the IMA ADPCM tables and the synthesis noise-grid bases, as above;
+  - the test vector: the dibits of
+    ``engine.dmrbatch.synth_voice_stream(8, seed=1)`` and the 49
+    parameter bits of its 2 x 144 voice frames.
+
+The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
 random lead/tail filler whose sync correlation stays far below the
@@ -26,8 +42,9 @@ Run from the repository root, where JAX is installed:
 
     python tools/export_torch_tables.py
 
+A file whose arrays already equal the rebuilt ones is left untouched.
 ``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``
-and checks them against the checked-in file.
+and ``build_dmr_tables`` and checks them against the checked-in files.
 """
 
 from __future__ import annotations
@@ -38,7 +55,9 @@ import sys
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-OUT = os.path.join(ROOT, "dsdneo_tpu_torch", "data", "p25p1_tables.npz")
+DATA = os.path.join(ROOT, "dsdneo_tpu_torch", "data")
+OUT = os.path.join(DATA, "p25p1_tables.npz")
+OUT_DMR = os.path.join(DATA, "dmr_tables.npz")
 
 TV_NAC = 0x293
 TV_N_LDUS = 16
@@ -49,6 +68,8 @@ TV_TAIL = 640             # tail filler dibits after the last LDU
 # largest |sync correlation| allowed anywhere off the true sync starts;
 # the pipeline's threshold is 0.62
 TV_FALSE_SYNC_MAX = 0.5
+DMR_TV_SUPERFRAMES = 8    # engine.dmrbatch.synth_voice_stream arguments,
+DMR_TV_SEED = 1           # as the JAX package's bench calls it
 
 
 def _sync_corr(dibits: np.ndarray, levels: np.ndarray) -> np.ndarray:
@@ -110,9 +131,8 @@ def build_tables() -> dict[str, np.ndarray]:
     from dsdneo_tpu.engine.modes import MODES
     from dsdneo_tpu.engine.voicebatch import BatchedP25VoicePipeline
     from dsdneo_tpu.fec.device import _imbe_consts, blockcodes_h15_codebook
-    from dsdneo_tpu.ops import audio_wire
     from dsdneo_tpu.symbols import framesync
-    from dsdneo_tpu.vocoder import glue, imbe, mbe, synth
+    from dsdneo_tpu.vocoder import glue, imbe, mbe
     from dsdneo_tpu.vocoder.device import _stacked_tables
 
     mode = MODES["p25p1"]
@@ -151,24 +171,92 @@ def build_tables() -> dict[str, np.ndarray]:
         "imbe_amp_scale": np.float64(mbe._IMBE_AMP_SCALE),
         "tone_b0_min": np.int64(glue.IMBE_TONE_B0_MIN),
         "tone_b0_max": np.int64(glue.IMBE_TONE_B0_MAX),
-        "adpcm_step": audio_wire.STEP_TABLE.astype(np.int32),
-        "adpcm_index": audio_wire.INDEX_TABLE.astype(np.int32),
-        # what the JAX synth actually uses: f32 casts of the f64 grid
-        "synth_bin_w": synth._BIN_W.astype(np.float32),
-        "synth_bin_cos": synth._BIN_COS.astype(np.float32),
-        "synth_bin_sin": synth._BIN_SIN.astype(np.float32),
     }
+    t.update(_wire_synth_tables())
     t.update(_test_vector(sync_levels))
     return t
 
 
+def _wire_synth_tables() -> dict[str, np.ndarray]:
+    """What every voice path shares after the vocoder parameters: the
+    IMA ADPCM tables and the synthesis noise grid (the f32 casts of the
+    f64 grid, which is what the JAX synth uses)."""
+    from dsdneo_tpu.ops import audio_wire
+    from dsdneo_tpu.vocoder import synth
+    return {
+        "adpcm_step": audio_wire.STEP_TABLE.astype(np.int32),
+        "adpcm_index": audio_wire.INDEX_TABLE.astype(np.int32),
+        "synth_bin_w": synth._BIN_W.astype(np.float32),
+        "synth_bin_cos": synth._BIN_COS.astype(np.float32),
+        "synth_bin_sin": synth._BIN_SIN.astype(np.float32),
+    }
+
+
+def build_dmr_tables() -> dict[str, np.ndarray]:
+    """Every constant of the port's DMR voice path and AMBE core, as
+    numpy arrays."""
+    from dsdneo_tpu.dsp import firdes
+    from dsdneo_tpu.engine.dmrbatch import (BatchedDmrVoicePipeline,
+                                            synth_voice_stream)
+    from dsdneo_tpu.engine.modes import MODES
+    from dsdneo_tpu.fec import blockcodes
+    from dsdneo_tpu.fec.device import _ambe_consts
+    from dsdneo_tpu.symbols import framesync
+    from dsdneo_tpu.vocoder.device import _ambe_tables
+
+    mode = MODES["dmr"]
+    names = BatchedDmrVoicePipeline.SYNC_NAMES
+    defs = [d for d in framesync.SYNC_DEFS if d.name in names]
+    gather, g23, pn_of_msg, parity_of_msg, param_of_msg = _ambe_consts()
+    W, Cc, ASSIGNED = _ambe_tables()
+    _iq, dibits, bits49 = synth_voice_stream(
+        n_superframes=DMR_TV_SUPERFRAMES, seed=DMR_TV_SEED)
+    t = {
+        "taps": firdes.channel_lpf(48000.0, mode.lpf_profile
+                                   ).astype(np.float32),
+        "symbol_rate": np.float64(mode.symbol_rate),
+        "four_level": np.bool_(mode.four_level),
+        "sync_levels": np.stack([d.levels for d in defs]
+                                ).astype(np.float32),
+        "sync_inverted": np.array([d.inverted for d in defs]),
+        "ambe_gather": gather.astype(np.int64),
+        "ambe_pn": pn_of_msg.astype(np.uint8),
+        "ambe_parity": parity_of_msg.astype(np.uint8),
+        "ambe_param": param_of_msg.astype(np.uint8),
+        "golay_codebook": g23.codebook.astype(np.uint8),
+        "qr_codebook": blockcodes.qr_16_7_6().codebook.astype(np.uint8),
+        "ambe_w": W.astype(np.float32),
+        "ambe_c": Cc.astype(np.float32),
+        "ambe_assigned": ASSIGNED.astype(np.float32),
+        "tv_dibits": dibits.astype(np.uint8),
+        "tv_bits49": bits49.astype(np.uint8),
+        "tv_seeds": np.array([DMR_TV_SUPERFRAMES, DMR_TV_SEED], np.int64),
+    }
+    t.update(_wire_synth_tables())
+    return t
+
+
+def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
+    """Write ``tables`` to ``path`` unless the file already holds equal
+    arrays (an npz of equal arrays still differs in its bytes)."""
+    if os.path.exists(path):
+        with np.load(path) as z:
+            same = sorted(z.files) == sorted(tables) and all(
+                z[k].dtype == np.asarray(v).dtype
+                and np.array_equal(z[k], v) for k, v in tables.items())
+        if same:
+            return f"{path}: up to date ({len(tables)} arrays)"
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **tables)
+    return (f"wrote {path}: {len(tables)} arrays, "
+            f"{os.path.getsize(path)} bytes")
+
+
 def main() -> int:
     tables = build_tables()
-    os.makedirs(os.path.dirname(OUT), exist_ok=True)
-    np.savez_compressed(OUT, **tables)
-    print(f"wrote {OUT}: {len(tables)} arrays, "
-          f"{os.path.getsize(OUT)} bytes; false-sync max "
+    print(_write_if_changed(OUT, tables) + "; false-sync max "
           f"{float(tables['tv_false_sync_max']):.3f}")
+    print(_write_if_changed(OUT_DMR, build_dmr_tables()))
     return 0
 
 
