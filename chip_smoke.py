@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three voice paths once on one CUDA card.
+"""Drive the PyTorch port's six voice paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,7 +13,18 @@ The paths, each at 320 channels through the entry points a user calls:
     (the RRC matched filter stands where K1's channel filter did);
   - DMR: DMR BS two-slot voice, ``BatchedDmrVoicePipeline(320)``, the
     2.94 s stream of 8 superframes per slot; K1 and K3 (AMBE has no
-    prediction recurrence).
+    prediction recurrence);
+  - X2: X2-TDMA two-slot voice, ``BatchedX2VoicePipeline(320)``, the
+    2.35 s stream of 8 superframes per slot at 6000 symbols/s; K1, K3;
+  - P2: P25 Phase 2 two-slot TDMA voice, ``BatchedP2VoicePipeline(320)``
+    with the default WACN/SYS/NAC and no keyring, the 2.90 s stream of
+    8 superframes, 640 output streams; K1, K3;
+  - NXDN48: ``BatchedNxdnVoicePipeline(320, mode="nxdn48")``, 3 s blocks
+    of 36 full-voice frames per channel; K1, K3;
+  - ADP: ``BatchedP2VoicePipeline(16, keyring=...)`` on an ADP/RC4
+    encrypted stream; K1, K3 and K7 (the RS syndrome screen of the ESS).
+    16 channels: the RC4 keystream is host Python, and encrypted
+    traffic at 320 channels would measure that, not the card.
 
 Phases, in order; any failure exits non-zero:
 
@@ -22,14 +33,19 @@ Phases, in order; any failure exits non-zero:
      built from ``dsdneo_tpu_torch/csrc``, the input blocks of the three
      paths: 320 distinct channels each (own leading offset and noise
      seed; on CQPSK also an own carrier offset within ±300 Hz) built
-     from the test vectors in ``dsdneo_tpu_torch/data``;
+     from the test vectors in ``dsdneo_tpu_torch/data``; the AMBE
+     families' leads are 0-96 random dibits;
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes, with its time, its bound (the larger of bytes over
      3.35 TB/s and operations over the 67 TFLOP/s FP32 peak; for the
      recurrences K2 and K3 also the recurrence floor) and its share of
      that bound: K1 at [320, 144000] and at the DMR block [320, 141140],
      through the two stride-2 views the paths give it; K2 at [320, 162];
-     K3 at [320, 25920] and at the DMR path's [320, 46080]; and the RRC
+     K3 at [320, 25920] and at the DMR path's [320, 46080]; K1 at the
+     X2, P2 and NXDN48 blocks; K3 at P2's [640, 23040] and NXDN48's
+     [320, 23040] (held to its plain version on 32 rows: the plain loop
+     takes ~18 s at [320, 46080]); K7 at the ADP phase's word count and
+     at 20,480 words, half of them clean RS(63,35) codewords; and the RRC
      matched filter (``dsp.frontend.fir_complex``, 81 taps,
      [320, 144000] complex) on the card against the CPU on channels 0-1,
      with cuDNN's TF32 switch on around it;
@@ -58,7 +74,18 @@ Phases, in order; any failure exits non-zero:
      stays comparable with earlier runs (the step is host-bound).
      After the C4FM path's checks also: K3
      on that path's own PCM beside three-tone sinusoids, and K2 on its
-     own grids beside random ones.
+     own grids beside random ones.  X2: every channel accepts every
+     superframe its block holds whole, and the exact-frame share on
+     the card is not below the CPU path's on channels 0-1.  P2: every
+     (channel, slot) stream decodes at least 7 x 18 of its 8 x 18 frames
+     with the vector's 49 bits, all of them.  NXDN48: every channel
+     accepts at least 35 of its 36 frames, and the exact-frame share on
+     the card is not below the CPU path's on channels 0-1.  On X2, P2
+     and NXDN48 the card's PCM of channels 0-1 is held to the CPU
+     path's up to the first frame whose bits differ.
+  4. the ADP phase: with the key in the keyring every frame from the
+     second superframe on decodes to the vector's plaintext bits and
+     the first superframe stays cipher; K7 is launched.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -96,7 +123,12 @@ K3_CHAIN_CYCLES = 30 + 5 * 4
 # amps) depend on no carry and are not in it.
 K2_CHAIN_CYCLES = 29 + 8 + 8 + 5 * (25 + 4) + 55 + 12 + 12 + 4
 SPIN_CYCLES = 20_000_000     # ~10 ms: the card's lead over the host in cuda_ms
-OURS = ("fir_disc", "imbe_pred", "adpcm_enc")   # kernel names in a profile
+TDMA_MAX_LEAD = 96           # X2, P2, NXDN leading offsets (dibits)
+ADP_C = 16                   # channels of the encrypted P2 phase
+K7_SYNTH_N = 20480           # K7's large synthetic word count
+K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
+# kernel names in a profile
+OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes")
 
 
 def log(*a) -> None:
@@ -284,10 +316,17 @@ def main() -> int:
     from dsdneo_tpu_torch.dsp import cqpsk, firdes
     from dsdneo_tpu_torch.dsp.frontend import fir_complex
     from dsdneo_tpu_torch.engine import voicestate          # noqa: F401
+    from dsdneo_tpu_torch.crypto.keyring import KeyRing
     from dsdneo_tpu_torch.engine.dmrbatch import BatchedDmrVoicePipeline
+    from dsdneo_tpu_torch.engine.nxdnbatch import BatchedNxdnVoicePipeline
+    from dsdneo_tpu_torch.engine.p2batch import BatchedP2VoicePipeline
     from dsdneo_tpu_torch.engine.voicebatch import BatchedP25VoicePipeline
+    from dsdneo_tpu_torch.engine.x2batch import BatchedX2VoicePipeline
+    from dsdneo_tpu_torch.fec import device as fdev
+    from dsdneo_tpu_torch.fec.rs import gf64_tables, rs_63_35
     from dsdneo_tpu_torch.ops import audio_wire, fir_discriminate as k1mod
     from dsdneo_tpu_torch.protocol.dmr import encode as dmr_encode
+    from dsdneo_tpu_torch.protocol.nxdn import encode as nxdn_encode
     from dsdneo_tpu_torch.protocol.p25 import encode
     from dsdneo_tpu_torch.symbols import timing             # noqa: F401
     from dsdneo_tpu_torch.vocoder import device as vdev
@@ -345,13 +384,44 @@ def main() -> int:
         dtv, d_leads, d_seeds[i::2], d_B)).to(dev) for i in range(2)]
     d_want = [dmr_encode.expected_frames(dtv, int(l), d_n_sym)
               for l in d_leads]
+    # X2, P2, NXDN48: the vectors of data/tdma_tables.npz, own lead of
+    # 0-96 random dibits and own noise per channel
+    def tdma_blocks(tv, sps, n_samples, modulate, n_ch=C):
+        leads = rng.integers(0, TDMA_MAX_LEAD + 1, size=n_ch)
+        sd = rng.permutation(1 << 20)[:2 * n_ch]
+        return tv, leads, [torch.as_tensor(dmr_encode.vector_block(
+            tv, leads, sd[i::2], n_samples, sps=sps, modulate=modulate)
+        ).to(dev) for i in range(2)]
+
+    xtab = params.load_tdma("x2tdma", dev)
+    x_B = len(xtab.test_vector()["dibits"]) * 8
+    xtv, x_leads, x_blocks = tdma_blocks(xtab.test_vector(), 8, x_B,
+                                         encode.tdma_fm_iq)
+    x_n_sym = x_B // 8 - 2
+    x_want = [dmr_encode.expected_frames(xtv, int(l), x_n_sym)
+              for l in x_leads]
+    ptab = params.load_tdma("p25p2", dev)
+    p_B = len(ptab.test_vector()["dibits"]) * 8
+    ptv, p_leads, p_blocks = tdma_blocks(ptab.test_vector(), 8, p_B,
+                                         encode.tdma_fm_iq)
+    ntab = params.load_tdma("nxdn48", dev)
+    n_B = int(FS * BLOCK_S)
+    ntv, n_leads, n_blocks = tdma_blocks(ntab.test_vector(), 20, n_B,
+                                         nxdn_encode.modulator("nxdn48"))
+    adp = {k[4:]: v for k, v in ptab.test_vector().items()
+           if k.startswith("adp_")}
+    a_B = len(adp["dibits"]) * 8
+    _atv, _a_leads, a_blocks = tdma_blocks(adp, 8, a_B, encode.tdma_fm_iq,
+                                           ADP_C)
     log(f"set-up {time.perf_counter() - t0:.1f} s: C={C}; P25 B={B} "
         f"({BLOCK_S} s) n_sym={n_sym}, LDUs per channel "
         f"{want_ldus.min()}..{want_ldus.max()} (CQPSK "
         f"{q_want_ldus.min()}..{q_want_ldus.max()}, carrier offsets "
         f"{cfo.min():.1f}..{cfo.max():.1f} Hz); DMR B={d_B} "
         f"({d_block_s:.4f} s) n_sym={d_n_sym}, superframes per channel "
-        f"{min(len(w[0]) for w in d_want)}..{max(len(w[0]) for w in d_want)}")
+        f"{min(len(w[0]) for w in d_want)}..{max(len(w[0]) for w in d_want)}"
+        f"; X2 B={x_B}, P2 B={p_B}, NXDN48 B={n_B}, ADP C={ADP_C} "
+        f"B={a_B}")
 
     # -- 2. kernels against their plain versions ---------------------------
     report = {}
@@ -435,23 +505,27 @@ def main() -> int:
                         + 0.01 * torch.randn((S, T), generator=g), -1.0, 1.0)
         return x.contiguous().to(dev)
 
-    def check_k3(pcm, shape=None):
-        """K3 on ``pcm`` against its plain version: bit-identical."""
+    def check_k3(pcm, shape=None, rows=None):
+        """K3 on ``pcm`` against its plain version (on the first ``rows``
+        rows where given, and timed there): bit-identical."""
         S, T = pcm.shape
         got = audio_wire.adpcm_compress(pcm, tables.adpcm_step,
                                         tables.adpcm_index)
+        n = S if rows is None else rows
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        want = audio_wire.adpcm_compress_plain(pcm, tables.adpcm_step,
+        want = audio_wire.adpcm_compress_plain(pcm[:n], tables.adpcm_step,
                                                tables.adpcm_index)
         torch.cuda.synchronize()
         plain_ms = (time.perf_counter() - t1) * 1e3
-        n_diff = int((got != want).sum())
-        err = float((got.int() - want.int()).abs().max())
+        n_diff = int((got[:n] != want).sum())
+        err = float((got[:n].int() - want.int()).abs().max())
         k_ms = cuda_ms(lambda: audio_wire.adpcm_compress(
             pcm, tables.adpcm_step, tables.adpcm_index), 20)
         log(f"K3 adpcm_enc [{S},{T}] three-tone sinusoids: {n_diff} bytes "
-            f"differ (tol 0: bit-identical)")
+            f"differ on {n} rows (tol 0: bit-identical)"
+            + ("" if n == S else f"; the plain version's time is on "
+                                   f"those {n} rows"))
         if n_diff:
             raise RuntimeError("K3 is not bit-identical to its plain "
                                "version")
@@ -461,6 +535,8 @@ def main() -> int:
              f"; recurrence floor ~{k3_floor_ms:.4f} ms ({T} samples x "
              f"{K3_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
              f"{100 * k3_floor_ms / k_ms:.1f}% of it", shape=shape)
+        if n != S:
+            report["adpcm_enc"]["other_shapes"][-1]["plain_rows"] = n
 
     S, T = C, Tn * 160
     sines = three_tones(S, T)
@@ -469,6 +545,65 @@ def main() -> int:
     # the 36-step bucket) of 160 samples
     d_T = 16 * 18 * 160
     check_k3(three_tones(C, d_T), shape=[C, d_T])
+    # P2: 640 slot streams of 8 superframes x 18 frames = 144 steps (the
+    # 36-step bucket); NXDN48: 36 frames x 4 = 144 steps (16-step bucket)
+    check_k3(three_tones(2 * C, 144 * 160), shape=[2 * C, 144 * 160],
+             rows=K3_CHECK_ROWS)
+    check_k3(three_tones(C, 144 * 160), shape=[C, 144 * 160],
+             rows=K3_CHECK_ROWS)
+    check_k1(x_blocks[0], xtab.taps, shape=[C, x_B])
+    check_k1(p_blocks[0], ptab.taps, shape=[C, p_B])
+    check_k1(n_blocks[0], ntab.taps, shape=[C, n_B])
+
+    # K7: syndromes of words half of which are clean RS(63,35) codewords
+    # (data combined over GF(64) from the code's 35 unit codewords), the
+    # other half with 1-14 symbols changed
+    code = rs_63_35()
+    gexp, glog = gf64_tables()
+    basis = np.stack([code.encode(np.eye(35, dtype=np.int64)[i])
+                      for i in range(35)])
+
+    def rs_words(n):
+        data = rng.integers(0, 64, size=(n, 35))
+        w = np.zeros((n, 63), np.int64)
+        for i in range(35):
+            m = (data[:, i:i + 1] != 0) & (basis[i] != 0)
+            w ^= np.where(m, gexp[(glog[data[:, i:i + 1]]
+                                   + glog[basis[i]]) % 63], 0)
+        bad = np.arange(n) >= n // 2
+        for r in np.flatnonzero(bad):
+            pos = rng.choice(63, int(rng.integers(1, 15)), replace=False)
+            w[r, pos] ^= rng.integers(1, 64, size=pos.size)
+        return torch.as_tensor(w.astype(np.int32), device=dev), bad
+
+    def check_k7(n, shape=None):
+        words, bad = rs_words(n)
+        got = fdev.rs_syndromes_batch(words, 28, 1)
+        want = fdev.rs_syndromes_plain(words, 28, 1)
+        n_diff = int((got != want).sum())
+        nz = (got != 0).any(1).cpu().numpy()
+        # the kernel's time is the launch's; the entry point first reads
+        # the symbols' range on the host, so each of its calls waits for
+        # the card
+        k_ms = cuda_ms(lambda: fdev.rs_syndromes_launch(words, 28, 1), 50)
+        entry_ms = cuda_ms(lambda: fdev.rs_syndromes_batch(words, 28, 1), 20)
+        plain_ms = cuda_ms(lambda: fdev.rs_syndromes_plain(words, 28, 1), 5)
+        log(f"K7 rs_syndromes [{n},63] -> [{n},28]: {n_diff} syndromes "
+            f"differ (tol 0: bit-identical); clean words screened clean "
+            f"{int((~nz[~bad]).sum())}/{int((~bad).sum())}, changed words "
+            f"flagged {int(nz[bad].sum())}/{int(bad.sum())}")
+        if n_diff or nz[~bad].any() or not nz[bad].all():
+            raise RuntimeError("K7 disagrees with its plain version or "
+                               "with the code")
+        b_ms, b_by = bound(nbytes(words, got), 0)
+        show("rs_syndromes", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; the entry point with its range check {entry_ms:.4f} ms",
+             shape=shape)
+
+    # the ADP phase's word count: a 2V ESS word per slot per superframe
+    adp_n = ADP_C * 2 * int(adp["params"][0])
+    check_k7(adp_n)
+    check_k7(K7_SYNTH_N, shape=[K7_SYNTH_N, 63])
 
     # the CQPSK path's matched filter on the card against the CPU, with
     # the process's cuDNN TF32 switch on: fir_complex must not need it off
@@ -493,8 +628,8 @@ def main() -> int:
 
     # -- 3. the paths at C=320 ----------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
-               audio_wire.adpcm_compress)
-    k1fn, k2fn, k3fn = counted
+               audio_wire.adpcm_compress, fdev.rs_syndromes_batch)
+    k1fn, k2fn, k3fn, k7fn = counted
     cpu_tables = params.load("cpu")
 
     def run_p25_path(label, xblocks, cqpsk_on, want_n):
@@ -548,8 +683,8 @@ def main() -> int:
                     keep["k2_frames"] = pipe.last_frames
                     keep["k2_steps"] = pipe.last_steps
         launches = check_launches(
-            label, counted, (k2fn, k3fn) if cqpsk_on else counted,
-            (k1fn,) if cqpsk_on else ())
+            label, counted, (k2fn, k3fn) if cqpsk_on else (k1fn, k2fn, k3fn),
+            (k1fn, k7fn) if cqpsk_on else (k7fn,))
         log(f"{label}: peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         no_reference_modules()
@@ -720,7 +855,7 @@ def main() -> int:
                     d_carry01 = tuple(tuple(t[:2].cpu() for t in part)
                                       for part in pipe._vstate)
     launches["dmr"] = check_launches("DMR path", counted, (k1fn, k3fn),
-                                     (k2fn,))
+                                     (k2fn, k7fn))
     log(f"DMR path: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     no_reference_modules()
@@ -776,6 +911,265 @@ def main() -> int:
               BatchedDmrVoicePipeline(C, FS, pcm_fmt="adpcm", tables=dtab),
               d_blocks, d_block_s,
               lambda p, fe6: p.pick_superframes(*fe6[1:]))
+    del d_blocks
+
+    # X2, P2, NXDN48: the AMBE families on the card --------------------------
+    def by_row(bits, errs, rows, steps, n_rows):
+        """Per output row: {step: (bits [49], ECC errors)}."""
+        bits = bits.cpu().numpy()
+        errs = errs.cpu().numpy()
+        out = [dict() for _ in range(n_rows)]
+        for i in np.flatnonzero(np.asarray(rows) < n_rows):
+            out[int(rows[i])][int(steps[i])] = (bits[i], int(errs[i]))
+        return out
+
+    def card_vs_cpu(label, blk, got, want, card, cpu):
+        """The card's PCM of the first rows against the CPU path's, up to
+        each row's first frame whose bits or error count differ."""
+        peak = float(np.abs(want).max())
+        worst, skipped = 0.0, 0
+        for r in range(want.shape[0]):
+            first_bad = len(cpu[r])
+            for st in sorted(cpu[r]):
+                b, e = cpu[r][st]
+                cb = card[r].get(st)
+                if cb is None or cb[1] != e or not np.array_equal(cb[0], b):
+                    first_bad = st
+                    break
+            n = min(first_bad * 160, want.shape[1], got.shape[1])
+            skipped += len(cpu[r]) - first_bad
+            if n:
+                worst = max(worst, float(np.abs(got[r, :n]
+                                                - want[r, :n]).max()))
+        log(f"{label} card vs CPU plain path, channels 0-1 block {blk}: "
+            f"max abs err {worst:.3e}, peak {peak:.3f} (tol 2e-3 * peak) "
+            f"over the frames up to the first whose bits differ, "
+            f"{skipped} frames not compared")
+        if not (peak > 0 and worst <= 2e-3 * peak):
+            raise RuntimeError(f"{label}: card and CPU paths disagree")
+
+    def run_ambe_path(label, make, xblocks, n_rows, frames, judge, runs,
+                      idle, cpu_pipe):
+        """Both formats over two blocks with the carry kept and the
+        launch counters reset before; ``frames(pipe, n_rows)`` gives
+        (bits, errs, rows, steps) of the decoded frames, ``judge(pipe,
+        fmt, blk)`` checks the block's frames and returns a line; then
+        rows 0..``n_rows//C*2`` against ``cpu_pipe`` on the CPU."""
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        f16, card, carry = {}, {}, None
+        r2 = n_rows // C * 2                  # rows of channels 0-1
+        for fmt in ("f16", "adpcm"):
+            pipe = make(fmt)
+            for blk, xb in enumerate(xblocks):
+                t1 = time.perf_counter()
+                pcm = pipe.fetch_pcm(pipe.decode_block_async(xb))
+                dt = time.perf_counter() - t1
+                limit = 1.0 if fmt == "f16" else 32768.0 / 32767.0
+                rms = check_pcm(f"{label} {fmt} block {blk}", pcm, limit)
+                line = judge(pipe, fmt, blk)
+                log(f"{label} {fmt} block {blk}: {line}; PCM {pcm.shape} "
+                    f"finite, |pcm| <= {np.abs(pcm).max():.5f}, rms "
+                    f"{rms.min():.4f}..{rms.max():.4f}, {dt * 1e3:.1f} ms")
+                if fmt == "f16":
+                    f16[blk] = pcm[:r2]
+                    card[blk] = by_row(*frames(pipe), r2)
+                    if blk == 0:
+                        carry = tuple(tuple(t[:r2].cpu() for t in part)
+                                      for part in pipe._vstate)
+        got = check_launches(label, counted, runs, idle)
+        log(f"{label}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        no_reference_modules()
+        for blk, xb in enumerate(xblocks):
+            if blk == 1:
+                cpu_pipe._vstate = carry
+            want = cpu_pipe.decode_block(xb[:2].cpu())
+            card_vs_cpu(label, blk, f16[blk], want, card[blk],
+                        by_row(*frames(cpu_pipe), r2))
+            judge(cpu_pipe, "cpu", blk)
+        return got
+
+    # X2: every superframe each block holds whole, exact frames
+    x_share = {}
+
+    def x2_frames(pipe):
+        bits, errs, fch, forder = pipe.last_frames
+        return bits, errs, fch, forder
+
+    def x2_judge(pipe, fmt, blk):
+        frames, ac, ai, max_err = dmr_frames(pipe, pipe.C)
+        if fmt == "cpu":
+            x_share["cpu", blk] = exact_share(frames, x_want, range(2))
+            if x_share["card", blk] < x_share["cpu", blk]:
+                raise RuntimeError("X2 path: the card decodes fewer frames "
+                                   "exactly than the CPU path")
+            log(f"X2 path block {blk}: exact-frame share channels 0-1 card "
+                f"{100 * x_share['card', blk]:.2f}%, CPU "
+                f"{100 * x_share['cpu', blk]:.2f}%")
+            return ""
+        n_sf = np.bincount(ac, minlength=C)
+        want_n = np.array([len(w[0]) for w in x_want])
+        bad = np.flatnonzero(n_sf != want_n)
+        if bad.size or ai.any():
+            raise RuntimeError(
+                f"X2 path {fmt} block {blk}: channels {bad[:8].tolist()} "
+                f"accepted {n_sf[bad[:8]].tolist()} superframes, want "
+                f"{want_n[bad[:8]].tolist()}; {int(ai.sum())} inverted")
+        if fmt == "f16":
+            x_share["card", blk] = exact_share(frames, x_want, range(2))
+        share = exact_share(frames, x_want, range(C))
+        return (f"{C}/{C} channels accept their {want_n.min()}.."
+                f"{want_n.max()} superframes, none inverted; "
+                f"{100 * share:.2f}% of the frames' 49 bits equal the "
+                f"vector (max ECC errors {max_err})")
+
+    launches["x2"] = run_ambe_path(
+        "X2 path", lambda fmt: BatchedX2VoicePipeline(C, FS, pcm_fmt=fmt,
+                                                      tables=xtab),
+        x_blocks, C, x2_frames, x2_judge, (k1fn, k3fn), (k2fn, k7fn),
+        BatchedX2VoicePipeline(2, FS, device="cpu",
+                               tables=params.load_tdma("x2tdma", "cpu")))
+    time_path("X2 path", ident,
+              BatchedX2VoicePipeline(C, FS, pcm_fmt="adpcm", tables=xtab),
+              x_blocks, x_B / FS,
+              lambda p, fe6: p.pick_superframes(*fe6[1:]))
+    del x_blocks
+
+    # P2: every (channel, slot) stream, the vector's bits on every frame
+    def p2_frames(pipe):
+        bits, errs, arrs, _jobs = pipe.last_frames
+        return bits, errs, arrs[4], arrs[5]
+
+    def p2_exact(pipe, vec_bits, min_frames, skip=0):
+        """Per output row: frames decoded and whether every frame from
+        ``skip`` on equals the vector's bits."""
+        bits, _errs, rows, steps = p2_frames(pipe)
+        bits = bits.cpu().numpy()
+        counts, exact = [], []
+        for r in range(2 * pipe.C):
+            sel = np.flatnonzero(rows == r)
+            sel = sel[np.argsort(steps[sel])]
+            got = bits[sel]
+            counts.append(len(sel))
+            exact.append(len(sel) >= min_frames and np.array_equal(
+                got[skip:], vec_bits[r % 2][skip:len(sel)]))
+        return np.array(counts), np.array(exact)
+
+    def p2_judge(pipe, fmt, blk):
+        counts, exact = p2_exact(pipe, ptv["bits49"], 7 * 18)
+        if not exact.all():
+            bad = np.flatnonzero(~exact)
+            raise RuntimeError(
+                f"P2 path {fmt} block {blk}: streams {bad[:8].tolist()} "
+                f"decoded {counts[bad[:8]].tolist()} frames (want >= "
+                f"{7 * 18}, all equal to the vector's)")
+        return (f"{len(counts)}/{len(counts)} slot streams decode "
+                f"{counts.min()}..{counts.max()} frames, every one equal "
+                f"to the vector's 49 bits")
+
+    launches["p2"] = run_ambe_path(
+        "P2 path", lambda fmt: BatchedP2VoicePipeline(C, FS, pcm_fmt=fmt,
+                                                      tables=ptab),
+        p_blocks, 2 * C, p2_frames, p2_judge, (k1fn, k3fn), (k2fn, k7fn),
+        BatchedP2VoicePipeline(2, FS, device="cpu",
+                               tables=params.load_tdma("p25p2", "cpu")))
+    time_path("P2 path", ident,
+              BatchedP2VoicePipeline(C, FS, pcm_fmt="adpcm", tables=ptab),
+              p_blocks, p_B / FS, lambda p, fe6: p.walk_frames(*fe6[1:]))
+    del p_blocks
+
+    # NXDN48: at least 35 of 36 frames per channel, exact frames
+    n_share = {}
+
+    def nx_frames(pipe):
+        bits, errs, fch, forder, _acc = pipe.last_frames
+        return bits, errs, fch, forder
+
+    def nx_exact(pipe, chans):
+        """(frames accepted per channel, exact share over the 36 frames
+        of ``chans``): a frame counts as exact when it sits at its
+        vector position and its 4 AMBE frames equal the vector's."""
+        bits, _errs, fch, forder, (ac, at, ai) = pipe.last_frames
+        bits = bits.cpu().numpy().reshape(-1, 4, 49)
+        want = ntv["bits49"].reshape(-1, 4, 49)
+        hit = 0
+        for f, (c, t) in enumerate(zip(ac.tolist(), at.tolist())):
+            k, rem = divmod(t - int(n_leads[c]), 192)
+            if c in chans and rem == 0 and 0 <= k < len(want) \
+                    and not ai[f]:
+                hit += int(np.array_equal(bits[f], want[k]))
+        return np.bincount(ac, minlength=pipe.C), hit / (36 * len(chans))
+
+    def nx_judge(pipe, fmt, blk):
+        n_fr, share01 = nx_exact(pipe, (0, 1))
+        if fmt == "cpu":
+            n_share["cpu", blk] = share01
+            log(f"NXDN48 path block {blk}: exact-frame share channels 0-1 "
+                f"card {100 * n_share['card', blk]:.2f}%, CPU "
+                f"{100 * share01:.2f}%")
+            if n_share["card", blk] < share01:
+                raise RuntimeError("NXDN48 path: the card decodes fewer "
+                                   "frames exactly than the CPU path")
+            return ""
+        if n_fr.min() < 35:
+            raise RuntimeError(
+                f"NXDN48 path {fmt} block {blk}: channels "
+                f"{np.flatnonzero(n_fr < 35)[:8].tolist()} accepted fewer "
+                "than 35 of 36 frames")
+        if fmt == "f16":
+            n_share["card", blk] = share01
+        _n, share = nx_exact(pipe, range(C))
+        return (f"{C}/{C} channels accept {n_fr.min()}..{n_fr.max()} of 36 "
+                f"frames; {100 * share:.2f}% of the frames equal the "
+                f"vector's bits")
+
+    launches["nxdn48"] = run_ambe_path(
+        "NXDN48 path", lambda fmt: BatchedNxdnVoicePipeline(
+            C, FS, pcm_fmt=fmt, mode="nxdn48", tables=ntab),
+        n_blocks, C, nx_frames, nx_judge, (k1fn, k3fn), (k2fn, k7fn),
+        BatchedNxdnVoicePipeline(2, FS, mode="nxdn48", device="cpu",
+                                 tables=params.load_tdma("nxdn48", "cpu")))
+    time_path("NXDN48 path", ident,
+              BatchedNxdnVoicePipeline(C, FS, pcm_fmt="adpcm",
+                                       mode="nxdn48", tables=ntab),
+              n_blocks, BLOCK_S, lambda p, fe6: p.pick_frames(*fe6[1:]))
+    del n_blocks
+
+    # ADP: the encrypted P2 stream with its key, at 16 channels
+    n_sf, _seed, _alg, kid, key, _mi = (int(v) for v in adp["params"])
+    keys = KeyRing()
+    keys.scalar[kid] = key
+    for fn in counted:
+        fn.launches = 0
+    pipe = BatchedP2VoicePipeline(ADP_C, FS, keyring=keys, pcm_fmt="adpcm",
+                                  tables=ptab)
+    t1 = time.perf_counter()
+    pcm = pipe.fetch_pcm(pipe.decode_block_async(a_blocks[0]))
+    dt = time.perf_counter() - t1
+    counts, exact = p2_exact(pipe, adp["bits49"], (n_sf - 1) * 18, skip=18)
+    bits, _e, arrs, jobs = pipe.last_frames
+    first = [bits.cpu().numpy()[np.flatnonzero(arrs[4] == r)[:18]]
+             for r in range(2 * ADP_C)]
+    cipher = all((f != adp["bits49"][r % 2][:18]).any()
+                 for r, f in enumerate(first))
+    launches["adp"] = check_launches("ADP phase", counted,
+                                     (k1fn, k3fn, k7fn), (k2fn,))
+    check_pcm("ADP phase", pcm, 32768.0 / 32767.0)
+    n2v = sum(j[4] == "2v" for j in jobs)
+    log(f"ADP phase, {ADP_C} channels, one block of {a_B} samples: "
+        f"{int(exact.sum())}/{2 * ADP_C} slot streams decode "
+        f"{counts.min()}..{counts.max()} frames, every frame from the "
+        f"second superframe on equal to the plaintext bits; first "
+        f"superframe still cipher: {cipher}; {len(jobs)} ESS jobs, {n2v} "
+        f"RS words screened by K7; {dt * 1e3:.1f} ms")
+    if not exact.all() or not cipher:
+        raise RuntimeError("ADP phase: the keystream did not decrypt "
+                           "from the second superframe on")
+    no_reference_modules()
+
     log(f"whole run {time.perf_counter() - t_start:.1f} s after the build")
 
     rows = [("fir_disc", "dsdneo_tpu_torch/csrc/fir_disc.cu",
@@ -783,9 +1177,11 @@ def main() -> int:
             ("imbe_pred", "dsdneo_tpu_torch/csrc/imbe_pred.cu",
              "dsdneo_tpu/vocoder/device.py:101", "prediction_scan"),
             ("adpcm_enc", "dsdneo_tpu_torch/csrc/adpcm_enc.cu",
-             "dsdneo_tpu/ops/audio_wire.py:47", "adpcm_compress")]
-    # no single PyTorch call computes any of the three functions.
-    # "launches" sums the three paths' runs; "launches_by_path" splits it
+             "dsdneo_tpu/ops/audio_wire.py:47", "adpcm_compress"),
+            ("rs_syndromes", "dsdneo_tpu_torch/csrc/rs_syndromes.cu",
+             "dsdneo_tpu/fec/device.py:271", "rs_syndromes_batch")]
+    # no single PyTorch call computes any of the four functions.
+    # "launches" sums the paths' runs; "launches_by_path" splits it
     log(ident)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,

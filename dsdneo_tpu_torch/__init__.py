@@ -5,7 +5,8 @@ its module names so each function's counterpart is easy to find:
 
   - ``device``            card checks and identity (name, power limit)
   - ``params``            the constant tables (``data/p25p1_tables.npz``,
-                          ``data/dmr_tables.npz``) and the per-channel
+                          ``data/dmr_tables.npz``,
+                          ``data/tdma_tables.npz``) and the per-channel
                           carries, as tensors
   - ``dsp.frontend``      channel FIR, FM discriminator, power
   - ``dsp.cqpsk``         CQPSK demodulation: 4th-power carrier estimate,
@@ -17,17 +18,28 @@ its module names so each function's counterpart is easy to find:
   - ``engine.batched``    front end + symbol timing + slicing
   - ``engine.voicebatch`` ``BatchedP25VoicePipeline``: I/Q → PCM
   - ``engine.dmrbatch``   ``BatchedDmrVoicePipeline``: I/Q → PCM
+  - ``engine.x2batch``    ``BatchedX2VoicePipeline``: I/Q → PCM
+  - ``engine.p2batch``    ``BatchedP2VoicePipeline``: I/Q → per-slot PCM,
+                          with the ESS / ADP decryption path
+  - ``engine.nxdnbatch``  ``BatchedNxdnVoicePipeline``: I/Q → PCM
+  - ``engine.modes``      the modes' filter profiles and symbol rates
   - ``engine.voicestate`` the voice-carry reset the AMBE pipelines share
-  - ``fec.device``        batched IMBE and AMBE+2 voice-frame ECC
+  - ``fec.device``        batched IMBE and AMBE+2 voice-frame ECC, the
+                          GF(64) RS syndrome screen (K7)
+  - ``fec.rs``            the host RS(63,35) decoder
+  - ``crypto``            the RC4 keystream and the key ring
   - ``vocoder.device``    IMBE dequantization, prediction (K2), repeat
                           gate; the AMBE+2 parameter decode and the tail
                           every AMBE family shares
   - ``vocoder.synth``     batched harmonic synthesis
-  - ``protocol.p25.encode``, ``protocol.dmr.encode``
-                          the test-signal generators
+  - ``protocol.p25.p2_xcch``
+                          the P25p2 scrambler, ISCH lookup, hexbits
+  - ``protocol.p25.encode``, ``protocol.dmr.encode``,
+    ``protocol.nxdn.encode``
+                          the test-signal modulators
 
-Three pipelines, each ``[C, B, 2]`` float32 I/Q blocks in, ``[C, N]``
-PCM out, with the same calls (``frontend_dispatch`` →
+Six pipelines, each ``[C, B, 2]`` float32 I/Q blocks in, ``[C, N]``
+PCM out (``[2C, N]`` for P25p2), with the same calls (``frontend_dispatch`` →
 ``frontend_finish``, or ``frontend_sync_device`` for both → the host
 pick → ``decode_from_frontend`` → ``fetch_pcm``; ``decode_block`` and
 ``decode_block_async`` for all of it; ``reset_voice_state``):
@@ -37,6 +49,12 @@ pick → ``decode_from_frontend`` → ``fetch_pcm``; ``decode_block`` and
   - ``BatchedP25VoicePipeline(C, cqpsk=True)``   P25 Phase 1 CQPSK / LSM
     voice (K2, K3);
   - ``BatchedDmrVoicePipeline(C)``               DMR BS two-slot voice
+    (K1, K3);
+  - ``BatchedX2VoicePipeline(C)``                X2-TDMA two-slot voice
+    (K1, K3);
+  - ``BatchedP2VoicePipeline(C, keyring=...)``   P25 Phase 2 two-slot
+    TDMA voice (K1, K3; K7 with a keyring);
+  - ``BatchedNxdnVoicePipeline(C, mode=...)``    NXDN48 / NXDN96 voice
     (K1, K3).
 
 It imports torch and numpy, never JAX and nothing of the JAX package:
@@ -44,8 +62,8 @@ what it needs from there (the NID code's generator polynomial, the RRC
 design, the host pickers, the host ADPCM decoder, the constant tables in
 ``data/``) it keeps as its own copy.  Every function takes its tensors' device from its inputs; CUDA
 kernels launch for CUDA tensors, their plain PyTorch versions run for
-CPU tensors.  The entry points (``params.load``, ``params.load_dmr``
-and the pipelines) run on the card unless the caller names another
+CPU tensors.  The entry points (``params.load``, ``params.load_dmr``,
+``params.load_tdma`` and the pipelines) run on the card unless the caller names another
 device.
 """
 

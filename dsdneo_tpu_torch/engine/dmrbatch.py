@@ -138,6 +138,13 @@ class BatchedDmrVoicePipeline(VoiceCarryMixin):
     def frontend_dispatch(self, iq):
         """Queue the front end, sync filter and EMB decode of one block:
         returns the device handle (dibits, idx, vq, dq, eq, n_sym)."""
+        dibits, idx, vq, dq, n_sym = self.sync_candidates(iq)
+        return dibits, idx, vq, dq, self.emb_errors(dibits, idx, dq), n_sym
+
+    def sync_candidates(self, iq):
+        """Front end and sync filter of one block: (dibits, the top
+        ``SYNC_TOPK`` candidate positions per channel, their quantized
+        scores and pattern indices, n_sym)."""
         x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
         n_sym = int(x.shape[1] // self.sps) - 2
         t = self.tables
@@ -151,10 +158,15 @@ class BatchedDmrVoicePipeline(VoiceCarryMixin):
         vals, idx = vals[:, :k_cand], idx[:, :k_cand]
         vq = torch.clamp(vals * 127.0, 0, 255).to(torch.uint8)
         dq = torch.gather(best_def, 1, idx)
-        # EMB confidence: the two bursts after a true voice sync carry
-        # QR(16,7,6) words; decode both for every candidate and sum the
-        # bit errors.  SYNC_NAMES orders + before -, so an odd pattern
-        # index is an inverted candidate, whose dibits flip (^ 2)
+        return dibits, idx, vq, dq, n_sym
+
+    def emb_errors(self, dibits, idx, dq):
+        """EMB confidence: the two bursts after a true voice sync carry
+        QR(16,7,6) words; decode both for every candidate and sum the
+        bit errors (uint8 ``[C, K]``).  SYNC_NAMES orders + before -, so
+        an odd pattern index is an inverted candidate, whose dibits flip
+        (^ 2)."""
+        t = self.tables
         Cn, Tn = dibits.shape
         rows = torch.arange(Cn, device=self.device)[:, None, None]
         inv2 = ((dq & 1) * 2)[:, :, None]
@@ -167,8 +179,7 @@ class BatchedDmrVoicePipeline(VoiceCarryMixin):
             s = 1.0 - 2.0 * b16.to(torch.float32)
             m = torch.argmax(s @ t.qr_pm.T, dim=-1)
             errs_tot += (t.qr_cb[m] != b16).sum(dim=-1, dtype=torch.int32)
-        eq = torch.clamp(errs_tot, 0, 255).to(torch.uint8)
-        return dibits, idx, vq, dq, eq, n_sym
+        return torch.clamp(errs_tot, 0, 255).to(torch.uint8)
 
     def frontend_finish(self, fe):
         """Copy a dispatch's candidates to the host: (dibits_dev, idx

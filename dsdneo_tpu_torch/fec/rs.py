@@ -1,0 +1,157 @@
+"""Reed-Solomon RS(63,35) over GF(64) on the host: the P25 Phase 2 ESS
+decode.
+
+The port's own copy of ``dsdneo_tpu/fec/rs.py`` (``ReedSolomon``,
+``rs_63_35``) for the one code the ported voice paths decode, without
+erasures, which no caller of the port passes: Berlekamp-Massey, a Chien
+search and Forney's formula, in exact integers.  Symbol order: data
+first, then parity; ``r[0]`` is the coefficient of the highest degree.
+The field tables (x^6 + x + 1) come from ``data/tdma_tables.npz``.  The
+voice path decodes on the host only the words whose syndromes, screened
+on the card by ``fec.device.rs_syndromes_batch`` (kernel K7), are not
+all zero.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+
+from dsdneo_tpu_torch import params
+
+
+@functools.lru_cache(maxsize=1)
+def gf64_tables() -> tuple[np.ndarray, np.ndarray]:
+    """GF(64) (exp ``[128]``, log ``[64]``) int32: exp[i] = α^i, with
+    the first 63 entries repeated so a sum of two logs needs no
+    reduction."""
+    with np.load(params.TDMA_TABLES_NPZ) as z:
+        return z["gf64_exp"].astype(np.int32), z["gf64_log"].astype(np.int32)
+
+
+class ReedSolomon:
+    """RS(n, k) over GF(64) with first consecutive root α^fcr."""
+
+    def __init__(self, n: int, k: int, fcr: int = 1):
+        self.exp, self.log = (t.tolist() for t in gf64_tables())
+        self.q1 = 63
+        self.n, self.k, self.nroots, self.fcr = n, k, n - k, fcr
+        # generator g(x) = prod (x - α^(fcr+i)), lowest degree first
+        g = [1]
+        for i in range(self.nroots):
+            root = self.exp[(fcr + i) % self.q1]
+            ng = [0] * (len(g) + 1)
+            for j, c in enumerate(g):
+                ng[j + 1] ^= c
+                ng[j] ^= self._mul(c, root)
+            g = ng
+        self.genpoly = g
+
+    def _mul(self, a: int, b: int) -> int:
+        if a == 0 or b == 0:
+            return 0
+        return self.exp[(self.log[a] + self.log[b]) % self.q1]
+
+    def _pow(self, base_log: int, e: int) -> int:
+        return self.exp[(base_log * e) % self.q1]
+
+    def _inv(self, a: int) -> int:
+        return self.exp[(self.q1 - self.log[a]) % self.q1]
+
+    def encode(self, data) -> np.ndarray:
+        """``[k]`` data symbols → the ``[n]`` codeword (data ‖ parity)."""
+        msg = np.asarray(data, dtype=np.int32)
+        rem = [0] * self.nroots
+        gp_hi = self.genpoly[::-1]
+        for d in msg.tolist():
+            feedback = d ^ rem[0]
+            rem = rem[1:] + [0]
+            if feedback:
+                for j in range(self.nroots):
+                    rem[j] ^= self._mul(gp_hi[j + 1], feedback)
+        return np.concatenate([msg, np.asarray(rem, dtype=np.int32)])
+
+    def syndromes(self, r) -> list[int]:
+        out = []
+        for i in range(self.nroots):
+            x = self.exp[(self.fcr + i) % self.q1]
+            acc = 0
+            for c in r:
+                acc = self._mul(acc, x) ^ int(c)
+            out.append(acc)
+        return out
+
+    def decode(self, word) -> tuple[np.ndarray, int]:
+        """``[n]`` received symbols → (corrected word, symbols corrected),
+        the count -1 when the word cannot be decoded."""
+        r = np.asarray(word, dtype=np.int32).copy()
+        n, nroots, q1 = self.n, self.nroots, self.q1
+        S = self.syndromes(r)
+        if not any(S):
+            return r, 0
+        # Berlekamp-Massey: the error locator, lowest degree first
+        lam = [1] + [0] * nroots
+        B = lam.copy()
+        L = 0
+        for i in range(nroots):
+            delta = 0
+            for j in range(L + 1):
+                delta ^= self._mul(lam[j], S[i - j])
+            B = [0] + B[:-1]
+            if delta != 0:
+                T = [lam[j] ^ self._mul(B[j], delta)
+                     for j in range(nroots + 1)]
+                if 2 * L <= i:
+                    inv_d = self._inv(delta)
+                    B = [self._mul(c, inv_d) for c in lam]
+                    L = i + 1 - L
+                lam = T
+        deg = max((j for j in range(nroots + 1) if lam[j]), default=0)
+        if deg == 0:
+            return r, -1
+        # Chien search: the roots at X_j^-1
+        err_pos = []
+        for pos in range(n):
+            xinv = (q1 - (n - 1 - pos) % q1) % q1
+            acc = 0
+            for j in range(deg + 1):
+                if lam[j]:
+                    acc ^= self._mul(lam[j], self._pow(xinv, j))
+            if acc == 0:
+                err_pos.append(pos)
+        if len(err_pos) != deg:
+            return r, -1
+        # Forney: Omega(z) = S(z) Lam(z) mod z^nroots
+        omega = [0] * nroots
+        for i in range(nroots):
+            acc = 0
+            for j in range(min(i, deg) + 1):
+                acc ^= self._mul(lam[j], S[i - j])
+            omega[i] = acc
+        for pos in err_pos:
+            xlog = (n - 1 - pos) % q1
+            xinv = (q1 - xlog) % q1
+            num = 0
+            for i in range(nroots):
+                if omega[i]:
+                    num ^= self._mul(omega[i], self._pow(xinv, i))
+            den = 0
+            for j in range(1, deg + 1, 2):
+                if lam[j]:
+                    den ^= self._mul(lam[j], self._pow(xinv, j - 1))
+            if den == 0:
+                return r, -1
+            mag = self._mul(num, self._inv(den))
+            if self.fcr != 1:
+                mag = self._mul(mag, self._pow(xlog, (1 - self.fcr) % q1))
+            r[pos] ^= mag
+        if any(self.syndromes(r)):
+            return r, -1
+        return r, len(err_pos)
+
+
+@functools.lru_cache(maxsize=None)
+def rs_63_35() -> ReedSolomon:
+    """P25 Phase 2 RS(63,35,29): SACCH, FACCH and the ESS."""
+    return ReedSolomon(63, 35, fcr=1)

@@ -53,6 +53,8 @@ _SIGNATURES = {
                       _I, _I, ctypes.c_float, ctypes.c_float, _P],
     # pcm, step_table, index_table, out, S, T, stream
     "dsd_adpcm_enc": [_P, _P, _P, _P, _I, _I, _P],
+    # words, exp_table, log_table, out, N, n, nroots, fcr, stream
+    "dsd_rs_syndromes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {

@@ -2,11 +2,13 @@
 
 The system runs no model: its "weights" are the constant tables below,
 which ``tools/export_torch_tables.py`` builds from the JAX package's own
-functions into ``data/p25p1_tables.npz`` (P25 Phase 1) and
-``data/dmr_tables.npz`` (DMR and the AMBE core), and its state is the
-per-channel carry of the voice decoder (prediction, synthesis and
-frame-repeat).  :func:`from_numpy` and :func:`dmr_from_numpy` carry the
-tables across onto a device; :func:`state_from_numpy` carries a JAX
+functions into ``data/p25p1_tables.npz`` (P25 Phase 1),
+``data/dmr_tables.npz`` (DMR and the AMBE core) and
+``data/tdma_tables.npz`` (the front ends and host tables of X2-TDMA,
+P25 Phase 2 and NXDN), and its state is the per-channel carry of the
+voice decoder (prediction, synthesis and frame-repeat).
+:func:`from_numpy`, :func:`dmr_from_numpy` and :func:`tdma_from_numpy`
+carry the tables across onto a device; :func:`state_from_numpy` carries a JAX
 pipeline's carries across, so a block decoded by the JAX package can
 continue in the port.
 
@@ -27,6 +29,7 @@ from dsdneo_tpu_torch.device import require_cuda
 _DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 TABLES_NPZ = os.path.join(_DATA, "p25p1_tables.npz")
 DMR_TABLES_NPZ = os.path.join(_DATA, "dmr_tables.npz")
+TDMA_TABLES_NPZ = os.path.join(_DATA, "tdma_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -185,6 +188,23 @@ class DmrTables(_VoiceTables):
         self.ambe_assigned = self.f32(t["ambe_assigned"])
 
 
+class TdmaTables(DmrTables):
+    """The AMBE core of ``DmrTables`` with the front end of ``mode``,
+    one of ``x2tdma``, ``p25p2``, ``nxdn48``, ``nxdn96`` (taps, symbol
+    rate, sync rows), and the host tables of P25p2 and NXDN in ``np``."""
+
+    def __init__(self, tables: dict[str, np.ndarray], mode: str, device):
+        super().__init__(tables, device)
+        self.mode = mode
+
+
+# the sync rows and the test vector of each mode in tdma_tables.npz
+_TDMA_GROUPS = {"x2tdma": ("x2tdma", "x2"), "p25p2": ("p25p2", "p2"),
+                "nxdn48": ("nxdn", "nxdn"), "nxdn96": ("nxdn", "nxdn")}
+_FRONT_KEYS = ("taps", "symbol_rate", "four_level", "sync_levels",
+               "sync_inverted")
+
+
 def _read_npz(path: str) -> dict[str, np.ndarray]:
     with np.load(path) as z:
         return {k: z[k] for k in z.files}
@@ -217,6 +237,42 @@ def load_dmr(device=None) -> DmrTables:
     """The checked-in ``data/dmr_tables.npz`` on ``device``: the card
     when none is given (raises when there is no card)."""
     return dmr_from_numpy(_read_npz(DMR_TABLES_NPZ), _device(device))
+
+
+def tdma_from_numpy(dmr: dict[str, np.ndarray],
+                    tdma: dict[str, np.ndarray], mode: str,
+                    device) -> TdmaTables:
+    """numpy tables (the two npz files, or arrays built by the JAX
+    package) → the tensors of ``mode``'s voice path on ``device``: the
+    AMBE core of ``dmr``, the front end, host tables and test vector of
+    ``mode`` from ``tdma``."""
+    from dsdneo_tpu_torch.engine.modes import MODES
+    if mode not in _TDMA_GROUPS:
+        raise ValueError(f"unknown TDMA mode {mode!r}")
+    sync, tv = _TDMA_GROUPS[mode]
+    m = MODES[mode]
+    t = {k: v for k, v in dmr.items()
+         if not k.startswith(TV_PREFIX) and k not in _FRONT_KEYS}
+    t.update((k, v) for k, v in tdma.items()
+             if not k.startswith(("taps_", "rate_", "sync_"))
+             and "_tv_" not in k)
+    t.update(taps=tdma[f"taps_{m.lpf_profile}"],
+             symbol_rate=tdma[f"rate_{mode}"],
+             four_level=np.bool_(m.four_level),
+             sync_levels=tdma[f"sync_{sync}"],
+             sync_inverted=tdma[f"sync_{sync}_inverted"])
+    t.update((TV_PREFIX + k[len(tv) + 4:], v) for k, v in tdma.items()
+             if k.startswith(f"{tv}_tv_"))
+    return TdmaTables(t, mode, device)
+
+
+def load_tdma(mode: str, device=None) -> TdmaTables:
+    """The checked-in ``data/dmr_tables.npz`` and ``data/tdma_tables.npz``
+    as ``mode``'s tables on ``device``: the card when none is given
+    (raises when there is no card)."""
+    return tdma_from_numpy(_read_npz(DMR_TABLES_NPZ),
+                           _read_npz(TDMA_TABLES_NPZ), mode,
+                           _device(device))
 
 
 def state_from_numpy(pred, synth, rep, device):

@@ -4,7 +4,9 @@ The stream itself (dibits and the 49 parameter bits of every AMBE frame)
 is the JAX package's ``engine.dmrbatch.synth_voice_stream(8, seed=1)``,
 stored in the tables file by ``tools/export_torch_tables.py``; here are
 its 4-level FM modulator (numpy, identical output) and what builds
-many-channel blocks from it.
+many-channel blocks from it, or from another stream and modulator (the
+X2-TDMA, P25p2 and NXDN vectors).  X2-TDMA shares the stream's
+superframe geometry, so :func:`expected_frames` serves it too.
 """
 
 from __future__ import annotations
@@ -32,12 +34,13 @@ def dmr_fm_iq(dibits: np.ndarray, sps: int = 10) -> np.ndarray:
 
 def vector_block(tv: dict[str, np.ndarray], leads, noise_seeds,
                  n_samples: int, sps: int = 10, snr_db: float = 30.0,
-                 invert: bool = False) -> np.ndarray:
+                 invert: bool = False, modulate=dmr_fm_iq) -> np.ndarray:
     """``[C, n_samples, 2]`` float32 I/Q planes: channel c carries the
     test vector after ``leads[c]`` random filler dibits, with white noise
     of seed ``noise_seeds[c]`` (which also draws the filler).  ``invert``
     negates the FM (the I/Q conjugate), as a receiver with swapped I and
-    Q would see the stream."""
+    Q would see the stream.  ``modulate(dibits, sps)`` gives at least
+    ``len(dibits) · sps`` complex samples; the first are kept."""
     n_dib = n_samples // sps
     out = np.empty((len(leads), n_samples, 2), dtype=np.float32)
     for c, (lead, seed) in enumerate(zip(leads, noise_seeds)):
@@ -47,7 +50,7 @@ def vector_block(tv: dict[str, np.ndarray], leads, noise_seeds,
         if len(dib) < n_dib:
             raise ValueError(f"the vector holds {len(dib)} dibits after "
                              f"this lead, fewer than {n_dib}")
-        x = dmr_fm_iq(dib, sps)
+        x = modulate(dib, sps)[:n_dib * sps]
         noise = rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
         x = x + noise * 10 ** (-snr_db / 20)
         out[c, :, 0] = x.real

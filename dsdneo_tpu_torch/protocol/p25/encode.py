@@ -18,16 +18,32 @@ from dsdneo_tpu_torch.dsp import firdes
 DIBIT_LEVELS = np.array([1.0, 3.0, -1.0, -3.0])
 
 
-def c4fm_iq(dibits: np.ndarray, sps: int = 10, fs: float = 48000.0,
-            dev_hz: float = 1800.0, snr_db: float = 30.0,
-            seed: int = 0) -> np.ndarray:
-    """Dibit stream → complex64 C4FM-style baseband with white noise."""
+def c4fm_clean(dibits: np.ndarray, sps: int = 10, fs: float = 48000.0,
+               dev_hz: float = 1800.0) -> np.ndarray:
+    """Dibit stream → complex128 C4FM-style baseband: levels ±1/±3 of
+    ``dev_hz / 3`` Hz, shaped by a moving average over half a symbol.
+    With ``fs = 8 · 6000`` it is the modulator of the JAX package's
+    X2-TDMA and P25p2 stream generators (``x2batch.py:78-85``,
+    ``p2batch.py:172-178``)."""
     lv = DIBIT_LEVELS[np.asarray(dibits)]
     inst = np.repeat(lv, sps) * (dev_hz / 3.0)
     k = max(sps // 2, 1)
     inst = np.convolve(inst, np.ones(k) / k, mode="same")
-    phase = 2 * np.pi * np.cumsum(inst) / fs
-    x = np.exp(1j * phase)
+    return np.exp(1j * (2 * np.pi * np.cumsum(inst) / fs))
+
+
+def tdma_fm_iq(dibits: np.ndarray, sps: int = 8) -> np.ndarray:
+    """The X2-TDMA and P25p2 streams' modulator (6000 symbols/s at
+    ``sps · 6000`` Hz), as ``modulate`` of
+    ``protocol.dmr.encode.vector_block``."""
+    return c4fm_clean(dibits, sps, fs=sps * 6000.0)
+
+
+def c4fm_iq(dibits: np.ndarray, sps: int = 10, fs: float = 48000.0,
+            dev_hz: float = 1800.0, snr_db: float = 30.0,
+            seed: int = 0) -> np.ndarray:
+    """Dibit stream → complex64 C4FM-style baseband with white noise."""
+    x = c4fm_clean(dibits, sps, fs, dev_hz)
     rng = np.random.default_rng(seed)
     noise = rng.normal(size=x.shape) + 1j * rng.normal(size=x.shape)
     return (x + noise * 10 ** (-snr_db / 20)).astype(np.complex64)

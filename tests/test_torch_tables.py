@@ -1,9 +1,10 @@
 """The PyTorch port's constant tables and its independence from JAX.
 
-The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz`` and
-``dmr_tables.npz`` must equal what ``tools/export_torch_tables.py``
-builds from the JAX package now (exact), and importing the port must
-never load JAX or any module of the JAX package.
+The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz``,
+``dmr_tables.npz`` and ``tdma_tables.npz`` must equal what
+``tools/export_torch_tables.py`` builds from the JAX package now
+(exact), and importing the port must never load JAX or any module of the
+JAX package.
 """
 
 import os
@@ -27,7 +28,12 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.p25.encode", "dsdneo_tpu_torch.dsp.firdes",
     "dsdneo_tpu_torch.dsp.cqpsk", "dsdneo_tpu_torch.symbols.timing",
     "dsdneo_tpu_torch.engine.voicestate", "dsdneo_tpu_torch.engine.dmrbatch",
-    "dsdneo_tpu_torch.protocol.dmr.encode")
+    "dsdneo_tpu_torch.protocol.dmr.encode", "dsdneo_tpu_torch.engine.modes",
+    "dsdneo_tpu_torch.engine.x2batch", "dsdneo_tpu_torch.engine.p2batch",
+    "dsdneo_tpu_torch.engine.nxdnbatch", "dsdneo_tpu_torch.fec.rs",
+    "dsdneo_tpu_torch.crypto.keystream", "dsdneo_tpu_torch.crypto.keyring",
+    "dsdneo_tpu_torch.protocol.p25.p2_xcch",
+    "dsdneo_tpu_torch.protocol.nxdn.encode")
 
 
 @pytest.fixture(scope="module")
@@ -113,6 +119,64 @@ def test_dmr_from_numpy_of_jax_arrays_equals_loaded(dmr_exported):
     assert sorted(b.test_vector()) == ["bits49", "dibits", "seeds"]
 
 
+@pytest.fixture(scope="module")
+def tdma_exported():
+    from export_torch_tables import build_tdma_tables
+    return build_tdma_tables()
+
+
+@pytest.mark.parametrize("group", ["front", "host", "x2", "p2", "nxdn"])
+def test_tdma_npz_equals_exporter(tdma_exported, group):
+    """The checked-in ``tdma_tables.npz`` is what the exporter builds
+    from the JAX package now."""
+    from dsdneo_tpu_torch.params import TDMA_TABLES_NPZ
+    with np.load(TDMA_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(tdma_exported) == sorted(stored)
+    prefix = {"front": ("taps_", "rate_", "sync_"),
+              "host": ("gf64_", "p2_duid", "p2_isch", "nxdn_pn9"),
+              "x2": ("x2_tv_",), "p2": ("p2_tv_",),
+              "nxdn": ("nxdn_tv_",)}[group]
+    keys = [k for k in tdma_exported if k.startswith(prefix)]
+    assert keys
+    for k in keys:
+        a, b = np.asarray(tdma_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    if group == "x2":
+        assert stored["x2_tv_dibits"].shape == (14114,)
+    if group == "p2":
+        assert stored["p2_tv_dibits"].shape == (17380,)
+        assert stored["p2_tv_adp_bits49"].shape == (2, 72, 49)
+    if group == "nxdn":
+        assert stored["nxdn_tv_bits49"].shape == (36 * 4, 49)
+
+
+@pytest.mark.parametrize("mode", ["x2tdma", "p25p2", "nxdn48", "nxdn96"])
+def test_tdma_from_numpy_equals_loaded_and_modes(tdma_exported, mode):
+    """Tables built from the JAX package's arrays equal the loaded ones;
+    the port's mode rows equal the JAX package's."""
+    from dsdneo_tpu.engine.modes import MODES as JMODES
+    from export_torch_tables import build_dmr_tables
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.engine.modes import MODES
+    a = params.tdma_from_numpy(build_dmr_tables(), tdma_exported, mode,
+                               "cpu")
+    b = params.load_tdma(mode, "cpu")
+    n = 0
+    for name, v in vars(a).items():
+        if isinstance(v, torch.Tensor):
+            assert torch.equal(v, getattr(b, name)), name
+            n += 1
+    assert n >= 20
+    m, j = MODES[mode], JMODES[mode]
+    assert (m.lpf_profile, m.symbol_rate, m.four_level) == (
+        j.lpf_profile, j.symbol_rate, j.four_level)
+    assert b.symbol_rate == j.symbol_rate and b.mode == mode
+    with pytest.raises(ValueError, match="unknown TDMA mode"):
+        params.load_tdma("dmr", "cpu")
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
@@ -184,6 +248,56 @@ def test_dmr_and_cqpsk_paths_run_without_the_jax_package():
         "q = BatchedP25VoicePipeline(2, cqpsk=True, device='cpu', tables=t)\n"
         "pcm = q.decode_block(iq)\n"
         "assert pcm.shape[0] == 2 and pcm.shape[1] > 0, pcm.shape\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_tdma_paths_run_without_the_jax_package():
+    """Decode a C=2 X2 block (ADPCM), a C=1 encrypted P2 block with its
+    key (K7's plain version and the host RS decoder on the way) and a
+    C=2 NXDN96 block on the CPU: no module of the JAX package, and no
+    jax, is ever loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from dsdneo_tpu_torch import params\n"
+        "from dsdneo_tpu_torch.crypto.keyring import KeyRing\n"
+        "from dsdneo_tpu_torch.engine.nxdnbatch import "
+        "BatchedNxdnVoicePipeline\n"
+        "from dsdneo_tpu_torch.engine.p2batch import BatchedP2VoicePipeline\n"
+        "from dsdneo_tpu_torch.engine.x2batch import BatchedX2VoicePipeline\n"
+        "from dsdneo_tpu_torch.protocol.dmr.encode import vector_block\n"
+        "from dsdneo_tpu_torch.protocol.nxdn.encode import modulator\n"
+        "from dsdneo_tpu_torch.protocol.p25.encode import tdma_fm_iq\n"
+        "t = params.load_tdma('x2tdma', 'cpu')\n"
+        "iq = vector_block(t.test_vector(), (3, 9), (1, 2), 16000, sps=8, "
+        "modulate=tdma_fm_iq)\n"
+        "pcm = BatchedX2VoicePipeline(2, pcm_fmt='adpcm', device='cpu', "
+        "tables=t).decode_block(iq)\n"
+        "assert pcm.shape == (2, 2 * 18 * 160), pcm.shape\n"
+        "t = params.load_tdma('p25p2', 'cpu')\n"
+        "tv = t.test_vector()\n"
+        "iq = vector_block({'dibits': tv['adp_dibits']}, (3,), (1,), "
+        "2 * 2160 * 8 + 800, sps=8, modulate=tdma_fm_iq)\n"
+        "kr = KeyRing()\n"
+        "kr.scalar[int(tv['adp_params'][3])] = int(tv['adp_params'][4])\n"
+        "p = BatchedP2VoicePipeline(1, keyring=kr, device='cpu', tables=t)\n"
+        "bits, out, order = p.decode_block_bits49(iq)\n"
+        "sel = np.flatnonzero(out == 0)\n"
+        "assert (bits[sel][18:] == tv['adp_bits49'][0][18:len(sel)]).all()\n"
+        "t = params.load_tdma('nxdn96', 'cpu')\n"
+        "iq = vector_block(t.test_vector(), (3, 9), (1, 2), 24000, "
+        "modulate=modulator('nxdn96'))\n"
+        "pcm = BatchedNxdnVoicePipeline(2, mode='nxdn96', device='cpu', "
+        "tables=t).decode_block(iq)\n"
+        "assert pcm.shape[1] > 0 and np.isfinite(pcm).all()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

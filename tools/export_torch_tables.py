@@ -1,7 +1,9 @@
 """Export the constant tables and the test vectors of the ported voice
 paths from the JAX package into ``dsdneo_tpu_torch/data/``:
-``p25p1_tables.npz`` (P25 Phase 1, C4FM and CQPSK) and ``dmr_tables.npz``
-(DMR BS two-slot voice and the AMBE core).
+``p25p1_tables.npz`` (P25 Phase 1, C4FM and CQPSK), ``dmr_tables.npz``
+(DMR BS two-slot voice and the AMBE core) and ``tdma_tables.npz``
+(the front ends and host tables of X2-TDMA, P25 Phase 2 and NXDN, whose
+AMBE core is the DMR file's).
 
 The PyTorch port (``dsdneo_tpu_torch``) never imports JAX, so every
 constant it needs is built here, from the JAX package's own functions,
@@ -31,6 +33,23 @@ For DMR (:func:`build_dmr_tables`):
     ``engine.dmrbatch.synth_voice_stream(8, seed=1)`` and the 49
     parameter bits of its 2 x 144 voice frames.
 
+For X2-TDMA, P25 Phase 2 and NXDN (:func:`build_tdma_tables`):
+
+  - the channel low-passes ``12k5``, ``p25_c4fm`` and ``6k25`` and the
+    symbol rates of ``x2tdma``, ``p25p2``, ``nxdn48``, ``nxdn96``
+    (engine.modes.MODES);
+  - the sync level rows ``+X2-TDMA BS voice`` / ``+X2-TDMA MS voice``,
+    ``+P25p2`` and ``±NXDN FSW``, with their ``inverted`` flags;
+  - the GF(64) exp and log tables (fec.rs), the 256-entry P25p2 DUID
+    lookup and the ISCH table as sorted keys and values
+    (protocol.p25.phase2, protocol.p25.p2_xcch), the NXDN PN9 scramble
+    positions (protocol.nxdn.decoder);
+  - the test vectors: the dibits and ``bits49`` of
+    ``x2batch.synth_x2_voice_stream(8, seed=1)`` and of
+    ``p2batch.synth_p2_voice_stream(8, seed=1)`` (the bench's streams),
+    of an ADP-encrypted P25p2 stream, and of :func:`synth_nxdn_voice_stream`,
+    an NXDN full-voice stream built by inverting the decoder's tables.
+
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
@@ -58,6 +77,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "dsdneo_tpu_torch", "data")
 OUT = os.path.join(DATA, "p25p1_tables.npz")
 OUT_DMR = os.path.join(DATA, "dmr_tables.npz")
+OUT_TDMA = os.path.join(DATA, "tdma_tables.npz")
 
 TV_NAC = 0x293
 TV_N_LDUS = 16
@@ -70,6 +90,15 @@ TV_TAIL = 640             # tail filler dibits after the last LDU
 TV_FALSE_SYNC_MAX = 0.5
 DMR_TV_SUPERFRAMES = 8    # engine.dmrbatch.synth_voice_stream arguments,
 DMR_TV_SEED = 1           # as the JAX package's bench calls it
+X2_TV = (8, 1)            # synth_x2_voice_stream(n_superframes, seed)
+P2_TV = (8, 1)            # synth_p2_voice_stream(n_superframes, seed)
+# the ADP/RC4 stream of the JAX package's P25p2 crypto test:
+# (n_superframes, seed, alg, kid, key, mi)
+P2_ADP_TV = (4, 3, 0xAA, 0x0123, 0x1234567890, 0xA5A5F00D5EED0001)
+NXDN_TV_FRAMES = 36       # 80 ms frames: 2.88 s of NXDN48 voice
+NXDN_TV_SEED = 1
+NXDN_TV_TAIL = 400        # unmodulated dibits after the last frame
+NXDN_FULL_VOICE_LICH = 0x36
 
 
 def _sync_corr(dibits: np.ndarray, levels: np.ndarray) -> np.ndarray:
@@ -236,6 +265,105 @@ def build_dmr_tables() -> dict[str, np.ndarray]:
     return t
 
 
+def synth_nxdn_voice_stream(n_frames: int = NXDN_TV_FRAMES,
+                            seed: int = NXDN_TV_SEED,
+                            tail: int = NXDN_TV_TAIL):
+    """NXDN full-voice stream from the decoder's own tables, frames of
+    192 dibits back to back: the ``+NXDN FSW``, then the 182-dibit
+    payload with the LICH 0x36 (parity bit set, one bit per dibit in
+    the high bit), random SACCH dibits, and four AMBE frames
+    (``encode_ambe_ecc``) at payload dibits 38 + 36k, the payload
+    PN9-scrambled (the high bit flipped at the scramble positions).
+    Ends in ``tail`` zero dibits.  Returns (dibits, bits49
+    ``[4 · n_frames, 49]``)."""
+    from dsdneo_tpu.protocol.dmr.ambe_frame import encode_ambe_ecc
+    from dsdneo_tpu.protocol.nxdn.decoder import _pn9_scramble_positions
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    rng = np.random.default_rng(seed)
+    fsw = next(d for d in SYNC_DEFS if d.name == "+NXDN FSW")
+    fsw_d = np.array([int(c) for c in fsw.pattern], dtype=np.uint8)
+    scram = np.zeros(182, dtype=np.uint8)
+    scram[_pn9_scramble_positions()] = 1
+    lich_full = NXDN_FULL_VOICE_LICH << 1
+    parity = 0
+    for k in range(7, 3, -1):
+        parity ^= (lich_full >> k) & 1
+    lich_full |= parity
+    frames = []
+    bits49 = np.zeros((4 * n_frames, 49), dtype=np.uint8)
+    for f in range(n_frames):
+        payload = np.zeros(182, dtype=np.uint8)
+        for i in range(8):
+            payload[i] = ((lich_full >> (7 - i)) & 1) << 1
+        payload[8:38] = rng.integers(0, 4, 30)
+        for k in range(4):
+            b = rng.integers(0, 2, 49).astype(np.uint8)
+            bits49[4 * f + k] = b
+            v = encode_ambe_ecc(b)
+            payload[38 + 36 * k:74 + 36 * k] = (v[0::2] << 1) | v[1::2]
+        payload ^= scram * 2
+        frames.append(np.concatenate([fsw_d, payload]))
+    frames.append(np.zeros(tail, dtype=np.uint8))
+    return np.concatenate(frames), bits49
+
+
+def build_tdma_tables() -> dict[str, np.ndarray]:
+    """The front ends, host tables and test vectors of the port's
+    X2-TDMA, P25 Phase 2 and NXDN voice paths, as numpy arrays."""
+    from dsdneo_tpu.dsp import firdes
+    from dsdneo_tpu.engine.modes import MODES
+    from dsdneo_tpu.engine.nxdnbatch import BatchedNxdnVoicePipeline
+    from dsdneo_tpu.engine.p2batch import (BatchedP2VoicePipeline,
+                                           synth_p2_voice_stream)
+    from dsdneo_tpu.engine.x2batch import (BatchedX2VoicePipeline,
+                                           synth_x2_voice_stream)
+    from dsdneo_tpu.fec.rs import rs_24_12_13
+    from dsdneo_tpu.protocol.nxdn.decoder import _pn9_scramble_positions
+    from dsdneo_tpu.symbols import framesync
+
+    t = {f"taps_{p}": firdes.channel_lpf(48000.0, p).astype(np.float32)
+         for p in ("12k5", "p25_c4fm", "6k25")}
+    for m in ("x2tdma", "p25p2", "nxdn48", "nxdn96"):
+        t[f"rate_{m}"] = np.float64(MODES[m].symbol_rate)
+    for group, names in (("x2tdma", BatchedX2VoicePipeline.SYNC_NAMES),
+                         ("p25p2", BatchedP2VoicePipeline.SYNC_NAMES),
+                         ("nxdn", BatchedNxdnVoicePipeline.SYNC_NAMES)):
+        defs = [d for d in framesync.SYNC_DEFS if d.name in names]
+        t[f"sync_{group}"] = np.stack([d.levels for d in defs]
+                                      ).astype(np.float32)
+        t[f"sync_{group}_inverted"] = np.array([d.inverted for d in defs])
+    f = rs_24_12_13().f
+    t["gf64_exp"] = f.exp_table.astype(np.int32)
+    t["gf64_log"] = f.log_table.astype(np.int32)
+    t["p2_duid_lut"] = BatchedP2VoicePipeline._duid_lut().astype(np.int8)
+    keys, vals = BatchedP2VoicePipeline._isch_arrays()
+    t["p2_isch_keys"] = keys.astype(np.int64)
+    t["p2_isch_vals"] = vals.astype(np.int64)
+    t["nxdn_pn9_positions"] = _pn9_scramble_positions().astype(np.int64)
+
+    _iq, dib, bits49 = synth_x2_voice_stream(n_superframes=X2_TV[0],
+                                             seed=X2_TV[1])
+    t.update(x2_tv_dibits=dib.astype(np.uint8),
+             x2_tv_bits49=bits49.astype(np.uint8),
+             x2_tv_seeds=np.array(X2_TV, np.int64))
+    _iq, dib, bits49 = synth_p2_voice_stream(n_superframes=P2_TV[0],
+                                             seed=P2_TV[1])
+    t.update(p2_tv_dibits=dib.astype(np.uint8),
+             p2_tv_bits49=bits49.astype(np.uint8),
+             p2_tv_seeds=np.array(P2_TV, np.int64))
+    n_sf, seed, alg, kid, key, mi = P2_ADP_TV
+    _iq, dib, bits49 = synth_p2_voice_stream(
+        n_superframes=n_sf, seed=seed, alg=alg, kid=kid, key=key, mi=mi)
+    t.update(p2_tv_adp_dibits=dib.astype(np.uint8),
+             p2_tv_adp_bits49=bits49.astype(np.uint8),
+             p2_tv_adp_params=np.array(P2_ADP_TV, np.uint64))
+    dib, bits49 = synth_nxdn_voice_stream()
+    t.update(nxdn_tv_dibits=dib, nxdn_tv_bits49=bits49,
+             nxdn_tv_seeds=np.array([NXDN_TV_FRAMES, NXDN_TV_SEED,
+                                     NXDN_TV_TAIL], np.int64))
+    return t
+
+
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
     """Write ``tables`` to ``path`` unless the file already holds equal
     arrays (an npz of equal arrays still differs in its bytes)."""
@@ -257,6 +385,7 @@ def main() -> int:
     print(_write_if_changed(OUT, tables) + "; false-sync max "
           f"{float(tables['tv_false_sync_max']):.3f}")
     print(_write_if_changed(OUT_DMR, build_dmr_tables()))
+    print(_write_if_changed(OUT_TDMA, build_tdma_tables()))
     return 0
 
 
