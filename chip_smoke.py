@@ -122,13 +122,25 @@ K3_CHAIN_CYCLES = 30 + 5 * 4
 # 4.  The per-chunk phases (the scan, the interpolation, voicing and
 # amps) depend on no carry and are not in it.
 K2_CHAIN_CYCLES = 29 + 8 + 8 + 5 * (25 + 4) + 55 + 12 + 12 + 4
+# per K4 step, the metrics' own dependent chain in csrc/p25_trellis.cu: an
+# integer add, then the three compare-and-select pairs over prev 1..3,
+# ~4 cycles each; the 16 nibble costs depend on the loads only
+K4_CHAIN_CYCLES = 4 + 3 * (4 + 4)
+# per K5 step in csrc/conv_k5.cu: the add of the branch cost (FP32), the
+# compare and the select
+K5_CHAIN_CYCLES = 4 + 4 + 4
+DMR_MAX_FAIL = 0.03           # DMR CSBKs that may fail BPTC + CRC (see
+                              # judge_monitor)
+K4_SYNTH_N = 131072           # K4's and K5's larger grids (words)
+K5_SYNTH_N = 65536
 SPIN_CYCLES = 20_000_000     # ~10 ms: the card's lead over the host in cuda_ms
 TDMA_MAX_LEAD = 96           # X2, P2, NXDN leading offsets (dibits)
 ADP_C = 16                   # channels of the encrypted P2 phase
 K7_SYNTH_N = 20480           # K7's large synthetic word count
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
 # kernel names in a profile
-OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes")
+OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
+        "conv_k5")
 
 
 def log(*a) -> None:
@@ -297,6 +309,47 @@ def time_path(label: str, ident: str, pipe, blocks, block_s: float, pick):
     return step_s
 
 
+def cc_groups(kind: str, evs) -> dict:
+    """One channel's events of one block → {sync position: [lines]} of
+    the blocks it parsed, without CRC-error lines.  P25: the TSBK lines
+    of a TSDU (its header dropped); DMR: a CSBK's events; NXDN: a CAC's
+    catalog events come before its Sync line, some at position 0, so the
+    events are grouped up to each Sync line."""
+    out, cur = {}, []
+    for e in evs:
+        if "CRC ERR" in e.line:
+            continue
+        if kind == "nxdn48":
+            cur.append(e.line)
+            if e.line.startswith("Sync: NXDN CC"):
+                out[e.pos], cur = cur, []
+        elif not (kind == "p25" and e.line.startswith("Sync:")):
+            out.setdefault(e.pos, []).append(e.line)
+    return out
+
+
+def cc_expected(kind: str, ct, tv, lead: int, n_sym: int):
+    """The vector's blocks a channel's block holds whole after ``lead``
+    dibits: {sync position: (vector indices of its whole blocks, all
+    blocks whole)}.  P25: TSDU j at s is accepted when its first trellis
+    block is whole, and its block b is whole when s + need_b < n_sym;
+    DMR: a burst at t >= 54 with t + 78 < n_sym; NXDN: t + 192 < n_sym."""
+    out = {}
+    for j, st in enumerate(tv["starts"].tolist()):
+        t = lead + st
+        if kind == "p25":
+            need = ct.np["tsdu_offsets"].max(axis=1) + 1
+            whole = [3 * j + b for b in range(3) if t + need[b] < n_sym]
+            if whole:
+                out[t] = (whole, len(whole) == 3)
+        elif kind == "dmr":
+            if t >= 54 and t + 78 < n_sym:
+                out[t] = ([j], True)
+        elif t + 192 < n_sym:
+            out[t] = ([j], True)
+    return out
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "dsdneo_tpu_torch")):
         print("chip_smoke.py: the dsdneo_tpu_torch package is not beside "
@@ -390,8 +443,8 @@ def main() -> int:
         leads = rng.integers(0, TDMA_MAX_LEAD + 1, size=n_ch)
         sd = rng.permutation(1 << 20)[:2 * n_ch]
         return tv, leads, [torch.as_tensor(dmr_encode.vector_block(
-            tv, leads, sd[i::2], n_samples, sps=sps, modulate=modulate)
-        ).to(dev) for i in range(2)]
+            tv, leads, sd[i::2], n_samples, sps=sps, modulate=modulate,
+            lead_dibits=tv.get("lead"))).to(dev) for i in range(2)]
 
     xtab = params.load_tdma("x2tdma", dev)
     x_B = len(xtab.test_vector()["dibits"]) * 8
@@ -413,6 +466,18 @@ def main() -> int:
     a_B = len(adp["dibits"]) * 8
     _atv, _a_leads, a_blocks = tdma_blocks(adp, 8, a_B, encode.tdma_fm_iq,
                                            ADP_C)
+    # the control-channel monitors: the vectors of data/cc_tables.npz,
+    # 3 s blocks, own lead of 0-96 dibits (a suffix of the vector's
+    # filler, which scores no false sync) and own noise per channel
+    mon = {}
+    for kind, sps, modulate in (
+            ("p25", 10, lambda d, s: encode.c4fm_clean(d, s)),
+            ("dmr", 10, dmr_encode.dmr_fm_iq),
+            ("nxdn48", 20, nxdn_encode.modulator("nxdn48"))):
+        ct = params.load_cc(kind, dev)
+        mtv, m_leads, m_blocks = tdma_blocks(ct.test_vector(), sps, B,
+                                             modulate)
+        mon[kind] = (ct, mtv, m_leads, m_blocks, B // sps - 2)
     log(f"set-up {time.perf_counter() - t0:.1f} s: C={C}; P25 B={B} "
         f"({BLOCK_S} s) n_sym={n_sym}, LDUs per channel "
         f"{want_ldus.min()}..{want_ldus.max()} (CQPSK "
@@ -421,7 +486,10 @@ def main() -> int:
         f"({d_block_s:.4f} s) n_sym={d_n_sym}, superframes per channel "
         f"{min(len(w[0]) for w in d_want)}..{max(len(w[0]) for w in d_want)}"
         f"; X2 B={x_B}, P2 B={p_B}, NXDN48 B={n_B}, ADP C={ADP_C} "
-        f"B={a_B}")
+        f"B={a_B}; control channels B={B}: P25 "
+        f"{len(mon['p25'][1]['starts'])} TSDUs, DMR "
+        f"{len(mon['dmr'][1]['starts'])} CSBKs, NXDN48 "
+        f"{len(mon['nxdn48'][1]['starts'])} CAC frames in the vectors")
 
     # -- 2. kernels against their plain versions ---------------------------
     report = {}
@@ -628,8 +696,9 @@ def main() -> int:
 
     # -- 3. the paths at C=320 ----------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
-               audio_wire.adpcm_compress, fdev.rs_syndromes_batch)
-    k1fn, k2fn, k3fn, k7fn = counted
+               audio_wire.adpcm_compress, fdev.rs_syndromes_batch,
+               fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch)
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn = counted
     cpu_tables = params.load("cpu")
 
     def run_p25_path(label, xblocks, cqpsk_on, want_n):
@@ -684,7 +753,7 @@ def main() -> int:
                     keep["k2_steps"] = pipe.last_steps
         launches = check_launches(
             label, counted, (k2fn, k3fn) if cqpsk_on else (k1fn, k2fn, k3fn),
-            (k1fn, k7fn) if cqpsk_on else (k7fn,))
+            (k1fn, k7fn, k4fn, k5fn) if cqpsk_on else (k7fn, k4fn, k5fn))
         log(f"{label}: peak device memory "
             f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
         no_reference_modules()
@@ -855,7 +924,7 @@ def main() -> int:
                     d_carry01 = tuple(tuple(t[:2].cpu() for t in part)
                                       for part in pipe._vstate)
     launches["dmr"] = check_launches("DMR path", counted, (k1fn, k3fn),
-                                     (k2fn, k7fn))
+                                     (k2fn, k7fn, k4fn, k5fn))
     log(f"DMR path: peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     no_reference_modules()
@@ -1029,7 +1098,8 @@ def main() -> int:
     launches["x2"] = run_ambe_path(
         "X2 path", lambda fmt: BatchedX2VoicePipeline(C, FS, pcm_fmt=fmt,
                                                       tables=xtab),
-        x_blocks, C, x2_frames, x2_judge, (k1fn, k3fn), (k2fn, k7fn),
+        x_blocks, C, x2_frames, x2_judge, (k1fn, k3fn),
+        (k2fn, k7fn, k4fn, k5fn),
         BatchedX2VoicePipeline(2, FS, device="cpu",
                                tables=params.load_tdma("x2tdma", "cpu")))
     time_path("X2 path", ident,
@@ -1073,7 +1143,8 @@ def main() -> int:
     launches["p2"] = run_ambe_path(
         "P2 path", lambda fmt: BatchedP2VoicePipeline(C, FS, pcm_fmt=fmt,
                                                       tables=ptab),
-        p_blocks, 2 * C, p2_frames, p2_judge, (k1fn, k3fn), (k2fn, k7fn),
+        p_blocks, 2 * C, p2_frames, p2_judge, (k1fn, k3fn),
+        (k2fn, k7fn, k4fn, k5fn),
         BatchedP2VoicePipeline(2, FS, device="cpu",
                                tables=params.load_tdma("p25p2", "cpu")))
     time_path("P2 path", ident,
@@ -1129,7 +1200,8 @@ def main() -> int:
     launches["nxdn48"] = run_ambe_path(
         "NXDN48 path", lambda fmt: BatchedNxdnVoicePipeline(
             C, FS, pcm_fmt=fmt, mode="nxdn48", tables=ntab),
-        n_blocks, C, nx_frames, nx_judge, (k1fn, k3fn), (k2fn, k7fn),
+        n_blocks, C, nx_frames, nx_judge, (k1fn, k3fn),
+        (k2fn, k7fn, k4fn, k5fn),
         BatchedNxdnVoicePipeline(2, FS, mode="nxdn48", device="cpu",
                                  tables=params.load_tdma("nxdn48", "cpu")))
     time_path("NXDN48 path", ident,
@@ -1156,7 +1228,7 @@ def main() -> int:
     cipher = all((f != adp["bits49"][r % 2][:18]).any()
                  for r, f in enumerate(first))
     launches["adp"] = check_launches("ADP phase", counted,
-                                     (k1fn, k3fn, k7fn), (k2fn,))
+                                     (k1fn, k3fn, k7fn), (k2fn, k4fn, k5fn))
     check_pcm("ADP phase", pcm, 32768.0 / 32767.0)
     n2v = sum(j[4] == "2v" for j in jobs)
     log(f"ADP phase, {ADP_C} channels, one block of {a_B} samples: "
@@ -1170,7 +1242,401 @@ def main() -> int:
                            "from the second superframe on")
     no_reference_modules()
 
-    log(f"whole run {time.perf_counter() - t_start:.1f} s after the build")
+    # -- 5. the control-channel monitors at C=320 ------------------------
+    from dsdneo_tpu_torch.engine import ccbatch
+    from dsdneo_tpu_torch.fec import conv, trellis
+
+    def mon_last(pipe):
+        return (pipe.last_tsdus if isinstance(
+            pipe, ccbatch.BatchedP25ControlPipeline) else pipe.last_csbks
+            if isinstance(pipe, ccbatch.BatchedDmrControlPipeline)
+            else pipe.last_cacs)
+
+    def blob_rows(kind, last, c):
+        """(position, payload bytes, ok flag) of channel c's accepted
+        blocks in a monitor's last blob, per vector block."""
+        ac, at, blob = last
+        rows = []
+        for h in np.flatnonzero(ac == c):
+            if kind == "p25":
+                for b in range(3):
+                    rows.append((int(at[h]), b, blob[h, b, :12],
+                                 int(blob[h, b, 12])))
+            else:
+                k = 12 if kind == "dmr" else 22
+                rows.append((int(at[h]), 0, blob[h, :k], int(blob[h, k])))
+        return rows
+
+    def judge_monitor(label, kind, pipe, blk, n0s):
+        """Every block of the vector that channel c's block holds whole is
+        accepted and parsed, its payload bytes equal the vector's, and its
+        event lines equal the lines the JAX catalog gave the vector;
+        nothing else is accepted.  DMR only: a burst may fail its BPTC +
+        CRC screen (``dmr_fm_iq`` swings ~3x DMR's deviation, and the
+        12.5 kHz channel filter turns ~1.4% of the outer symbols inner
+        with no noise at all); it then emits the burst head or a CRC
+        error line and nothing else, and at most ``DMR_MAX_FAIL`` of the
+        bursts may fail.  Returns (blocks checked, blocks failed)."""
+        ct, mtv, m_leads, _blocks, n_sym = mon[kind]
+        want = [[] for _ in range(len(mtv["payloads"]))]
+        for line, k in zip(mtv["lines"], mtv["line_block"]):
+            want[int(k)].append(str(line))
+        last = mon_last(pipe)
+        n_checked = n_failed = 0
+        for c in range(pipe.C):
+            exp = cc_expected(kind, ct, mtv, int(m_leads[c]), n_sym)
+            got = cc_groups(kind, pipe.ctxs[c].events[n0s[c]:])
+            rows = blob_rows(kind, last, c)
+            acc = sorted({r[0] for r in rows})
+            if acc != sorted(exp):
+                raise RuntimeError(
+                    f"{label} block {blk} channel {c}: accepted "
+                    f"{sorted(set(acc) ^ set(exp))[:6]} differently from "
+                    "the vector's blocks held whole")
+            failed = set()
+            for t, b, pay, ok in rows:
+                idx, _all = exp[t]
+                k = idx[0] + b if kind == "p25" else idx[0]
+                if kind == "dmr" and not ok:
+                    failed.add(t)
+                elif k in idx and not (ok and np.array_equal(
+                        pay, mtv["payloads"][k])):
+                    raise RuntimeError(
+                        f"{label} block {blk} channel {c}: block {k} at "
+                        f"{t} decoded to other payload bytes (ok {ok})")
+            for t, (idx, all_whole) in exp.items():
+                lines = [ln for k in idx for ln in want[k]]
+                g = got.get(t, [])
+                n_checked += len(idx)
+                if t in failed:
+                    n_failed += 1
+                    if len(g) > 1 or (g and " | CSBK" not in g[0]):
+                        raise RuntimeError(
+                            f"{label} block {blk} channel {c}: a failed "
+                            f"burst at {t} emitted {g}")
+                    continue
+                if (g != lines) if all_whole else (g[:len(lines)] != lines):
+                    raise RuntimeError(
+                        f"{label} block {blk} channel {c}: the events at "
+                        f"{t} differ from the JAX catalog's lines for "
+                        f"blocks {idx}: {g[:2]} / {lines[:2]}")
+        return n_checked, n_failed
+
+    def time_monitor(label, pipe, xblocks, pipelined, stage):
+        """The JAX bench's loop (``pipelined``: dispatch block N+1's front
+        end before finishing block N, ``bench.py:334``; else the plain
+        per-block loop, ``bench.py:375-389``) over ``N_TIMED`` blocks,
+        the stage split of one block and a profile of two.
+        ``stage(pipe, fe)`` runs the pick and the device decode + blob
+        fetch alone, returning their seconds."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        pipe.decode_block_events(xblocks[0])                   # warm
+        torch.cuda.synchronize()
+        n_tot = 0
+        t1 = time.perf_counter()
+        if pipelined:
+            fe = pipe.frontend_dispatch(xblocks[0])
+            for i in range(N_TIMED):
+                fe_next = pipe.frontend_dispatch(xblocks[(i + 1) % 2])
+                for ctx in pipe.ctxs:
+                    ctx.events.clear()
+                n_tot += pipe.events_from_frontend(pipe.frontend_finish(fe))
+                fe = fe_next
+        else:
+            for i in range(N_TIMED):
+                for ctx in pipe.ctxs:
+                    ctx.events.clear()
+                n_tot += pipe.decode_block_events(xblocks[i % 2])
+        torch.cuda.synchronize()
+        step_s = (time.perf_counter() - t1) / N_TIMED
+        per_block = n_tot / N_TIMED
+        log(f"{label} {'pipelined' if pipelined else 'per-block'} step "
+            f"({ident}): {step_s * 1e3:.1f} ms per {BLOCK_S:.4g} s block of "
+            f"{C} channels = {C * BLOCK_S / step_s:.1f}x realtime; "
+            f"{per_block:.0f} blocks parsed per step = "
+            f"{per_block / step_s:.0f} per second")
+        stages = {}
+        for ctx in pipe.ctxs:
+            ctx.events.clear()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        fe = pipe.frontend_dispatch(xblocks[1])
+        torch.cuda.synchronize()
+        stages["front end + sync"] = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        feh = pipe.frontend_finish(fe)
+        stages["candidates to host"] = time.perf_counter() - t1
+        stages["pick (host)"], stages["device decode + blob"] = stage(pipe,
+                                                                      feh)
+        t1 = time.perf_counter()
+        pipe.events_from_frontend(feh)
+        whole = time.perf_counter() - t1
+        stages["host parse"] = (whole - stages["pick (host)"]
+                                - stages["device decode + blob"])
+        log(f"{label} stages (ms): " + ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in stages.items())
+            + " (host parse: the pick, decode and parse together less the "
+              "pick and the decode alone)")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(2):
+                for ctx in pipe.ctxs:
+                    ctx.events.clear()
+                pipe.decode_block_events(xblocks[i])
+            torch.cuda.synchronize()
+        dev_us, dev_n = {}, {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and \
+                    e.self_device_time_total > 0:
+                key = next((k for k in OURS if f"{k}_kernel" in e.key),
+                           e.key)
+                dev_us[key] = dev_us.get(key, 0.0) + e.self_device_time_total
+                dev_n[key] = dev_n.get(key, 0) + e.count
+        busy_ms = sum(dev_us.values()) / 2e3
+        top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]
+        log(f"{label} profile, 2 blocks: device busy {busy_ms:.2f} ms per "
+            f"block = {100 * busy_ms / (step_s * 1e3):.1f}% of the "
+            f"unprofiled step; per block: " + ", ".join(
+                f"{k[:40]} {v / 2e3:.3f} ms" for k, v in top)
+            + "; the port's kernels: " + ", ".join(
+                f"{k} {dev_n[k]} launches, {dev_us[k] / dev_n[k] / 1e3:.4f} "
+                "ms per launch" for k in OURS if dev_n.get(k)))
+        return step_s
+
+    def run_monitor(label, kind, make, runs, cpu_pipe):
+        """Two blocks with the contexts kept, launch counters reset
+        before; each block judged on every channel; channels 0-1 against
+        ``cpu_pipe`` on the CPU (blobs and events)."""
+        _ct, _mtv, _leads, xblocks, _n = mon[kind]
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = make()
+        blobs = []
+        for blk, xb in enumerate(xblocks):
+            n0s = [len(ctx.events) for ctx in pipe.ctxs]
+            t1 = time.perf_counter()
+            n = pipe.decode_block_events(xb)
+            dt = time.perf_counter() - t1
+            n_checked, n_failed = judge_monitor(label, kind, pipe, blk, n0s)
+            blobs.append(mon_last(pipe))
+            log(f"{label} block {blk}: {n} blocks parsed over {C} channels; "
+                f"of the {n_checked} the block holds whole, "
+                f"{n_checked - n_failed} parsed with the vector's payload "
+                f"bytes and the JAX catalog's lines, {n_failed} failed the "
+                f"screen (max {DMR_MAX_FAIL:.1%} on DMR, 0 elsewhere); "
+                f"{dt * 1e3:.1f} ms")
+            if n_failed > (DMR_MAX_FAIL * n_checked if kind == "dmr" else 0):
+                raise RuntimeError(f"{label} block {blk}: {n_failed} of "
+                                   f"{n_checked} blocks failed the screen")
+        got = check_launches(label, counted, runs,
+                             tuple(f for f in counted if f not in runs))
+        log(f"{label}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        no_reference_modules()
+        for blk, xb in enumerate(xblocks):
+            cpu_pipe.decode_block_events(xb[:2].cpu())
+            (ac, at, blob), (cac, cat, cblob) = blobs[blk], mon_last(cpu_pipe)
+            sel = ac < 2
+            if not (np.array_equal(ac[sel], cac) and np.array_equal(
+                    at[sel], cat) and np.array_equal(blob[sel], cblob)):
+                raise RuntimeError(f"{label} block {blk}: the card's blobs "
+                                   "of channels 0-1 differ from the CPU "
+                                   "path's")
+        for c in range(2):
+            a = [(e.line, e.pos) for e in pipe.ctxs[c].events]
+            b = [(e.line, e.pos) for e in cpu_pipe.ctxs[c].events]
+            if a != b:
+                raise RuntimeError(f"{label}: channel {c}'s events differ "
+                                   "from the CPU path's")
+        log(f"{label} card vs CPU plain path, channels 0-1, both blocks: "
+            f"blobs byte for byte and events ({len(a)} on channel 1) equal")
+        return pipe, got
+
+    def p25_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at, _am = pipe.pick_tsdus(*feh[1:5], feh[5], dibits_dev=feh[0])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        Hp = -(-len(ac) // 64) * 64
+        ccbatch.p25_tsdu_decode_device(
+            feh[0], ccbatch._padded(ac, Hp, C, dev),
+            ccbatch._padded(at, Hp, 0, dev), pipe.cc).cpu()
+        return t_pick, time.perf_counter() - t1
+
+    def dmr_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at, ai, _cc = pipe.pick_csbks(*feh[1:])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        Hp = -(-len(ac) // 64) * 64
+        ccbatch.dmr_csbk_decode_device(
+            feh[0], ccbatch._padded(ac, Hp, C, dev),
+            ccbatch._padded(at, Hp, 0, dev),
+            ccbatch._padded(ai, Hp, 0, dev), pipe.cc).cpu()
+        return t_pick, time.perf_counter() - t1
+
+    def nxdn_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at, _al = pipe.pick_cacs(*feh[1:])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        Hp = -(-len(ac) // 32) * 32
+        ccbatch.nxdn_cac_decode_device(
+            feh[0], ccbatch._padded(ac, Hp, C, dev),
+            ccbatch._padded(at, Hp, 0, dev), pipe.cc).cpu()
+        return t_pick, time.perf_counter() - t1
+
+    def k4_words(n):
+        """``n`` encoded TSBK trellis words of random data (the encoder
+        of fec/trellis.py, vectorized), ~0-8 bits flipped each, and int32
+        LLRs of random magnitude 1-127 on them; and the data."""
+        data = rng.integers(0, 2, (n, 96)).astype(np.uint8)
+        st = np.concatenate([(data[:, 0::2] << 1) | data[:, 1::2],
+                             np.zeros((n, 1), np.uint8)], axis=1)
+        prev = np.concatenate([np.zeros((n, 1), np.uint8), st[:, :-1]], 1)
+        nib = trellis.P25_DTM[(prev.astype(np.int64) << 2) | st]
+        dei = np.stack([(nib >> 2) & 3, nib & 3], -1).reshape(n, 98)
+        tx = dei[:, trellis.interleave_98()]
+        bits = np.stack([(tx >> 1) & 1, tx & 1], -1).reshape(n, 196)
+        bits = bits.astype(np.uint8)
+        for i in range(4):
+            if not np.array_equal(bits[i], trellis.p25_12_encode(data[i])):
+                raise RuntimeError("the vectorized trellis encoder differs")
+        rate = rng.integers(0, 9, (n, 1)) / 196.0
+        bits ^= (rng.random((n, 196)) < rate).astype(np.uint8)
+        llr = ((1 - 2 * bits.astype(np.int32))
+               * rng.integers(1, 128, (n, 196))).astype(np.int32)
+        return data, bits, llr
+
+    def check_k4(n, launches_path, shape=None):
+        data, bits, llr = k4_words(n)
+        bt = torch.as_tensor(bits, device=dev)
+        lt = torch.as_tensor(llr, device=dev)
+        n_exact = 0
+        for lv in (None, lt):
+            gb, gc = fdev.p25_12_decode_batch(bt, lv)
+            wb, wc = fdev.p25_12_decode_plain(bt, lv)
+            if not (torch.equal(gb, wb) and torch.equal(gc, wc)):
+                raise RuntimeError("K4 disagrees with its plain version")
+            n_exact = int((gb.cpu().numpy() == data).all(1).sum())
+        k_ms = cuda_ms(lambda: fdev.p25_12_decode_batch(bt, lt), 20)
+        plain_ms = cuda_ms(lambda: fdev.p25_12_decode_plain(bt, lt), 2)
+        b_ms, b_by = bound(nbytes(lt, gb, gc), 0)
+        floor_ms = 49 * K4_CHAIN_CYCLES / (clk * 1e3)
+        log(f"K4 p25_trellis [{n},196] -> [{n},96] + [{n}]: bits and costs "
+            f"equal the plain version's on hard bits and on LLRs (tol 0); "
+            f"{n_exact}/{n} words with 0-8 flipped bits decode to their data")
+        show("p25_trellis", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; chain floor ~{floor_ms:.5f} ms (49 steps x "
+             f"{K4_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
+             f"{launches_path}", shape=shape)
+        (report["p25_trellis"] if shape is None else
+         report["p25_trellis"]["other_shapes"][-1])["chain_floor_ms"] = \
+            floor_ms
+
+    def k5_words(n, soft=False):
+        """``n`` CAC-like K5 inputs: random 171 bits with the 4 flush bits
+        encoded (fec/conv.py's tables, vectorized over the words), ~0-6
+        symbols flipped, the CAC's puncture weights; ``soft``: symbols
+        with noise in [0, 1] and random weights."""
+        bits = np.concatenate([rng.integers(0, 2, (n, 171)),
+                               np.zeros((n, 4), np.int64)], axis=1)
+        sym = np.zeros((n, 350), np.float32)
+        s = np.zeros(n, np.int64)
+        for i in range(175):
+            b = bits[:, i]
+            sym[:, 2 * i] = conv._O1[s, b]
+            sym[:, 2 * i + 1] = conv._O2[s, b]
+            s = conv._NEXT[s, b]
+        rate = rng.integers(0, 7, (n, 1)) / 350.0
+        flip = rng.random((n, 350)) < rate
+        sym[flip] = 1.0 - sym[flip]
+        wt = np.broadcast_to(mon["nxdn48"][0].np["cac_wt"], (n, 350))
+        wt = wt.astype(np.float32).copy()
+        if soft:
+            sym = np.clip(sym + rng.normal(0, 0.3, sym.shape), 0, 1)
+            wt = wt * rng.random(wt.shape)
+        return (bits[:, :171].astype(np.uint8), sym.astype(np.float32),
+                wt.astype(np.float32))
+
+    def check_k5(n, launches_path, shape=None):
+        data, sym, wt = k5_words(n)
+        st_ = torch.as_tensor(sym, device=dev)
+        wt_ = torch.as_tensor(wt, device=dev)
+        got = fdev.conv_k5_decode_batch(st_, wt_)
+        want = fdev.conv_k5_decode_plain(st_, wt_)
+        _d, ssym, swt = k5_words(min(n, 4096), soft=True)
+        ss, sw = (torch.as_tensor(ssym, device=dev),
+                  torch.as_tensor(swt, device=dev))
+        soft_eq = torch.equal(fdev.conv_k5_decode_batch(ss, sw),
+                              fdev.conv_k5_decode_plain(ss, sw))
+        if not (torch.equal(got, want) and soft_eq):
+            raise RuntimeError("K5 disagrees with its plain version")
+        n_exact = int((got[:, :171].cpu().numpy() == data).all(1).sum())
+        k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(st_, wt_), 20)
+        plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(st_, wt_), 1)
+        b_ms, b_by = bound(nbytes(st_, wt_, got), 0)
+        floor_ms = 175 * K5_CHAIN_CYCLES / (clk * 1e3)
+        log(f"K5 conv_k5 [{n},350] -> [{n},175]: bits equal the plain "
+            f"version's on CAC-punctured hard symbols and on soft symbols "
+            f"with soft weights (tol 0); {n_exact}/{n} words with 0-6 "
+            f"flipped symbols decode to their data")
+        show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; chain floor ~{floor_ms:.5f} ms (175 steps x "
+             f"{K5_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
+             f"{launches_path}", shape=shape)
+        (report["conv_k5"] if shape is None else
+         report["conv_k5"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+
+    pipe, launches["p25cc"] = run_monitor(
+        "P25 CC path", "p25",
+        lambda: ccbatch.BatchedP25ControlPipeline(C, FS,
+                                                  tables=mon["p25"][0]),
+        (k1fn, k4fn),
+        ccbatch.BatchedP25ControlPipeline(
+            2, FS, device="cpu", tables=params.load_cc("p25", "cpu")))
+    n4 = 3 * (-(-len(pipe.last_tsdus[0]) // 64) * 64)
+    log(f"P25 CC path: {pipe.crc_fallbacks} list-decode recoveries, "
+        f"{pipe.crc_errors} blocks failed (the TSDUs a block end cuts); "
+        f"K4 words per launch {n4}")
+    check_k4(n4, launches["p25cc"]["p25_12_decode_batch"])
+    check_k4(K4_SYNTH_N, launches["p25cc"]["p25_12_decode_batch"],
+             shape=[K4_SYNTH_N, 196])
+    time_monitor("P25 CC path", pipe, mon["p25"][3], False, p25_stage)
+    del pipe
+
+    pipe, launches["dmrcc"] = run_monitor(
+        "DMR CC path", "dmr",
+        lambda: ccbatch.BatchedDmrControlPipeline(C, FS,
+                                                  tables=mon["dmr"][0]),
+        (k1fn,),
+        ccbatch.BatchedDmrControlPipeline(
+            2, FS, device="cpu", tables=params.load_cc("dmr", "cpu")))
+    time_monitor("DMR CC path", pipe, mon["dmr"][3], True, dmr_stage)
+    del pipe
+
+    pipe, launches["nxdncc"] = run_monitor(
+        "NXDN CC path", "nxdn48",
+        lambda: ccbatch.BatchedNxdnControlPipeline(
+            C, FS, tables=mon["nxdn48"][0]),
+        (k1fn, k5fn),
+        ccbatch.BatchedNxdnControlPipeline(
+            2, FS, device="cpu", tables=params.load_cc("nxdn48", "cpu")))
+    n5 = -(-len(pipe.last_cacs[0]) // 32) * 32
+    check_k5(n5, launches["nxdncc"]["conv_k5_decode_batch"])
+    check_k5(K5_SYNTH_N, launches["nxdncc"]["conv_k5_decode_batch"],
+             shape=[K5_SYNTH_N, 350])
+    time_monitor("NXDN CC path", pipe, mon["nxdn48"][3], True, nxdn_stage)
+    del pipe, mon
+
+    log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
+        "the set-up included")
 
     rows = [("fir_disc", "dsdneo_tpu_torch/csrc/fir_disc.cu",
              "dsdneo_tpu/ops/pallas_frontend.py:123", "fir_discriminate"),
@@ -1179,8 +1645,12 @@ def main() -> int:
             ("adpcm_enc", "dsdneo_tpu_torch/csrc/adpcm_enc.cu",
              "dsdneo_tpu/ops/audio_wire.py:47", "adpcm_compress"),
             ("rs_syndromes", "dsdneo_tpu_torch/csrc/rs_syndromes.cu",
-             "dsdneo_tpu/fec/device.py:271", "rs_syndromes_batch")]
-    # no single PyTorch call computes any of the four functions.
+             "dsdneo_tpu/fec/device.py:271", "rs_syndromes_batch"),
+            ("p25_trellis", "dsdneo_tpu_torch/csrc/p25_trellis.cu",
+             "dsdneo_tpu/fec/device.py:106", "p25_12_decode_batch"),
+            ("conv_k5", "dsdneo_tpu_torch/csrc/conv_k5.cu",
+             "dsdneo_tpu/fec/device.py:176", "conv_k5_decode_batch")]
+    # no single PyTorch call computes any of the six functions.
     # "launches" sums the paths' runs; "launches_by_path" splits it
     log(ident)
     log(json.dumps({"kernels": [

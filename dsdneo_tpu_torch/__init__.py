@@ -6,7 +6,8 @@ its module names so each function's counterpart is easy to find:
   - ``device``            card checks and identity (name, power limit)
   - ``params``            the constant tables (``data/p25p1_tables.npz``,
                           ``data/dmr_tables.npz``,
-                          ``data/tdma_tables.npz``) and the per-channel
+                          ``data/tdma_tables.npz``,
+                          ``data/cc_tables.npz``) and the per-channel
                           carries, as tensors
   - ``dsp.frontend``      channel FIR, FM discriminator, power
   - ``dsp.cqpsk``         CQPSK demodulation: 4th-power carrier estimate,
@@ -22,10 +23,19 @@ its module names so each function's counterpart is easy to find:
   - ``engine.p2batch``    ``BatchedP2VoicePipeline``: I/Q → per-slot PCM,
                           with the ESS / ADP decryption path
   - ``engine.nxdnbatch``  ``BatchedNxdnVoicePipeline``: I/Q → PCM
+  - ``engine.ccbatch``    the control-channel monitors
+                          (``BatchedP25ControlPipeline``,
+                          ``BatchedDmrControlPipeline``,
+                          ``BatchedNxdnControlPipeline``): I/Q → events
+  - ``engine.trunk``      the P25 iden table (channel → frequency)
   - ``engine.modes``      the modes' filter profiles and symbol rates
   - ``engine.voicestate`` the voice-carry reset the AMBE pipelines share
   - ``fec.device``        batched IMBE and AMBE+2 voice-frame ECC, the
-                          GF(64) RS syndrome screen (K7)
+                          GF(64) RS syndrome screen (K7), the P25 trellis
+                          Viterbi (K4) and the K=5 soft Viterbi (K5)
+  - ``fec.crc``, ``fec.trellis``, ``fec.conv``
+                          the host CRCs, P25 trellis (with the ranked-list
+                          decoder) and K=5 code
   - ``fec.rs``            the host RS(63,35) decoder
   - ``crypto``            the RC4 keystream and the key ring
   - ``vocoder.device``    IMBE dequantization, prediction (K2), repeat
@@ -34,6 +44,12 @@ its module names so each function's counterpart is easy to find:
   - ``vocoder.synth``     batched harmonic synthesis
   - ``protocol.p25.p2_xcch``
                           the P25p2 scrambler, ISCH lookup, hexbits
+  - ``protocol.base``, ``symbols.framesync``, ``core.affiliation``
+                          decode events and contexts, sync definitions,
+                          the affiliation and patch registries
+  - ``protocol.p25.phase1``, ``protocol.dmr.csbk``,
+    ``protocol.nxdn.decoder``
+                          the TSBK, CSBK and NXDN message catalogs
   - ``protocol.p25.encode``, ``protocol.dmr.encode``,
     ``protocol.nxdn.encode``
                           the test-signal modulators
@@ -57,13 +73,23 @@ pick → ``decode_from_frontend`` → ``fetch_pcm``; ``decode_block`` and
   - ``BatchedNxdnVoicePipeline(C, mode=...)``    NXDN48 / NXDN96 voice
     (K1, K3).
 
+Three control-channel monitors, ``[C, B, 2]`` I/Q blocks in, trunking
+events out in one ``DecoderContext`` per channel (``ctxs[c].events``;
+``decode_block_events``, or ``frontend_dispatch`` → ``frontend_finish``
+→ ``events_from_frontend``):
+
+  - ``BatchedP25ControlPipeline(C)``   P25 Phase 1 TSBKs, C4FM (K1, K4) or
+    ``cqpsk=True`` (K4);
+  - ``BatchedDmrControlPipeline(C)``   DMR Tier III CSBKs (K1);
+  - ``BatchedNxdnControlPipeline(C)``  NXDN RCCH CAC messages (K1, K5).
+
 It imports torch and numpy, never JAX and nothing of the JAX package:
 what it needs from there (the NID code's generator polynomial, the RRC
 design, the host pickers, the host ADPCM decoder, the constant tables in
 ``data/``) it keeps as its own copy.  Every function takes its tensors' device from its inputs; CUDA
 kernels launch for CUDA tensors, their plain PyTorch versions run for
 CPU tensors.  The entry points (``params.load``, ``params.load_dmr``,
-``params.load_tdma`` and the pipelines) run on the card unless the caller names another
+``params.load_tdma``, ``params.load_cc`` and the pipelines) run on the card unless the caller names another
 device.
 """
 

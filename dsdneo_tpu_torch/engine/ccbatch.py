@@ -1,0 +1,639 @@
+"""Batched many-channel control-channel monitors: I/Q → trunking events.
+
+Counterpart of ``dsdneo_tpu/engine/ccbatch.py`` for three monitors.
+Everything through the CRC screen runs on the card; the host parses only
+the CRC-valid payload blocks through the protocol catalogs and keeps one
+``DecoderContext`` per channel, so grants feed trunk following:
+
+P25 Phase 1 TSDU (``BatchedP25ControlPipeline``):
+  the voice pipeline's front end, sync filter and NID decode (C4FM
+  through kernel K1, or CQPSK) → the host picks DUID-7 hits
+  (``pick_frames_by_duid``) → :func:`p25_tsdu_decode_device`: the three
+  98-dibit TSBK blocks of every hit, the rate-1/2 trellis Viterbi
+  (``fec.device.p25_12_decode_batch``, kernel K4), the CRC16 screen →
+  the host parses the passing 12-byte payloads with the TSBK catalog
+  (``protocol.p25.phase1``).  A block that fails the screen falls back
+  to the host ranked-list decoder (``fec.trellis.p25_12_decode_list``)
+  from its raw dibits, carried in the same blob.
+
+DMR Tier III CSBK (``BatchedDmrControlPipeline``):
+  front end (K1) + data-sync correlation + the Golay(20,8) slot type at
+  every candidate → the host accepts slot-type-3 (CSBK) hits →
+  :func:`dmr_csbk_decode_device`: BPTC(196,96) (row Hamming(15,11) and
+  column Hamming(13,9) as codebook products) + CRC16 (mask 0xA5A5) → the
+  host parses the passing payloads with ``protocol.dmr.csbk``.
+
+NXDN RCCH CAC (``BatchedNxdnControlPipeline``):
+  the NXDN voice pipeline's front end (K1) with its per-candidate LICH
+  bytes → the host accepts CAC-bearing frames → :func:`nxdn_cac_decode_device`:
+  descramble, depermute, depuncture, the K=5 Viterbi
+  (``fec.device.conv_k5_decode_batch``, kernel K5), the CRC16-CAC screen
+  → the host parses the passing messages with ``protocol.nxdn.decoder``.
+
+The P25 and DMR monitors offer a payload-keyed parse cache: control
+channels repeat identical blocks many times a second, and a repeat
+re-emits the first parse's events.  The products of the codebook and
+CRC screens are float32 matrix products of 0/1 and ±1 terms, exact in
+full float32 (the card's TF32 switch for matrix products stays off).
+EDACS and P25 Phase 2 control wait for their slices.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dsdneo_tpu_torch import params
+from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.engine.batched import frontend_step
+from dsdneo_tpu_torch.engine.dmrbatch import _dibits_to_bits
+from dsdneo_tpu_torch.engine.nxdnbatch import (FRAME_DIBITS,
+                                               BatchedNxdnVoicePipeline,
+                                               _lich_parity_ok)
+from dsdneo_tpu_torch.engine.voicebatch import (BatchedP25VoicePipeline,
+                                                _status_strip_map,
+                                                correlate_syncs_device)
+from dsdneo_tpu_torch.fec import crc as crcmod
+from dsdneo_tpu_torch.fec import trellis
+from dsdneo_tpu_torch.fec.device import (_ml_dec, conv_k5_decode_batch,
+                                         p25_12_decode_batch)
+from dsdneo_tpu_torch.protocol.base import DecoderContext
+from dsdneo_tpu_torch.protocol.dmr.csbk import decode_csbk
+from dsdneo_tpu_torch.protocol.nxdn.decoder import NxdnDecoder
+from dsdneo_tpu_torch.protocol.p25.phase1 import P25P1Decoder
+from dsdneo_tpu_torch.symbols.framesync import SYNC_DEFS, SyncHit
+
+PARSE_CACHE_MAX = 4096      # entries per channel before a cache clears
+
+
+def _sync_def(name: str):
+    return next(d for d in SYNC_DEFS if d.name == name)
+
+
+def _mask_bits(mask: int, device) -> torch.Tensor:
+    return torch.tensor([(mask >> (15 - j)) & 1 for j in range(16)],
+                        dtype=torch.uint8, device=device)
+
+
+# -- the screens ---------------------------------------------------------------
+def _crc16_screen(data96: torch.Tensor, xor_mask: int,
+                  contrib: torch.Tensor) -> torch.Tensor:
+    """``[N, 96]`` payload bits → ``[N]`` bool: crc16(bits[:80], init=0)
+    ^ ``xor_mask`` == bits[80:96], as one ``[N, 80] × [80, 16]`` product
+    mod 2 (``contrib``: the CRC's contribution row of each bit)."""
+    par = torch.remainder(data96[:, :80].to(torch.float32) @ contrib, 2.0)
+    par = par.to(torch.uint8) ^ _mask_bits(xor_mask, data96.device)
+    return (par == data96[:, 80:96]).all(dim=-1)
+
+
+def _pack_bits(bits: torch.Tensor) -> torch.Tensor:
+    """``[N, 8k]`` 0/1 → ``[N, k]`` bytes, msb first."""
+    w = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                     device=bits.device)
+    N = bits.shape[0]
+    return (bits.reshape(N, -1, 8).to(torch.int32) * w).sum(
+        dim=-1).to(torch.uint8)
+
+
+def _padded(a: np.ndarray, n: int, fill: int, device) -> torch.Tensor:
+    out = np.full(n, fill, dtype=np.int64)
+    out[:a.shape[0]] = a
+    return torch.as_tensor(out, device=device)
+
+
+# -- P25 Phase 1 TSDU --------------------------------------------------------------
+TSDU_BLOCKS = 3              # TSBKs per TSDU
+TSDU_BLOB = 12 + 1 + 25      # per block: payload, ok flag, raw dibits
+
+
+def p25_tsdu_decode_device(dibits: torch.Tensor, ch: torch.Tensor,
+                           pos: torch.Tensor, tables: params.CcTables
+                           ) -> torch.Tensor:
+    """The three TSBK blocks of every accepted hit, trellis-decoded
+    (kernel K4 on the card) and CRC16-screened: ``[H]`` (channel, sync
+    position) → ``[H, 3·38]`` uint8, per block 12 payload bytes, the ok
+    flag and the block's 98 raw dibits packed four to a byte (for the
+    host list-decode fallback).  Pad hits use ``ch == C``."""
+    Tn = dibits.shape[1]
+    H = ch.shape[0]
+    gp = torch.clamp(pos[:, None, None] + tables.tsdu_offsets[None], 0,
+                     Tn - 1)                                   # [H, 3, 98]
+    chc = torch.clamp(ch, max=dibits.shape[0] - 1)
+    dd = dibits[chc[:, None, None], gp].reshape(-1, 98)        # [3H, 98]
+    data96, _cost = p25_12_decode_batch(_dibits_to_bits(dd))
+    ok = _crc16_screen(data96, 0xFFFF, tables.crc16_contrib)
+    ddp = torch.nn.functional.pad(dd, (0, 2))                  # 98 → 100
+    raw = ((ddp[:, 0::4] << 6) | (ddp[:, 1::4] << 4)
+           | (ddp[:, 2::4] << 2) | ddp[:, 3::4]).to(torch.uint8)
+    blk = torch.cat([_pack_bits(data96), ok[:, None].to(torch.uint8), raw],
+                    dim=1)                                     # [3H, 38]
+    return blk.reshape(H, -1)
+
+
+class BatchedP25ControlPipeline(BatchedP25VoicePipeline):
+    """Batched P25p1 trunking control monitor over ``[C, B, 2]`` float32
+    I/Q blocks on ``device`` (the card when none is given; raises when
+    there is no card).  The front end, sync filter and NID decode are the
+    voice pipeline's; it picks TSDU (DUID 7) hits and runs the TSBK path.
+    Events land in ``ctxs[c].events``."""
+
+    NID_TOPK = 128      # control channels carry ~13 TSDUs/s and shoulders
+
+    def __init__(self, C: int, fs: float = 48000.0,
+                 sync_threshold: float = 0.62, parse_cache: bool = True,
+                 cqpsk: bool = False, *, device=None,
+                 tables: params.CcTables | None = None):
+        if device is None:
+            device = require_cuda()
+        self.cc = tables if tables is not None else params.load_cc(
+            "p25", device)
+        super().__init__(C, fs=fs, sync_threshold=sync_threshold,
+                         cqpsk=cqpsk, device=device, tables=self.cc.front)
+        self.ctxs = [DecoderContext() for _ in range(C)]
+        self.decs = [P25P1Decoder() for _ in range(C)]
+        self.parse_cache = parse_cache
+        self._pcache: list[dict] = [dict() for _ in range(C)]
+        self._hit_def = _sync_def(self.SYNC_NAMES[0])
+        strip = _status_strip_map(self.tables.sync_len, 32 + 98)
+        self._tsdu_need = int(strip[-1]) + 1
+        self.crc_fallbacks = 0
+        self.crc_errors = 0
+        self.last_tsdus = None
+
+    def pick_tsdus(self, idx, vq, dq, msg, T: int, dibits_dev=None):
+        """Accepted TSDU hits (channel, sync position, NID message).  The
+        acceptance extent is the shortest TSDU, one trellis block: a
+        single-TSBK TSDU flagged Last Block is ~106 dibits, so LSM
+        control channels send TSDUs 180 dibits apart, and the full
+        three-block extent would drop every other one.  False syncs
+        inside a longer TSDU fail the BCH-validated DUID gate."""
+        ac, at, am, _fch, _ford = self.pick_frames_by_duid(
+            idx, vq, dq, msg, T, (7,), self._tsdu_need, 1, dibits_dev)
+        return ac, at, am
+
+    def _parse_tsbk(self, c: int, pos: int, payload12: np.ndarray) -> bool:
+        """Host catalog parse of one CRC-valid TSBK payload; returns the
+        Last Block flag.  With the parse cache, a repeat of a payload
+        re-emits the first parse's events."""
+        ctx = self.ctxs[c]
+        # the iden table's version joins the key: the frequency notes
+        # change once an IDEN_UP fills the channel → frequency math
+        iden_v = getattr(getattr(ctx.state, "iden_table", None),
+                         "version", 0)
+        key = (payload12.tobytes(), iden_v)
+        if self.parse_cache:
+            hitv = self._pcache[c].get(key)
+            if hitv is not None:
+                lb, events = hitv
+                for line, fields in events:
+                    ctx.emit(line, "p25p1", pos, **fields)
+                return lb
+        hit = SyncHit(pos=pos, score=1.0, sync=self._hit_def)
+        n0 = len(ctx.events)
+        lb = self.decs[c]._tsbk(np.unpackbits(payload12), hit, ctx)
+        if self.parse_cache:
+            pc = self._pcache[c]
+            if len(pc) >= PARSE_CACHE_MAX:
+                # varying payloads (time broadcasts, grants) and iden
+                # version bumps would accrete dead entries forever; a
+                # clear refills from live traffic in a few blocks
+                pc.clear()
+            pc[key] = (lb, [(e.line, dict(e.fields))
+                            for e in ctx.events[n0:]])
+        return lb
+
+    def decode_block_events(self, iq) -> int:
+        """One ``[C, B]`` block end to end; returns the number of
+        CRC-valid TSBKs parsed."""
+        return self.events_from_frontend(
+            self.frontend_finish(self.frontend_dispatch(iq)))
+
+    def events_from_frontend(self, fe6, cofetch=None):
+        """Pick, device TSBK decode and host catalog parse from a finished
+        front end.  ``cofetch``: a tensor (e.g. a voice pipeline's PCM
+        wire) copied to the host with the TSDU blob; then returns
+        ``(n_parsed, cofetch as numpy)``."""
+        dibits_dev, idx, vq, dq, msg, n_sym = fe6
+        ac, at, am = self.pick_tsdus(idx, vq, dq, msg, n_sym,
+                                     dibits_dev=dibits_dev)
+        H = ac.shape[0]
+        co_np = None if cofetch is None else cofetch.cpu().numpy()
+        if H == 0:
+            self.last_tsdus = None
+            return 0 if cofetch is None else (0, co_np)
+        Hp = -(-H // 64) * 64
+        dev = self.device
+        blob = p25_tsdu_decode_device(
+            dibits_dev, _padded(ac, Hp, self.C, dev), _padded(at, Hp, 0, dev),
+            self.cc).cpu().numpy()
+        blk = blob[:H].reshape(H, TSDU_BLOCKS, TSDU_BLOB)
+        self.last_tsdus = (ac, at, blk)
+        payloads = blk[:, :, :12]
+        oks = blk[:, :, 12] != 0
+        raws = blk[:, :, 13:]
+        n_parsed = 0
+        for h in range(H):
+            c, t = int(ac[h]), int(at[h])
+            ctx = self.ctxs[c]
+            nac = (int(am[h]) >> 4) & 0xFFF
+            if nac not in (0, 0xFFF):
+                ctx.state.nac = nac
+                ctx.state.p2_cc = nac
+            ctx.emit(f"Sync: +P25p1 | {ctx.frame_info()}TSDU",
+                     "p25p1", t, nac=nac, duid=7)
+            for b in range(TSDU_BLOCKS):
+                if oks[h, b]:
+                    data = payloads[h, b]
+                else:
+                    data = self._crc_fallback(raws[h, b])
+                    if data is None:
+                        self.crc_errors += 1
+                        ctx.emit(" TSBK CRC ERR", "p25p1", t)
+                        break
+                    self.crc_fallbacks += 1
+                n_parsed += 1
+                if self._parse_tsbk(c, t, data):
+                    break
+        return n_parsed if cofetch is None else (n_parsed, co_np)
+
+    @staticmethod
+    def _crc_fallback(raw25: np.ndarray) -> np.ndarray | None:
+        """Host ranked-list trellis decode of one CRC-failed block from
+        its packed raw dibits: the first candidate that passes the CRC,
+        packed, else None."""
+        dd = np.zeros(100, dtype=np.uint8)
+        dd[0::4] = (raw25 >> 6) & 3
+        dd[1::4] = (raw25 >> 4) & 3
+        dd[2::4] = (raw25 >> 2) & 3
+        dd[3::4] = raw25 & 3
+        bits = np.zeros(196, dtype=np.uint8)
+        bits[0::2] = (dd[:98] >> 1) & 1
+        bits[1::2] = dd[:98] & 1
+        for data96, _m in trellis.p25_12_decode_list(bits):
+            got = crcmod.crc16_bits(data96[:80], init=0, xorout=0xFFFF)
+            want = 0
+            for v in data96[80:96]:
+                want = (want << 1) | int(v)
+            if got == want:
+                return np.packbits(data96)
+        return None
+
+    def events(self, c: int):
+        return self.ctxs[c].events
+
+
+# -- DMR Tier III CSBK ---------------------------------------------------------------
+DMR_BURST_EXTENT = 78        # dibits past the sync start of a data burst
+
+
+def bptc_196_96_decode_batch(bits196: torch.Tensor,
+                             tables: params.CcTables):
+    """Batched BPTC(196,96): ``[N, 196]`` on-air bits → (``[N, 96]``
+    uint8 payload, ``[N]`` int32 error count).  The row Hamming(15,11)
+    ML decode corrects the data columns of rows 0-8, then the column
+    Hamming(13,9) ML decode over the partly corrected matrix corrects
+    rows 0-8 of every column; the count is of codewords that needed more
+    than a one-bit correction."""
+    N = bits196.shape[0]
+    mat = bits196[:, tables.bptc_gather].reshape(N, 13, 15).clone()
+    rows = mat[:, :9].reshape(N * 9, 15)
+    m, rerr = _ml_dec(rows, tables.h15_pm, tables.h15_cb)
+    mat[:, :9, :11] = tables.h15_cb[m][:, :11].reshape(N, 9, 11)
+    cols = mat.transpose(1, 2).reshape(N * 15, 13)
+    m, cerr = _ml_dec(cols, tables.h13_pm, tables.h13_cb)
+    mat[:, :9, :] = tables.h13_cb[m][:, :9].reshape(N, 15, 9).transpose(1, 2)
+    payload = torch.cat([mat[:, 0, 3:11], mat[:, 1:9, :11].reshape(N, 88)],
+                        dim=1)
+    errors = ((rerr.reshape(N, 9) > 1).sum(dim=-1)
+              + (cerr.reshape(N, 15) > 1).sum(dim=-1)).to(torch.int32)
+    return payload.to(torch.uint8), errors
+
+
+def dmr_csbk_decode_device(dibits: torch.Tensor, ch: torch.Tensor,
+                           pos: torch.Tensor, inv: torch.Tensor,
+                           tables: params.CcTables) -> torch.Tensor:
+    """Each accepted data burst's 196 payload bits (``inv`` flags the
+    inverted-data hypothesis, dibit ^ 2), BPTC decode and the CRC16
+    (mask 0xA5A5) screen: ``[H, 14]`` uint8, 12 payload bytes, the ok
+    flag and the BPTC error count."""
+    Tn = dibits.shape[1]
+    gp = torch.clamp(pos[:, None] + tables.dmr_payload_offs, 0, Tn - 1)
+    chc = torch.clamp(ch, max=dibits.shape[0] - 1)
+    dd = dibits[chc[:, None], gp]                              # [H, 98]
+    dd = dd ^ (inv[:, None] * 2).to(dd.dtype)
+    payload, errors = bptc_196_96_decode_batch(_dibits_to_bits(dd), tables)
+    ok = _crc16_screen(payload, 0xFFFF ^ 0xA5A5, tables.crc16_contrib)
+    return torch.cat([_pack_bits(payload), ok[:, None].to(torch.uint8),
+                      torch.clamp(errors, 0, 255)[:, None].to(torch.uint8)],
+                     dim=1)
+
+
+class BatchedDmrControlPipeline:
+    """Batched DMR Tier III CSBK monitor over ``[C, B, 2]`` float32 I/Q
+    blocks on ``device`` (the card when none is given; raises when there
+    is no card): data-sync correlation and the Golay(20,8) slot type of
+    every candidate in the front end, the BPTC + CRC screen on the card,
+    the CSBK catalog on the host."""
+
+    # DMR data and voice syncs are exact symbol complements, so a
+    # voice-pattern hit on an inverted channel is a data burst: pattern 0
+    # is upright data, pattern 1 (the voice pattern) the inverted-data
+    # hypothesis, settled by the slot type's Golay confidence gate
+    SYNC_NAMES = ("+DMR BS data", "+DMR BS voice")
+    SYNC_TOPK = 192          # ~16.7 data bursts/s per slot and shoulders
+
+    def __init__(self, C: int, fs: float = 48000.0,
+                 sync_threshold: float = 0.62, parse_cache: bool = True, *,
+                 device=None, tables: params.CcTables | None = None):
+        if device is None:
+            device = require_cuda()
+        self.cc = tables if tables is not None else params.load_cc(
+            "dmr", device)
+        self.device = torch.empty(0, device=device).device
+        if self.cc.front.taps.device != self.device:
+            raise ValueError("tables live on another device than the "
+                             "pipeline")
+        self.C = C
+        self.fs = fs
+        self.sps = fs / self.cc.front.symbol_rate
+        self.threshold = sync_threshold
+        self.ctxs = [DecoderContext() for _ in range(C)]
+        self.parse_cache = parse_cache
+        self._pcache: list[dict] = [dict() for _ in range(C)]
+        self._hit_def = _sync_def(self.SYNC_NAMES[0])
+        self.crc_errors = 0
+        self.last_csbks = None
+
+    def frontend_dispatch(self, iq):
+        """Queue the front end, data-sync correlation and slot-type decode
+        of one block: returns the device handle (dibits, idx, vq, dq,
+        slot-type message, slot-type bit errors, n_sym)."""
+        x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
+        n_sym = int(x.shape[1] // self.sps) - 2
+        f, cc = self.cc.front, self.cc
+        dibits, soft, _power = frontend_step(x, f.taps, self.sps, n_sym,
+                                             f.four_level)
+        sc = correlate_syncs_device(soft, cc.sync_levels)      # [C, 2, T']
+        best_def = torch.argmax(sc, dim=1).to(torch.uint8)
+        bs = torch.amax(sc, dim=1)
+        k_cand = min(self.SYNC_TOPK, n_sym - cc.sync_levels.shape[1] + 1)
+        vals, idx = torch.sort(bs, dim=1, descending=True, stable=True)
+        vals, idx = vals[:, :k_cand], idx[:, :k_cand]
+        vq = torch.clamp(vals * 127.0, 0, 255).to(torch.uint8)
+        dq = torch.gather(best_def, 1, idx)
+        # the slot type at every candidate; pattern 1 flips the dibits
+        Cn, Tn = dibits.shape
+        gp = torch.clamp(idx[:, :, None] + cc.dmr_st_offs, 0, Tn - 1)
+        dd = dibits[torch.arange(Cn, device=self.device)[:, None, None], gp]
+        dd = dd ^ ((dq & 1) * 2)[:, :, None]
+        b20 = _dibits_to_bits(dd)                              # [C, K, 20]
+        s = 1.0 - 2.0 * b20.to(torch.float32)
+        m = torch.argmax(s @ cc.golay20_pm.T, dim=-1)
+        errs = (cc.golay20_cb[m] != b20).sum(dim=-1)
+        return (dibits, idx, vq, dq, m.to(torch.uint8),
+                torch.clamp(errs, 0, 255).to(torch.uint8), n_sym)
+
+    def frontend_finish(self, fe):
+        """Copy a dispatch's candidates to the host: (dibits_dev, idx
+        int64, vq, dq, st, se uint8, n_sym)."""
+        dibits, idx, vq, dq, st, se, n_sym = fe
+        return (dibits, idx.cpu().numpy().astype(np.int64),
+                vq.cpu().numpy(), dq.cpu().numpy(), st.cpu().numpy(),
+                se.cpu().numpy(), n_sym)
+
+    def frontend_sync_device(self, iq):
+        return self.frontend_finish(self.frontend_dispatch(iq))
+
+    def pick_csbks(self, idx, vq, dq, st, se, n_sym: int):
+        """Data-sync hits → accepted (channel, position, inverted, color
+        code) of slot-type-3 (CSBK) bursts: the score threshold, at most
+        2 slot-type bit errors, 24 dibits past the last accepted hit.
+        Pattern 1 hits are the inverted-data hypothesis."""
+        acc_c, acc_t, acc_i, acc_cc = [], [], [], []
+        for c in range(idx.shape[0]):
+            sc = vq[c].astype(np.float32) / 127.0
+            ok = (sc >= self.threshold) & (se[c] <= 2)
+            if not ok.any():
+                continue
+            order = np.argsort(idx[c][ok], kind="stable")
+            positions = idx[c][ok][order]
+            pdefs = dq[c][ok][order]
+            types = st[c][ok][order]
+            last = -10 ** 9
+            for t, dfi, m in zip(positions, pdefs, types):
+                t = int(t)
+                if t - last < 24 or t < 54 or t + DMR_BURST_EXTENT >= n_sym:
+                    continue
+                last = t
+                if int(m) & 0xF != 3:       # CSBK only
+                    continue
+                acc_c.append(c)
+                acc_t.append(t)
+                acc_i.append(int(dfi) & 1)
+                acc_cc.append((int(m) >> 4) & 0xF)
+        return (np.asarray(acc_c, np.int32), np.asarray(acc_t, np.int32),
+                np.asarray(acc_i, np.int32), np.asarray(acc_cc, np.int32))
+
+    def _parse_csbk(self, c: int, pos: int, cc: int,
+                    payload12: np.ndarray) -> None:
+        ctx = self.ctxs[c]
+        key = payload12.tobytes()
+        if self.parse_cache:
+            hitv = self._pcache[c].get(key)
+            if hitv is not None:
+                for line, fields in hitv:
+                    ctx.emit(line, "dmr", pos, **fields)
+                return
+        hit = SyncHit(pos=pos, score=1.0, sync=self._hit_def)
+        n0 = len(ctx.events)
+        detail = decode_csbk(np.unpackbits(payload12), ctx, hit=hit, slot=0)
+        ctx.emit(f"Sync: +DMR CC | Color Code={cc:02d} | CSBK{detail}",
+                 "dmr", pos, cc=cc)
+        if self.parse_cache:
+            pc = self._pcache[c]
+            if len(pc) >= PARSE_CACHE_MAX:
+                pc.clear()
+            pc[key] = [(e.line, dict(e.fields)) for e in ctx.events[n0:]]
+
+    def decode_block_events(self, iq) -> int:
+        """One ``[C, B]`` block → CSBK events in ``ctxs``; returns the
+        number of CRC-valid CSBKs parsed."""
+        return self.events_from_frontend(self.frontend_sync_device(iq))
+
+    def events_from_frontend(self, fe7) -> int:
+        dibits_dev, idx, vq, dq, st, se, n_sym = fe7
+        ac, at, ai, acc = self.pick_csbks(idx, vq, dq, st, se, n_sym)
+        H = ac.shape[0]
+        if H == 0:
+            self.last_csbks = None
+            return 0
+        Hp = -(-H // 64) * 64
+        dev = self.device
+        blob = dmr_csbk_decode_device(
+            dibits_dev, _padded(ac, Hp, self.C, dev), _padded(at, Hp, 0, dev),
+            _padded(ai, Hp, 0, dev), self.cc).cpu().numpy()[:H]
+        self.last_csbks = (ac, at, blob)
+        n_parsed = 0
+        for h in range(H):
+            c, t = int(ac[h]), int(at[h])
+            head = f"Sync: +DMR CC | Color Code={int(acc[h]):02d} | CSBK"
+            if blob[h, 13] > 0 and not blob[h, 12]:
+                # an unrecovered BPTC burst: the serial path emits the
+                # burst head with no detail
+                self.ctxs[c].emit(head, "dmr", t)
+            elif blob[h, 12]:
+                self._parse_csbk(c, t, int(acc[h]), blob[h, :12])
+                n_parsed += 1
+            else:
+                self.crc_errors += 1
+                self.ctxs[c].emit(head + " CRC ERR", "dmr", t)
+        return n_parsed
+
+    def events(self, c: int):
+        return self.ctxs[c].events
+
+
+# -- NXDN RCCH CAC -------------------------------------------------------------------
+CAC_BLOB = 22 + 1            # 171 bits and 5 pad packed, the ok flag
+
+
+def nxdn_cac_decode_device(dibits: torch.Tensor, ch: torch.Tensor,
+                           pos: torch.Tensor, tables: params.CcTables
+                           ) -> torch.Tensor:
+    """The 150 CAC dibits of every accepted RCCH frame, descrambled,
+    depermuted and depunctured into 350 weighted symbols, the K=5 Viterbi
+    (kernel K5 on the card) and the CRC16-CAC screen: ``[H, 23]`` uint8,
+    22 packed payload bytes (171 bits and 5 zero bits) and the ok
+    flag."""
+    Tn = dibits.shape[1]
+    gp = torch.clamp(pos[:, None] + tables.cac_offs, 0, Tn - 1)
+    chc = torch.clamp(ch, max=dibits.shape[0] - 1)
+    dd = dibits[chc[:, None], gp] ^ (tables.cac_flips * 2)     # [H, 150]
+    bits300 = _dibits_to_bits(dd)
+    sym = bits300[:, tables.cac_src_idx].to(torch.float32)     # [H, 350]
+    wts = tables.cac_wt.expand(sym.shape[0], -1)
+    dec = conv_k5_decode_batch(sym, wts)[:, :171]
+    par = torch.remainder(dec.to(torch.float32) @ tables.cac_crc_tab, 2.0)
+    ok = (par.to(torch.int32) == tables.cac_a_bits).all(dim=-1)
+    pad = torch.zeros((dec.shape[0], 5), dtype=torch.uint8, device=dec.device)
+    pb = _pack_bits(torch.cat([dec, pad], dim=1))
+    return torch.cat([pb, ok[:, None].to(torch.uint8)], dim=1)
+
+
+class BatchedNxdnControlPipeline:
+    """Batched NXDN RCCH monitor over ``[C, B, 2]`` float32 I/Q blocks on
+    ``device`` (the card when none is given; raises when there is no
+    card): the NXDN voice pipeline's front end gives each candidate's
+    LICH byte; CAC frames decode on the card through the K=5 Viterbi and
+    the CRC16-CAC screen; the host parses the valid messages."""
+
+    _CAC_LICH = {0x01, 0x05}        # CAC-bearing LICH values
+
+    def __init__(self, C: int, fs: float = 48000.0,
+                 sync_threshold: float = 0.55, mode: str = "nxdn48", *,
+                 device=None, tables: params.CcTables | None = None):
+        if device is None:
+            device = require_cuda()
+        self.cc = tables if tables is not None else params.load_cc(
+            mode, device)
+        self._fe = BatchedNxdnVoicePipeline(
+            C, fs=fs, sync_threshold=sync_threshold, mode=mode,
+            device=device, tables=self.cc.front)
+        self.device = self._fe.device
+        self.C = C
+        self.threshold = sync_threshold
+        self.ctxs = [DecoderContext() for _ in range(C)]
+        for ctx in self.ctxs:
+            ctx.mode_name = mode
+        self.decs = [NxdnDecoder() for _ in range(C)]
+        self.crc_errors = 0
+        self.last_cacs = None
+
+    def pick_cacs(self, idx, vq, dq, lich, n_sym: int):
+        """Threshold, shoulder suppression and the LICH parity and
+        profile gate → accepted (channel, FSW position, LICH) lists."""
+        acc_c, acc_t, acc_l = [], [], []
+        for c in range(idx.shape[0]):
+            sc = vq[c].astype(np.float32) / 127.0
+            ok = sc >= self.threshold
+            if not ok.any():
+                continue
+            order = np.argsort(idx[c][ok], kind="stable")
+            positions = idx[c][ok][order]
+            scores = sc[ok][order]
+            lichs = lich[c][ok][order]
+            last = -10 ** 9
+            j = 0
+            while j < len(positions):
+                t = int(positions[j])
+                # refine to the best score within 8 positions
+                w = j
+                k = j + 1
+                while k < len(positions) and positions[k] < t + 8:
+                    if scores[k] > scores[w]:
+                        w = k
+                    k += 1
+                t = int(positions[w])
+                lf = int(lichs[w])
+                j = k
+                # the stride counts from accepted frames only: a random
+                # candidate with a parity-valid LICH by chance must not
+                # suppress a true frame behind it
+                if t - last < FRAME_DIBITS - 8 \
+                        or t + FRAME_DIBITS >= n_sym:
+                    continue
+                if not _lich_parity_ok(lf):
+                    continue
+                if (lf >> 1) in self._CAC_LICH:
+                    last = t
+                    acc_c.append(c)
+                    acc_t.append(t)
+                    acc_l.append(lf >> 1)
+        return (np.asarray(acc_c, np.int32), np.asarray(acc_t, np.int32),
+                np.asarray(acc_l, np.int32))
+
+    def frontend_dispatch(self, iq):
+        return self._fe.frontend_dispatch(iq)
+
+    def frontend_finish(self, fe):
+        return self._fe.frontend_finish(fe)
+
+    def decode_block_events(self, iq) -> int:
+        """One ``[C, B]`` block → RCCH events in ``ctxs``; returns the
+        number of CRC-valid CACs parsed."""
+        return self.events_from_frontend(self._fe.frontend_sync_device(iq))
+
+    def events_from_frontend(self, fe6) -> int:
+        dibits_dev, idx, vq, dq, lich, n_sym = fe6
+        ac, at, _al = self.pick_cacs(idx, vq, dq, lich, n_sym)
+        H = ac.shape[0]
+        if H == 0:
+            self.last_cacs = None
+            return 0
+        Hp = -(-H // 32) * 32
+        dev = self.device
+        blob = nxdn_cac_decode_device(
+            dibits_dev, _padded(ac, Hp, self.C, dev), _padded(at, Hp, 0, dev),
+            self.cc).cpu().numpy()[:H]
+        self.last_cacs = (ac, at, blob)
+        n = 0
+        for h in range(H):
+            c, t = int(ac[h]), int(at[h])
+            ctx = self.ctxs[c]
+            if not blob[h, 22]:
+                self.crc_errors += 1
+                ctx.emit(" CAC CRC ERR", "nxdn", t)
+                continue
+            dec = np.unpackbits(blob[h, :22])[:171]
+            ran = 0
+            for b in dec[2:8]:
+                ran = (ran << 1) | int(b)
+            ctx.state.nxdn_ran = ran
+            detail = self.decs[c]._message(dec[8:155], ctx)
+            ctx.emit(f"Sync: NXDN CC  RCCH CAC RAN {ran:02d}{detail}",
+                     "nxdn", t, ran=ran)
+            n += 1
+        return n
+
+    def events(self, c: int):
+        return self.ctxs[c].events

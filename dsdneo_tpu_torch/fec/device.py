@@ -20,13 +20,24 @@ Also the GF(64) Reed-Solomon syndrome screen (``rs_syndromes_batch``,
 the JAX package's ``_rs_syndrome_fn``): on a CUDA tensor it launches
 kernel K7 (``csrc/rs_syndromes.cu``), on a CPU tensor it runs
 :func:`rs_syndromes_plain`.
+
+And the two Viterbi decoders of the control-channel monitors, each a
+plain PyTorch loop over time (:func:`p25_12_decode_plain`,
+:func:`conv_k5_decode_plain`) and a hand-written kernel behind the entry
+point that a CUDA tensor selects: the P25 rate-1/2 trellis
+(:func:`p25_12_decode_batch`, kernel K4, ``csrc/p25_trellis.cu``) and
+the K=5 rate-1/2 weighted soft Viterbi of NXDN and M17
+(:func:`conv_k5_decode_batch`, kernel K5, ``csrc/conv_k5.cu``).  Both
+keep the JAX functions' lattices and tie rules, bit for bit.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from dsdneo_tpu_torch import kernels
+from dsdneo_tpu_torch.fec import conv, trellis
 from dsdneo_tpu_torch.fec.rs import gf64_tables
 from dsdneo_tpu_torch.params import TILE_BYTES
 
@@ -174,3 +185,188 @@ def rs_syndromes_launch(words: torch.Tensor, nroots: int, fcr: int = 1
         N, n, nroots, fcr, kernels.stream_handle(w))
     kernels.check(err, "rs_syndromes")
     return out
+
+
+# -- P25 rate-1/2 trellis Viterbi (kernel K4) ---------------------------------
+def p25_trellis_consts():
+    """(``deperm [196]``, ``expect [4, 4]`` (prev, next) → nibble,
+    ``nibbles [16, 4]`` msb-first bits) of the JAX package's
+    ``_p25_trellis_consts``, from the port's ``fec.trellis``."""
+    il = trellis.interleave_98()
+    deperm = np.zeros(196, dtype=np.int32)
+    deperm[il * 2] = np.arange(0, 196, 2)
+    deperm[il * 2 + 1] = np.arange(1, 196, 2)
+    expect = trellis.P25_DTM[(np.arange(4)[:, None] << 2)
+                             | np.arange(4)[None, :]].astype(np.int32)
+    nibbles = ((np.arange(16)[:, None] >> np.arange(3, -1, -1)[None, :])
+               & 1).astype(np.int32)
+    return deperm, expect, nibbles
+
+
+def _hard_llr(bits196: torch.Tensor) -> torch.Tensor:
+    """Hard bits → int32 LLRs of ±64 (positive for a 0 bit)."""
+    return (1 - 2 * bits196.to(torch.int32)) * 64
+
+
+def _dibits_to_bits96(states: torch.Tensor) -> torch.Tensor:
+    """``[N, 48]`` data dibits → ``[N, 96]`` uint8 bits, high bit first."""
+    return torch.stack([(states >> 1) & 1, states & 1], dim=-1
+                       ).reshape(states.shape[0], 96).to(torch.uint8)
+
+
+def p25_12_decode_plain(bits196: torch.Tensor,
+                        llr196: torch.Tensor | None = None):
+    """The plain PyTorch version of K4: ``[N, 196]`` bits (or int32 LLRs,
+    positive for a 0 bit) → (``[N, 96]`` uint8 data bits, ``[N]`` int32
+    path costs), the JAX function's 49-step lattice as a loop over the
+    steps: four add-compare-selects per step over prev 0..3, replaced
+    only by a strictly smaller value; the end state is the first
+    minimum; then the traceback."""
+    dev = bits196.device
+    deperm, expect, nibbles = p25_trellis_consts()
+    llr = _hard_llr(bits196) if llr196 is None else llr196
+    llr = llr.to(torch.int32)[:, torch.as_tensor(deperm, device=dev,
+                                                 dtype=torch.int64)]
+    N = llr.shape[0]
+    steps = llr.reshape(N, 49, 4)
+    pos = torch.clamp(steps, min=0)
+    neg = torch.clamp(-steps, min=0)
+    nib = torch.as_tensor(nibbles, device=dev)
+    cost = (nib[None, None] * pos[:, :, None, :]
+            + (1 - nib[None, None]) * neg[:, :, None, :]).sum(
+                -1, dtype=torch.int32)                        # [N, 49, 16]
+    metric = [torch.full((N,), 0 if k == 0 else 256, dtype=torch.int32,
+                         device=dev) for k in range(4)]
+    bps = []
+    for i in range(49):
+        c = cost[:, i]
+        news, bp = [], []
+        for nxt in range(4):
+            best_v = metric[0] + c[:, int(expect[0, nxt])]
+            best_i = torch.zeros(N, dtype=torch.int64, device=dev)
+            for prev in range(1, 4):
+                v = metric[prev] + c[:, int(expect[prev, nxt])]
+                take = v < best_v
+                best_v = torch.where(take, v, best_v)
+                best_i = torch.where(take, prev, best_i)
+            news.append(best_v)
+            bp.append(best_i)
+        metric = news
+        bps.append(torch.stack(bp, dim=1))                    # [N, 4]
+    best_v = metric[0]
+    st = torch.zeros(N, dtype=torch.int64, device=dev)
+    for k in range(1, 4):
+        take = metric[k] < best_v
+        best_v = torch.where(take, metric[k], best_v)
+        st = torch.where(take, k, st)
+    states = []
+    for i in range(48, -1, -1):
+        states.append(st)
+        st = torch.gather(bps[i], 1, st[:, None])[:, 0]
+    data = torch.stack(states[::-1][:48], dim=1)              # [N, 48]
+    return _dibits_to_bits96(data), best_v
+
+
+def p25_12_decode_batch(bits196: torch.Tensor,
+                        llr196: torch.Tensor | None = None):
+    """Batched P25 rate-1/2 trellis decode: ``[N, 196]`` uint8 bits (or
+    int32 LLRs ``llr196``) → (``[N, 96]`` uint8 data bits, ``[N]`` int32
+    path costs).  A CUDA tensor launches kernel K4; a CPU tensor runs
+    :func:`p25_12_decode_plain`."""
+    if bits196.device.type == "cpu":
+        return p25_12_decode_plain(bits196, llr196)
+    N = bits196.shape[0]
+    if bits196.shape[1:] != (196,):
+        raise ValueError(f"bits196: expected [N, 196], got "
+                         f"{tuple(bits196.shape)}")
+    llr = _hard_llr(bits196) if llr196 is None else llr196
+    kernels.require(llr, "llr196", torch.int32, (N, 196), contiguous=False)
+    llr = llr.contiguous()
+    if llr.data_ptr() % 16:          # the kernel reads 16-byte pieces
+        llr = llr.clone()
+    bits = torch.empty((N, 96), dtype=torch.uint8, device=llr.device)
+    cost = torch.empty(N, dtype=torch.int32, device=llr.device)
+    if N:
+        err = kernels.load().dsd_p25_trellis(
+            llr.data_ptr(), bits.data_ptr(), cost.data_ptr(), N,
+            kernels.stream_handle(llr))
+        kernels.check(err, "p25_trellis")
+        p25_12_decode_batch.launches += 1
+    return bits, cost
+
+
+p25_12_decode_batch.launches = 0
+
+
+# -- K=5 rate-1/2 convolutional Viterbi (kernel K5) ---------------------------
+def conv_k5_decode_plain(sym: torch.Tensor, wt: torch.Tensor
+                         ) -> torch.Tensor:
+    """The plain PyTorch version of K5: ``[N, 2n]`` float32 soft symbols
+    (values in [0, 1]) and weights (0 = punctured) → ``[N, n]`` uint8
+    bits, the JAX function's 16-state lattice as a loop over the steps:
+    state t from ``t >> 1`` or ``(t >> 1) | 8`` on bit ``t & 1``, the
+    second only when strictly cheaper, traceback from state 0."""
+    dev = sym.device
+    N, n = sym.shape[0], sym.shape[1] // 2
+    s = sym.to(torch.float32)
+    w = wt.to(torch.float32)
+    o1 = conv._O1.astype(np.float32)
+    o2 = conv._O2.astype(np.float32)
+    metric = [torch.full((N,), 0.0 if t == 0 else 1e30,
+                         dtype=torch.float32, device=dev)
+              for t in range(16)]
+    takes = []
+    for i in range(n):
+        s0, s1 = s[:, 2 * i], s[:, 2 * i + 1]
+        w0, w1 = w[:, 2 * i], w[:, 2 * i + 1]
+        news, tk = [], []
+        for t in range(16):
+            pa, pb, b = t >> 1, (t >> 1) | 8, t & 1
+            ca = metric[pa] + (torch.abs(float(o1[pa, b]) - s0) * w0
+                               + torch.abs(float(o2[pa, b]) - s1) * w1)
+            cb = metric[pb] + (torch.abs(float(o1[pb, b]) - s0) * w0
+                               + torch.abs(float(o2[pb, b]) - s1) * w1)
+            take_b = cb < ca
+            news.append(torch.where(take_b, cb, ca))
+            tk.append(take_b)
+        metric = news
+        takes.append(torch.stack(tk, dim=1))                  # [N, 16]
+    bits = []
+    st = torch.zeros(N, dtype=torch.int64, device=dev)
+    for i in range(n - 1, -1, -1):
+        bits.append(st & 1)
+        tb = torch.gather(takes[i], 1, st[:, None])[:, 0]
+        st = torch.where(tb, (st >> 1) | 8, st >> 1)
+    if not bits:
+        return torch.zeros((N, 0), dtype=torch.uint8, device=dev)
+    return torch.stack(bits[::-1], dim=1).to(torch.uint8)
+
+
+def conv_k5_decode_batch(sym: torch.Tensor, wt: torch.Tensor
+                         ) -> torch.Tensor:
+    """Batched K=5 rate-1/2 Viterbi: ``[N, 2n]`` float32 soft symbols +
+    weights → ``[N, n]`` uint8 decoded bits (flush bits included;
+    callers slice).  A CUDA tensor launches kernel K5; a CPU tensor runs
+    :func:`conv_k5_decode_plain`."""
+    if sym.device.type == "cpu":
+        return conv_k5_decode_plain(sym, wt)
+    N, n2 = sym.shape
+    if n2 % 2 or tuple(wt.shape) != (N, n2):
+        raise ValueError(f"sym {tuple(sym.shape)} and wt "
+                         f"{tuple(wt.shape)}: expected two equal [N, 2n]")
+    kernels.require(sym, "sym", torch.float32, contiguous=False)
+    kernels.require(wt, "wt", torch.float32, contiguous=False)
+    # the kernel reads each step's symbol and weight pairs as 8 bytes
+    sym, wt = (x.contiguous() if x.data_ptr() % 8 == 0 else x.clone(
+        memory_format=torch.contiguous_format) for x in (sym, wt))
+    bits = torch.empty((N, n2 // 2), dtype=torch.uint8, device=sym.device)
+    if N and n2:
+        err = kernels.load().dsd_conv_k5(
+            sym.data_ptr(), wt.data_ptr(), bits.data_ptr(), N, n2 // 2,
+            kernels.stream_handle(sym))
+        kernels.check(err, "conv_k5")
+        conv_k5_decode_batch.launches += 1
+    return bits
+
+
+conv_k5_decode_batch.launches = 0

@@ -55,6 +55,10 @@ _SIGNATURES = {
     "dsd_adpcm_enc": [_P, _P, _P, _P, _I, _I, _P],
     # words, exp_table, log_table, out, N, n, nroots, fcr, stream
     "dsd_rs_syndromes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # llr, bits, cost, N, stream
+    "dsd_p25_trellis": [_P, _P, _P, _I, _P],
+    # sym, wt, bits, N, n, stream
+    "dsd_conv_k5": [_P, _P, _P, _I, _I, _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {

@@ -3,12 +3,13 @@
 The system runs no model: its "weights" are the constant tables below,
 which ``tools/export_torch_tables.py`` builds from the JAX package's own
 functions into ``data/p25p1_tables.npz`` (P25 Phase 1),
-``data/dmr_tables.npz`` (DMR and the AMBE core) and
+``data/dmr_tables.npz`` (DMR and the AMBE core),
 ``data/tdma_tables.npz`` (the front ends and host tables of X2-TDMA,
-P25 Phase 2 and NXDN), and its state is the per-channel carry of the
-voice decoder (prediction, synthesis and frame-repeat).
-:func:`from_numpy`, :func:`dmr_from_numpy` and :func:`tdma_from_numpy`
-carry the tables across onto a device; :func:`state_from_numpy` carries a JAX
+P25 Phase 2 and NXDN) and ``data/cc_tables.npz`` (the control-channel
+monitors' FEC, CRC and gather tables), and its state is the per-channel
+carry of the voice decoder (prediction, synthesis and frame-repeat).
+:func:`from_numpy`, :func:`dmr_from_numpy`, :func:`tdma_from_numpy` and
+:func:`cc_from_numpy` carry the tables across onto a device; :func:`state_from_numpy` carries a JAX
 pipeline's carries across, so a block decoded by the JAX package can
 continue in the port.
 
@@ -30,6 +31,7 @@ _DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
 TABLES_NPZ = os.path.join(_DATA, "p25p1_tables.npz")
 DMR_TABLES_NPZ = os.path.join(_DATA, "dmr_tables.npz")
 TDMA_TABLES_NPZ = os.path.join(_DATA, "tdma_tables.npz")
+CC_TABLES_NPZ = os.path.join(_DATA, "cc_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -273,6 +275,84 @@ def load_tdma(mode: str, device=None) -> TdmaTables:
     return tdma_from_numpy(_read_npz(DMR_TABLES_NPZ),
                            _read_npz(TDMA_TABLES_NPZ), mode,
                            _device(device))
+
+
+class CcTables:
+    """The constants of one control-channel monitor as tensors on the
+    front end's device: ``kind`` is ``p25`` (C4FM or CQPSK), ``dmr``, ``nxdn48``
+    or ``nxdn96``.  ``front`` holds the tables of the voice path whose
+    front end the monitor shares (``P25Tables``, ``DmrTables`` or
+    ``TdmaTables``); the DMR monitor correlates its own sync rows
+    (``+DMR BS data``, ``+DMR BS voice``).  The numpy arrays of
+    ``cc_tables.npz`` stay in ``np``."""
+
+    KINDS = ("p25", "dmr", "nxdn48", "nxdn96")
+
+    def __init__(self, cc: dict[str, np.ndarray], front: _VoiceTables,
+                 kind: str):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown control-channel kind {kind!r}")
+        self.kind = kind
+        self.front = front
+        self.np = {k: np.asarray(v) for k, v in cc.items()}
+        t = self.np
+        as_ = front._as
+        i64 = front.i64
+        f32 = front.f32
+        u8 = front.u8
+        # P25 TSDU: the three trellis blocks' dibit offsets from the sync
+        # start, the CRC16 contribution rows of the first 80 bits
+        self.tsdu_offsets = i64(t["tsdu_offsets"])             # [3, 98]
+        self.crc16_contrib = f32(t["crc16_contrib80"])         # [80, 16]
+        # DMR CSBK: BPTC(196,96) gather and row/column codebooks,
+        # Golay(20,8) slot type, burst geometry, sync rows
+        self.bptc_gather = i64(t["bptc_gather"].reshape(-1))   # [195]
+        self.h15_cb = u8(t["h15_codebook"])
+        self.h15_pm = f32(1.0 - 2.0 * t["h15_codebook"])
+        self.h13_cb = u8(t["h13_codebook"])
+        self.h13_pm = f32(1.0 - 2.0 * t["h13_codebook"])
+        self.golay20_cb = u8(t["golay20_codebook"])
+        self.golay20_pm = f32(1.0 - 2.0 * t["golay20_codebook"])
+        self.dmr_st_offs = i64(t["dmr_st_offs"])
+        self.dmr_payload_offs = i64(t["dmr_payload_offs"])
+        self.sync_levels = f32(t["dmr_cc_sync_levels"])        # [2, 24]
+        # NXDN CAC: payload gather and descramble, depermute/depuncture
+        # into the 350 Viterbi symbols and their weights, the affine
+        # CRC16-CAC screen
+        self.cac_offs = i64(t["cac_offs"])                     # [150]
+        self.cac_flips = u8(t["cac_flips"])
+        self.cac_src_idx = i64(t["cac_src_idx"])               # [350]
+        self.cac_wt = f32(t["cac_wt"])
+        self.cac_a_bits = as_(t["cac_a_bits"], np.int32)
+        self.cac_crc_tab = f32(t["cac_crc_tab"])               # [171, 16]
+
+    def test_vector(self) -> dict[str, np.ndarray]:
+        """The kind's stream, payloads and JAX event lines (the
+        ``<kind>_tv_`` arrays, without the prefix)."""
+        pre = ("nxdn" if self.kind.startswith("nxdn") else self.kind) + "_tv_"
+        return {k[len(pre):]: v for k, v in self.np.items()
+                if k.startswith(pre)}
+
+
+def cc_from_numpy(cc: dict[str, np.ndarray], front: _VoiceTables,
+                  kind: str) -> CcTables:
+    """numpy control-channel tables (the npz, or arrays built by the JAX
+    package) and the front end's tables → ``CcTables`` on the front
+    end's device."""
+    return CcTables(cc, front, kind)
+
+
+def load_cc(kind: str, device=None) -> CcTables:
+    """The checked-in ``data/cc_tables.npz`` and the tables of the front
+    end of ``kind`` (``p25``: ``load``; ``dmr``: ``load_dmr``;
+    ``nxdn48`` / ``nxdn96``: ``load_tdma``) on ``device``: the card when
+    none is given (raises when there is no card)."""
+    if kind not in CcTables.KINDS:
+        raise ValueError(f"unknown control-channel kind {kind!r}")
+    device = _device(device)
+    front = (load(device) if kind == "p25" else load_dmr(device)
+             if kind == "dmr" else load_tdma(kind, device))
+    return cc_from_numpy(_read_npz(CC_TABLES_NPZ), front, kind)
 
 
 def state_from_numpy(pred, synth, rep, device):

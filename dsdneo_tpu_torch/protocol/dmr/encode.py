@@ -34,10 +34,12 @@ def dmr_fm_iq(dibits: np.ndarray, sps: int = 10) -> np.ndarray:
 
 def vector_block(tv: dict[str, np.ndarray], leads, noise_seeds,
                  n_samples: int, sps: int = 10, snr_db: float = 30.0,
-                 invert: bool = False, modulate=dmr_fm_iq) -> np.ndarray:
+                 invert: bool = False, modulate=dmr_fm_iq,
+                 lead_dibits: np.ndarray | None = None) -> np.ndarray:
     """``[C, n_samples, 2]`` float32 I/Q planes: channel c carries the
     test vector after ``leads[c]`` random filler dibits, with white noise
-    of seed ``noise_seeds[c]`` (which also draws the filler).  ``invert``
+    of seed ``noise_seeds[c]`` (which also draws the filler); with
+    ``lead_dibits`` the filler is its last ``leads[c]`` dibits.  ``invert``
     negates the FM (the I/Q conjugate), as a receiver with swapped I and
     Q would see the stream.  ``modulate(dibits, sps)`` gives at least
     ``len(dibits) · sps`` complex samples; the first are kept."""
@@ -45,8 +47,12 @@ def vector_block(tv: dict[str, np.ndarray], leads, noise_seeds,
     out = np.empty((len(leads), n_samples, 2), dtype=np.float32)
     for c, (lead, seed) in enumerate(zip(leads, noise_seeds)):
         rng = np.random.default_rng(int(seed))
-        dib = np.concatenate([rng.integers(0, 4, int(lead)).astype(np.uint8),
-                              tv["dibits"]])[:n_dib]
+        fill = (rng.integers(0, 4, int(lead)).astype(np.uint8)
+                if lead_dibits is None
+                else lead_dibits[len(lead_dibits) - int(lead):])
+        if len(fill) != int(lead):
+            raise ValueError(f"lead {lead} is longer than the filler")
+        dib = np.concatenate([fill, tv["dibits"]])[:n_dib]
         if len(dib) < n_dib:
             raise ValueError(f"the vector holds {len(dib)} dibits after "
                              f"this lead, fewer than {n_dib}")

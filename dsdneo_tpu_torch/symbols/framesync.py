@@ -1,0 +1,50 @@
+"""Frame-sync definitions and hits (host).
+
+The port's own copy of ``SyncDef``, ``SyncHit`` and the rows of
+``SYNC_DEFS`` in ``dsdneo_tpu/symbols/framesync.py`` that its monitors
+name (P25 Phase 1, DMR BS data and voice, NXDN FSW).  A catalog reads a
+hit's position and its definition's name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+
+@dataclass(frozen=True)
+class SyncDef:
+    name: str
+    pattern: str          # DSD dibit alphabet: '1' = +3, '3' = -3
+    protocol: str         # protocol family key
+    kind: str             # e.g. "voice", "data", "cc", "hd" ...
+    inverted: bool = False
+
+    @property
+    def levels(self) -> np.ndarray:
+        return np.array([3.0 if ch == "1" else -3.0 for ch in self.pattern],
+                        dtype=np.float32)
+
+
+SYNC_DEFS: list[SyncDef] = [
+    SyncDef("+P25p1", "111113113311333313133333", "p25p1", "frame"),
+    SyncDef("-P25p1", "333331331133111131311111", "p25p1", "frame", True),
+    SyncDef("+DMR BS data", "313333111331131131331131", "dmr", "bs_data"),
+    SyncDef("+DMR BS voice", "131111333113313313113313", "dmr", "bs_voice"),
+    SyncDef("-DMR BS voice", "313333111331131131331131", "dmr", "bs_voice", True),
+    SyncDef("-DMR BS data", "131111333113313313113313", "dmr", "bs_data", True),
+    SyncDef("+NXDN FSW", "3131331131", "nxdn", "fsw"),
+    SyncDef("-NXDN FSW", "1313113313", "nxdn", "fsw", True),
+]
+
+
+@dataclass
+class SyncHit:
+    pos: int              # index of the first sync symbol
+    score: float          # normalized correlation in [-1, 1]
+    sync: SyncDef
+
+    @property
+    def end(self) -> int:
+        return self.pos + len(self.sync.pattern)

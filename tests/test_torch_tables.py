@@ -1,7 +1,8 @@
 """The PyTorch port's constant tables and its independence from JAX.
 
 The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz``,
-``dmr_tables.npz`` and ``tdma_tables.npz`` must equal what
+``dmr_tables.npz``, ``tdma_tables.npz`` and ``cc_tables.npz`` must equal
+what
 ``tools/export_torch_tables.py`` builds from the JAX package now
 (exact), and importing the port must never load JAX or any module of the
 JAX package.
@@ -33,7 +34,15 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.engine.nxdnbatch", "dsdneo_tpu_torch.fec.rs",
     "dsdneo_tpu_torch.crypto.keystream", "dsdneo_tpu_torch.crypto.keyring",
     "dsdneo_tpu_torch.protocol.p25.p2_xcch",
-    "dsdneo_tpu_torch.protocol.nxdn.encode")
+    "dsdneo_tpu_torch.protocol.nxdn.encode",
+    "dsdneo_tpu_torch.engine.ccbatch", "dsdneo_tpu_torch.engine.trunk",
+    "dsdneo_tpu_torch.fec.crc", "dsdneo_tpu_torch.fec.trellis",
+    "dsdneo_tpu_torch.fec.conv", "dsdneo_tpu_torch.protocol.base",
+    "dsdneo_tpu_torch.symbols.framesync", "dsdneo_tpu_torch.core.affiliation",
+    "dsdneo_tpu_torch.protocol.p25.phase1",
+    "dsdneo_tpu_torch.protocol.p25.p2_mac",
+    "dsdneo_tpu_torch.protocol.dmr.csbk",
+    "dsdneo_tpu_torch.protocol.nxdn.decoder", "dsdneo_tpu_torch.protocol.nmea")
 
 
 @pytest.fixture(scope="module")
@@ -177,6 +186,57 @@ def test_tdma_from_numpy_equals_loaded_and_modes(tdma_exported, mode):
         params.load_tdma("dmr", "cpu")
 
 
+@pytest.fixture(scope="module")
+def cc_exported():
+    from export_torch_tables import build_cc_tables
+    return build_cc_tables()
+
+
+@pytest.mark.parametrize("group", ["fec", "dmr", "cac", "p25_tv", "dmr_tv",
+                                   "nxdn_tv"])
+def test_cc_npz_equals_exporter(cc_exported, group):
+    """The checked-in ``cc_tables.npz`` is what the exporter builds from
+    the JAX package now: its constants and its three vectors with their
+    payloads and event lines."""
+    from dsdneo_tpu_torch.params import CC_TABLES_NPZ
+    with np.load(CC_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(cc_exported) == sorted(stored)
+    prefix = {"fec": ("p25_deperm", "p25_expect", "p25_nibbles", "crc16_",
+                      "tsdu_", "bptc_", "h15_", "h13_", "golay20_", "conv_"),
+              "dmr": ("dmr_st", "dmr_payload", "dmr_cc_"),
+              "cac": ("cac_",), "p25_tv": ("p25_tv_",),
+              "dmr_tv": ("dmr_tv_",), "nxdn_tv": ("nxdn_tv_",)}[group]
+    keys = [k for k in cc_exported if k.startswith(prefix)]
+    assert keys
+    for k in keys:
+        a, b = np.asarray(cc_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+    if group.endswith("_tv"):
+        assert stored[group + "_lines"].dtype.kind == "U"
+        assert (stored[group + "_line_block"].max() + 1
+                == len(stored[group + "_payloads"]))
+
+
+def test_cc_from_numpy_of_jax_arrays_equals_loaded(cc_exported):
+    from dsdneo_tpu_torch import params
+    for kind in params.CcTables.KINDS:
+        b = params.load_cc(kind, "cpu")
+        a = params.cc_from_numpy(cc_exported, b.front, kind)
+        n = 0
+        for name, v in vars(a).items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, getattr(b, name)), name
+                n += 1
+        assert n == 18
+        assert sorted(b.test_vector()) == ["dibits", "fields", "lead",
+                                           "line_block", "lines", "payloads",
+                                           "seeds", "starts"]
+    with pytest.raises(ValueError, match="unknown control-channel kind"):
+        params.load_cc("edacs", "cpu")
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
@@ -298,6 +358,41 @@ def test_tdma_paths_run_without_the_jax_package():
         "pcm = BatchedNxdnVoicePipeline(2, mode='nxdn96', device='cpu', "
         "tables=t).decode_block(iq)\n"
         "assert pcm.shape[1] > 0 and np.isfinite(pcm).all()\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_cc_monitors_run_without_the_jax_package():
+    """Decode a C=1 block of each control-channel monitor on the CPU
+    (K4's and K5's plain versions on the way): no module of the JAX
+    package, and no jax, is ever loaded."""
+    code = (
+        "import sys\n"
+        "from dsdneo_tpu_torch import params\n"
+        "from dsdneo_tpu_torch.engine import ccbatch\n"
+        "from dsdneo_tpu_torch.protocol.dmr.encode import vector_block, "
+        "dmr_fm_iq\n"
+        "from dsdneo_tpu_torch.protocol.nxdn.encode import modulator\n"
+        "from dsdneo_tpu_torch.protocol.p25.encode import c4fm_clean\n"
+        "for kind, cls, sps, mod in (\n"
+        "        ('p25', ccbatch.BatchedP25ControlPipeline, 10, "
+        "lambda d, s: c4fm_clean(d, s)),\n"
+        "        ('dmr', ccbatch.BatchedDmrControlPipeline, 10, dmr_fm_iq),\n"
+        "        ('nxdn48', ccbatch.BatchedNxdnControlPipeline, 20, "
+        "modulator('nxdn48'))):\n"
+        "    t = params.load_cc(kind, 'cpu')\n"
+        "    tv = t.test_vector()\n"
+        "    x = vector_block(tv, (3,), (1,), 1500 * sps, sps=sps, "
+        "modulate=mod, lead_dibits=tv['lead'])\n"
+        "    p = cls(1, device='cpu', tables=t)\n"
+        "    assert p.decode_block_events(x) >= 4, kind\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

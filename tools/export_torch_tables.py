@@ -50,6 +50,28 @@ For X2-TDMA, P25 Phase 2 and NXDN (:func:`build_tdma_tables`):
     of an ADP-encrypted P25p2 stream, and of :func:`synth_nxdn_voice_stream`,
     an NXDN full-voice stream built by inverting the decoder's tables.
 
+For the control-channel monitors (:func:`build_cc_tables`, into
+``cc_tables.npz``):
+
+  - the P25 trellis constants (fec.device._p25_trellis_consts), the
+    CRC16 contribution table, the TSDU block offsets, the BPTC(196,96)
+    gather with the Hamming(15,11) and (13,9) codebooks, the
+    Golay(20,8) codebook, the DMR slot-type and payload offsets, the
+    ``+DMR BS data`` / ``+DMR BS voice`` sync rows, the NXDN CAC
+    constants and the K=5 code's output tables (engine.ccbatch,
+    fec.conv);
+  - one test vector per monitor: a P25 control channel of back-to-back
+    TSDUs of three TSBKs each (protocol.p25.encode.tsdu_frame), a DMR
+    Tier III channel of CSBK bursts (protocol.dmr.encode.cc_stream_dibits)
+    and an NXDN RCCH of CAC frames (the construction of
+    tests/test_ccbatch.py, RAN 5, LICH 0x01), each with the payload bytes
+    of every block it carries and the event lines the JAX package's
+    catalogs emit for them (a unicode array with the index of the block
+    each line belongs to).  Every line is checked to come out the same
+    when the stream is parsed a second time in the same context, so a
+    monitor that parses any prefix of a stream, once or twice, emits the
+    lines of its blocks.
+
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
@@ -62,8 +84,9 @@ Run from the repository root, where JAX is installed:
     python tools/export_torch_tables.py
 
 A file whose arrays already equal the rebuilt ones is left untouched.
-``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``
-and ``build_dmr_tables`` and checks them against the checked-in files.
+``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``,
+``build_dmr_tables``, ``build_tdma_tables`` and ``build_cc_tables`` and
+checks them against the checked-in files.
 """
 
 from __future__ import annotations
@@ -99,6 +122,16 @@ NXDN_TV_FRAMES = 36       # 80 ms frames: 2.88 s of NXDN48 voice
 NXDN_TV_SEED = 1
 NXDN_TV_TAIL = 400        # unmodulated dibits after the last frame
 NXDN_FULL_VOICE_LICH = 0x36
+OUT_CC = os.path.join(DATA, "cc_tables.npz")
+CC_NAC = 0x293            # the P25 control channel's NAC
+CC_P25_SEED = 9
+CC_DMR_SEED = 10
+CC_DMR_COLOR = 1
+CC_NXDN_SEED = 3          # tests/test_ccbatch.py _build_cac_stream
+CC_NXDN_RAN = 5
+# every stream covers a 3 s block at 48 kHz after a lead of up to 96
+# dibits: P25 and DMR at 4800 symbols/s, NXDN48 at 2400
+CC_MIN_DIBITS = {"p25": 14400 + 96, "dmr": 14400 + 96, "nxdn": 7200 + 96}
 
 
 def _sync_corr(dibits: np.ndarray, levels: np.ndarray) -> np.ndarray:
@@ -364,6 +397,353 @@ def build_tdma_tables() -> dict[str, np.ndarray]:
     return t
 
 
+def _tsbk(opcode: int, args, mfid: int = 0, lb: bool = False,
+          protect: bool = False) -> np.ndarray:
+    """One 12-byte TSBK with the protect bit where asked and CRC16 (xor
+    0xFFFF), as protocol.p25.encode.tsbk_bytes builds it."""
+    from dsdneo_tpu.fec import crc
+    b = np.zeros(12, dtype=np.uint8)
+    b[0] = (0x80 if lb else 0) | (0x40 if protect else 0) | (opcode & 0x3F)
+    b[1] = mfid & 0xFF
+    b[2:10] = np.asarray(args, dtype=np.uint8)
+    v = crc.crc16_bits(np.unpackbits(b[:10]), init=0, xorout=0xFFFF)
+    b[10], b[11] = (v >> 8) & 0xFF, v & 0xFF
+    return b
+
+
+# (mfid, opcode) → byte offsets of the 16-bit channel fields the TSBK
+# catalog resolves through the iden table
+_TSBK_CHANNELS = {
+    (0, 0x00): (3,), (0, 0x02): (2, 6), (0, 0x03): (4,), (0, 0x04): (2,),
+    (0, 0x05): (2,), (0, 0x08): (3,), (0, 0x09): (3,), (0, 0x10): (2,),
+    (0, 0x11): (3,), (0, 0x39): (4, 7), (0, 0x3A): (7,), (0, 0x3B): (7,),
+    (0, 0x3C): (7,), (0x90, 0x02): (3,), (0x90, 0x0B): (2,),
+    (0x90, 0x03): (2, 6)}
+# the opcodes of the P25 vector: outbound (mfid 0), Motorola (0x90),
+# Harris (0xA4), and protected inbound requests
+_TSBK_MIX = ([(0, op, False) for op in (
+    0x00, 0x02, 0x03, 0x04, 0x05, 0x08, 0x09, 0x10, 0x11, 0x12, 0x13, 0x16,
+    0x18, 0x1A, 0x1C, 0x1F, 0x20, 0x21, 0x24, 0x27, 0x28, 0x2A, 0x2C, 0x30,
+    0x35, 0x39, 0x3A, 0x3B, 0x3C)]
+    + [(0x90, op, False) for op in (0x02, 0x03, 0x05, 0x08, 0x09, 0x0A,
+                                    0x0B, 0x16)]
+    + [(0xA4, 0x30, False)]
+    + [(0, op, True) for op in (0x00, 0x04, 0x12, 0x18, 0x28, 0x2C)])
+
+
+def _random_tsbk(rng, lb: bool) -> np.ndarray:
+    """A TSBK of the vector's mix with random arguments; every channel
+    field names iden 1 or 2, which the stream's first TSDU defines."""
+    mfid, op, protect = _TSBK_MIX[int(rng.integers(len(_TSBK_MIX)))]
+    args = rng.integers(0, 256, 8).astype(np.uint8)
+    if not protect:
+        for off in _TSBK_CHANNELS.get((mfid, op), ()):
+            ch = (int(rng.integers(1, 3)) << 12) | int(rng.integers(1, 4096))
+            args[off - 2], args[off - 1] = ch >> 8, ch & 0xFF
+    return _tsbk(op, args, mfid=mfid, lb=lb, protect=protect)
+
+
+def _two_pass_lines(parse, n_blocks: int):
+    """Run ``parse(i, ctx)`` (which returns the lines and fields of block
+    ``i``) over every block twice in one context; the two passes must
+    agree.  Returns (lines [L] unicode, block of each line [L], fields
+    of each line as repr)."""
+    from dsdneo_tpu.protocol.base import DecoderContext
+    ctx = DecoderContext()
+    passes = []
+    for _ in range(2):
+        out = []
+        for i in range(n_blocks):
+            n0 = len(ctx.events)
+            parse(i, ctx)
+            out.extend((i, e.line, repr(sorted(e.fields.items())))
+                       for e in ctx.events[n0:])
+        passes.append(out)
+    if passes[0] != passes[1]:
+        bad = next(a for a, b in zip(*passes) if a != b)
+        raise RuntimeError(f"a line of the vector depends on state: {bad}")
+    out = passes[0]
+    return (np.array([l for _, l, _ in out]),
+            np.array([i for i, _, _ in out], dtype=np.int64),
+            np.array([f for _, _, f in out]))
+
+
+def _p25_cc_vector(seed: int = CC_P25_SEED) -> dict[str, np.ndarray]:
+    from dsdneo_tpu.protocol.p25 import encode as E
+    from dsdneo_tpu.protocol.p25.phase1 import P25P1Decoder
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS, SyncHit
+    rng = np.random.default_rng(seed)
+    tsdus = [[E.iden_up_tsbk(1, 851.0125e6, 12500.0, 45e6),
+              E.iden_up_tdma_tsbk(2, 769.00625e6, 6250.0, 30e6),
+              _tsbk(0x3B, [0x11, 0xBE, 0xE0, 0x01, 0x23, 0x11, 0x00, 0x70],
+                    lb=True)]]
+    frames = [E.tsdu_frame(CC_NAC, tsdus[0])]
+    while sum(len(f) for f in frames) < CC_MIN_DIBITS["p25"] + 400:
+        t = [_random_tsbk(rng, lb=(k == 2)) for k in range(3)]
+        tsdus.append(t)
+        frames.append(E.tsdu_frame(CC_NAC, t))
+    starts = np.cumsum([0] + [len(f) for f in frames[:-1]]).astype(np.int64)
+    payloads = np.stack([p for t in tsdus for p in t]).astype(np.uint8)
+    dec = P25P1Decoder()
+    sd = next(d for d in SYNC_DEFS if d.name == "+P25p1")
+
+    def parse(i, ctx):
+        ctx.state.nac = ctx.state.p2_cc = CC_NAC
+        hit = SyncHit(pos=int(starts[i // 3]), score=1.0, sync=sd)
+        dec._tsbk(np.unpackbits(payloads[i]), hit, ctx)
+
+    lines, of, fields = _two_pass_lines(parse, len(payloads))
+    return {"p25_tv_dibits": np.concatenate(frames).astype(np.uint8),
+            "p25_tv_starts": starts, "p25_tv_payloads": payloads,
+            "p25_tv_lines": lines, "p25_tv_line_block": of,
+            "p25_tv_fields": fields,
+            "p25_tv_seeds": np.array([seed, CC_NAC], np.int64)}
+
+
+def _csbk(op: int, fid: int, data) -> np.ndarray:
+    from dsdneo_tpu.protocol.dmr.encode import csbk_bits
+    return csbk_bits(op, fid, bytes(int(v) for v in data))
+
+
+def _dmr_cc_vector(seed: int = CC_DMR_SEED) -> dict[str, np.ndarray]:
+    from dsdneo_tpu.engine.ccbatch import BatchedDmrControlPipeline
+    from dsdneo_tpu.protocol.dmr import encode as E
+    from dsdneo_tpu.protocol.dmr.csbk import decode_csbk
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS, SyncHit
+    rng = np.random.default_rng(seed)
+    # the opcodes of tests/test_dmr_csbk.py: grants (PV, TV, TD), C_MOVE,
+    # C_ALOHA (mfid 0 and Capacity Max), C_AHOY, C_ACKD, P_CLEAR,
+    # C_BCAST types 0-3 and 6, preamble, P_MAINT, Cap+ and Con+
+    mix = [(48, 0), (49, 0), (52, 0), (57, 0), (25, 0), (25, 0x10),
+           (28, 0), (32, 0), (46, 0), (40, 0), (61, 0), (42, 0),
+           (0x3B, 0x10), (1, 0x06), (3, 0x06)]
+    csbks = []
+    n = (CC_MIN_DIBITS["dmr"] - 120 + 143) // 144 + 2
+    for k in range(n):
+        op, fid = mix[k % len(mix)]
+        data = rng.integers(0, 256, 8).astype(np.uint8)
+        if op == 49:
+            csbks.append(E.tv_grant_csbk(int(rng.integers(1, 4095)),
+                                         int(rng.integers(2)),
+                                         int(rng.integers(1, 1 << 24)),
+                                         int(rng.integers(1, 1 << 24))))
+            continue
+        if op == 57:
+            data[0] = min(int(data[0]), 0xFE)      # LPCN below 0xFFF
+        if op == 40:
+            data[0] = (int(data[0]) & 0x07) | ([0, 1, 2, 3, 6][k % 5] << 3)
+        csbks.append(_csbk(op, fid, data))
+    dib = E.cc_stream_dibits(csbks, cc=CC_DMR_COLOR, seed=seed)
+    sync = 60 + 144 * np.arange(n, dtype=np.int64) + 12 + 54
+    pl = np.packbits(np.stack(csbks), axis=1).astype(np.uint8)
+    hit_def = next(d for d in SYNC_DEFS if d.name == "+DMR BS data")
+    assert BatchedDmrControlPipeline.SYNC_NAMES[0] == hit_def.name
+
+    def parse(i, ctx):
+        hit = SyncHit(pos=int(sync[i]), score=1.0, sync=hit_def)
+        detail = decode_csbk(np.unpackbits(pl[i]), ctx, hit=hit, slot=0)
+        ctx.emit(f"Sync: +DMR CC | Color Code={CC_DMR_COLOR:02d} | CSBK"
+                 f"{detail}", "dmr", hit.pos, cc=CC_DMR_COLOR)
+
+    lines, of, fields = _two_pass_lines(parse, n)
+    return {"dmr_tv_dibits": dib.astype(np.uint8), "dmr_tv_starts": sync,
+            "dmr_tv_payloads": pl, "dmr_tv_lines": lines,
+            "dmr_tv_line_block": of, "dmr_tv_fields": fields,
+            "dmr_tv_seeds": np.array([seed, CC_DMR_COLOR], np.int64)}
+
+
+# message types of the NXDN vector whose lines need no earlier message
+# (not the data-call blocks, which continue a header, nor the alias)
+_CAC_TYPES = (0x01, 0x04, 0x05, 0x07, 0x08, 0x09, 0x0E, 0x10, 0x11, 0x18,
+              0x19, 0x1A, 0x1B, 0x20, 0x24, 0x38)
+
+
+def cac_bits171(msg147: np.ndarray, ran: int = CC_NXDN_RAN) -> np.ndarray:
+    """171 CAC bits: structure 0, RAN, the 147 message bits and the
+    CRC16-CAC closed over them (tests/test_ccbatch.py close_crc)."""
+    from dsdneo_tpu.protocol.nxdn.decoder import crc16_cac
+    bits = np.zeros(171, dtype=np.uint8)
+    bits[2:8] = [(ran >> (5 - i)) & 1 for i in range(6)]
+    bits[8:155] = msg147
+    base = bits.copy()
+    r0 = crc16_cac(base)
+    A = np.zeros((16, 16), dtype=np.uint8)
+    for i in range(16):
+        e = base.copy()
+        e[155 + i] = 1
+        ri = crc16_cac(e) ^ r0
+        A[:, i] = [(ri >> (15 - j)) & 1 for j in range(16)]
+    b = np.array([(r0 >> (15 - j)) & 1 for j in range(16)], np.uint8)
+    M = np.concatenate([A, b[:, None]], axis=1)
+    for col in range(16):
+        piv = next(r for r in range(col, 16) if M[r, col])
+        M[[col, piv]] = M[[piv, col]]
+        for r in range(16):
+            if r != col and M[r, col]:
+                M[r] ^= M[col]
+    bits[155:] = M[:, 16]
+    assert crc16_cac(bits) == 0
+    return bits
+
+
+def cac_frame_dibits(bits171: np.ndarray, lich: int = 0x01) -> np.ndarray:
+    """One 192-dibit RCCH frame: the +NXDN FSW, the LICH (parity set),
+    the CAC (K=5 encode, 12:14 puncture, PERM_12_25, two bits per
+    dibit), PN9-scrambled (tests/test_ccbatch.py _build_cac_stream)."""
+    from dsdneo_tpu.fec import conv
+    from dsdneo_tpu.protocol.nxdn.decoder import (_PERM_12_25,
+                                                  _pn9_scramble_positions)
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    fsw = next(d for d in SYNC_DEFS if d.name == "+NXDN FSW")
+    fsw_d = np.array([int(c) for c in fsw.pattern], dtype=np.uint8)
+    scram = np.zeros(182, dtype=np.uint8)
+    scram[_pn9_scramble_positions()] = 1
+    mapping = [0, 1, 2, None, 3, 4, 5, 6, 7, 8, 9, None, 10, 11]
+    lich_full = lich << 1
+    parity = 0
+    for k in range(7, 3, -1):
+        parity ^= (lich_full >> k) & 1
+    lich_full |= parity
+    enc = conv.encode(bits171)
+    deperm = np.zeros(300, dtype=np.uint8)
+    for g in range(25):
+        for i, m in enumerate(mapping):
+            if m is not None:
+                deperm[g * 12 + m] = enc[g * 14 + i]
+    bits300 = deperm[_PERM_12_25]
+    payload = np.zeros(182, dtype=np.uint8)
+    for i in range(8):
+        payload[i] = ((lich_full >> (7 - i)) & 1) << 1
+    payload[8:158] = ((bits300[0::2] << 1) | bits300[1::2]).astype(np.uint8)
+    payload ^= scram * 2
+    return np.concatenate([fsw_d, payload])
+
+
+def _nxdn_cc_vector() -> dict[str, np.ndarray]:
+    from dsdneo_tpu.protocol.nxdn.decoder import NxdnDecoder
+    rng = np.random.default_rng(CC_NXDN_SEED)
+    n = -(-CC_MIN_DIBITS["nxdn"] // 192) + 1
+    bits = []
+    for _ in range(n):
+        msg = rng.integers(0, 2, 147).astype(np.uint8)
+        t = _CAC_TYPES[int(rng.integers(len(_CAC_TYPES)))]
+        msg[2:8] = [(t >> (5 - i)) & 1 for i in range(6)]
+        bits.append(cac_bits171(msg))
+    dib = np.concatenate([cac_frame_dibits(b) for b in bits])
+    starts = 192 * np.arange(n, dtype=np.int64)
+    pl = np.packbits(np.concatenate(
+        [np.stack(bits), np.zeros((n, 5), np.uint8)], axis=1), axis=1)
+    dec = NxdnDecoder()
+
+    def parse(i, ctx):
+        ctx.mode_name = "nxdn48"
+        b = bits[i]
+        ran = 0
+        for v in b[2:8]:
+            ran = (ran << 1) | int(v)
+        ctx.state.nxdn_ran = ran
+        detail = dec._message(b[8:155], ctx)
+        ctx.emit(f"Sync: NXDN CC  RCCH CAC RAN {ran:02d}{detail}", "nxdn",
+                 int(starts[i]), ran=ran)
+
+    lines, of, fields = _two_pass_lines(parse, n)
+    return {"nxdn_tv_dibits": dib.astype(np.uint8), "nxdn_tv_starts": starts,
+            "nxdn_tv_payloads": pl.astype(np.uint8), "nxdn_tv_lines": lines,
+            "nxdn_tv_line_block": of, "nxdn_tv_fields": fields,
+            "nxdn_tv_seeds": np.array([CC_NXDN_SEED, CC_NXDN_RAN], np.int64)}
+
+
+# the sync patterns each monitor correlates, and the largest score its
+# vector may give anywhere off a true sync (P25 and DMR; the monitors
+# accept at 0.62) or in a window that starts in the lead filler (all
+# three; NXDN accepts at 0.55, its 10-symbol FSW then needs a valid LICH)
+CC_SYNC_NAMES = {"p25": ("+P25p1", "-P25p1"),
+                 "dmr": ("+DMR BS data", "+DMR BS voice"),
+                 "nxdn": ("+NXDN FSW", "-NXDN FSW")}
+CC_FALSE_SYNC_MAX = 0.55
+CC_LEAD = 96              # lead filler dibits (callers cut a suffix)
+CC_LEAD_SEED = 1          # first filler seed tried
+
+
+def _cc_sync_peaks(kind: str, dibits: np.ndarray) -> np.ndarray:
+    """The best score over the monitor's sync patterns at every start."""
+    from dsdneo_tpu.symbols import framesync
+    return np.max([_sync_corr(dibits, d.levels) for d in framesync.SYNC_DEFS
+                   if d.name in CC_SYNC_NAMES[kind]], axis=0)
+
+
+def _cc_lead(kind: str, stream: np.ndarray) -> tuple[np.ndarray, int]:
+    """A random lead filler under which no window that starts in the lead
+    scores above ``CC_FALSE_SYNC_MAX``, whatever suffix of it a channel
+    takes: (filler, its seed)."""
+    for seed in range(CC_LEAD_SEED, CC_LEAD_SEED + 256):
+        lead = np.random.default_rng(seed).integers(0, 4, CC_LEAD
+                                                    ).astype(np.uint8)
+        pk = _cc_sync_peaks(kind, np.concatenate([lead, stream[:64]]))
+        if pk[:CC_LEAD].max() < CC_FALSE_SYNC_MAX:
+            return lead, seed
+    raise RuntimeError(f"no {kind} lead filler keeps false syncs low")
+
+
+def _check_off_sync(kind: str, t: dict[str, np.ndarray]) -> None:
+    pre = kind + "_tv_"
+    pk = _cc_sync_peaks(kind, t[pre + "dibits"])
+    off = np.ones(len(pk), dtype=bool)
+    off[t[pre + "starts"]] = False
+    if pk[off].max() >= CC_FALSE_SYNC_MAX:
+        raise RuntimeError(f"the {kind} vector scores "
+                           f"{pk[off].max():.3f} off its syncs")
+
+
+def build_cc_tables() -> dict[str, np.ndarray]:
+    """The constants and test vectors of the port's control-channel
+    monitors (P25 TSBK, DMR CSBK, NXDN CAC), as numpy arrays."""
+    from dsdneo_tpu.engine import ccbatch
+    from dsdneo_tpu.fec import blockcodes, conv
+    from dsdneo_tpu.fec.device import _p25_trellis_consts
+    from dsdneo_tpu.symbols import framesync
+
+    deperm, expect, nibbles = _p25_trellis_consts()
+    mat_idx, h15, h13 = ccbatch._bptc_consts()
+    offs, flips, src_idx, wt, a_bits, tab = ccbatch._cac_consts()
+    names = ccbatch.BatchedDmrControlPipeline.SYNC_NAMES
+    defs = [next(d for d in framesync.SYNC_DEFS if d.name == n)
+            for n in names]
+    t = {
+        "p25_deperm": deperm.astype(np.int32),
+        "p25_expect": expect.astype(np.int32),
+        "p25_nibbles": nibbles.astype(np.int32),
+        "crc16_contrib80": ccbatch._crc16_contrib(80).astype(np.int32),
+        "tsdu_offsets": ccbatch._tsdu_offsets().astype(np.int32),
+        "bptc_gather": mat_idx.astype(np.int32),
+        "h15_codebook": h15.codebook.astype(np.uint8),
+        "h13_codebook": h13.codebook.astype(np.uint8),
+        "golay20_codebook": blockcodes.golay_20_8().codebook.astype(np.uint8),
+        "dmr_st_offs": ccbatch._ST_OFFS.astype(np.int32),
+        "dmr_payload_offs": ccbatch._PAYLOAD_OFFS.astype(np.int32),
+        "dmr_cc_sync_levels": np.stack([d.levels for d in defs]
+                                       ).astype(np.float32),
+        "cac_offs": offs.astype(np.int32),
+        "cac_flips": flips.astype(np.uint8),
+        "cac_src_idx": src_idx.astype(np.int32),
+        "cac_wt": wt.astype(np.float32),
+        "cac_a_bits": a_bits.astype(np.int32),
+        "cac_crc_tab": tab.astype(np.int32),
+        "conv_o1": conv._O1.astype(np.uint8),
+        "conv_o2": conv._O2.astype(np.uint8),
+    }
+    t.update(_p25_cc_vector())
+    t.update(_dmr_cc_vector())
+    t.update(_nxdn_cc_vector())
+    for kind in ("p25", "dmr"):
+        _check_off_sync(kind, t)
+    for kind in ("p25", "dmr", "nxdn"):
+        lead, seed = _cc_lead(kind, t[kind + "_tv_dibits"])
+        t[kind + "_tv_lead"] = lead
+        t[kind + "_tv_seeds"] = np.append(t[kind + "_tv_seeds"], seed)
+    return t
+
+
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
     """Write ``tables`` to ``path`` unless the file already holds equal
     arrays (an npz of equal arrays still differs in its bytes)."""
@@ -386,6 +766,7 @@ def main() -> int:
           f"{float(tables['tv_false_sync_max']):.3f}")
     print(_write_if_changed(OUT_DMR, build_dmr_tables()))
     print(_write_if_changed(OUT_TDMA, build_tdma_tables()))
+    print(_write_if_changed(OUT_CC, build_cc_tables()))
     return 0
 
 
