@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's six voice paths once on one CUDA card.
+"""Drive the PyTorch port's paths once on one CUDA card: six voice paths,
+three control-channel monitors and two event pipelines.
 
     python3 chip_smoke.py
 
@@ -86,6 +87,31 @@ Phases, in order; any failure exits non-zero:
   4. the ADP phase: with the key in the keyring every frame from the
      second superframe on decodes to the vector's plaintext bits and
      the first superframe stays cipher; K7 is launched.
+  5. the control-channel monitors (P25 TSBK with K1 and K4, DMR CSBK with
+     K1, NXDN CAC with K1 and K5) at 320 channels, 3 s blocks, two
+     blocks with the contexts kept: every block a channel's block holds
+     whole is parsed with the vector's payload and the JAX catalog's
+     lines; channels 0-1 equal the CPU path; K4 and K5 against their
+     plain versions; each monitor timed with its stage split and
+     profile.
+  6. the event pipelines at 320 channels, 3 s blocks (n_sym 14,398), two
+     blocks with the contexts kept, each channel with its own lead of
+     0-96 dibits of dead air and its own noise, through the gated front
+     end: ``BatchedDstarPipeline(320)`` (kernel K6 launched) accepts
+     every header its block holds, CRC-valid with the vector's 41
+     octets, and every superframe with a partner sync in the block, with
+     the vector's slow-data bytes, raw AMBE bits and 49-bit parameters
+     and 0 ECC errors, nothing else that emits an event, and sets
+     ``channel_state`` right; ``BatchedM17VoicePipeline(320)`` (kernel
+     K5 launched) passes every stream frame the pick may take through
+     the LICH gate with the vector's FN and payload bytes, fails every
+     other hit, and assembles the LSF CRC-valid with the vector's
+     callsigns whenever its six chunks are in; channels 0-1 equal the
+     CPU path's frames, records and events; the gated front end on the
+     card within ``GATED_SOFT_TOL`` of its CPU path; K6 against its
+     plain version at the path's header count and at 65,536 words, K5
+     at M17's word count; each path timed (pipelined) with its stage
+     split, profile and peak memory, and the top-K lists' fill printed.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -129,6 +155,15 @@ K4_CHAIN_CYCLES = 4 + 3 * (4 + 4)
 # per K5 step in csrc/conv_k5.cu: the add of the branch cost (FP32), the
 # compare and the select
 K5_CHAIN_CYCLES = 4 + 4 + 4
+# per K6 step in csrc/conv_k3.cu: the integer add of the branch cost, the
+# compare and the select (the four states' chains run side by side)
+K6_CHAIN_CYCLES = 4 + 4 + 4
+K6_SYNTH_N = 65536           # K6's larger grid (words)
+# the gated front end, card vs its CPU path: soft symbols within this
+# (the FIR and the discriminator's atan2 round otherwise, ~1e-6, and a
+# timing window that is mostly dead air takes its phase from the noise,
+# which moves its live neighbours' instants; tests/test_torch_gated.py)
+GATED_SOFT_TOL = 0.1
 DMR_MAX_FAIL = 0.03           # DMR CSBKs that may fail BPTC + CRC (see
                               # judge_monitor)
 K4_SYNTH_N = 131072           # K4's and K5's larger grids (words)
@@ -140,7 +175,7 @@ K7_SYNTH_N = 20480           # K7's large synthetic word count
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
 # kernel names in a profile
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
-        "conv_k5")
+        "conv_k5", "conv_k3")
 
 
 def log(*a) -> None:
@@ -478,6 +513,18 @@ def main() -> int:
         mtv, m_leads, m_blocks = tdma_blocks(ct.test_vector(), sps, B,
                                              modulate)
         mon[kind] = (ct, mtv, m_leads, m_blocks, B // sps - 2)
+    # the event pipelines: the bursty streams of data/event_tables.npz,
+    # 3 s blocks, own lead of 0-96 dibits of dead air and own noise per
+    # channel
+    from dsdneo_tpu_torch.protocol.dstar import encode as dstar_encode
+    from dsdneo_tpu_torch.protocol.m17 import encode as m17_encode
+    ev = {}
+    for kind, modulate in (("dstar", dstar_encode.fm_iq),
+                           ("m17", m17_encode.fm_iq)):
+        et = params.load_event(kind, dev)
+        etv, e_leads, e_blocks = tdma_blocks(et.test_vector(), 10, B,
+                                             modulate)
+        ev[kind] = (et, etv, e_leads, e_blocks, B // 10 - 2)
     log(f"set-up {time.perf_counter() - t0:.1f} s: C={C}; P25 B={B} "
         f"({BLOCK_S} s) n_sym={n_sym}, LDUs per channel "
         f"{want_ldus.min()}..{want_ldus.max()} (CQPSK "
@@ -489,7 +536,11 @@ def main() -> int:
         f"B={a_B}; control channels B={B}: P25 "
         f"{len(mon['p25'][1]['starts'])} TSDUs, DMR "
         f"{len(mon['dmr'][1]['starts'])} CSBKs, NXDN48 "
-        f"{len(mon['nxdn48'][1]['starts'])} CAC frames in the vectors")
+        f"{len(mon['nxdn48'][1]['starts'])} CAC frames in the vectors; "
+        f"event streams B={B}: D-STAR {len(ev['dstar'][1]['hd_starts'])} "
+        f"headers and {len(ev['dstar'][1]['sf_starts'])} superframes, M17 "
+        f"{len(ev['m17'][1]['fr_starts'])} stream frames in "
+        f"{len(ev['m17'][1]['lsf'])} transmissions")
 
     # -- 2. kernels against their plain versions ---------------------------
     report = {}
@@ -697,8 +748,9 @@ def main() -> int:
     # -- 3. the paths at C=320 ----------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
                audio_wire.adpcm_compress, fdev.rs_syndromes_batch,
-               fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch)
-    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn = counted
+               fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch,
+               fdev.conv_k3_decode_batch)
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn = counted
     cpu_tables = params.load("cpu")
 
     def run_p25_path(label, xblocks, cqpsk_on, want_n):
@@ -1322,7 +1374,8 @@ def main() -> int:
                         f"blocks {idx}: {g[:2]} / {lines[:2]}")
         return n_checked, n_failed
 
-    def time_monitor(label, pipe, xblocks, pipelined, stage):
+    def time_monitor(label, pipe, xblocks, pipelined, stage,
+                     unit="blocks parsed"):
         """The JAX bench's loop (``pipelined``: dispatch block N+1's front
         end before finishing block N, ``bench.py:334``; else the plain
         per-block loop, ``bench.py:375-389``) over ``N_TIMED`` blocks,
@@ -1354,7 +1407,7 @@ def main() -> int:
         log(f"{label} {'pipelined' if pipelined else 'per-block'} step "
             f"({ident}): {step_s * 1e3:.1f} ms per {BLOCK_S:.4g} s block of "
             f"{C} channels = {C * BLOCK_S / step_s:.1f}x realtime; "
-            f"{per_block:.0f} blocks parsed per step = "
+            f"{per_block:.0f} {unit} per step = "
             f"{per_block / step_s:.0f} per second")
         stages = {}
         for ctx in pipe.ctxs:
@@ -1635,6 +1688,307 @@ def main() -> int:
     time_monitor("NXDN CC path", pipe, mon["nxdn48"][3], True, nxdn_stage)
     del pipe, mon
 
+    # -- 6. the event pipelines at C=320 -----------------------------------
+    from dsdneo_tpu_torch.engine import demod
+    from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
+    from dsdneo_tpu_torch.engine.m17batch import (GOLAY_ERR_MAX,
+                                                  BatchedM17VoicePipeline,
+                                                  _m17_tables)
+    from dsdneo_tpu_torch.protocol.dstar.decoder import voicing_activity
+    from dsdneo_tpu_torch.vocoder import codec2
+
+    def topk_fill(pipe, fe, label):
+        """How full the top-K candidate list was: channels whose K-th
+        candidate still passes the score threshold (the list may then
+        have dropped a candidate that passes)."""
+        vq = fe[-2]
+        last = vq[:, -1].astype(np.float32) / 127.0
+        n_pass = (vq.astype(np.float32) / 127.0 >= pipe.threshold).sum(1)
+        log(f"{label}: top-{vq.shape[1]} candidates per channel, "
+            f"{int(n_pass.min())}..{int(n_pass.max())} (mean "
+            f"{n_pass.mean():.1f}) at or above the {pipe.threshold} "
+            f"threshold; channels whose K-th candidate passes it: "
+            f"{int((last >= pipe.threshold).sum())}")
+
+    def check_gated(label, kind, four_level):
+        """The gated front end of channels 0-1 on the card against the
+        port's CPU path: soft symbols within GATED_SOFT_TOL, dibits equal
+        off the slicer thresholds by that margin."""
+        _et, _etv, _leads, xblocks, n_sym = ev[kind]
+        taps = torch.as_tensor(firdes.channel_lpf(FS, "6k25" if kind ==
+                                                  "dstar" else "12k5"))
+        gd, gs = demod.gated_frontend_step(xblocks[0][:2], taps.to(dev),
+                                           10.0, n_sym, four_level)
+        wd, ws = demod.gated_frontend_step(xblocks[0][:2].cpu(), taps,
+                                           10.0, n_sym, four_level)
+        gs, ws, gd, wd = gs.cpu().numpy(), ws.numpy(), gd.cpu().numpy(), \
+            wd.numpy()
+        err = float(np.abs(gs - ws).max())
+        thr = np.array([0.0, 2.0, -2.0] if four_level else [0.0],
+                       np.float32)
+        off = np.abs(ws[..., None] - thr).min(axis=-1) > GATED_SOFT_TOL
+        n_diff = int((gd[off] != wd[off]).sum())
+        log(f"{label}: gated front end, card vs CPU path, channels 0-1: "
+            f"soft max_abs_err {err:.3e} (tol {GATED_SOFT_TOL}), "
+            f"{100 * float(np.mean(np.abs(gs - ws) <= 2e-4)):.2f}% within "
+            f"2e-4; dibits off the thresholds ({int(off.sum())} of "
+            f"{off.size}) differing: {n_diff}")
+        if not err <= GATED_SOFT_TOL or n_diff:
+            raise RuntimeError(f"{label}: the gated front end on the card "
+                               "differs from its CPU path")
+
+    def run_event(label, kind, make, runs, cpu_pipe, judge_block):
+        """Two blocks with the contexts kept, launch counters reset
+        before; every channel of each block judged against the vector
+        by ``judge_block(pipe, blk, n0s)``; channels 0-1 against
+        ``cpu_pipe`` on the CPU (frames, records, events, channel
+        state)."""
+        _et, _etv, _leads, xblocks, _n = ev[kind]
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pipe = make()
+        frames = []
+        for blk, xb in enumerate(xblocks):
+            n0s = [len(ctx.events) for ctx in pipe.ctxs]
+            t1 = time.perf_counter()
+            n = pipe.decode_block_events(xb)
+            dt = time.perf_counter() - t1
+            msg = judge_block(pipe, blk, n0s)
+            frames.append((pipe.last_frames,
+                           [pipe.channel_state(c) for c in range(2)]))
+            log(f"{label} block {blk}: {n} frames accepted over {C} "
+                f"channels; {msg}; {dt * 1e3:.1f} ms")
+        got = check_launches(label, counted, runs,
+                             tuple(f for f in counted if f not in runs))
+        log(f"{label}: peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        no_reference_modules()
+        for blk, xb in enumerate(xblocks):
+            cpu_pipe.decode_block_events(xb[:2].cpu())
+            (card, states), cpu = frames[blk], cpu_pipe.last_frames
+            sel = card[0] < 2
+            same = all(np.array_equal(a[sel], b) for a, b in
+                       zip(card[:-1], cpu[:-1])) and (
+                states == [cpu_pipe.channel_state(c) for c in range(2)])
+            rows = ([r for r, k in zip(card[-1], sel) if k]
+                    if isinstance(card[-1], list) else card[-1][sel])
+            same = same and len(rows) == len(cpu[-1]) and all(
+                np.array_equal(a, b) for a, b in zip(rows, cpu[-1]))
+            if not same:
+                raise RuntimeError(f"{label} block {blk}: the card's frames "
+                                   "of channels 0-1 differ from the CPU "
+                                   "path's")
+        for c in range(2):
+            a = [(e.line, e.pos) for e in pipe.ctxs[c].events]
+            b = [(e.line, e.pos) for e in cpu_pipe.ctxs[c].events]
+            if a != b:
+                raise RuntimeError(f"{label}: channel {c}'s events differ "
+                                   "from the CPU path's")
+        log(f"{label} card vs CPU plain path, channels 0-1, both blocks: "
+            f"accepted frames, records, channel states and events ({len(a)} "
+            "on channel 1) equal")
+        return pipe, got
+
+    def judge_dstar(pipe, blk, n0s):
+        _et, etv, leads, _x, n_sym = ev["dstar"]
+        ac, at, ak, asc, recs = pipe.last_frames
+        n_checked = n_junk = 0
+        for c in range(pipe.C):
+            mine = [(int(t), int(k), float(sc), r) for cc, t, k, sc, r
+                    in zip(ac, at, ak, asc, recs) if cc == c]
+            n = dstar_encode.judge(etv, int(leads[c]), n_sym, mine)
+            n_checked += n
+            n_junk += len(mine) - n
+            voice = any(k == 0 and not r[396:].any() and any(
+                voicing_activity(b) for b in np.unpackbits(
+                    r[249:396]).reshape(21, 56)[:, :49])
+                for _t, k, _s, r in mine)
+            if pipe.channel_state(c) != ("voice" if voice else "idle"):
+                raise RuntimeError(f"D-STAR block {blk} channel {c}: "
+                                   f"state {pipe.channel_state(c)}")
+        hd = sum(int(k) for k in ak)
+        return (f"every header the block holds is accepted ({hd} header "
+                f"picks), CRC-valid"
+                f" with the vector's 41 octets and every partnered "
+                f"superframe has the vector's slow data, raw AMBE bits and "
+                f"49-bit parameters with 0 ECC errors ({n_checked} frames); "
+                f"{n_junk} other picks, all headers failing the CRC under "
+                f"the {dstar_encode.HD_SOLO_SCORE} score floor (no event); "
+                f"channel states right")
+
+    m17_seen = [set() for _ in range(C)]
+
+    def judge_m17(pipe, blk, n0s):
+        _et, etv, leads, _x, n_sym = ev["m17"]
+        ac, at, blob = pipe.last_frames
+        n_pass = n_junk = n_lsf = 0
+        for c in range(pipe.C):
+            rows = [(int(t), blob[h]) for h, t in enumerate(at) if ac[h] == c]
+            lines = [e.line for e in pipe.ctxs[c].events[n0s[c]:]]
+            now = m17_encode.judge(etv, int(leads[c]), n_sym, rows, lines,
+                                   GOLAY_ERR_MAX, m17_seen[c])
+            m17_seen[c] = now
+            n_pass += len(now)
+            n_junk += len(rows) - len(now)
+            n_lsf += sum("SRC:" in ln for ln in lines)
+            if pipe.channel_state(c) != ("voice" if now else "idle"):
+                raise RuntimeError(f"M17 block {blk} channel {c}: state "
+                                   f"{pipe.channel_state(c)}")
+        return (f"{n_pass} stream frames pass the LICH gate, every one the "
+                f"vector's with its FN and payload bytes, none missing; "
+                f"{n_junk} other picks, all failing the gate; {n_lsf} LSFs "
+                f"assembled CRC-valid with the vector's callsigns and CAN; "
+                f"channel states right")
+
+    def k3_words(n):
+        """``n`` header codewords of random info bits (two flush bits)
+        through the K=3 code (s1 = b ^ b' ^ b'', s0 = b ^ b'', vectorized;
+        checked against the lattice of fec/device.K3_TRANS), 0-3 flipped
+        bits each, the last two words all-zero and all-one."""
+        info = np.concatenate([rng.integers(0, 2, (n, 328)),
+                               np.zeros((n, 2), np.int64)], 1)
+        b1 = np.pad(info, ((0, 0), (1, 0)))[:, :-1]
+        b2 = np.pad(info, ((0, 0), (2, 0)))[:, :-2]
+        w = np.stack([info ^ b1 ^ b2, info ^ b2], -1).reshape(n, 660)
+        for i in range(4):
+            st, ref = 0, []
+            for b in info[i].tolist():
+                ns = ((st << 1) | b) & 3
+                pa, a1, a0, _pb, c1, c0 = fdev.K3_TRANS[ns]
+                ref += [a1, a0] if st == pa else [c1, c0]
+                st = ns
+            if not np.array_equal(w[i], ref):
+                raise RuntimeError("the vectorized K=3 encoder differs")
+        w = w.astype(np.uint8)
+        k = rng.integers(0, 4, n)
+        for j in range(3):
+            pos = rng.integers(0, 660, n)
+            w[np.arange(n)[k > j], pos[k > j]] ^= 1
+        w[-2], w[-1] = 0, 1
+        return info[:, :330].astype(np.uint8), w
+
+    def check_k6(n, launches_path, shape=None):
+        info, words = k3_words(n)
+        wt = torch.as_tensor(words, device=dev)
+        got = fdev.conv_k3_decode_batch(wt)
+        want = fdev.conv_k3_decode_plain(wt)
+        if not torch.equal(got, want):
+            raise RuntimeError("K6 disagrees with its plain version")
+        n_exact = int((got.cpu().numpy()[:-2] == info[:-2]).all(1).sum())
+        k_ms = cuda_ms(lambda: fdev.conv_k3_decode_batch(wt), 20)
+        plain_ms = cuda_ms(lambda: fdev.conv_k3_decode_plain(wt), 1)
+        b_ms, b_by = bound(nbytes(wt, got), 0)
+        floor_ms = 330 * K6_CHAIN_CYCLES / (clk * 1e3)
+        log(f"K6 conv_k3 [{n},660] -> [{n},330]: bits equal the plain "
+            f"version's (tol 0) on codewords with 0-3 flipped bits and on "
+            f"the all-zero and all-one words; {n_exact}/{n - 2} codewords "
+            f"decode to their data")
+        show("conv_k3", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; chain floor ~{floor_ms:.5f} ms (330 steps x "
+             f"{K6_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
+             f"{launches_path}", shape=shape)
+        (report["conv_k3"] if shape is None else
+         report["conv_k3"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+
+    def check_k5_m17(n, launches_path):
+        """K5 at M17's word count on M17-like inputs: random 144-bit
+        payloads (FN and voice) and 4 flush bits through the K=5 code,
+        the P2 puncture (weight 0 on 24 of the 296 symbols), 0-6 flipped
+        kept symbols, as ``m17_stream_decode_device`` hands them over."""
+        bits = np.concatenate([rng.integers(0, 2, (n, 144)),
+                               np.zeros((n, 4), np.int64)], axis=1)
+        sym = np.zeros((n, 296), np.float32)
+        st = np.zeros(n, np.int64)
+        for i in range(148):
+            b = bits[:, i]
+            sym[:, 2 * i] = conv._O1[st, b]
+            sym[:, 2 * i + 1] = conv._O2[st, b]
+            st = conv._NEXT[st, b]
+        keep = _m17_tables()[2]
+        wt = np.zeros((n, 296), np.float32)
+        wt[:, keep] = 1.0
+        flip = (rng.random((n, 296)) < rng.integers(0, 7, (n, 1)) / 272.0) \
+            & (wt > 0)
+        sym[flip] = 1.0 - sym[flip]
+        sym[wt == 0] = 0.0
+        st_, wt_ = (torch.as_tensor(a, device=dev) for a in (sym, wt))
+        got = fdev.conv_k5_decode_batch(st_, wt_)
+        if not torch.equal(got, fdev.conv_k5_decode_plain(st_, wt_)):
+            raise RuntimeError("K5 disagrees with its plain version on "
+                               "M17's inputs")
+        n_exact = int((got[:, :144].cpu().numpy() == bits[:, :144]).all(
+            1).sum())
+        k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(st_, wt_), 20)
+        plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(st_, wt_), 1)
+        b_ms, b_by = bound(nbytes(st_, wt_, got), 0)
+        floor_ms = 148 * K5_CHAIN_CYCLES / (clk * 1e3)
+        log(f"K5 conv_k5 at M17's shape [{n},296] -> [{n},148]: bits equal "
+            f"the plain version's (tol 0) on P2-depunctured 0/1 symbols "
+            f"with 0/1 weights; {n_exact}/{n} frames with 0-6 flipped "
+            f"symbols decode to their data")
+        show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; chain floor ~{floor_ms:.5f} ms (148 steps x "
+             f"{K5_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
+             f"{launches_path}", shape=[n, 296])
+        report["conv_k5"]["other_shapes"][-1]["chain_floor_ms"] = floor_ms
+
+    def dstar_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at, ak, _s = pipe.pick_frames(*feh[1:])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pipe.decode_records(feh[0], ac, at, ak)
+        return t_pick, time.perf_counter() - t1
+
+    def m17_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at = pipe.pick_frames(*feh[1:])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pipe.decode_frames(feh[0], ac, at)
+        return t_pick, time.perf_counter() - t1
+
+    log(f"libcodec2 {'found' if codec2.available() else 'not found'} on "
+        "this machine (M17 synthesizes only for monitored channels, none "
+        "in the timed loop, as the JAX bench runs it)")
+    pipe, launches["dstar"] = run_event(
+        "D-STAR path", "dstar",
+        lambda: BatchedDstarPipeline(C, FS, tables=ev["dstar"][0]),
+        (k6fn,),
+        BatchedDstarPipeline(2, FS, device="cpu",
+                             tables=params.load_event("dstar", "cpu")),
+        judge_dstar)
+    check_gated("D-STAR path", "dstar", False)
+    topk_fill(pipe, pipe.frontend_sync_device(ev["dstar"][3][0]),
+              "D-STAR path")
+    n6 = -(-int((pipe.last_frames[2] == 1).sum()) // 8) * 8
+    check_k6(n6, launches["dstar"]["conv_k3_decode_batch"])
+    check_k6(K6_SYNTH_N, launches["dstar"]["conv_k3_decode_batch"],
+             shape=[K6_SYNTH_N, 660])
+    time_monitor("D-STAR path", pipe, ev["dstar"][3], True, dstar_stage,
+                 "frames accepted")
+    del pipe
+
+    pipe, launches["m17"] = run_event(
+        "M17 path", "m17",
+        lambda: BatchedM17VoicePipeline(C, FS, monitor=set(),
+                                        tables=ev["m17"][0]),
+        (k5fn,),
+        BatchedM17VoicePipeline(2, FS, monitor=set(), device="cpu",
+                                tables=params.load_event("m17", "cpu")),
+        judge_m17)
+    check_gated("M17 path", "m17", True)
+    topk_fill(pipe, pipe.frontend_sync_device(ev["m17"][3][0]), "M17 path")
+    n5m = -(-len(pipe.last_frames[0]) // 64) * 64
+    check_k5_m17(n5m, launches["m17"]["conv_k5_decode_batch"])
+    time_monitor("M17 path", pipe, ev["m17"][3], True, m17_stage,
+                 "frames accepted")
+    del pipe, ev
+
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")
 
@@ -1649,8 +2003,10 @@ def main() -> int:
             ("p25_trellis", "dsdneo_tpu_torch/csrc/p25_trellis.cu",
              "dsdneo_tpu/fec/device.py:106", "p25_12_decode_batch"),
             ("conv_k5", "dsdneo_tpu_torch/csrc/conv_k5.cu",
-             "dsdneo_tpu/fec/device.py:176", "conv_k5_decode_batch")]
-    # no single PyTorch call computes any of the six functions.
+             "dsdneo_tpu/fec/device.py:176", "conv_k5_decode_batch"),
+            ("conv_k3", "dsdneo_tpu_torch/csrc/conv_k3.cu",
+             "dsdneo_tpu/fec/device.py:229", "conv_k3_decode_batch")]
+    # no single PyTorch call computes any of the seven functions.
     # "launches" sums the paths' runs; "launches_by_path" splits it
     log(ident)
     log(json.dumps({"kernels": [

@@ -1,7 +1,9 @@
 """FIR designs the port computes itself (host side, numpy).
 
-Counterpart of ``rrc`` in ``dsdneo_tpu/dsp/firdes.py``; the channel
-low-pass taps come with the tables file.
+Counterpart of ``rrc``, ``lowpass_taps`` and ``channel_lpf`` in
+``dsdneo_tpu/dsp/firdes.py``: the root-raised-cosine matched filter of
+CQPSK and the channel low-pass of the gated front end (the other paths'
+channel low-pass taps come with their tables files).
 """
 
 from __future__ import annotations
@@ -9,6 +11,42 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+# channel low-pass profiles: the transition band's centre in Hz (the
+# passband edge and half the 1200 Hz transition)
+CH_LPF_TRANSITION_HZ = 1200.0
+_GUARD = CH_LPF_TRANSITION_HZ * 0.5
+CH_LPF_CUTOFF_HZ = {
+    "wide": 8000.0 + _GUARD,
+    "6k25": 3125.0 + _GUARD,       # NXDN48, dPMR, D-STAR
+    "12k5": 6250.0 + _GUARD,       # DMR, NXDN96, X2-TDMA, YSF, M17
+    "provoice": 6250.0 + _GUARD,
+    "p25_c4fm": 6250.0 + _GUARD,
+    "p25_cqpsk": 7250.0,
+}
+CH_LPF_TAPS = 144
+
+
+def lowpass_taps(ntaps: int, fs: float, cutoff: float) -> np.ndarray:
+    """Exactly ``ntaps`` (odd; an even count is raised by one) Hamming-
+    windowed sinc low-pass taps of unit DC gain, float32."""
+    if ntaps % 2 == 0:
+        ntaps += 1
+    m = np.arange(ntaps) - (ntaps - 1) / 2
+    fc = cutoff / fs
+    h = np.sinc(2 * fc * m) * 2 * fc
+    h *= 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(ntaps) / (ntaps - 1))
+    h /= np.sum(h)
+    return h.astype(np.float32)
+
+
+def channel_lpf(fs: float, profile: str,
+                ntaps: int = CH_LPF_TAPS - 1) -> np.ndarray:
+    """The channel low-pass of a decode profile at sample rate ``fs``
+    (143 taps by default)."""
+    if ntaps % 2 == 0:
+        ntaps -= 1
+    return lowpass_taps(ntaps, fs, CH_LPF_CUTOFF_HZ[profile])
 
 
 def rrc(sps: float, ntaps: int, alpha: float = 0.2) -> np.ndarray:

@@ -1,9 +1,10 @@
-"""The demodulation modes of the ported TDMA and NXDN voice paths.
+"""The demodulation modes of the ported TDMA, NXDN, D-STAR and M17 paths.
 
 The port's own copy of the rows of ``dsdneo_tpu/engine/modes.py``
 (``MODES``) that its pipelines use: the channel-filter profile (the name
-of its taps in ``data/tdma_tables.npz``), the symbol rate and whether
-the mode slices four levels.
+of its taps in ``data/tdma_tables.npz``, or the ``dsp.firdes.channel_lpf``
+profile the gated front end designs), the symbol rate and whether the
+mode slices four levels.
 """
 
 from __future__ import annotations
@@ -23,4 +24,6 @@ MODES: dict[str, ModeConfig] = {m.name: m for m in [
     ModeConfig("nxdn48", "6k25", 2400, True),
     ModeConfig("nxdn96", "12k5", 4800, True),
     ModeConfig("x2tdma", "12k5", 6000, True),
+    ModeConfig("dstar", "6k25", 4800, False),
+    ModeConfig("m17", "12k5", 4800, True),
 ]}

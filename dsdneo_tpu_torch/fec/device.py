@@ -21,14 +21,21 @@ the JAX package's ``_rs_syndrome_fn``): on a CUDA tensor it launches
 kernel K7 (``csrc/rs_syndromes.cu``), on a CPU tensor it runs
 :func:`rs_syndromes_plain`.
 
-And the two Viterbi decoders of the control-channel monitors, each a
-plain PyTorch loop over time (:func:`p25_12_decode_plain`,
-:func:`conv_k5_decode_plain`) and a hand-written kernel behind the entry
+And three Viterbi decoders, each a plain PyTorch loop over time
+(:func:`p25_12_decode_plain`, :func:`conv_k5_decode_plain`,
+:func:`conv_k3_decode_plain`) and a hand-written kernel behind the entry
 point that a CUDA tensor selects: the P25 rate-1/2 trellis
-(:func:`p25_12_decode_batch`, kernel K4, ``csrc/p25_trellis.cu``) and
-the K=5 rate-1/2 weighted soft Viterbi of NXDN and M17
-(:func:`conv_k5_decode_batch`, kernel K5, ``csrc/conv_k5.cu``).  Both
-keep the JAX functions' lattices and tie rules, bit for bit.
+(:func:`p25_12_decode_batch`, kernel K4, ``csrc/p25_trellis.cu``), the
+K=5 rate-1/2 weighted soft Viterbi of NXDN and M17
+(:func:`conv_k5_decode_batch`, kernel K5, ``csrc/conv_k5.cu``) and the
+K=3 hard Viterbi of the D-STAR header (:func:`conv_k3_decode_batch`,
+kernel K6, ``csrc/conv_k3.cu``).  All keep the JAX functions' lattices
+and tie rules, bit for bit.
+
+And the D-STAR AMBE 3600x2400 voice-frame ECC
+(:func:`dstar_ambe_ecc_batch`, the JAX package's ``_dstar_ambe_jit``):
+dual Golay(23,12) + PN with D-STAR's row positions, the extended-Golay
+parity at ``fr[0][0]`` and the C1 seed from the corrected C0.
 """
 
 from __future__ import annotations
@@ -370,3 +377,90 @@ def conv_k5_decode_batch(sym: torch.Tensor, wt: torch.Tensor
 
 
 conv_k5_decode_batch.launches = 0
+
+
+# -- K=3 rate-1/2 hard Viterbi of the D-STAR header (kernel K6) ---------------
+# (pa, a1, a0), (pb, b1, b0) of each new state: its two predecessors and
+# the coded pair each would have sent (protocol/dstar/decoder.py _V_TRANS)
+K3_TRANS = ((0, 0, 0, 2, 1, 1), (0, 1, 1, 2, 0, 0),
+            (1, 1, 0, 3, 0, 1), (1, 0, 1, 3, 1, 0))
+
+
+def conv_k3_decode_plain(bits: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of K6: ``[N, 2n]`` hard bits (pairs
+    s1, s0) → ``[N, n]`` uint8 bits, the JAX function's 4-state lattice
+    as a loop over the steps: metrics start at 0, each new state takes
+    ``pb`` only when strictly cheaper (a tie keeps ``pa = ns >> 1``), the
+    end state is the first least metric, and the traceback steps to
+    ``(st >> 1) + 2 · took_pb``.  Integer metrics: the JAX function's
+    float32 sums of these small integers are exact."""
+    dev = bits.device
+    N, n = bits.shape[0], bits.shape[1] // 2
+    s1 = bits[:, 0::2].to(torch.int32)
+    s0 = bits[:, 1::2].to(torch.int32)
+    metric = [torch.zeros(N, dtype=torch.int32, device=dev)
+              for _ in range(4)]
+    takes = []
+    for t in range(n):
+        a, b = s1[:, t], s0[:, t]
+        news, tk = [], []
+        for pa, a1, a0, pb, b1, b0 in K3_TRANS:
+            ma = metric[pa] + (a - a1).abs() + (b - a0).abs()
+            mb = metric[pb] + (a - b1).abs() + (b - b0).abs()
+            take_b = mb < ma
+            news.append(torch.where(take_b, mb, ma))
+            tk.append(take_b)
+        metric = news
+        takes.append(torch.stack(tk, dim=1))                  # [N, 4]
+    st = torch.argmin(torch.stack(metric, dim=1), dim=1)      # first min
+    out = []
+    for t in range(n - 1, -1, -1):
+        out.append(st & 1)
+        tb = torch.gather(takes[t], 1, st[:, None])[:, 0]
+        st = (st >> 1) + 2 * tb.to(torch.int64)
+    if not out:
+        return torch.zeros((N, 0), dtype=torch.uint8, device=dev)
+    return torch.stack(out[::-1], dim=1).to(torch.uint8)
+
+
+def conv_k3_decode_batch(bits: torch.Tensor) -> torch.Tensor:
+    """Batched K=3 rate-1/2 hard Viterbi (the D-STAR RF header):
+    ``[N, 2n]`` uint8 bits → ``[N, n]`` uint8 decoded bits.  A CUDA
+    tensor launches kernel K6; a CPU tensor runs
+    :func:`conv_k3_decode_plain`."""
+    if bits.device.type == "cpu":
+        return conv_k3_decode_plain(bits)
+    N, n2 = bits.shape
+    if n2 % 2:
+        raise ValueError(f"bits {tuple(bits.shape)}: expected [N, 2n]")
+    kernels.require(bits, "bits", torch.uint8, contiguous=False)
+    bits = bits.contiguous()
+    out = torch.empty((N, n2 // 2), dtype=torch.uint8, device=bits.device)
+    if N and n2:
+        err = kernels.load().dsd_conv_k3(
+            bits.data_ptr(), out.data_ptr(), N, n2 // 2,
+            kernels.stream_handle(bits))
+        kernels.check(err, "conv_k3")
+        conv_k3_decode_batch.launches += 1
+    return out
+
+
+conv_k3_decode_batch.launches = 0
+
+
+# -- D-STAR AMBE 3600x2400 voice-frame ECC -----------------------------------
+def dstar_ambe_ecc_batch(bits72: torch.Tensor, tables):
+    """``[F, 72]`` uint8 on-air bits → (``[F, 49]`` uint8 parameter bits,
+    ``[F]`` int32 error counts: the Golay corrections of C0 and C1 plus
+    one for an extended-Golay parity mismatch).  ``tables`` is
+    ``params.EventTables`` (kind ``dstar``)."""
+    x = bits72.to(torch.uint8)
+    fr0 = x[:, tables.dstar_r0]                               # [F, 24]
+    fr1 = x[:, tables.dstar_r1]                               # [F, 23]
+    m0, errs = _ml_dec(fr0[:, 1:24], tables.golay_pm, tables.golay_cb)
+    errs = errs + (tables.dstar_parity[m0] != fr0[:, 0]).to(torch.int32)
+    m1, e1 = _ml_dec(fr1 ^ tables.dstar_pn[m0], tables.golay_pm,
+                     tables.golay_cb)
+    out = torch.cat([tables.dstar_param[m0], tables.dstar_param[m1],
+                     x[:, tables.dstar_r2], x[:, tables.dstar_r3]], dim=1)
+    return out, errs + e1

@@ -7,8 +7,9 @@ pointers go as ``c_void_p``, the stream is PyTorch's current stream,
 and each C entry point returns ``cudaGetLastError()`` after its launch.
 No source includes PyTorch's headers, so a build takes seconds.
 
-``csrc/*.cpp`` is host code (the ADPCM decoder of the PCM fetch),
-compiled by the host C++ compiler into a second library
+``csrc/*.cpp`` is host code (the ADPCM decoder of the PCM fetch and the
+C library's float32 trigonometry for the CPU path of the timing
+recovery), compiled by the host C++ compiler into a second library
 (:func:`load_host`).
 
 Both build at first use into ``dsdneo_tpu_torch/build/`` (gitignored),
@@ -59,11 +60,18 @@ _SIGNATURES = {
     "dsd_p25_trellis": [_P, _P, _P, _I, _P],
     # sym, wt, bits, N, n, stream
     "dsd_conv_k5": [_P, _P, _P, _I, _I, _P],
+    # bits, out, N, n, stream
+    "dsd_conv_k3": [_P, _P, _I, _I, _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {
     # blob, n_streams, n_bytes, out
     "dsd_adpcm_decode": ([_P, _L, _L, _P], None),
+    # x, out, n
+    "dsd_cosf": ([_P, _P, _L], None),
+    "dsd_sinf": ([_P, _P, _L], None),
+    # y, x, out, n
+    "dsd_atan2f": ([_P, _P, _P, _L], None),
 }
 
 

@@ -5,11 +5,14 @@ which ``tools/export_torch_tables.py`` builds from the JAX package's own
 functions into ``data/p25p1_tables.npz`` (P25 Phase 1),
 ``data/dmr_tables.npz`` (DMR and the AMBE core),
 ``data/tdma_tables.npz`` (the front ends and host tables of X2-TDMA,
-P25 Phase 2 and NXDN) and ``data/cc_tables.npz`` (the control-channel
-monitors' FEC, CRC and gather tables), and its state is the per-channel
-carry of the voice decoder (prediction, synthesis and frame-repeat).
-:func:`from_numpy`, :func:`dmr_from_numpy`, :func:`tdma_from_numpy` and
-:func:`cc_from_numpy` carry the tables across onto a device; :func:`state_from_numpy` carries a JAX
+P25 Phase 2 and NXDN), ``data/cc_tables.npz`` (the control-channel
+monitors' FEC, CRC and gather tables) and ``data/event_tables.npz`` (the
+D-STAR AMBE ECC and the M17 LICH code, and the two event streams), and
+its state is the per-channel carry of the voice decoder (prediction,
+synthesis and frame-repeat).  :func:`from_numpy`, :func:`dmr_from_numpy`,
+:func:`tdma_from_numpy`, :func:`cc_from_numpy` and
+:func:`event_from_numpy` carry the tables across onto a device;
+:func:`state_from_numpy` carries a JAX
 pipeline's carries across, so a block decoded by the JAX package can
 continue in the port.
 
@@ -32,6 +35,7 @@ TABLES_NPZ = os.path.join(_DATA, "p25p1_tables.npz")
 DMR_TABLES_NPZ = os.path.join(_DATA, "dmr_tables.npz")
 TDMA_TABLES_NPZ = os.path.join(_DATA, "tdma_tables.npz")
 CC_TABLES_NPZ = os.path.join(_DATA, "cc_tables.npz")
+EVENT_TABLES_NPZ = os.path.join(_DATA, "event_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -353,6 +357,65 @@ def load_cc(kind: str, device=None) -> CcTables:
     front = (load(device) if kind == "p25" else load_dmr(device)
              if kind == "dmr" else load_tdma(kind, device))
     return cc_from_numpy(_read_npz(CC_TABLES_NPZ), front, kind)
+
+
+class EventTables:
+    """The constants of one event pipeline as tensors on ``device``:
+    ``kind`` is ``dstar`` (the Golay(23,12) codebook and the D-STAR AMBE
+    ECC's row positions, PN rows, parities and messages) or ``m17`` (the
+    Golay(24,12) codebook of the LICH).  The numpy arrays of
+    ``event_tables.npz`` stay in ``np``."""
+
+    KINDS = ("dstar", "m17")
+
+    def __init__(self, tables: dict[str, np.ndarray], kind: str, device):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown event pipeline {kind!r}")
+        self.kind = kind
+        self.device = torch.device(device)
+        self.np = {k: np.asarray(v) for k, v in tables.items()}
+        t = self.np
+
+        def on(a, dt):
+            return torch.as_tensor(np.asarray(a, dt), device=self.device)
+
+        if kind == "dstar":
+            self.golay_cb = on(t["golay23_codebook"], np.uint8)
+            self.golay_pm = on(1.0 - 2.0 * t["golay23_codebook"],
+                               np.float32)
+            self.dstar_r0, self.dstar_r1, self.dstar_r2, self.dstar_r3 = (
+                on(t[f"dstar_ambe_r{i}"], np.int64) for i in range(4))
+            self.dstar_pn = on(t["dstar_ambe_pn"], np.uint8)   # [4096, 23]
+            self.dstar_parity = on(t["dstar_ambe_parity"], np.uint8)
+            self.dstar_param = on(t["dstar_ambe_param"], np.uint8)
+        else:
+            self.golay_cb = on(t["golay24_codebook"], np.uint8)
+            self.golay_pm = on(1.0 - 2.0 * t["golay24_codebook"],
+                               np.float32)
+
+    def test_vector(self) -> dict[str, np.ndarray]:
+        """The kind's stream and what it carries (the ``<kind>_tv_``
+        arrays, without the prefix)."""
+        pre = self.kind + "_tv_"
+        return {k[len(pre):]: v for k, v in self.np.items()
+                if k.startswith(pre)}
+
+
+def event_from_numpy(tables: dict[str, np.ndarray], kind: str,
+                     device) -> EventTables:
+    """numpy event tables (the npz, or arrays built by the JAX package)
+    → ``EventTables`` of ``kind`` on ``device``."""
+    return EventTables(tables, kind, device)
+
+
+def load_event(kind: str, device=None) -> EventTables:
+    """The checked-in ``data/event_tables.npz`` as ``kind``'s tables
+    (``dstar`` or ``m17``) on ``device``: the card when none is given
+    (raises when there is no card)."""
+    if kind not in EventTables.KINDS:
+        raise ValueError(f"unknown event pipeline {kind!r}")
+    return event_from_numpy(_read_npz(EVENT_TABLES_NPZ), kind,
+                            _device(device))
 
 
 def state_from_numpy(pred, synth, rep, device):

@@ -2,7 +2,8 @@
 
 The port's own copy of ``SyncDef``, ``SyncHit`` and the rows of
 ``SYNC_DEFS`` in ``dsdneo_tpu/symbols/framesync.py`` that its monitors
-name (P25 Phase 1, DMR BS data and voice, NXDN FSW).  A catalog reads a
+name (P25 Phase 1, DMR BS data and voice, NXDN FSW, D-STAR voice and
+header, M17 stream), in that table's order.  A catalog reads a
 hit's position and its definition's name.
 """
 
@@ -36,7 +37,17 @@ SYNC_DEFS: list[SyncDef] = [
     SyncDef("-DMR BS data", "131111333113313313113313", "dmr", "bs_data", True),
     SyncDef("+NXDN FSW", "3131331131", "nxdn", "fsw"),
     SyncDef("-NXDN FSW", "1313113313", "nxdn", "fsw", True),
+    SyncDef("+D-STAR", "313131313133131113313111", "dstar", "voice"),
+    SyncDef("+D-STAR HD", "131313131333133113131111", "dstar", "hd"),
+    SyncDef("+M17 STR", "33331131", "m17", "str"),
 ]
+
+
+def sync_levels(names) -> np.ndarray:
+    """``[P, n]`` float32 levels of the named definitions (all of one
+    length), in the table's order, as the JAX package's
+    ``_sync_kernel`` stacks them."""
+    return np.stack([d.levels for d in SYNC_DEFS if d.name in names])
 
 
 @dataclass

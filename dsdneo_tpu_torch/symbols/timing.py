@@ -1,10 +1,20 @@
 """Feed-forward symbol timing: windowed Oerder & Meyr with drift unwrap.
 
-Counterpart of ``_unwrap_mod`` and ``decision_positions`` in
-``dsdneo_tpu/symbols/timing.py``, plus :func:`interp`, which PyTorch
-lacks, in ``jnp.interp``'s own form.  Constants are folded the way XLA
-folds them when the JAX package runs these inside ``jit`` (as its
-pipelines do): the tone's phase is ``n · f32(-2π/sps)``.
+Counterpart of ``_unwrap_mod``, ``decision_positions`` and
+``recover_symbols`` in ``dsdneo_tpu/symbols/timing.py``, plus
+:func:`interp`, which PyTorch lacks, in ``jnp.interp``'s own form.  The
+arithmetic is XLA's when the JAX package runs these inside ``jit`` (as
+its pipelines do), so the CPU path is bit-identical to it:
+
+  - the tone's phase is ``n · f32(-2π/sps)`` (a folded constant), the
+    mean a sum times ``f32(1/n)``;
+  - the window sums and the mean are taken in XLA's order
+    (``vocoder.synth.tree_sum``), the unwrap's cumulative sum too
+    (``vocoder.synth.blocked_cumsum``);
+  - on the CPU, cos, sin and atan2 are the C library's float32 functions,
+    which XLA's CPU backend calls (``csrc/libm_f32.cpp``); on the card
+    PyTorch's;
+  - the final lerp is contracted into a fused multiply-add.
 """
 
 from __future__ import annotations
@@ -14,8 +24,36 @@ import math
 import numpy as np
 import torch
 
+from dsdneo_tpu_torch import kernels
 from dsdneo_tpu_torch.dsp.frontend import floor_mod
-from dsdneo_tpu_torch.vocoder.synth import fma_f32
+from dsdneo_tpu_torch.vocoder.synth import blocked_cumsum, fma_f32, tree_sum
+
+
+def _host_libm(name: str, *xs: torch.Tensor) -> torch.Tensor:
+    """The C library's float32 ``name`` (``cosf``, ``sinf``, ``atan2f``)
+    over CPU tensors of one shape."""
+    xs = [x.to(torch.float32).contiguous() for x in xs]
+    out = torch.empty_like(xs[0])
+    getattr(kernels.load_host(), f"dsd_{name}")(
+        *(x.data_ptr() for x in xs), out.data_ptr(), out.numel())
+    return out
+
+
+def cos_sin(ang: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos and sin of float32 angles, as ``jnp.cos`` / ``jnp.sin`` give
+    them on the CPU (the C library's ``cosf`` / ``sinf``); on the card
+    PyTorch's."""
+    if ang.device.type == "cpu":
+        return _host_libm("cosf", ang), _host_libm("sinf", ang)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def atan2(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``jnp.arctan2`` on float32: the C library's ``atan2f`` on the
+    CPU, PyTorch's on the card."""
+    if y.device.type == "cpu":
+        return _host_libm("atan2f", y, x)
+    return torch.atan2(y, x)
 
 
 def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor
@@ -41,8 +79,10 @@ def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor
 
 def _unwrap_mod(tau: torch.Tensor, period: float) -> torch.Tensor:
     """Unwrap a sequence defined modulo ``period`` along the last axis."""
+    if tau.shape[-1] < 2:
+        return tau
     d = floor_mod(torch.diff(tau, dim=-1) + period / 2, period) - period / 2
-    return torch.cat([tau[..., :1], tau[..., :1] + torch.cumsum(d, dim=-1)],
+    return torch.cat([tau[..., :1], tau[..., :1] + blocked_cumsum(d)],
                      dim=-1)
 
 
@@ -60,12 +100,33 @@ def decision_positions(e: torch.Tensor, sps: float, win_symbols: int = 256,
     ang = idx * float(np.float32(-2.0 * math.pi / sps))
     m = min(nw * L, n)
     er = e[:, :m]
-    Xr = torch.sum((er * torch.cos(ang[:m])).reshape(c, nw, -1), dim=-1)
-    Xi = torch.sum((er * torch.sin(ang[:m])).reshape(c, nw, -1), dim=-1)
-    tau = floor_mod(-torch.atan2(Xi, Xr) * (sps / (2 * math.pi)), sps)
+    cs, sn = cos_sin(ang[:m])
+    Xr = tree_sum((er * cs).reshape(c, nw, -1))
+    Xi = tree_sum((er * sn).reshape(c, nw, -1))
+    tau = floor_mod(-atan2(Xi, Xr) * (sps / (2 * math.pi)), sps)
     tau = _unwrap_mod(tau, sps)
     centers = (torch.arange(nw, dtype=torch.float32, device=dev) + 0.5) * L
     K = max_symbols if max_symbols is not None else int((n - 2 * sps) // sps)
     base = torch.arange(K, dtype=torch.float32, device=dev) * sps
     return torch.clamp(base[None, :] + interp(base, centers, tau),
                        0.0, n - 2.0)
+
+
+def recover_symbols(d: torch.Tensor, sps: float, win_symbols: int = 256,
+                    max_symbols: int | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symbol-rate samples of ``[C, N]`` float32 discriminator samples:
+    the mean removed, the squared signal's symbol-rate line timed per
+    window (:func:`decision_positions`), and each symbol read by linear
+    interpolation at its instant.  Returns (symbols ``[C, K]``,
+    positions ``[C, K]``), ``K`` = ``max_symbols`` or what fills the
+    input."""
+    n = d.shape[1]
+    dc = tree_sum(d)[:, None] * float(np.float32(1.0 / n))
+    pos = decision_positions((d - dc) ** 2, sps, win_symbols, max_symbols)
+    i0 = torch.floor(pos).to(torch.int64)
+    frac = pos - i0.to(torch.float32)
+    g0 = torch.gather(d, 1, i0)
+    g1 = torch.gather(d, 1, i0 + 1)
+    # XLA contracts g0·(1 − frac) + g1·frac into fma(g0, 1 − frac, g1·frac)
+    return fma_f32(g0, 1.0 - frac, g1 * frac), pos

@@ -1,0 +1,155 @@
+"""Kernel K6 and the D-STAR and M17 pipelines on the card.
+
+K6 (the D-STAR header's K=3 Viterbi) against its plain PyTorch version,
+bits identical, on header codewords with errors, random words, the
+tie-heavy all-zero and all-one words and an unaligned view; the gated
+front end on the card against its CPU path with cuDNN's TF32 switch on
+in the process (the FIR switches it off itself); each pipeline's card
+path against its CPU path on two channels, two blocks with the contexts
+kept: the same accepted frames, the same records, the same event lines.
+
+Every test needs a card (``cuda`` marker; skips without one) and none
+imports JAX, so this file runs on the card's machine:
+``python -m pytest --noconftest -q -m cuda tests/test_torch_*.py``.
+The CPU path is held to the JAX package by ``test_torch_gated.py``,
+``test_torch_dstar.py`` and ``test_torch_m17.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dsdneo_tpu_torch import params
+from dsdneo_tpu_torch.dsp import firdes
+from dsdneo_tpu_torch.engine import demod
+from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
+from dsdneo_tpu_torch.engine.m17batch import BatchedM17VoicePipeline
+from dsdneo_tpu_torch.fec import device as fdev
+from dsdneo_tpu_torch.protocol.dmr.encode import vector_block
+from dsdneo_tpu_torch.protocol.dstar import encode as dstar_encode
+from dsdneo_tpu_torch.protocol.m17 import encode as m17_encode
+
+BLOCK = 72000                       # 1.5 s at 48 kHz
+# ``gated_frontend_step`` card vs CPU: the FIR and the discriminator's
+# atan2 round otherwise (~1e-6), moved further where a timing window is
+# mostly dead air (see test_torch_gated.py, SOFT_TOL)
+SOFT_TOL = 0.1
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _k3_words(n, seed):
+    """Codewords of the K=3 code (the encoder's lattice run forward) with
+    0-3 flipped bits, random words, all-zero and all-one words."""
+    rng = np.random.default_rng(seed)
+    trans = fdev.K3_TRANS
+    words = []
+    for i in range(n):
+        st, w = 0, []
+        for b in np.concatenate([rng.integers(0, 2, 328), [0, 0]]):
+            ns = ((st << 1) | int(b)) & 3
+            pa, a1, a0, _pb, b1, b0 = trans[ns]
+            w += [a1, a0] if st == pa else [b1, b0]
+            st = ns
+        w = np.array(w, np.uint8)
+        w[rng.choice(660, size=i % 4, replace=False)] ^= 1
+        words.append(w)
+    words += [rng.integers(0, 2, 660).astype(np.uint8) for _ in range(8)]
+    words += [np.zeros(660, np.uint8), np.ones(660, np.uint8)]
+    return np.stack(words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [30, 4099])
+def test_k6_matches_plain(n):
+    dev = _card()
+    words = _k3_words(n, n)
+    want = fdev.conv_k3_decode_plain(torch.as_tensor(words))
+    before = fdev.conv_k3_decode_batch.launches
+    got = fdev.conv_k3_decode_batch(torch.as_tensor(words, device=dev))
+    torch.cuda.synchronize()
+    assert fdev.conv_k3_decode_batch.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k6_takes_unaligned_and_odd_views():
+    """An input one byte into a buffer (off the 4-byte loads), and an odd
+    step count (off the 2-byte stores), decode as the plain version."""
+    dev = _card()
+    words = _k3_words(64, 3)
+    buf = torch.zeros(words.size + 1, dtype=torch.uint8, device=dev)
+    buf[1:] = torch.as_tensor(words.ravel(), device=dev)
+    got = fdev.conv_k3_decode_batch(buf[1:].view(words.shape))
+    assert torch.equal(got.cpu(),
+                       fdev.conv_k3_decode_plain(torch.as_tensor(words)))
+    odd = torch.as_tensor(words[:, :658].copy())
+    assert torch.equal(fdev.conv_k3_decode_batch(odd.to(dev)).cpu(),
+                       fdev.conv_k3_decode_plain(odd))
+
+
+def _blocks(kind):
+    t = params.load_event(kind, "cpu")
+    tv = t.test_vector()
+    mod = dstar_encode.fm_iq if kind == "dstar" else m17_encode.fm_iq
+    return [vector_block(tv, leads, seeds, BLOCK, modulate=mod,
+                         lead_dibits=tv["lead"])
+            for leads, seeds in (((5, 77), (1, 2)), ((40, 0), (3, 4)))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dstar", "m17"])
+def test_gated_front_end_on_card_matches_cpu(kind):
+    dev = _card()
+    x = _blocks(kind)[0]
+    four = kind == "m17"
+    taps = firdes.channel_lpf(48000.0, "12k5" if four else "6k25")
+    n_sym = BLOCK // 10 - 2
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+        gd, gs = demod.gated_frontend_step(torch.as_tensor(x, device=dev),
+                                           torch.as_tensor(taps, device=dev),
+                                           10.0, n_sym, four)
+    wd, ws = demod.gated_frontend_step(torch.as_tensor(x),
+                                       torch.as_tensor(taps), 10.0, n_sym,
+                                       four)
+    gs, ws = gs.cpu().numpy(), ws.numpy()
+    assert np.abs(gs - ws).max() <= SOFT_TOL
+    thr = np.array([0.0, 2.0, -2.0] if four else [0.0], np.float32)
+    off = np.abs(ws[..., None] - thr).min(axis=-1) > SOFT_TOL
+    np.testing.assert_array_equal(gd.cpu().numpy()[off], wd.numpy()[off])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dstar", "m17"])
+def test_pipeline_on_card_matches_cpu(kind):
+    dev = _card()
+
+    def make(where):
+        t = params.load_event(kind, where)
+        return (BatchedDstarPipeline(2, device=where, tables=t)
+                if kind == "dstar" else
+                BatchedM17VoicePipeline(2, monitor=set(), device=where,
+                                        tables=t))
+    card, cpu = make(dev), make("cpu")
+    counter = (fdev.conv_k3_decode_batch if kind == "dstar"
+               else fdev.conv_k5_decode_batch)
+    before = counter.launches
+    for x in _blocks(kind):
+        n_card = card.decode_block_events(torch.as_tensor(x, device=dev))
+        n_cpu = cpu.decode_block_events(x)
+        assert n_card == n_cpu and n_card >= (2 if kind == "dstar" else 40)
+        a, b = card.last_frames, cpu.last_frames
+        for u, v in zip(a[:3], b[:3]):
+            np.testing.assert_array_equal(u, v)
+        for u, v in zip(a[-1], b[-1]):
+            np.testing.assert_array_equal(u, v)
+        for c in range(2):
+            assert card.channel_state(c) == cpu.channel_state(c)
+    assert counter.launches == before + 2
+    for c in range(2):
+        assert ([(e.line, e.pos) for e in card.events(c)]
+                == [(e.line, e.pos) for e in cpu.events(c)])

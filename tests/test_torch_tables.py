@@ -1,8 +1,8 @@
 """The PyTorch port's constant tables and its independence from JAX.
 
 The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz``,
-``dmr_tables.npz``, ``tdma_tables.npz`` and ``cc_tables.npz`` must equal
-what
+``dmr_tables.npz``, ``tdma_tables.npz``, ``cc_tables.npz`` and
+``event_tables.npz`` must equal what
 ``tools/export_torch_tables.py`` builds from the JAX package now
 (exact), and importing the port must never load JAX or any module of the
 JAX package.
@@ -42,7 +42,13 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.p25.phase1",
     "dsdneo_tpu_torch.protocol.p25.p2_mac",
     "dsdneo_tpu_torch.protocol.dmr.csbk",
-    "dsdneo_tpu_torch.protocol.nxdn.decoder", "dsdneo_tpu_torch.protocol.nmea")
+    "dsdneo_tpu_torch.protocol.nxdn.decoder", "dsdneo_tpu_torch.protocol.nmea",
+    "dsdneo_tpu_torch.symbols.slicer", "dsdneo_tpu_torch.engine.demod",
+    "dsdneo_tpu_torch.engine.dstarbatch", "dsdneo_tpu_torch.engine.m17batch",
+    "dsdneo_tpu_torch.protocol.dstar.decoder",
+    "dsdneo_tpu_torch.protocol.dstar.encode",
+    "dsdneo_tpu_torch.protocol.m17.decoder",
+    "dsdneo_tpu_torch.protocol.m17.encode", "dsdneo_tpu_torch.vocoder.codec2")
 
 
 @pytest.fixture(scope="module")
@@ -237,6 +243,48 @@ def test_cc_from_numpy_of_jax_arrays_equals_loaded(cc_exported):
         params.load_cc("edacs", "cpu")
 
 
+@pytest.fixture(scope="module")
+def event_exported():
+    from export_torch_tables import build_event_tables
+    return build_event_tables()
+
+
+@pytest.mark.parametrize("group", ["dstar_ecc", "golay", "dstar_tv",
+                                   "m17_tv"])
+def test_event_npz_equals_exporter(event_exported, group):
+    """The checked-in ``event_tables.npz`` is what the exporter builds
+    from the JAX package now (its D-STAR and M17 vectors held to the JAX
+    pipelines on the way)."""
+    from dsdneo_tpu_torch.params import EVENT_TABLES_NPZ
+    with np.load(EVENT_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(event_exported) == sorted(stored)
+    prefix = {"dstar_ecc": ("dstar_ambe_",), "golay": ("golay",),
+              "dstar_tv": ("dstar_tv_",), "m17_tv": ("m17_tv_",)}[group]
+    keys = [k for k in event_exported if k.startswith(prefix)]
+    assert keys
+    for k in keys:
+        a, b = np.asarray(event_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_event_from_numpy_of_jax_arrays_equals_loaded(event_exported):
+    from dsdneo_tpu_torch import params
+    for kind, n in (("dstar", 9), ("m17", 2)):
+        b = params.load_event(kind, "cpu")
+        a = params.event_from_numpy(event_exported, kind, "cpu")
+        got = 0
+        for name, v in vars(a).items():
+            if isinstance(v, torch.Tensor):
+                assert torch.equal(v, getattr(b, name)), name
+                got += 1
+        assert got == n
+        assert "dibits" in b.test_vector() and "lead" in b.test_vector()
+    with pytest.raises(ValueError, match="unknown event pipeline"):
+        params.load_event("ysf", "cpu")
+
+
 def test_port_never_imports_jax():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in PORT_MODULES)
@@ -402,6 +450,56 @@ def test_cc_monitors_run_without_the_jax_package():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_event_pipelines_run_without_the_jax_package():
+    """Decode a C=1 block of D-STAR (K6's plain version on the way) and of
+    M17 (K5's) on the CPU: no module of the JAX package, and no jax, is
+    ever loaded."""
+    code = (
+        "import sys\n"
+        "from dsdneo_tpu_torch import params\n"
+        "from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline\n"
+        "from dsdneo_tpu_torch.engine.m17batch import "
+        "BatchedM17VoicePipeline\n"
+        "from dsdneo_tpu_torch.protocol.dmr.encode import vector_block\n"
+        "from dsdneo_tpu_torch.protocol.dstar import encode as de\n"
+        "from dsdneo_tpu_torch.protocol.m17 import encode as me\n"
+        "for kind, cls, mod, n in (('dstar', BatchedDstarPipeline, de.fm_iq, "
+        "3), ('m17', BatchedM17VoicePipeline, me.fm_iq, 10)):\n"
+        "    t = params.load_event(kind, 'cpu')\n"
+        "    tv = t.test_vector()\n"
+        "    x = vector_block(tv, (3,), (1,), 72000, modulate=mod, "
+        "lead_dibits=tv['lead'])\n"
+        "    p = cls(1, device='cpu', tables=t)\n"
+        "    assert p.decode_block_events(x) >= n, kind\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+def test_event_loaders_default_to_the_card():
+    """``params.load_event`` and the two event pipelines with no device
+    run on the card, and raise where there is none."""
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
+    from dsdneo_tpu_torch.engine.m17batch import BatchedM17VoicePipeline
+    if torch.cuda.is_available():
+        assert params.load_event("m17").golay_cb.is_cuda
+        assert BatchedDstarPipeline(1).taps.is_cuda
+        assert BatchedM17VoicePipeline(1).taps.is_cuda
+    else:
+        for make in (lambda: params.load_event("dstar"),
+                     lambda: BatchedDstarPipeline(1),
+                     lambda: BatchedM17VoicePipeline(1)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
 
 
 def test_nid_codebook_equals_jax_package():

@@ -72,6 +72,26 @@ For the control-channel monitors (:func:`build_cc_tables`, into
     monitor that parses any prefix of a stream, once or twice, emits the
     lines of its blocks.
 
+For the event pipelines (:func:`build_event_tables`, into
+``event_tables.npz``):
+
+  - the D-STAR AMBE ECC's row positions, PN rows, parities and
+    messages (as ``fec.device._dstar_ambe_jit`` builds them) with the
+    Golay(23,12) codebook, and the Golay(24,12) codebook of M17's LICH;
+  - a bursty D-STAR stream: transmissions of a 64-symbol preamble, the RF
+    header (41 octets through the K=3 code, the interleave and the
+    scramble), 2-4 voice superframes (AMBE frames through
+    ``encode_dstar_ambe_ecc``, slow data with the header's copy, radio
+    text or a DPRS position), the end pattern and dead air (dibit value
+    4, zero I/Q when modulated);
+  - a bursty M17 stream of ``encode_stream_transmission`` transmissions
+    (known LSFs, random Codec2 payloads) with dead air between them;
+  - each stream held to the JAX pipeline on three channels of a 3 s
+    block before it is written: every header, partnered superframe and
+    stream frame the block holds accepted with the stream's content,
+    nothing else emitting, every LSF assembled (the port's
+    ``protocol.dstar.encode.judge`` and ``protocol.m17.encode.judge``).
+
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
@@ -85,8 +105,8 @@ Run from the repository root, where JAX is installed:
 
 A file whose arrays already equal the rebuilt ones is left untouched.
 ``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``,
-``build_dmr_tables``, ``build_tdma_tables`` and ``build_cc_tables`` and
-checks them against the checked-in files.
+``build_dmr_tables``, ``build_tdma_tables``, ``build_cc_tables`` and
+``build_event_tables`` and checks them against the checked-in files.
 """
 
 from __future__ import annotations
@@ -744,6 +764,309 @@ def build_cc_tables() -> dict[str, np.ndarray]:
     return t
 
 
+# -- the event pipelines: D-STAR and M17 (event_tables.npz) ------------------
+OUT_EVENT = os.path.join(DATA, "event_tables.npz")
+EV_DEAD = 4               # dibit value of dead air (zero I/Q when modulated)
+EV_LEAD = 96              # dead-air lead dibits (callers cut a suffix)
+EV_N_SYM = 14398          # symbols of a 3 s block at 4800 baud, 48 kHz
+EV_MIN_DIBITS = EV_N_SYM + EV_LEAD + 2016
+DSTAR_SEED = 8
+DSTAR_PREAMBLE = 64       # alternating symbols before each header
+M17_SEED = 17
+EV_CHECK_LEADS = (0, 47, 96)   # channels of the exporter's JAX check
+EV_SPS = 10
+
+
+def _dstar_k3_encode(info: np.ndarray) -> np.ndarray:
+    """The rate-1/2 K=3 code of the D-STAR header: the lattice of
+    ``protocol.dstar.decoder._V_TRANS`` run forward (state = the last two
+    input bits, the newest in bit 0) → the coded pairs (s1, s0)."""
+    from dsdneo_tpu.protocol.dstar.decoder import _V_TRANS
+    out = np.zeros(2 * len(info), dtype=np.uint8)
+    st = 0
+    for t, b in enumerate(info.tolist()):
+        ns = ((st << 1) | int(b)) & 3
+        (pa, a1, a0), (_pb, b1, b0) = _V_TRANS[ns]
+        out[2 * t:2 * t + 2] = (a1, a0) if st == pa else (b1, b0)
+        st = ns
+    return out
+
+
+def _bits_to_2level(bits: np.ndarray) -> np.ndarray:
+    """0/1 bits → 2-level dibits (bit 1 → dibit 3, −3; bit 0 → dibit 1)."""
+    return np.where(np.asarray(bits) != 0, 3, 1).astype(np.uint8)
+
+
+def _pattern_dibits(name: str) -> np.ndarray:
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    pat = next(d.pattern for d in SYNC_DEFS if d.name == name)
+    return np.array([1 if ch == "1" else 3 for ch in pat], np.uint8)
+
+
+def _dstar_header(mycall: str, urcall: str, rpt1: str, rpt2: str,
+                  suffix: str) -> np.ndarray:
+    """41 RF-header octets: flags, RPT2, RPT1, URCALL, MYCALL, suffix and
+    the CRC-16/X25 (its high byte first, as ``header_line`` reads it)."""
+    from dsdneo_tpu.protocol.dstar.decoder import crc16_x25
+    body = bytes(3) + "".join(f"{c:<{n}}"[:n] for c, n in (
+        (rpt2, 8), (rpt1, 8), (urcall, 8), (mycall, 8),
+        (suffix, 4))).encode()
+    hdr = np.frombuffer(body, dtype=np.uint8)
+    crc = crc16_x25(hdr)
+    return np.concatenate([hdr, [crc >> 8, crc & 0xFF]]).astype(np.uint8)
+
+
+def _dstar_header_dibits(hdr: np.ndarray) -> np.ndarray:
+    """41 octets → the 660 on-air header dibits: 328 bits least
+    significant first and two flush bits, the K=3 code, the 24-stride
+    interleave (the inverse of the decoder's gather) and the scramble."""
+    from dsdneo_tpu.engine.dstarbatch import _dstar_tables
+    from dsdneo_tpu.protocol.dstar.decoder import _viterbi_k3
+    scram, inv, _ = _dstar_tables()
+    info = np.concatenate([((hdr[:, None] >> np.arange(8)) & 1).reshape(-1),
+                           np.zeros(2, np.int64)]).astype(np.uint8)
+    coded = _dstar_k3_encode(info)
+    if not np.array_equal(_viterbi_k3(coded), info):
+        raise RuntimeError("the header code does not decode to its bits")
+    onair = np.zeros(660, dtype=np.uint8)
+    onair[inv] = coded
+    return _bits_to_2level(onair ^ scram)
+
+
+def _sd_blocks(kind: int, payload: bytes) -> np.ndarray:
+    """60 slow-data bytes of 6-byte blocks: ``kind`` (a header byte per
+    block; 0x40.. for radio text, counting up) and 5 payload bytes each,
+    padded with spaces under 0x66 (null data) blocks."""
+    out = []
+    for b in range(10):
+        chunk = payload[5 * b:5 * b + 5]
+        if chunk:
+            head = kind + b if kind == 0x40 else kind
+            out.append(bytes([head]) + chunk.ljust(5, b" "))
+        else:
+            out.append(bytes([0x66]) + b"     ")
+    return np.frombuffer(b"".join(out), dtype=np.uint8).copy()
+
+
+def _dstar_superframe(sd: np.ndarray, bits49: np.ndarray) -> np.ndarray:
+    """(2016 dibits from the voice sync: 21 AMBE frames, ECC-encoded,
+    with the 480 scrambled slow-data bits between them; the frames'
+    on-air bits ``[21, 72]``)."""
+    from dsdneo_tpu.engine.dstarbatch import _dstar_tables, _voice_offsets
+    from dsdneo_tpu.protocol.dstar.ambe2400 import encode_dstar_ambe_ecc
+    _, _, sd_scram = _dstar_tables()
+    voff, doff = _voice_offsets()
+    out = np.zeros(2016, dtype=np.uint8)
+    out[:24] = _pattern_dibits("+D-STAR")
+    voice = np.stack([encode_dstar_ambe_ecc(b) for b in bits49])
+    out[voff] = _bits_to_2level(voice)
+    sdb = ((sd[:, None] >> np.arange(8)) & 1).reshape(-1).astype(np.uint8)
+    out[doff.reshape(-1)] = _bits_to_2level(sdb ^ sd_scram)
+    return out, voice
+
+
+_DSTAR_CALLS = ("W1AW", "JA1YKX", "DL1ABC", "VK2XYZ", "G4KLX", "K6DSS")
+_DSTAR_TEXT = ("CQ CQ FROM {} ", "NET CHECK-IN {}", "{} QRV ON D-STAR",
+               "73 DE {} ")
+# a DPRS position sentence: its '!' at payload index 30, as the decoder's
+# position reader expects
+_DSTAR_DPRS = "$$CRCABCD,{:<6}>API510,DSTAR*:!4903.50N/07201.75W>"
+
+
+def _dstar_vector(preamble: int = DSTAR_PREAMBLE,
+                  opening: int = 64) -> dict[str, np.ndarray]:
+    """A bursty D-STAR channel: transmissions of ``preamble`` alternating
+    symbols (64 bits of 1010 on the air), the RF header, 2-4 voice
+    superframes (the first carries the header's copy in its slow data,
+    then radio text or a DPRS position) and the end pattern (32
+    alternating symbols and 000100110101000), with 600-1500 dibits of
+    dead air between them, after ``opening`` dibits of dead air (the
+    first symbols of a block are the filter's and the discriminator's
+    edge)."""
+    rng = np.random.default_rng(DSTAR_SEED)
+    parts = [np.full(EV_LEAD + opening, EV_DEAD, np.uint8)]
+    pos = EV_LEAD + opening
+    hd_starts, hd_octets = [], []
+    sf_starts, sf_sd, sf_voice, sf_bits, sf_tx = [], [], [], [], []
+    alt = np.array([1, 3] * 16, np.uint8)
+    pre = np.resize(alt, preamble)
+    eot = np.concatenate([alt, _bits_to_2level(
+        [int(ch) for ch in "000100110101000"])])
+    tx = 0
+    while pos < EV_MIN_DIBITS:
+        call = _DSTAR_CALLS[tx % len(_DSTAR_CALLS)]
+        hdr = _dstar_header(call, "CQCQCQ", "W1AW   B", "W1AW   G",
+                            "ID51")
+        parts.append(pre)
+        pos += len(pre)
+        hd_starts.append(pos)
+        hd_octets.append(hdr)
+        parts += [_pattern_dibits("+D-STAR HD"), _dstar_header_dibits(hdr)]
+        pos += 684
+        n_sf = int(rng.integers(2, 5))
+        for k in range(n_sf):
+            if k == 0:
+                sd = _sd_blocks(0x55, hdr.tobytes())
+            elif k == 2:
+                sd = _sd_blocks(0x35, _DSTAR_DPRS.format(call).encode())
+            else:
+                text = _DSTAR_TEXT[(tx + k) % len(_DSTAR_TEXT)].format(call)
+                sd = _sd_blocks(0x40, f"{text:<20}"[:20].encode())
+            bits49 = rng.integers(0, 2, (21, 49)).astype(np.uint8)
+            frame, voice = _dstar_superframe(sd, bits49)
+            sf_starts.append(pos)
+            sf_sd.append(sd)
+            sf_voice.append(voice)
+            sf_bits.append(bits49)
+            sf_tx.append(tx)
+            parts.append(frame)
+            pos += 2016
+        gap = int(rng.integers(600, 1501))
+        parts += [eot, np.full(gap, EV_DEAD, np.uint8)]
+        pos += len(eot) + gap
+        tx += 1
+    dib = np.concatenate(parts)
+    return {"dstar_tv_dibits": dib[EV_LEAD:], "dstar_tv_lead": dib[:EV_LEAD],
+            "dstar_tv_hd_starts": np.asarray(hd_starts, np.int64) - EV_LEAD,
+            "dstar_tv_hd_octets": np.stack(hd_octets),
+            "dstar_tv_sf_starts": np.asarray(sf_starts, np.int64) - EV_LEAD,
+            "dstar_tv_sf_sd": np.stack(sf_sd),
+            "dstar_tv_sf_voice": np.stack(sf_voice).astype(np.uint8),
+            "dstar_tv_sf_bits49": np.stack(sf_bits),
+            "dstar_tv_sf_tx": np.asarray(sf_tx, np.int64),
+            "dstar_tv_seeds": np.array([DSTAR_SEED], np.int64)}
+
+
+_M17_CALLS = (("KF6ABC", "N0CALL"), ("W2FBI", "BROADCAST"),
+              ("VE3XYZ", "M17-DE"), ("AB1CD", "ALL"))
+
+
+def _m17_vector() -> dict[str, np.ndarray]:
+    """A bursty M17 channel: stream transmissions of 20-40 frames
+    (``encode_stream_transmission``: preamble, LSF, stream frames of
+    random Codec2 payloads, EOT and the encoder's own 96 symbols of idle
+    carrier), then 400-1200 dibits of dead air."""
+    from dsdneo_tpu.protocol.m17.encoder import (build_lsf,
+                                                 encode_stream_transmission)
+    rng = np.random.default_rng(M17_SEED)
+    parts = [np.full(EV_LEAD, EV_DEAD, np.uint8)]
+    pos = EV_LEAD
+    fr_starts, fr_fn, fr_payload, fr_tx = [], [], [], []
+    lsf_starts, lsfs, calls, cans = [], [], [], []
+    tx = 0
+    while pos < EV_MIN_DIBITS:
+        src, dst = _M17_CALLS[tx % len(_M17_CALLS)]
+        can = tx % 16
+        nf = int(rng.integers(20, 41))
+        voice = rng.integers(0, 2, (nf, 128)).astype(np.uint8)
+        d = encode_stream_transmission(dst, src, voice, can=can)
+        lsf_starts.append(pos + 48)
+        lsfs.append(build_lsf(dst, src, can=can, stream=True))
+        calls.append((dst, src))
+        cans.append(can)
+        for i in range(nf):
+            fr_starts.append(pos + 248 + 192 * i)
+            fr_fn.append(i | (0x8000 if i == nf - 1 else 0))
+            fr_payload.append(np.packbits(voice[i]))
+            fr_tx.append(tx)
+        gap = int(rng.integers(400, 1201))
+        parts += [d.astype(np.uint8), np.full(gap, EV_DEAD, np.uint8)]
+        pos += len(d) + gap
+        tx += 1
+    dib = np.concatenate(parts)
+    return {"m17_tv_dibits": dib[EV_LEAD:], "m17_tv_lead": dib[:EV_LEAD],
+            "m17_tv_fr_starts": np.asarray(fr_starts, np.int64) - EV_LEAD,
+            "m17_tv_fr_fn": np.asarray(fr_fn, np.int64),
+            "m17_tv_fr_payload": np.stack(fr_payload).astype(np.uint8),
+            "m17_tv_fr_tx": np.asarray(fr_tx, np.int64),
+            "m17_tv_lsf_starts": np.asarray(lsf_starts, np.int64) - EV_LEAD,
+            "m17_tv_lsf": np.stack(lsfs).astype(np.uint8),
+            "m17_tv_calls": np.array(calls),
+            "m17_tv_can": np.asarray(cans, np.int64),
+            "m17_tv_seeds": np.array([M17_SEED], np.int64)}
+
+
+def _event_check_block(tv: dict[str, np.ndarray], modulate) -> np.ndarray:
+    """``[3, 3 s, 2]`` float32 I/Q of the vector after the leads of
+    ``EV_CHECK_LEADS`` (suffixes of its dead-air lead), 30 dB noise of
+    seeds 100-102 (the port's ``protocol.dmr.encode.vector_block``)."""
+    from dsdneo_tpu_torch.protocol.dmr.encode import vector_block
+    return vector_block(tv, EV_CHECK_LEADS, 100 + np.arange(3),
+                        (EV_N_SYM + 2) * EV_SPS, sps=EV_SPS,
+                        modulate=modulate, lead_dibits=tv["lead"])
+
+
+def _check_dstar(tv: dict[str, np.ndarray]) -> None:
+    """The JAX pipeline on the vector, held to it by the port's
+    ``protocol.dstar.encode.judge``."""
+    import jax.numpy as jnp
+
+    from dsdneo_tpu.engine.dstarbatch import BatchedDstarPipeline
+    from dsdneo_tpu_torch.protocol.dstar.encode import fm_iq, judge
+    iq = _event_check_block(tv, fm_iq)
+    pipe = BatchedDstarPipeline(len(EV_CHECK_LEADS))
+    _dib, pat, pos, vq, n_sym = pipe.frontend_sync_device(jnp.asarray(iq))
+    ac, at, ak, asc = pipe.pick_frames(pat, pos, vq, n_sym)
+    recs = pipe.decode_block_records(jnp.asarray(iq))
+    for c, lead in enumerate(EV_CHECK_LEADS):
+        judge(tv, lead, n_sym, [(t, k, float(s), r) for (cc, t, k, r), s
+                                 in zip(recs, asc) if cc == c])
+
+
+def _check_m17(tv: dict[str, np.ndarray]) -> None:
+    """The JAX pipeline on the vector, held to it by the port's
+    ``protocol.m17.encode.judge``: every stream frame the block may take
+    passes the LICH gate with the vector's FN and payload bytes, no
+    other hit passes it, and every LSF whose six chunks lie in the block
+    assembles CRC-valid with the vector's callsigns and CAN."""
+    import jax.numpy as jnp
+
+    from dsdneo_tpu.engine.m17batch import (GOLAY_ERR_MAX,
+                                            BatchedM17VoicePipeline)
+    from dsdneo_tpu_torch.protocol.m17.encode import fm_iq, judge
+    iq = _event_check_block(tv, fm_iq)
+    pipe = BatchedM17VoicePipeline(len(EV_CHECK_LEADS), monitor=set())
+    ac, at, blob = pipe.decode_block_records(jnp.asarray(iq))
+    pipe.decode_block_events(jnp.asarray(iq))
+    for c, lead in enumerate(EV_CHECK_LEADS):
+        judge(tv, lead, EV_N_SYM,
+              [(int(t), blob[h]) for h, t in enumerate(at) if ac[h] == c],
+              [e.line for e in pipe.ctxs[c].events], GOLAY_ERR_MAX)
+
+
+def build_event_tables() -> dict[str, np.ndarray]:
+    """The constants and test vectors of the port's event pipelines
+    (D-STAR, M17), as numpy arrays, each vector held to the JAX
+    pipeline."""
+    from dsdneo_tpu.fec.blockcodes import golay_24_12
+    from dsdneo_tpu.protocol.dstar.ambe2400 import _row_positions, _seed12
+    from dsdneo_tpu.protocol.p25.imbe_frame import _pn_bits, golay_23_12
+    # the D-STAR AMBE ECC's tables, built as fec.device._dstar_ambe_jit
+    # builds them
+    g23 = golay_23_12()
+    pn = np.zeros((4096, 23), np.uint8)
+    parity = np.zeros(4096, np.uint8)
+    param = np.zeros((4096, 12), np.uint8)
+    for m in range(4096):
+        cw = g23.codebook[m]
+        pn[m] = _pn_bits(_seed12(cw), 23)[::-1]
+        parity[m] = int(cw.sum()) & 1
+        param[m] = [(m >> (11 - i)) & 1 for i in range(12)]
+    t = {"golay23_codebook": g23.codebook.astype(np.uint8),
+         "dstar_ambe_pn": pn, "dstar_ambe_parity": parity,
+         "dstar_ambe_param": param,
+         "golay24_codebook": golay_24_12().codebook.astype(np.uint8)}
+    for i, r in enumerate(_row_positions()):
+        t[f"dstar_ambe_r{i}"] = r.astype(np.int32)
+    dv = _dstar_vector()
+    mv = _m17_vector()
+    _check_dstar({k[len("dstar_tv_"):]: v for k, v in dv.items()})
+    _check_m17({k[len("m17_tv_"):]: v for k, v in mv.items()})
+    t.update(dv)
+    t.update(mv)
+    return t
+
+
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
     """Write ``tables`` to ``path`` unless the file already holds equal
     arrays (an npz of equal arrays still differs in its bytes)."""
@@ -767,6 +1090,7 @@ def main() -> int:
     print(_write_if_changed(OUT_DMR, build_dmr_tables()))
     print(_write_if_changed(OUT_TDMA, build_tdma_tables()))
     print(_write_if_changed(OUT_CC, build_cc_tables()))
+    print(_write_if_changed(OUT_EVENT, build_event_tables()))
     return 0
 
 
