@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's paths once on one CUDA card: six voice paths,
-three control-channel monitors and two event pipelines.
+"""Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
+four control-channel monitors and two event pipelines.
 
     python3 chip_smoke.py
 
@@ -25,7 +25,15 @@ The paths, each at 320 channels through the entry points a user calls:
   - ADP: ``BatchedP2VoicePipeline(16, keyring=...)`` on an ADP/RC4
     encrypted stream; K1, K3 and K7 (the RS syndrome screen of the ESS).
     16 channels: the RC4 keystream is host Python, and encrypted
-    traffic at 320 channels would measure that, not the card.
+    traffic at 320 channels would measure that, not the card;
+  - YSF and dPMR: ``BatchedYsfVoicePipeline(320)``,
+    ``BatchedDpmrVoicePipeline(320)``, 3 s blocks of bursty voice behind
+    the gated front end; K3, and K8 (the one-pole IIR) in the CLI's
+    monitor-audio conditioning of the decoded PCM
+    (``dsp.audio_filters.condition_audio``, de-emphasis "nfm" and the
+    3400 Hz low-pass);
+  - EDACS: ``BatchedEdacsControlPipeline(320)``, 3 s blocks of a
+    continuous control channel; no kernel of the table.
 
 Phases, in order; any failure exits non-zero:
 
@@ -112,6 +120,25 @@ Phases, in order; any failure exits non-zero:
      plain version at the path's header count and at 65,536 words, K5
      at M17's word count; each path timed (pipelined) with its stage
      split, profile and peak memory, and the top-K lists' fill printed.
+  7. the paths behind the gated front end that ``data/burst_tables.npz``
+     carries, at 320 channels, 3 s blocks, two blocks with the carry or
+     the contexts kept, own lead (0-96 dibits) and noise per channel,
+     every fourth channel of dPMR and EDACS with the FM negated:
+     YSF and dPMR through the AMBE paths' loop (f16 and adpcm; every
+     frame a block holds accepted with the vector's AMBE bits, YSF's
+     data frames and any other pick failing the vote gate, the inverted
+     dPMR channels decoding; PCM finite and non-silent; channels 0-1
+     within 2e-3 of the peak of the CPU path; the decoded PCM of every
+     block conditioned on the card through K8, held bit for bit to the
+     plain version on f16 block 0), each timed (pipelined, stage split,
+     profile); the EDACS monitor (channels read in the standard, EA and
+     ESK modes and inverted) with every frame a block holds accepted
+     with the vector's messages and the JAX catalog's lines, channels
+     0-1 equal to the CPU path's, the frames a top-K of 96 (the JAX
+     package's) would accept counted beside the port's 128, timed
+     (pipelined).  In phase 2, K8 behind all four filters at
+     [320, 24000] and at a ragged length, bit for bit against its plain
+     version.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -159,6 +186,13 @@ K5_CHAIN_CYCLES = 4 + 4 + 4
 # compare and the select (the four states' chains run side by side)
 K6_CHAIN_CYCLES = 4 + 4 + 4
 K6_SYNTH_N = 65536           # K6's larger grid (words)
+# per K8 step in csrc/one_pole.cu: the fused multiply-add on the carried
+# output (the product of the input is off the chain)
+K8_CHAIN_CYCLES = 4
+K8_T = 24000                 # 3 s of 8 kHz PCM
+K8_RAGGED_T = 4001           # a length the kernel's 16-byte copies skip
+EDACS_MODES = ("standard", "ea", "esk", "standard")  # by channel % 4;
+                                                     # % 4 == 3 inverted
 # the gated front end, card vs its CPU path: soft symbols within this
 # (the FIR and the discriminator's atan2 round otherwise, ~1e-6, and a
 # timing window that is mostly dead air takes its phase from the noise,
@@ -175,7 +209,7 @@ K7_SYNTH_N = 20480           # K7's large synthetic word count
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
 # kernel names in a profile
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
-        "conv_k5", "conv_k3")
+        "conv_k5", "conv_k3", "one_pole")
 
 
 def log(*a) -> None:
@@ -401,6 +435,7 @@ def main() -> int:
 
     # -- 1. set-up ---------------------------------------------------------
     from dsdneo_tpu_torch import device, kernels, params
+    from dsdneo_tpu_torch.dsp import audio_filters as af
     from dsdneo_tpu_torch.dsp import cqpsk, firdes
     from dsdneo_tpu_torch.dsp.frontend import fir_complex
     from dsdneo_tpu_torch.engine import voicestate          # noqa: F401
@@ -525,6 +560,24 @@ def main() -> int:
         etv, e_leads, e_blocks = tdma_blocks(et.test_vector(), 10, B,
                                              modulate)
         ev[kind] = (et, etv, e_leads, e_blocks, B // 10 - 2)
+    # the paths of data/burst_tables.npz: YSF and dPMR (bursty voice, a
+    # lead of dead air) and the continuous EDACS control channel (the
+    # lead is a frame's tail); every fourth channel (c % 4 == 3) of dPMR
+    # and EDACS with the FM negated
+    from dsdneo_tpu_torch.protocol.dpmr import encode as dpmr_encode
+    from dsdneo_tpu_torch.protocol.edacs import encode as edacs_encode
+    from dsdneo_tpu_torch.protocol.ysf import encode as ysf_encode
+    burst = {}
+    inv_rows = np.arange(3, C, 4)
+    for kind, mod, sps in (("ysf", ysf_encode, 10), ("dpmr", dpmr_encode, 20),
+                           ("edacs", edacs_encode, 5)):
+        bt = params.load_burst(kind, dev)
+        btv, b_leads, b_blocks = tdma_blocks(bt.test_vector(), sps, B,
+                                             mod.fm_iq)
+        if kind != "ysf":
+            for xb in b_blocks:
+                xb[inv_rows, :, 1] *= -1.0
+        burst[kind] = (bt, btv, b_leads, b_blocks, B // sps - 2)
     log(f"set-up {time.perf_counter() - t0:.1f} s: C={C}; P25 B={B} "
         f"({BLOCK_S} s) n_sym={n_sym}, LDUs per channel "
         f"{want_ldus.min()}..{want_ldus.max()} (CQPSK "
@@ -540,7 +593,11 @@ def main() -> int:
         f"event streams B={B}: D-STAR {len(ev['dstar'][1]['hd_starts'])} "
         f"headers and {len(ev['dstar'][1]['sf_starts'])} superframes, M17 "
         f"{len(ev['m17'][1]['fr_starts'])} stream frames in "
-        f"{len(ev['m17'][1]['lsf'])} transmissions")
+        f"{len(ev['m17'][1]['lsf'])} transmissions; burst streams B={B}: "
+        f"YSF {len(burst['ysf'][1]['starts'])} frames "
+        f"({int(burst['ysf'][1]['voice'].sum())} voice), dPMR "
+        f"{len(burst['dpmr'][1]['starts'])} parts, EDACS "
+        f"{len(burst['edacs'][1]['starts'])} frames")
 
     # -- 2. kernels against their plain versions ---------------------------
     report = {}
@@ -745,12 +802,70 @@ def main() -> int:
         raise RuntimeError("fir_complex is not full float32 on the card")
     del y, xq
 
+    # K8: behind the four audio filters, bit for bit against its plain
+    # version on audio with silent stretches (the state decays into the
+    # subnormal range, which both flush to zero)
+    k8_filters = (
+        ("deemphasis(tau 750 us)", af.deemphasis,
+         af.deemphasis_pole(8000.0, 750.0), False),
+        ("audio_lpf(3400 Hz)", af.audio_lpf,
+         af.lowpass_pole(8000.0, 3400.0), False),
+        ("dc_block", af.dc_block, af.lowpass_pole(8000.0, 30.0), True),
+        ("audio_hpf", af.audio_hpf, af.lowpass_pole(8000.0, 300.0), True))
+
+    def k8_audio(R, T):
+        x = three_tones(R, T) * 3.0
+        x[:, T // 3:T // 3 + 1500] = 0.0
+        return x.contiguous()
+
+    def time_k8(x):
+        """K8's time at ``x``'s shape (the de-emphasis), its bound and its
+        chain floor, in ms."""
+        R, T = x.shape
+        got = af.deemphasis(x)
+        k_ms = cuda_ms(lambda: af.deemphasis(x), 20)
+        b_ms, b_by = bound(nbytes(x, got), 3 * R * T)
+        floor_ms = T * K8_CHAIN_CYCLES / (clk * 1e3)
+        return k_ms, b_ms, b_by, floor_ms
+
+    def check_k8(x, shape=None):
+        """K8 behind each filter against its plain version on ``x``, bit
+        for bit; the de-emphasis timed, beside its plain run's time."""
+        R, T = x.shape
+        plain_ms = None
+        for name, fn, a, diff in k8_filters:
+            got = fn(x)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            want = af.one_pole_plain(x, a, diff)
+            torch.cuda.synchronize()
+            if plain_ms is None:
+                plain_ms = (time.perf_counter() - t1) * 1e3
+            n_diff = int((got != want).sum())
+            log(f"K8 one_pole [{R},{T}] {name}: {n_diff} samples differ "
+                f"from the plain version (tol 0: bit-identical); "
+                f"{int((want == 0).sum())} zeros")
+            if n_diff:
+                raise RuntimeError(f"K8 is not bit-identical to its plain "
+                                   f"version behind {name}")
+        k_ms, b_ms, b_by, floor_ms = time_k8(x)
+        show("one_pole", 0.0, k_ms, plain_ms, b_ms, b_by,
+             f"; chain floor ~{floor_ms:.4f} ms ({T} steps x "
+             f"{K8_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+             f"{100 * floor_ms / k_ms:.1f}% of it; the plain time is the "
+             f"de-emphasis's", shape=shape)
+        (report["one_pole"] if shape is None else
+         report["one_pole"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+
+    check_k8(k8_audio(C, K8_T))
+    check_k8(k8_audio(C, K8_RAGGED_T), shape=[C, K8_RAGGED_T])
+
     # -- 3. the paths at C=320 ----------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
                audio_wire.adpcm_compress, fdev.rs_syndromes_batch,
                fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch,
-               fdev.conv_k3_decode_batch)
-    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn = counted
+               fdev.conv_k3_decode_batch, af.one_pole)
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn, k8fn = counted
     cpu_tables = params.load("cpu")
 
     def run_p25_path(label, xblocks, cqpsk_on, want_n):
@@ -1070,12 +1185,14 @@ def main() -> int:
             raise RuntimeError(f"{label}: card and CPU paths disagree")
 
     def run_ambe_path(label, make, xblocks, n_rows, frames, judge, runs,
-                      idle, cpu_pipe):
+                      idle, cpu_pipe, post=None):
         """Both formats over two blocks with the carry kept and the
         launch counters reset before; ``frames(pipe, n_rows)`` gives
         (bits, errs, rows, steps) of the decoded frames, ``judge(pipe,
-        fmt, blk)`` checks the block's frames and returns a line; then
-        rows 0..``n_rows//C*2`` against ``cpu_pipe`` on the CPU."""
+        fmt, blk)`` checks the block's frames and returns a line,
+        ``post(pcm, fmt, blk)`` (where given) takes each block's PCM
+        further; then rows 0..``n_rows//C*2`` against ``cpu_pipe`` on the
+        CPU."""
         for fn in counted:
             fn.launches = 0
         torch.cuda.synchronize()
@@ -1090,6 +1207,8 @@ def main() -> int:
                 dt = time.perf_counter() - t1
                 limit = 1.0 if fmt == "f16" else 32768.0 / 32767.0
                 rms = check_pcm(f"{label} {fmt} block {blk}", pcm, limit)
+                if post is not None:
+                    post(pcm, fmt, blk)
                 line = judge(pipe, fmt, blk)
                 log(f"{label} {fmt} block {blk}: {line}; PCM {pcm.shape} "
                     f"finite, |pcm| <= {np.abs(pcm).max():.5f}, rms "
@@ -1737,6 +1856,12 @@ def main() -> int:
             raise RuntimeError(f"{label}: the gated front end on the card "
                                "differs from its CPU path")
 
+    def states_of(pipe):
+        """``channel_state`` of channels 0-1, where the pipeline has one."""
+        if not hasattr(pipe, "channel_state"):
+            return []
+        return [pipe.channel_state(c) for c in range(2)]
+
     def run_event(label, kind, make, runs, cpu_pipe, judge_block):
         """Two blocks with the contexts kept, launch counters reset
         before; every channel of each block judged against the vector
@@ -1756,8 +1881,7 @@ def main() -> int:
             n = pipe.decode_block_events(xb)
             dt = time.perf_counter() - t1
             msg = judge_block(pipe, blk, n0s)
-            frames.append((pipe.last_frames,
-                           [pipe.channel_state(c) for c in range(2)]))
+            frames.append((pipe.last_frames, states_of(pipe)))
             log(f"{label} block {blk}: {n} frames accepted over {C} "
                 f"channels; {msg}; {dt * 1e3:.1f} ms")
         got = check_launches(label, counted, runs,
@@ -1771,7 +1895,7 @@ def main() -> int:
             sel = card[0] < 2
             same = all(np.array_equal(a[sel], b) for a, b in
                        zip(card[:-1], cpu[:-1])) and (
-                states == [cpu_pipe.channel_state(c) for c in range(2)])
+                states == states_of(cpu_pipe))
             rows = ([r for r, k in zip(card[-1], sel) if k]
                     if isinstance(card[-1], list) else card[-1][sel])
             same = same and len(rows) == len(cpu[-1]) and all(
@@ -1989,6 +2113,147 @@ def main() -> int:
                  "frames accepted")
     del pipe, ev
 
+    # -- 7. YSF, dPMR and the EDACS monitor at C=320 -----------------------
+    from dsdneo_tpu_torch.engine.ccbatch import BatchedEdacsControlPipeline
+    from dsdneo_tpu_torch.engine.dpmrbatch import BatchedDpmrVoicePipeline
+    from dsdneo_tpu_torch.engine.ysfbatch import (VOTE_ERR_MAX,
+                                                  BatchedYsfVoicePipeline)
+    k8_pcm = {}
+
+    def conditioned(label):
+        """``post`` of the voice paths: the CLI's conditioning of each
+        block's decoded PCM on the card (de-emphasis "nfm", the 3400 Hz
+        low-pass: K8 twice), held bit for bit to the plain version on f16
+        block 0, whose PCM K8 is timed at after the path's run."""
+        def post(pcm, fmt, blk):
+            x = torch.as_tensor(pcm, device=dev)
+            y = af.condition_audio(x, deemph="nfm", audio_lpf_hz=3400)
+            if fmt == "f16" and blk == 0:
+                want = af.one_pole_plain(
+                    af.one_pole_plain(x, af.deemphasis_pole(8000.0, 750.0)),
+                    af.lowpass_pole(8000.0, 3400.0))
+                n_diff = int((y != want).sum())
+                log(f"{label}: condition_audio(nfm, 3400 Hz) on the decoded "
+                    f"{list(x.shape)} PCM on the card: {n_diff} samples "
+                    "differ from the plain version (tol 0)")
+                if n_diff or not torch.isfinite(y).all():
+                    raise RuntimeError(f"{label}: K8 on the decoded PCM "
+                                       "disagrees with its plain version")
+                k8_pcm[label] = x
+        return post
+
+    def burst_frames(pipe):
+        bits, errs, fch, forder, _acc = pipe.last_frames
+        return bits, errs, fch, forder
+
+    def ysf_judge(pipe, fmt, blk):
+        _bt, btv, leads, _x, n_sym = burst["ysf"]
+        bits, verr, _f, _o, (ac, at) = pipe.last_frames
+        b5 = bits.cpu().numpy().reshape(-1, 5, 49)
+        e5 = verr.cpu().numpy().reshape(-1, 5)
+        n_voice = sum(ysf_encode.judge(
+            btv, int(leads[c]), n_sym, [(int(at[h]), b5[h], e5[h])
+                                        for h in np.flatnonzero(ac == c)])
+            for c in range(pipe.C))
+        n_gated = int((e5 > VOTE_ERR_MAX).all(1).sum())
+        return (f"every frame the block holds accepted ({len(ac)} frames): "
+                f"{n_voice} voice frames with the vector's 5 x 49 bits and "
+                f"unanimous votes, {n_gated} others failing the vote gate "
+                f"on all five AMBE frames (the data frames)")
+
+    def dpmr_judge(pipe, fmt, blk):
+        _bt, btv, leads, _x, n_sym = burst["dpmr"]
+        bits, errs, _f, _o, (ac, at, ai) = pipe.last_frames
+        b8 = bits.cpu().numpy().reshape(-1, 8, 49)
+        e8 = errs.cpu().numpy().reshape(-1, 8)
+        n = sum(dpmr_encode.judge(
+            btv, int(leads[c]), n_sym,
+            [(int(at[h]), int(ai[h]), b8[h], e8[h])
+             for h in np.flatnonzero(ac == c)], inverted=c % 4 == 3)
+            for c in range(pipe.C))
+        return (f"every part the block holds accepted ({n} parts, "
+                f"{int(ai.sum())} of them inverted), each with the vector's "
+                f"8 x 49 bits and no ECC error; nothing else accepted")
+
+    idle8 = (k1fn, k2fn, k7fn, k4fn, k5fn, k6fn)
+    for label, kind, cls, judge, pick in (
+            ("YSF path", "ysf", BatchedYsfVoicePipeline, ysf_judge,
+             lambda p, fe: p.pick_frames(*fe[1:])),
+            ("dPMR path", "dpmr", BatchedDpmrVoicePipeline, dpmr_judge,
+             lambda p, fe: p.pick_parts(*fe[1:]))):
+        bt, _btv, _leads, xblocks, _n = burst[kind]
+        launches[kind] = run_ambe_path(
+            label, lambda fmt, cls=cls, bt=bt: cls(C, FS, pcm_fmt=fmt,
+                                                   tables=bt),
+            xblocks, C, burst_frames, judge, (k3fn, k8fn), idle8,
+            cls(2, FS, device="cpu", tables=params.load_burst(kind, "cpu")),
+            post=conditioned(label))
+        k_ms, b_ms, b_by, floor_ms = time_k8(k8_pcm[label])
+        show("one_pole", 0.0, k_ms, float("nan"), b_ms, b_by,
+             f"; chain floor ~{floor_ms:.4f} ms, {100 * floor_ms / k_ms:.1f}"
+             f"% of it; at the {label}'s decoded PCM; launches per path "
+             f"run {launches[kind]['one_pole']}",
+             shape=list(k8_pcm[label].shape))
+        report["one_pole"]["other_shapes"][-1].update(
+            chain_floor_ms=floor_ms, plain_ms=None)
+        if kind == "ysf":
+            pipe = cls(C, FS, pcm_fmt="adpcm", tables=bt)
+            topk_fill(pipe, pipe.frontend_sync_device(xblocks[0]), label)
+        time_path(label, ident, cls(C, FS, pcm_fmt="adpcm", tables=bt),
+                  xblocks, BLOCK_S, pick)
+    k8_pcm.clear()
+
+    def make_edacs(where, n_ch, topk=None):
+        pipe = BatchedEdacsControlPipeline(n_ch, FS, device=where)
+        if topk is not None:
+            pipe.SYNC_TOPK = topk
+        esk = int(burst["edacs"][1]["esk"])
+        for c, ctx in enumerate(pipe.ctxs):
+            mode = EDACS_MODES[c % 4]
+            ctx.state.edacs_ea = mode == "ea"
+            ctx.state.edacs_esk = esk if mode == "esk" else 0
+        return pipe
+
+    def judge_edacs(pipe, blk, n0s):
+        _bt, btv, leads, _x, n_sym = burst["edacs"]
+        ac, at, blob = pipe.last_frames
+        n = n_lines = 0
+        for c in range(pipe.C):
+            lines = [e.line for e in pipe.ctxs[c].events[n0s[c]:]]
+            n += edacs_encode.judge(
+                btv, int(leads[c]), n_sym,
+                [(int(at[h]), blob[h]) for h in np.flatnonzero(ac == c)],
+                lines, EDACS_MODES[c % 4], c % 4 == 3)
+            n_lines += len(lines)
+        return (f"every frame the block holds accepted with the vector's two "
+                f"messages ({n} frames; inverted channels read as -EDACS), "
+                f"{n_lines} event lines equal to the JAX catalog's "
+                f"(standard, EA and ESK readings); "
+                f"{len(ac) - n} other picks, all failing the BCH screen")
+
+    def edacs_stage(pipe, feh):
+        t1 = time.perf_counter()
+        ac, at = pipe.pick_frames(*feh[1:])
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pipe.decode_frames(feh[0], ac, at)
+        return t_pick, time.perf_counter() - t1
+
+    ev = {"edacs": burst["edacs"]}
+    pipe, launches["edacs"] = run_event(
+        "EDACS monitor", "edacs",
+        lambda: make_edacs(dev, C), (), make_edacs("cpu", 2), judge_edacs)
+    x0 = burst["edacs"][3][0]
+    topk_fill(pipe, pipe.frontend_sync_device(x0), "EDACS monitor")
+    n128 = pipe.decode_block_events(x0)
+    n96 = make_edacs(dev, C, 96).decode_block_events(x0)
+    log(f"EDACS monitor, block 0: {n128} frames parsed with the port's top "
+        f"{pipe.SYNC_TOPK}, {n96} with the JAX package's top 96 (the frames "
+        f"a continuous 3 s block holds: ~{C * 100})")
+    time_monitor("EDACS monitor", pipe, burst["edacs"][3], True, edacs_stage,
+                 "frames parsed")
+    del pipe, ev, burst
+
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")
 
@@ -2005,8 +2270,10 @@ def main() -> int:
             ("conv_k5", "dsdneo_tpu_torch/csrc/conv_k5.cu",
              "dsdneo_tpu/fec/device.py:176", "conv_k5_decode_batch"),
             ("conv_k3", "dsdneo_tpu_torch/csrc/conv_k3.cu",
-             "dsdneo_tpu/fec/device.py:229", "conv_k3_decode_batch")]
-    # no single PyTorch call computes any of the seven functions.
+             "dsdneo_tpu/fec/device.py:229", "conv_k3_decode_batch"),
+            ("one_pole", "dsdneo_tpu_torch/csrc/one_pole.cu",
+             "dsdneo_tpu/dsp/audio_filters.py:19", "one_pole")]
+    # no single PyTorch call computes any of the eight functions.
     # "launches" sums the paths' runs; "launches_by_path" splits it
     log(ident)
     log(json.dumps({"kernels": [

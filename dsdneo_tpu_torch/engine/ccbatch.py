@@ -1,6 +1,6 @@
 """Batched many-channel control-channel monitors: I/Q → trunking events.
 
-Counterpart of ``dsdneo_tpu/engine/ccbatch.py`` for three monitors.
+Counterpart of ``dsdneo_tpu/engine/ccbatch.py`` for four monitors.
 Everything through the CRC screen runs on the card; the host parses only
 the CRC-valid payload blocks through the protocol catalogs and keeps one
 ``DecoderContext`` per channel, so grants feed trunk following:
@@ -30,22 +30,34 @@ NXDN RCCH CAC (``BatchedNxdnControlPipeline``):
   (``fec.device.conv_k5_decode_batch``, kernel K5), the CRC16-CAC screen
   → the host parses the passing messages with ``protocol.nxdn.decoder``.
 
+EDACS (``BatchedEdacsControlPipeline``):
+  the gated front end (2-level, 9600 symbols/s) and the ±EDACS
+  correlation → the host pick → :func:`edacs_cc_decode_device`: the
+  2-of-3 vote over the three copies of both 40-bit words and the
+  dual-polarity BCH(40,28) screen → the host parses the valid message
+  pairs with the standard or the EA catalog (``protocol.edacs``).
+
 The P25 and DMR monitors offer a payload-keyed parse cache: control
 channels repeat identical blocks many times a second, and a repeat
 re-emits the first parse's events.  The products of the codebook and
 CRC screens are float32 matrix products of 0/1 and ±1 terms, exact in
 full float32 (the card's TF32 switch for matrix products stays off).
-EDACS and P25 Phase 2 control wait for their slices.
+P25 Phase 2 control waits for its slice.
 """
 
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 import torch
 
 from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.dsp import firdes
 from dsdneo_tpu_torch.engine.batched import frontend_step
+from dsdneo_tpu_torch.engine.demod import gated_frontend_step
+from dsdneo_tpu_torch.engine.modes import MODES
 from dsdneo_tpu_torch.engine.dmrbatch import _dibits_to_bits
 from dsdneo_tpu_torch.engine.nxdnbatch import (FRAME_DIBITS,
                                                BatchedNxdnVoicePipeline,
@@ -59,9 +71,11 @@ from dsdneo_tpu_torch.fec.device import (_ml_dec, conv_k5_decode_batch,
                                          p25_12_decode_batch)
 from dsdneo_tpu_torch.protocol.base import DecoderContext
 from dsdneo_tpu_torch.protocol.dmr.csbk import decode_csbk
+from dsdneo_tpu_torch.protocol.edacs.decoder import EdacsDecoder, _bch_basis
 from dsdneo_tpu_torch.protocol.nxdn.decoder import NxdnDecoder
 from dsdneo_tpu_torch.protocol.p25.phase1 import P25P1Decoder
-from dsdneo_tpu_torch.symbols.framesync import SYNC_DEFS, SyncHit
+from dsdneo_tpu_torch.symbols.framesync import (SYNC_DEFS, SyncHit,
+                                                sync_levels)
 
 PARSE_CACHE_MAX = 4096      # entries per channel before a cache clears
 
@@ -632,6 +646,216 @@ class BatchedNxdnControlPipeline:
             detail = self.decs[c]._message(dec[8:155], ctx)
             ctx.emit(f"Sync: NXDN CC  RCCH CAC RAN {ran:02d}{detail}",
                      "nxdn", t, ran=ran)
+            n += 1
+        return n
+
+    def events(self, c: int):
+        return self.ctxs[c].events
+
+
+# -- EDACS control channel --------------------------------------------------------
+EDACS_BLOB = 12             # msg1 4 bytes + msg2 4 bytes + ok + inv + 2 pad
+
+
+@lru_cache(maxsize=8)
+def _edacs_consts(device: str) -> dict[str, torch.Tensor]:
+    """The BCH(40,28) parity rows as float32 and the weights that pack a
+    28-bit message, on ``device``."""
+    on = lambda a: torch.as_tensor(a, device=device)  # noqa: E731
+    return {"basis": on(_bch_basis().astype(np.float32)),
+            "w28": on(np.array([1 << (27 - i) for i in range(28)],
+                               np.int64)),
+            "off": on(np.arange(240, dtype=np.int64))}
+
+
+def edacs_cc_decode_device(dibits: torch.Tensor, ch: torch.Tensor,
+                           pos: torch.Tensor) -> torch.Tensor:
+    """The 240 message dibits of every accepted frame (``pos`` = message
+    start; pad channel ``C``; 2-level, so the sign bit is the data bit),
+    the bitwise 2-of-3 vote over the three copies of each 40-bit word,
+    and the BCH(40,28) parity screen for both polarities (an inverted
+    channel complements every word) as a mod-2 product of 0/1 terms,
+    exact in float32: ``[H, 12]`` uint8, msg1 and msg2 (the 28-bit
+    messages after the polarity) as little-endian uint32, the ok flag,
+    the inverted flag and two zero bytes."""
+    k = _edacs_consts(str(dibits.device))
+    Tn = dibits.shape[1]
+    gp = torch.clamp(pos[:, None] + k["off"], 0, Tn - 1)
+    chc = torch.clamp(ch, max=dibits.shape[0] - 1)
+    bits = ((dibits[chc[:, None], gp] >> 1) & 1).to(torch.int32)
+    fr = bits.reshape(-1, 6, 40)
+    m1 = (fr[:, 0] + fr[:, 1] + fr[:, 2] >= 2).to(torch.int32)  # [H, 40]
+    m2 = (fr[:, 3] + fr[:, 4] + fr[:, 5] >= 2).to(torch.int32)
+
+    def bch_ok(w):                              # [H, 40] → [H] bool
+        par = torch.remainder(w[:, :28].to(torch.float32) @ k["basis"], 2.0)
+        return (par.to(torch.int32) == w[:, 28:40]).all(dim=-1)
+
+    ok_n = bch_ok(m1) & bch_ok(m2)
+    ok_c = bch_ok(1 - m1) & bch_ok(1 - m2)
+    inv = ~ok_n & ok_c
+    ok = ok_n | ok_c
+    m1f = torch.where(inv[:, None], 1 - m1, m1)
+    m2f = torch.where(inv[:, None], 1 - m2, m2)
+    v1 = (m1f[:, :28].to(torch.int64) * k["w28"]).sum(dim=1)
+    v2 = (m2f[:, :28].to(torch.int64) * k["w28"]).sum(dim=1)
+    shifts = torch.arange(0, 32, 8, device=dibits.device)
+    le = lambda v: ((v[:, None] >> shifts) & 0xFF).to(torch.uint8)  # noqa
+    return torch.cat([le(v1), le(v2), ok[:, None].to(torch.uint8),
+                      inv[:, None].to(torch.uint8),
+                      torch.zeros((v1.shape[0], 2), dtype=torch.uint8,
+                                  device=dibits.device)], dim=1)
+
+
+class BatchedEdacsControlPipeline:
+    """Batched EDACS trunking control monitor over ``[C, B, 2]`` float32
+    I/Q blocks on ``device`` (the card when none is given; raises when
+    there is no card; it needs no tables): the gated front end (2-level) and the ±EDACS
+    correlation on the card, the host pick, the 2-of-3 vote and the
+    dual-polarity BCH(40,28) screen on the card
+    (:func:`edacs_cc_decode_device`), and the host parse of the valid
+    message pairs through the standard or the EA catalog
+    (``protocol.edacs.decoder``), after the ESK mask.  ``ea_mode`` and
+    ``esk_mask`` set every channel's context (``state.edacs_ea``,
+    ``state.edacs_esk``), which the parse reads per channel."""
+
+    SYNC_NAMES = ("+EDACS", "-EDACS")
+    # the JAX package keeps 96 ("~33 frames/s + shoulders",
+    # dsdneo_tpu/engine/ccbatch.py:436), but a continuous control channel
+    # sends 33.3 frames a second, ~100 in a 3 s block, so 96 drops frames
+    # there (ROADMAP queue 3); 128 holds every frame of a 3 s block
+    SYNC_TOPK = 128
+    FRAME_EXTENT = 48 + 240
+
+    def __init__(self, C: int, fs: float = 48000.0,
+                 sync_threshold: float = 0.62, ea_mode: bool = False,
+                 esk_mask: int = 0, *, device=None):
+        if device is None:
+            device = require_cuda()
+        self.device = torch.empty(0, device=device).device
+        self.C = C
+        self.fs = fs
+        self.mode = MODES["edacs"]
+        self.sps = fs / self.mode.symbol_rate
+        self.taps = torch.as_tensor(firdes.channel_lpf(fs,
+                                                       self.mode.lpf_profile),
+                                    device=self.device)
+        self.levels = torch.as_tensor(sync_levels(self.SYNC_NAMES),
+                                      device=self.device)
+        self.n_pat = int(self.levels.shape[1])
+        self.threshold = sync_threshold
+        self.ctxs = [DecoderContext() for _ in range(C)]
+        for ctx in self.ctxs:
+            ctx.state.edacs_ea = ea_mode
+            ctx.state.edacs_esk = esk_mask
+        self.decs = [EdacsDecoder() for _ in range(C)]
+        self.bch_errors = 0
+        self.last_frames = None
+
+    def frontend_dispatch(self, iq):
+        """Queue the gated front end and the sync filter of one block:
+        returns the device handle (dibits, idx, vq, n_sym)."""
+        x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
+        n_sym = int(x.shape[1] // self.sps) - 2
+        dibits, soft = gated_frontend_step(x, self.taps, self.sps, n_sym,
+                                           self.mode.four_level)
+        sc = correlate_syncs_device(torch.clamp(soft, -3.5, 3.5),
+                                    self.levels)
+        bs = torch.amax(sc, dim=1)
+        k = min(self.SYNC_TOPK, bs.shape[1])
+        vals, idx = torch.sort(bs, dim=1, descending=True, stable=True)
+        vq = torch.clamp(vals[:, :k] * 127.0, 0, 255).to(torch.uint8)
+        return dibits, idx[:, :k], vq, n_sym
+
+    def frontend_finish(self, fe):
+        """Copy a dispatch's candidates to the host: (dibits_dev, idx
+        int64, vq uint8, n_sym)."""
+        dibits, idx, vq, n_sym = fe
+        return (dibits, idx.cpu().numpy().astype(np.int64), vq.cpu().numpy(),
+                n_sym)
+
+    def frontend_sync_device(self, iq):
+        return self.frontend_finish(self.frontend_dispatch(iq))
+
+    def pick_frames(self, idx, vq, n_sym: int):
+        """Threshold, the best score of an 8-position shoulder and the
+        288-dibit frame spacing → accepted (channel, message start)."""
+        acc_c, acc_t = [], []
+        for c in range(idx.shape[0]):
+            sc = vq[c].astype(np.float32) / 127.0
+            ok = sc >= self.threshold
+            if not ok.any():
+                continue
+            order = np.argsort(idx[c][ok], kind="stable")
+            positions = idx[c][ok][order]
+            scores = sc[ok][order]
+            last = -10 ** 9
+            j = 0
+            while j < len(positions):
+                t = int(positions[j])
+                w = j
+                k = j + 1
+                while k < len(positions) and positions[k] < t + 8:
+                    if scores[k] > scores[w]:
+                        w = k
+                    k += 1
+                t = int(positions[w])
+                j = k
+                if t - last < self.FRAME_EXTENT - 8 \
+                        or t + self.n_pat + 240 >= n_sym:
+                    continue
+                last = t
+                acc_c.append(c)
+                acc_t.append(t + self.n_pat)        # message start
+        return np.asarray(acc_c, np.int32), np.asarray(acc_t, np.int32)
+
+    def decode_frames(self, dibits_dev, ac, at) -> np.ndarray:
+        """The device decode of accepted frames, padded to a multiple of
+        32 (pad channel ``C``): ``[H, 12]`` blob rows in their order."""
+        H = ac.shape[0]
+        Hp = -(-H // 32) * 32
+        dev = self.device
+        return edacs_cc_decode_device(
+            dibits_dev, _padded(ac, Hp, self.C, dev),
+            _padded(at, Hp, 0, dev)).cpu().numpy()[:H]
+
+    def decode_block_events(self, iq) -> int:
+        """One ``[C, B]`` block → EDACS events in ``ctxs``; returns the
+        number of BCH-valid frames parsed."""
+        return self.events_from_frontend(self.frontend_sync_device(iq))
+
+    def events_from_frontend(self, fe4) -> int:
+        dibits_dev, idx, vq, n_sym = fe4
+        ac, at = self.pick_frames(idx, vq, n_sym)
+        if ac.shape[0] == 0:
+            self.last_frames = (ac, at, np.zeros((0, EDACS_BLOB), np.uint8))
+            return 0
+        blob = self.decode_frames(dibits_dev, ac, at)
+        self.last_frames = (ac, at, blob)
+        sync = _sync_def("+EDACS")
+        n = 0
+        for h in range(ac.shape[0]):
+            c, t = int(ac[h]), int(at[h])
+            ctx = self.ctxs[c]
+            if not blob[h, 8]:
+                self.bch_errors += 1
+                ctx.emit("Sync: +EDACS  BCH FAIL", "edacs", t)
+                continue
+            v1 = int(blob[h, 0:4].copy().view("<u4")[0])
+            v2 = int(blob[h, 4:8].copy().view("<u4")[0])
+            esk = int(getattr(ctx.state, "edacs_esk", 0) or 0)
+            if esk:
+                v1 ^= (esk & 0xFF) << 20
+                v2 ^= (esk & 0xFF) << 20
+            dec = self.decs[c]
+            hit = SyncHit(pos=t, score=1.0, sync=sync)
+            if getattr(ctx.state, "edacs_ea", False):
+                line = dec._extended(v1, v2, ctx, hit)
+            else:
+                line = dec._standard(v1, v2, ctx, hit)
+            pol = "-" if blob[h, 9] else "+"
+            ctx.emit(f"Sync: {pol}EDACS {line}", "edacs", t,
+                     mt=v1 >> 23, word=v1)
             n += 1
         return n
 

@@ -1,4 +1,5 @@
-"""The demodulation modes of the ported TDMA, NXDN, D-STAR and M17 paths.
+"""The demodulation modes of the ported TDMA, NXDN, D-STAR, M17, YSF,
+dPMR and EDACS paths.
 
 The port's own copy of the rows of ``dsdneo_tpu/engine/modes.py``
 (``MODES``) that its pipelines use: the channel-filter profile (the name
@@ -23,7 +24,10 @@ MODES: dict[str, ModeConfig] = {m.name: m for m in [
     ModeConfig("p25p2", "p25_c4fm", 6000, True),
     ModeConfig("nxdn48", "6k25", 2400, True),
     ModeConfig("nxdn96", "12k5", 4800, True),
+    ModeConfig("dpmr", "6k25", 2400, True),
     ModeConfig("x2tdma", "12k5", 6000, True),
     ModeConfig("dstar", "6k25", 4800, False),
+    ModeConfig("ysf", "12k5", 4800, True),
+    ModeConfig("edacs", "provoice", 9600, False),
     ModeConfig("m17", "12k5", 4800, True),
 ]}

@@ -62,6 +62,9 @@ _SIGNATURES = {
     "dsd_conv_k5": [_P, _P, _P, _I, _I, _P],
     # bits, out, N, n, stream
     "dsd_conv_k3": [_P, _P, _I, _I, _P],
+    # x, out, R, T, a, b, diff, stream
+    "dsd_one_pole": [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _I,
+                     _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {

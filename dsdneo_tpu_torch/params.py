@@ -7,11 +7,13 @@ functions into ``data/p25p1_tables.npz`` (P25 Phase 1),
 ``data/tdma_tables.npz`` (the front ends and host tables of X2-TDMA,
 P25 Phase 2 and NXDN), ``data/cc_tables.npz`` (the control-channel
 monitors' FEC, CRC and gather tables) and ``data/event_tables.npz`` (the
-D-STAR AMBE ECC and the M17 LICH code, and the two event streams), and
+D-STAR AMBE ECC and the M17 LICH code, and the two event streams) and
+``data/burst_tables.npz`` (the YSF, dPMR and EDACS streams), and
 its state is the per-channel carry of the voice decoder (prediction,
 synthesis and frame-repeat).  :func:`from_numpy`, :func:`dmr_from_numpy`,
 :func:`tdma_from_numpy`, :func:`cc_from_numpy` and
-:func:`event_from_numpy` carry the tables across onto a device;
+:func:`event_from_numpy` and :func:`burst_from_numpy` carry the tables
+across onto a device;
 :func:`state_from_numpy` carries a JAX
 pipeline's carries across, so a block decoded by the JAX package can
 continue in the port.
@@ -36,6 +38,7 @@ DMR_TABLES_NPZ = os.path.join(_DATA, "dmr_tables.npz")
 TDMA_TABLES_NPZ = os.path.join(_DATA, "tdma_tables.npz")
 CC_TABLES_NPZ = os.path.join(_DATA, "cc_tables.npz")
 EVENT_TABLES_NPZ = os.path.join(_DATA, "event_tables.npz")
+BURST_TABLES_NPZ = os.path.join(_DATA, "burst_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -416,6 +419,57 @@ def load_event(kind: str, device=None) -> EventTables:
         raise ValueError(f"unknown event pipeline {kind!r}")
     return event_from_numpy(_read_npz(EVENT_TABLES_NPZ), kind,
                             _device(device))
+
+
+class BurstTables:
+    """The tables of one path behind the gated front end that the event
+    tables do not hold: ``kind`` is ``ysf`` or ``dpmr`` (voice: ``ambe``
+    is the AMBE core of ``DmrTables`` on ``device``) or ``edacs`` (the
+    control-channel monitor needs no tables: ``ambe`` is None, the stream
+    is all).  The kind's stream of ``burst_tables.npz`` stays in
+    ``np``."""
+
+    KINDS = ("ysf", "dpmr", "edacs")
+
+    def __init__(self, dmr: dict[str, np.ndarray] | None,
+                 burst: dict[str, np.ndarray], kind: str, device):
+        if kind not in self.KINDS:
+            raise ValueError(f"unknown burst path {kind!r}")
+        self.kind = kind
+        self.device = torch.device(device)
+        pre = kind + "_tv_"
+        self.np = {k: np.asarray(v) for k, v in burst.items()
+                   if k.startswith(pre)}
+        self.ambe = (None if kind == "edacs" else
+                     DmrTables({k: v for k, v in dmr.items()
+                                if not k.startswith(TV_PREFIX)}, device))
+
+    def test_vector(self) -> dict[str, np.ndarray]:
+        """The kind's stream and what it carries (the ``<kind>_tv_``
+        arrays, without the prefix)."""
+        pre = self.kind + "_tv_"
+        return {k[len(pre):]: v for k, v in self.np.items()}
+
+
+def burst_from_numpy(dmr: dict[str, np.ndarray] | None,
+                     burst: dict[str, np.ndarray], kind: str,
+                     device) -> BurstTables:
+    """numpy tables (the two npz files, or arrays built by the JAX
+    package) → ``BurstTables`` of ``kind`` on ``device``: the AMBE core
+    of ``dmr`` (voice kinds) and the kind's stream of ``burst``."""
+    return BurstTables(dmr, burst, kind, device)
+
+
+def load_burst(kind: str, device=None) -> BurstTables:
+    """The checked-in ``data/burst_tables.npz`` (and, for ``ysf`` and
+    ``dpmr``, the AMBE core of ``data/dmr_tables.npz``) as ``kind``'s
+    tables on ``device``: the card when none is given (raises when there
+    is no card)."""
+    if kind not in BurstTables.KINDS:
+        raise ValueError(f"unknown burst path {kind!r}")
+    device = _device(device)
+    dmr = None if kind == "edacs" else _read_npz(DMR_TABLES_NPZ)
+    return burst_from_numpy(dmr, _read_npz(BURST_TABLES_NPZ), kind, device)
 
 
 def state_from_numpy(pred, synth, rep, device):

@@ -81,6 +81,22 @@ def match_nominal(got, want: dict) -> dict:
     return out
 
 
+def junk_allowed(t: int, want: dict, extent: int, excused: set) -> bool:
+    """Whether a pick at ``t`` that is no frame of ``want`` ({nominal
+    position: index}) may stand: it lies inside a frame whose sync starts
+    before the block's first ``POS_TOL`` symbols, or inside one that an
+    earlier such pick suppressed (``excused``), where no accepted frame
+    suppresses it (the JAX package's picks do the same)."""
+    return any(s < t < s + extent and (s < POS_TOL or i in excused)
+               for s, i in want.items())
+
+
+def suppressed_by(t: int, want: dict, extent: int) -> set:
+    """The frames of ``want`` that a pick at ``t`` suppresses: those
+    starting less than ``extent − 8`` after it."""
+    return {i for s, i in want.items() if 0 < s - t < extent - 8}
+
+
 def _crc_ok(hdr: np.ndarray) -> bool:
     return crc16_x25(hdr[:39]) == (int(hdr[39]) << 8) | int(hdr[40])
 

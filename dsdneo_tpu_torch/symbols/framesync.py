@@ -3,7 +3,7 @@
 The port's own copy of ``SyncDef``, ``SyncHit`` and the rows of
 ``SYNC_DEFS`` in ``dsdneo_tpu/symbols/framesync.py`` that its monitors
 name (P25 Phase 1, DMR BS data and voice, NXDN FSW, D-STAR voice and
-header, M17 stream), in that table's order.  A catalog reads a
+header, YSF, M17 stream, dPMR FS2, EDACS), in that table's order.  A catalog reads a
 hit's position and its definition's name.
 """
 
@@ -39,7 +39,14 @@ SYNC_DEFS: list[SyncDef] = [
     SyncDef("-NXDN FSW", "1313113313", "nxdn", "fsw", True),
     SyncDef("+D-STAR", "313131313133131113313111", "dstar", "voice"),
     SyncDef("+D-STAR HD", "131313131333133113131111", "dstar", "hd"),
+    SyncDef("+YSF", "31111311313113131131", "ysf", "frame"),
     SyncDef("+M17 STR", "33331131", "m17", "str"),
+    SyncDef("+dPMR FS2", "113333131331", "dpmr", "fs2"),
+    SyncDef("-dPMR FS2", "331111313113", "dpmr", "fs2", True),
+    SyncDef("+EDACS", "313131313131313131313111333133133131313131313131",
+            "edacs", "frame"),
+    SyncDef("-EDACS", "131313131313131313131333111311311313131313131313",
+            "edacs", "frame", True),
 ]
 
 

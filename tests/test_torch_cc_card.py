@@ -4,8 +4,10 @@ K4 (the P25 trellis Viterbi) and K5 (the K=5 soft Viterbi) against their
 plain PyTorch versions, bits and costs identical; each monitor's card
 path against its CPU path on two channels, two blocks with the context
 kept: the same accepted blocks, the same blobs, the same event lines;
-and the NID second-chance decode (``nid_decode_positions``) on the card,
-reached through the TSDU pick.
+the NID second-chance decode (``nid_decode_positions``) on the card,
+reached through the TSDU pick; and the same card-against-CPU check for
+the P25 monitor's CQPSK mode and for the DMR monitor on channels whose
+FM is negated.
 
 Every test needs a card (``cuda`` marker; skips without one) and none
 imports JAX, so this file runs on the card's machine:
@@ -23,7 +25,7 @@ from dsdneo_tpu_torch.engine import ccbatch
 from dsdneo_tpu_torch.fec import conv, device as fdev, trellis
 from dsdneo_tpu_torch.protocol.dmr import encode as dmr_encode
 from dsdneo_tpu_torch.protocol.nxdn import encode as nxdn_encode
-from dsdneo_tpu_torch.protocol.p25.encode import c4fm_clean
+from dsdneo_tpu_torch.protocol.p25.encode import c4fm_clean, cqpsk_iq
 
 LEADS = ((7, 61), (0, 33))
 SEEDS = ((1, 2), (3, 4))
@@ -199,3 +201,56 @@ def test_nid_second_chance_on_card():
                       sum(calls))
     assert runs["card2"][1] >= 2 * 6 and runs["card"][1] == 0
     assert runs["card2"][0] == runs["cpu2"][0] == runs["card"][0]
+
+
+@pytest.mark.cuda
+def test_p25_cqpsk_monitor_on_card_matches_cpu():
+    """``BatchedP25ControlPipeline(cqpsk=True)`` on the card against its
+    CPU path on two channels with their own carrier offsets, two blocks
+    with the contexts kept: the same accepted TSDUs, blobs and events."""
+    dev = _card()
+    tv = params.load_cc("p25", "cpu").test_vector()
+    xs = [dmr_encode.vector_block(
+        tv, LEADS[i], SEEDS[i], 2400 * 10,
+        modulate=lambda d, sps, f=f: cqpsk_iq(d, sps, cfo_hz=f),
+        lead_dibits=tv["lead"]) for i, f in enumerate((120.0, -75.0))]
+    card = ccbatch.BatchedP25ControlPipeline(
+        2, cqpsk=True, device=dev, tables=params.load_cc("p25", dev))
+    cpu = ccbatch.BatchedP25ControlPipeline(
+        2, cqpsk=True, device="cpu", tables=params.load_cc("p25", "cpu"))
+    before = fdev.p25_12_decode_batch.launches
+    for x in xs:
+        n_card = card.decode_block_events(torch.as_tensor(x, device=dev))
+        assert n_card == cpu.decode_block_events(x) and n_card >= 2 * 4
+        for a, b in zip(card.last_tsdus, cpu.last_tsdus):
+            np.testing.assert_array_equal(a, b)
+    assert fdev.p25_12_decode_batch.launches == before + 2
+    for c in range(2):
+        assert ([(e.line, e.pos) for e in card.events(c)]
+                == [(e.line, e.pos) for e in cpu.events(c)])
+
+
+@pytest.mark.cuda
+def test_dmr_monitor_on_an_inverted_channel_on_card_matches_cpu():
+    """``BatchedDmrControlPipeline`` on channels whose FM is negated (the
+    voice-pattern hits are the inverted-data hypothesis) on the card
+    against its CPU path, two blocks with the contexts kept: the same
+    accepted CSBKs, blobs and events, and CSBKs parsed."""
+    dev = _card()
+    tv = params.load_cc("dmr", "cpu").test_vector()
+    xs = [dmr_encode.vector_block(tv, LEADS[i], SEEDS[i], 2400 * 10,
+                                  modulate=dmr_encode.dmr_fm_iq,
+                                  lead_dibits=tv["lead"], invert=True)
+          for i in range(2)]
+    card = ccbatch.BatchedDmrControlPipeline(
+        2, device=dev, tables=params.load_cc("dmr", dev))
+    cpu = ccbatch.BatchedDmrControlPipeline(
+        2, device="cpu", tables=params.load_cc("dmr", "cpu"))
+    for x in xs:
+        n_card = card.decode_block_events(torch.as_tensor(x, device=dev))
+        assert n_card == cpu.decode_block_events(x) and n_card >= 2 * 10
+        for a, b in zip(card.last_csbks, cpu.last_csbks):
+            np.testing.assert_array_equal(a, b)
+    for c in range(2):
+        assert ([(e.line, e.pos) for e in card.events(c)]
+                == [(e.line, e.pos) for e in cpu.events(c)])

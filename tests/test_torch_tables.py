@@ -1,8 +1,8 @@
 """The PyTorch port's constant tables and its independence from JAX.
 
 The checked-in ``dsdneo_tpu_torch/data/p25p1_tables.npz``,
-``dmr_tables.npz``, ``tdma_tables.npz``, ``cc_tables.npz`` and
-``event_tables.npz`` must equal what
+``dmr_tables.npz``, ``tdma_tables.npz``, ``cc_tables.npz``,
+``event_tables.npz`` and ``burst_tables.npz`` must equal what
 ``tools/export_torch_tables.py`` builds from the JAX package now
 (exact), and importing the port must never load JAX or any module of the
 JAX package.
@@ -48,7 +48,14 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.dstar.decoder",
     "dsdneo_tpu_torch.protocol.dstar.encode",
     "dsdneo_tpu_torch.protocol.m17.decoder",
-    "dsdneo_tpu_torch.protocol.m17.encode", "dsdneo_tpu_torch.vocoder.codec2")
+    "dsdneo_tpu_torch.protocol.m17.encode", "dsdneo_tpu_torch.vocoder.codec2",
+    "dsdneo_tpu_torch.dsp.audio_filters", "dsdneo_tpu_torch.engine.ysfbatch",
+    "dsdneo_tpu_torch.engine.dpmrbatch",
+    "dsdneo_tpu_torch.protocol.edacs.decoder",
+    "dsdneo_tpu_torch.protocol.edacs.afs",
+    "dsdneo_tpu_torch.protocol.edacs.encode",
+    "dsdneo_tpu_torch.protocol.ysf.encode",
+    "dsdneo_tpu_torch.protocol.dpmr.encode")
 
 
 @pytest.fixture(scope="module")
@@ -283,6 +290,95 @@ def test_event_from_numpy_of_jax_arrays_equals_loaded(event_exported):
         assert "dibits" in b.test_vector() and "lead" in b.test_vector()
     with pytest.raises(ValueError, match="unknown event pipeline"):
         params.load_event("ysf", "cpu")
+
+
+@pytest.fixture(scope="module")
+def burst_exported():
+    from export_torch_tables import build_burst_tables
+    return build_burst_tables()
+
+
+@pytest.mark.parametrize("kind", ["ysf", "dpmr", "edacs"])
+def test_burst_npz_equals_exporter(burst_exported, kind):
+    """The checked-in ``burst_tables.npz`` is what the exporter builds from
+    the JAX package now (each stream held to the JAX pipeline on the
+    way, its accepted frames kept)."""
+    from dsdneo_tpu_torch.params import BURST_TABLES_NPZ
+    with np.load(BURST_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(burst_exported) == sorted(stored)
+    keys = [k for k in burst_exported if k.startswith(kind + "_tv_")]
+    assert f"{kind}_tv_jax_frames" in keys and f"{kind}_tv_dibits" in keys
+    for k in keys:
+        a, b = np.asarray(burst_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_burst_from_numpy_of_jax_arrays_equals_loaded(burst_exported):
+    from dsdneo_tpu_torch import params
+    dmr = params._read_npz(params.DMR_TABLES_NPZ)
+    for kind in ("ysf", "dpmr", "edacs"):
+        b = params.load_burst(kind, "cpu")
+        a = params.burst_from_numpy(dmr, burst_exported, kind, "cpu")
+        assert a.kind == b.kind == kind
+        ta, tb = a.test_vector(), b.test_vector()
+        assert sorted(ta) == sorted(tb) and "dibits" in ta and "lead" in ta
+        for k in ta:
+            np.testing.assert_array_equal(ta[k], tb[k], err_msg=k)
+        if kind == "edacs":
+            assert a.ambe is None and b.ambe is None
+        else:
+            assert torch.equal(a.ambe.ambe_w, b.ambe.ambe_w)
+            assert torch.equal(a.ambe.adpcm_step, b.ambe.adpcm_step)
+
+
+def test_burst_paths_run_without_the_jax_package():
+    """Decode a C=1 block of YSF and dPMR (K3's and K8's plain versions
+    on the way) and of the EDACS monitor on the CPU: no module of the JAX
+    package, and no jax, is ever loaded."""
+    code = (
+        "import sys\n"
+        "import numpy as np, torch\n"
+        "from dsdneo_tpu_torch import params\n"
+        "from dsdneo_tpu_torch.dsp.audio_filters import condition_audio\n"
+        "from dsdneo_tpu_torch.engine.ccbatch import "
+        "BatchedEdacsControlPipeline\n"
+        "from dsdneo_tpu_torch.engine.dpmrbatch import "
+        "BatchedDpmrVoicePipeline\n"
+        "from dsdneo_tpu_torch.engine.ysfbatch import "
+        "BatchedYsfVoicePipeline\n"
+        "from dsdneo_tpu_torch.protocol.dmr.encode import vector_block\n"
+        "from dsdneo_tpu_torch.protocol.dpmr import encode as de\n"
+        "from dsdneo_tpu_torch.protocol.ysf import encode as ye\n"
+        "from dsdneo_tpu_torch.protocol.edacs import encode as ee\n"
+        "for kind, cls, mod, sps in (('ysf', BatchedYsfVoicePipeline, ye, "
+        "10), ('dpmr', BatchedDpmrVoicePipeline, de, 20)):\n"
+        "    t = params.load_burst(kind, 'cpu')\n"
+        "    tv = t.test_vector()\n"
+        "    x = vector_block(tv, (3,), (1,), 2400 * sps, sps=sps, "
+        "modulate=mod.fm_iq, lead_dibits=tv['lead'])\n"
+        "    p = cls(1, pcm_fmt='adpcm', device='cpu', tables=t)\n"
+        "    pcm = p.decode_block(x)\n"
+        "    assert pcm.shape[1] > 0 and np.abs(pcm).max() > 0, kind\n"
+        "    y = condition_audio(torch.as_tensor(pcm[:, :400]), 'nfm', "
+        "3400)\n"
+        "    assert torch.isfinite(y).all(), kind\n"
+        "t = params.load_burst('edacs', 'cpu')\n"
+        "tv = t.test_vector()\n"
+        "x = vector_block(tv, (3,), (1,), 4000 * 5, sps=5, "
+        "modulate=ee.fm_iq, lead_dibits=tv['lead'])\n"
+        "p = BatchedEdacsControlPipeline(1, device='cpu')\n"
+        "assert p.decode_block_events(x) >= 10\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
 
 
 def test_port_never_imports_jax():

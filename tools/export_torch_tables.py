@@ -92,6 +92,33 @@ For the event pipelines (:func:`build_event_tables`, into
     nothing else emitting, every LSF assembled (the port's
     ``protocol.dstar.encode.judge`` and ``protocol.m17.encode.judge``).
 
+For the other paths behind the gated front end (:func:`build_burst_tables`,
+into ``burst_tables.npz``), three streams the JAX package has no
+generator for, built by inverting its own tables:
+
+  - a bursty YSF stream: transmissions of V/D2 frames (the ``+YSF``
+    sync, a FICH field of random dibits, five blocks of 20 random data
+    dibits and 52 voice dibits: an AMBE frame with its 27 protected bits
+    tripled, PN95-whitened and interleaved, the inverse of
+    ``engine.ysfbatch._vd2_tables``), the first of each transmission and
+    about one in six of the others data frames with random voice blocks,
+    between an alternating preamble and postamble, then dead air;
+  - a bursty dPMR stream: transmissions of FS2 parts (the ``+dPMR FS2``
+    sync, random control dibits and eight ``encode_ambe_ecc`` frames at
+    ``engine.dpmrbatch._voice_offsets``), framed the same way;
+  - a continuous EDACS control channel: frames of the ``+EDACS`` sync and
+    two BCH(40,28) words of standard and extended-addressing messages,
+    each sent three times with the middle copy complemented, with the
+    JAX catalogs' event lines of every frame read three ways (standard,
+    EA, and standard after the ESK mask);
+  - every stream drawn again where a clean false sync would reach a
+    margin under the pick's threshold at a position where it could take
+    a frame's place, and held to the JAX pipeline before it is written
+    (YSF and dPMR on 3 s blocks, EDACS on 1 s blocks, where the JAX
+    monitor's top 96 holds every frame; dPMR and EDACS with an inverted
+    channel, EDACS read in the three modes), its accepted frames kept as
+    ``<kind>_tv_jax_frames``.
+
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
@@ -105,8 +132,9 @@ Run from the repository root, where JAX is installed:
 
 A file whose arrays already equal the rebuilt ones is left untouched.
 ``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``,
-``build_dmr_tables``, ``build_tdma_tables``, ``build_cc_tables`` and
-``build_event_tables`` and checks them against the checked-in files.
+``build_dmr_tables``, ``build_tdma_tables``, ``build_cc_tables``,
+``build_event_tables`` and ``build_burst_tables`` and checks them against
+the checked-in files.
 """
 
 from __future__ import annotations
@@ -1067,6 +1095,399 @@ def build_event_tables() -> dict[str, np.ndarray]:
     return t
 
 
+# -- the paths behind the gated front end: YSF, dPMR, EDACS (burst_tables.npz)
+OUT_BURST = os.path.join(DATA, "burst_tables.npz")
+BURST_PREAMBLE = 48       # alternating symbols before each transmission
+BURST_POSTAMBLE = 96      # and after it (the end of a burst before dead
+                          # air is the timing and level windows' edge)
+YSF_SEED = 31
+DPMR_SEED = 37
+EDACS_SEED = 41
+EDACS_ESK = 0xA5          # the ESK mask the stream's third reading uses
+# the largest clean correlation allowed where a false hit would take a
+# frame's place (the pick's thresholds: YSF 0.5, dPMR and EDACS 0.62)
+YSF_FALSE_SYNC_MAX = 0.45
+DPMR_FALSE_SYNC_MAX = 0.55
+EDACS_FALSE_SYNC_MAX = 0.6
+BURST_N_SYM = {"ysf": 14398, "dpmr": 7198, "edacs": 28798}  # 3 s blocks
+BURST_SPS = {"ysf": 10, "dpmr": 20, "edacs": 5}
+EDACS_CHECK_N_SYM = 9598  # 1 s: JAX's top 96 holds the block's ~33 frames
+
+
+def _false_sync_max(dib: np.ndarray, starts, stride: int,
+                    names: tuple[str, ...]) -> float:
+    """The largest clean correlation with the patterns ``names`` at a
+    position where a false hit could take a frame's place: every
+    position outside (s − 8, s + stride − 8) of each frame start s (a
+    hit inside falls within the frame's extent or the 8-position
+    shoulder the pick refines over).  Dead air (dibit 4) is level 0."""
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    lv = np.array([1.0, 3.0, -1.0, -3.0, 0.0])[dib]
+    corr = None
+    for d in SYNC_DEFS:
+        if d.name in names:
+            n = len(d.levels)
+            c = np.lib.stride_tricks.sliding_window_view(lv, n) @ d.levels
+            c = c / (9.0 * n)
+            corr = c if corr is None else np.maximum(corr, c)
+    watch = np.ones(len(corr), dtype=bool)
+    for st in starts:
+        watch[max(st - 7, 0):st + stride - 8] = False
+    return float(corr[watch].max())
+
+
+def _burst_stream(tx_fn, n_min: int, gap: tuple[int, int], seed: int,
+                  stride: int, names: tuple[str, ...], margin: float):
+    """Transmissions of ``tx_fn(rng)`` → (dibits, frame starts, frame
+    records) between an alternating preamble and postamble, each followed
+    by a gap of dead air, until ``n_min`` dibits; a transmission is drawn
+    again until no false hit reaches ``margin`` where it could take a
+    frame's place."""
+    rng = np.random.default_rng(seed)
+    pre = np.resize(np.array([1, 3], np.uint8), BURST_PREAMBLE)
+    post = np.resize(np.array([1, 3], np.uint8), BURST_POSTAMBLE)
+    dead = np.full(EV_LEAD, EV_DEAD, np.uint8)
+    parts, starts, recs = [dead], [], []
+    pos = EV_LEAD
+    while pos < n_min:
+        for _ in range(200):
+            frames, frecs = tx_fn(rng)
+            body = np.concatenate([pre] + frames + [post])
+            rel = BURST_PREAMBLE + stride * np.arange(len(frames))
+            seg = np.concatenate([dead, body, dead])
+            if _false_sync_max(seg, EV_LEAD + rel, stride, names) < margin:
+                break
+        else:
+            raise RuntimeError("no draw keeps false syncs below margin")
+        g = int(rng.integers(*gap))
+        parts += [body, np.full(g, EV_DEAD, np.uint8)]
+        starts += (pos + rel).tolist()
+        recs += frecs
+        pos += len(body) + g
+    return np.concatenate(parts), np.asarray(starts, np.int64), recs
+
+
+def _ysf_vd2_dibits(bits49: np.ndarray, spare: int) -> np.ndarray:
+    """One 49-bit AMBE frame → the 52 dibits of a V/D2 voice block: the
+    27 protected bits tripled, the 22 others and one ``spare`` bit,
+    whitened by the PN95 mask and interleaved (the inverse of the
+    pipeline's gather ``bits = raw[inv] ^ pn``)."""
+    from dsdneo_tpu.engine.ysfbatch import _vd2_tables
+    _offs, inv, pn = _vd2_tables()
+    bits = np.concatenate([np.repeat(bits49[:27], 3), bits49[27:],
+                           [spare]]).astype(np.uint8)
+    raw = np.zeros(104, np.uint8)
+    raw[inv] = bits ^ pn
+    return (raw[0::2] << 1) | raw[1::2]
+
+
+def _ysf_vector() -> dict[str, np.ndarray]:
+    """A bursty YSF channel: transmissions of 6-12 V/D2 frames (``+YSF``
+    sync, a FICH field of random dibits, five blocks of 20 random data
+    dibits and a voice block) after an alternating preamble, with
+    400-1200 dibits of dead air between them.  The first frame of each
+    transmission and about one in six of the others are data frames
+    whose voice blocks are random (they must fail the vote gate)."""
+    sync = _pattern_dibits("+YSF")
+
+    def tx(rng):
+        frames, recs = [], []
+        for k in range(int(rng.integers(6, 13))):
+            voice = k > 0 and rng.random() >= 1 / 6
+            b49 = rng.integers(0, 2, (5, 49)).astype(np.uint8)
+            blocks = []
+            for blk in range(5):
+                v = (_ysf_vd2_dibits(b49[blk], int(rng.integers(0, 2)))
+                     if voice else rng.integers(0, 4, 52).astype(np.uint8))
+                blocks += [rng.integers(0, 4, 20).astype(np.uint8), v]
+            frames.append(np.concatenate(
+                [sync, rng.integers(0, 4, 100).astype(np.uint8)] + blocks))
+            recs.append((voice, b49))
+        return frames, recs
+
+    dib, starts, recs = _burst_stream(
+        tx, BURST_N_SYM["ysf"] + EV_LEAD + 480, (400, 1201), YSF_SEED, 480,
+        ("+YSF",), YSF_FALSE_SYNC_MAX)
+    return {"ysf_tv_dibits": dib[EV_LEAD:], "ysf_tv_lead": dib[:EV_LEAD],
+            "ysf_tv_starts": starts - EV_LEAD,
+            "ysf_tv_voice": np.array([v for v, _ in recs], bool),
+            "ysf_tv_bits49": np.stack([b for _, b in recs]),
+            "ysf_tv_seeds": np.array([YSF_SEED], np.int64)}
+
+
+def _dpmr_vector() -> dict[str, np.ndarray]:
+    """A bursty dPMR channel: transmissions of 3-7 FS2 superframe parts
+    (``+dPMR FS2`` sync, random control dibits, two groups of four AMBE
+    frames through ``encode_ambe_ecc`` at the pipeline's voice offsets)
+    after an alternating preamble, with 300-800 dibits of dead air
+    between them."""
+    from dsdneo_tpu.engine.dpmrbatch import _voice_offsets
+    from dsdneo_tpu.protocol.dmr.ambe_frame import encode_ambe_ecc
+    sync = _pattern_dibits("+dPMR FS2")
+    offs = _voice_offsets().reshape(8, 36)
+
+    def tx(rng):
+        frames, recs = [], []
+        for _ in range(int(rng.integers(3, 8))):
+            part = rng.integers(0, 4, 384).astype(np.uint8)
+            part[:12] = sync
+            b49 = rng.integers(0, 2, (8, 49)).astype(np.uint8)
+            for f in range(8):
+                v = encode_ambe_ecc(b49[f])
+                part[offs[f]] = (v[0::2] << 1) | v[1::2]
+            frames.append(part)
+            recs.append(b49)
+        return frames, recs
+
+    dib, starts, recs = _burst_stream(
+        tx, BURST_N_SYM["dpmr"] + EV_LEAD + 384, (300, 801), DPMR_SEED,
+        384, ("+dPMR FS2", "-dPMR FS2"), DPMR_FALSE_SYNC_MAX)
+    return {"dpmr_tv_dibits": dib[EV_LEAD:], "dpmr_tv_lead": dib[:EV_LEAD],
+            "dpmr_tv_starts": starts - EV_LEAD,
+            "dpmr_tv_bits49": np.stack(recs),
+            "dpmr_tv_seeds": np.array([DPMR_SEED], np.int64)}
+
+
+# (msg1, msg2) pairs of the EDACS stream: standard-mode messages (MT-A
+# voice group assignments of each kind, data call, login, MT-B group and
+# individual updates, status, MT-D site, adjacency, unit enable, all-call)
+# and extended-addressing ones (group calls, I-call, login, all-call,
+# system information, extended addressing, adjacent site, status)
+_EDACS_MESSAGES = (
+    ((0 << 25) | ((77 >> 7) << 18) | (7 << 12) | (1 << 11) | 0x155,
+     (77 & 0x7F) << 17),
+    ((1 << 25) | ((300 >> 7) << 18) | (3 << 12) | 0x020, (300 & 0x7F) << 17),
+    ((2 << 25) | ((1234 >> 7) << 18) | (12 << 12) | (1 << 11) | 0x048,
+     (1234 & 0x7F) << 17),
+    ((3 << 25) | ((9000 >> 7) << 18) | (29 << 12) | (1 << 11) | 0x3A1,
+     (9000 & 0x7F) << 17),
+    (5 << 25, 0x0123456), (6 << 25, 0x0654321),
+    ((7 << 25) | (3 << 22) | (1 << 20) | (9 << 15) | 0x101, 0),
+    ((7 << 25) | (3 << 22) | (11 << 15) | (1 << 14) | 0x2345, 0),
+    ((7 << 25) | (0 << 22), 0x0000042),
+    ((7 << 25) | (7 << 22) | (0x08 << 17) | (1 << 12) | (3 << 9) | 0x1A, 0),
+    ((7 << 25) | (7 << 22) | (0x01 << 17) | (5 << 12) | (2 << 9) | (7 << 4),
+     0),
+    ((7 << 25) | (7 << 22) | (0x07 << 17) | (1 << 14) | 0x0BEE, 0),
+    ((7 << 25) | (7 << 22) | (0x0F << 17), 0),
+    ((0x03 << 23) | (4 << 17) | 0x1234, (1 << 21) | 100001),
+    ((0x06 << 23) | (6 << 17) | (1 << 16) | 0x0777, (1 << 20) | 424242),
+    ((0x01 << 23) | (2 << 17) | 0x0042, 55555),
+    ((0x10 << 23) | (1 << 21) | 777777, (8 << 20) | 123456),
+    ((0x19 << 23) | 0x0099, 654321),
+    ((0x16 << 23) | (10 << 17) | (1 << 16), 31337),
+    ((0x1F << 23) | (0x8 << 19) | 0xBEEF, 1),
+    ((0x1F << 23) | (0xA << 19) | (0x3 << 12) | (0x15 << 5) | 0x11, 0),
+    ((0x1F << 23) | (0x1 << 19) | (2 << 12) | (3 << 8) | 0x42, 0),
+    ((0x1F << 23) | (0x4 << 19) | 0x2A, 99999),
+)
+
+
+def _edacs_frame(msg1: int, msg2: int) -> np.ndarray:
+    """One control-channel frame: the ``+EDACS`` sync and the two 40-bit
+    BCH(40,28) words, each three times with the middle copy complemented
+    (``tests/test_fleettrunk_edacs.py``'s layout), as 2-level dibits."""
+    from dsdneo_tpu.protocol.edacs.decoder import edacs_bch_encode
+    w1, w2 = edacs_bch_encode(msg1), edacs_bch_encode(msg2)
+    m = (1 << 40) - 1
+    bits = [(w >> (39 - i)) & 1 for w in (w1, ~w1 & m, w1, w2, ~w2 & m, w2)
+            for i in range(40)]
+    return np.concatenate([_pattern_dibits("+EDACS"), _bits_to_2level(bits)])
+
+
+def _edacs_lines(msgs) -> tuple[list[str], list[int], list[int]]:
+    """The JAX catalogs' event lines of every frame, read as the JAX
+    monitor reads a ``+EDACS`` channel in each mode of
+    ``protocol.edacs.encode.MODES``: (lines, frame index, mode index)."""
+    from dsdneo_tpu.protocol.base import DecoderContext
+    from dsdneo_tpu.protocol.edacs.decoder import EdacsDecoder
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS, SyncHit
+    from dsdneo_tpu_torch.protocol.edacs.encode import MODES
+    sync = next(d for d in SYNC_DEFS if d.name == "+EDACS")
+    lines, frame, mode = [], [], []
+    for mi, m in enumerate(MODES):
+        ctx, dec = DecoderContext(), EdacsDecoder()
+        for i, (v1, v2) in enumerate(msgs):
+            if m == "esk":
+                v1 ^= EDACS_ESK << 20
+                v2 ^= EDACS_ESK << 20
+            n0 = len(ctx.events)
+            hit = SyncHit(pos=0, score=1.0, sync=sync)
+            line = (dec._extended if m == "ea" else dec._standard)(
+                v1, v2, ctx, hit)
+            ctx.emit(f"Sync: +EDACS {line}", "edacs", 0)
+            for e in ctx.events[n0:]:
+                lines.append(e.line)
+                frame.append(i)
+                mode.append(mi)
+    return lines, frame, mode
+
+
+def _edacs_vector() -> dict[str, np.ndarray]:
+    """A continuous EDACS control channel: frames of two messages drawn
+    from ``_EDACS_MESSAGES`` back to back, the lead the tail of one frame
+    more; a draw is taken again where a false hit 8 dibits before a sync
+    would reach ``EDACS_FALSE_SYNC_MAX``, and none may reach it in the
+    lead."""
+    rng = np.random.default_rng(EDACS_SEED)
+    n = -(-(BURST_N_SYM["edacs"] + EV_LEAD) // 288) + 2
+    frames, msgs = [], []
+    while len(frames) < n:
+        for _ in range(200):
+            a, b = rng.integers(0, len(_EDACS_MESSAGES), 2)
+            m1, m2 = _EDACS_MESSAGES[a][0], _EDACS_MESSAGES[b][1]
+            fr = _edacs_frame(m1, m2)
+            seg = np.concatenate(frames[-1:] + [fr, _pattern_dibits(
+                "+EDACS")])
+            if _false_sync_max(seg, range(0, len(seg), 288), 288,
+                               ("+EDACS", "-EDACS")) < EDACS_FALSE_SYNC_MAX:
+                break
+        else:
+            raise RuntimeError("no draw keeps false syncs below margin")
+        frames.append(fr)
+        msgs.append((m1, m2))
+    dib = np.concatenate(frames)
+    # the lead is the tail of a frame whose sync a block never holds, so
+    # no accepted frame suppresses a false hit there
+    if _false_sync_max(dib[288 - EV_LEAD:3 * 288], [EV_LEAD, EV_LEAD + 288],
+                       288, ("+EDACS", "-EDACS")) >= EDACS_FALSE_SYNC_MAX:
+        raise RuntimeError("a false sync in the lead reaches the margin")
+    lines, frame, mode = _edacs_lines(msgs[1:])
+    return {"edacs_tv_dibits": dib[288:], "edacs_tv_lead": dib[288 - EV_LEAD:
+                                                                 288],
+            "edacs_tv_starts": 288 * np.arange(n - 1, dtype=np.int64),
+            "edacs_tv_msg1": np.array([m for m, _ in msgs[1:]], np.int64),
+            "edacs_tv_msg2": np.array([m for _, m in msgs[1:]], np.int64),
+            "edacs_tv_lines": np.array(lines),
+            "edacs_tv_line_frame": np.asarray(frame, np.int64),
+            "edacs_tv_line_mode": np.asarray(mode, np.int64),
+            "edacs_tv_esk": np.int64(EDACS_ESK),
+            "edacs_tv_seeds": np.array([EDACS_SEED], np.int64)}
+
+
+def burst_check_block(kind: str, tv: dict[str, np.ndarray], leads,
+                      n_sym: int, invert: bool = False) -> np.ndarray:
+    """``[len(leads), (n_sym + 2)·sps, 2]`` float32 I/Q of the vector after
+    ``leads`` (suffixes of its lead), 30 dB noise of seeds 100, 101, ...
+    (the port's ``protocol.dmr.encode.vector_block`` with the kind's
+    modulator)."""
+    from dsdneo_tpu_torch.protocol.dmr.encode import vector_block
+    from dsdneo_tpu_torch.protocol.dpmr import encode as dpmr_encode
+    from dsdneo_tpu_torch.protocol.edacs import encode as edacs_encode
+    from dsdneo_tpu_torch.protocol.ysf import encode as ysf_encode
+    mod = {"ysf": ysf_encode, "dpmr": dpmr_encode,
+           "edacs": edacs_encode}[kind]
+    sps = BURST_SPS[kind]
+    return vector_block(tv, leads, 100 + np.arange(len(leads)),
+                        (n_sym + 2) * sps, sps=sps, modulate=mod.fm_iq,
+                        lead_dibits=tv["lead"], invert=invert)
+
+
+def _check_ysf(tv: dict[str, np.ndarray]) -> np.ndarray:
+    """The JAX pipeline on the vector (3 s, the three leads of
+    ``EV_CHECK_LEADS``), held to it by the port's
+    ``protocol.ysf.encode.judge``; returns the accepted (channel,
+    position) rows."""
+    import jax.numpy as jnp
+
+    from dsdneo_tpu.engine.ysfbatch import BatchedYsfVoicePipeline
+    from dsdneo_tpu_torch.protocol.ysf.encode import judge
+    n_sym = BURST_N_SYM["ysf"]
+    iq = jnp.asarray(burst_check_block("ysf", tv, EV_CHECK_LEADS, n_sym))
+    pipe = BatchedYsfVoicePipeline(len(EV_CHECK_LEADS))
+    _d, idx, vq, ns = pipe.frontend_sync_device(iq)
+    ac, at, _f, _o = pipe.pick_frames(idx, vq, ns)
+    bits, verr = pipe.decode_block_bits49(iq)
+    bits, verr = bits.reshape(-1, 5, 49), verr.reshape(-1, 5)
+    for c, lead in enumerate(EV_CHECK_LEADS):
+        judge(tv, lead, ns, [(int(t), bits[h], verr[h])
+                             for h, t in enumerate(at) if ac[h] == c])
+    return np.stack([ac, at], axis=1).astype(np.int64)
+
+
+def _check_dpmr(tv: dict[str, np.ndarray]) -> np.ndarray:
+    """The JAX pipeline on the vector (3 s, the three leads, and channel 3
+    inverted), held to it by the port's ``protocol.dpmr.encode.judge``
+    (the 49 bits through the JAX AMBE ECC of the accepted parts);
+    returns the accepted (channel, position, inverted) rows."""
+    import jax.numpy as jnp
+
+    from dsdneo_tpu.engine.dpmrbatch import (BatchedDpmrVoicePipeline,
+                                             _voice_offsets)
+    from dsdneo_tpu.fec.device import ambe_ecc_batch
+    from dsdneo_tpu_torch.protocol.dpmr.encode import judge
+    n_sym = BURST_N_SYM["dpmr"]
+    leads = EV_CHECK_LEADS + (20,)
+    iq = np.concatenate([
+        burst_check_block("dpmr", tv, EV_CHECK_LEADS, n_sym),
+        burst_check_block("dpmr", tv, (20,), n_sym, invert=True)])
+    pipe = BatchedDpmrVoicePipeline(len(leads))
+    dib, idx, vq, dq, ns = pipe.frontend_sync_device(jnp.asarray(iq))
+    ac, at, ai, _f, _o = pipe.pick_parts(idx, vq, dq, ns)
+    dib = np.asarray(dib)
+    pos = np.clip(at[:, None] + _voice_offsets()[None], 0, ns - 1)
+    dd = dib[ac[:, None], pos] ^ (ai[:, None] * 2).astype(np.uint8)
+    bits72 = np.stack([(dd >> 1) & 1, dd & 1], -1).reshape(-1, 72)
+    b49, errs = (np.asarray(a) for a in ambe_ecc_batch(
+        jnp.asarray(bits72.astype(np.uint8))))
+    b49, errs = b49.reshape(-1, 8, 49), errs.reshape(-1, 8)
+    for c, lead in enumerate(leads):
+        judge(tv, lead, ns, [(int(t), int(ai[h]), b49[h], errs[h])
+                             for h, t in enumerate(at) if ac[h] == c],
+              inverted=c == 3)
+    return np.stack([ac, at, ai], axis=1).astype(np.int64)
+
+
+def _check_edacs(tv: dict[str, np.ndarray]) -> np.ndarray:
+    """The JAX monitor on 1 s of the vector (its top 96 holds the block's
+    ~33 frames): channels at the three leads read in the three modes
+    (standard, EA, ESK: set on each channel's context) and a fourth,
+    inverted, in the standard mode, held to the vector's lines by the
+    port's ``protocol.edacs.encode.judge``; returns the accepted
+    (channel, message start) rows."""
+    import jax.numpy as jnp
+
+    from dsdneo_tpu.engine.ccbatch import BatchedEdacsControlPipeline
+    from dsdneo_tpu_torch.protocol.edacs.encode import MODES, judge
+    n_sym = EDACS_CHECK_N_SYM
+    leads = EV_CHECK_LEADS + (20,)
+    iq = np.concatenate([
+        burst_check_block("edacs", tv, EV_CHECK_LEADS, n_sym),
+        burst_check_block("edacs", tv, (20,), n_sym, invert=True)])
+    pipe = BatchedEdacsControlPipeline(len(leads))
+    modes = MODES + ("standard",)
+    for c, m in enumerate(modes):
+        pipe.ctxs[c].state.edacs_ea = m == "ea"
+        pipe.ctxs[c].state.edacs_esk = EDACS_ESK if m == "esk" else 0
+    dib, idx, vq, ns = pipe.frontend_sync_device(jnp.asarray(iq))
+    ac, at = pipe.pick_frames(idx, vq, ns)
+    pipe.events_from_frontend((dib, idx, vq, ns))
+    from dsdneo_tpu.engine.ccbatch import edacs_cc_decode_device
+    blob = np.asarray(edacs_cc_decode_device(
+        dib, jnp.asarray(ac), jnp.asarray(at)))
+    for c, lead in enumerate(leads):
+        judge(tv, lead, ns, [(int(t), blob[h]) for h, t in enumerate(at)
+                             if ac[h] == c],
+              [e.line for e in pipe.ctxs[c].events], modes[c], c == 3)
+    return np.stack([ac, at], axis=1).astype(np.int64)
+
+
+def build_burst_tables() -> dict[str, np.ndarray]:
+    """The streams of the port's YSF and dPMR voice pipelines and its
+    EDACS monitor, as numpy arrays, each held to the JAX pipeline (its
+    accepted frames kept as ``<kind>_tv_jax_frames``)."""
+    t = {}
+    for kind, build, check in (("ysf", _ysf_vector, _check_ysf),
+                               ("dpmr", _dpmr_vector, _check_dpmr),
+                               ("edacs", _edacs_vector, _check_edacs)):
+        v = build()
+        pre = kind + "_tv_"
+        v[pre + "jax_frames"] = check({k[len(pre):]: a
+                                       for k, a in v.items()})
+        t.update(v)
+    return t
+
+
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
     """Write ``tables`` to ``path`` unless the file already holds equal
     arrays (an npz of equal arrays still differs in its bytes)."""
@@ -1091,6 +1512,7 @@ def main() -> int:
     print(_write_if_changed(OUT_TDMA, build_tdma_tables()))
     print(_write_if_changed(OUT_CC, build_cc_tables()))
     print(_write_if_changed(OUT_EVENT, build_event_tables()))
+    print(_write_if_changed(OUT_BURST, build_burst_tables()))
     return 0
 
 
