@@ -100,7 +100,14 @@ Phases, in order; any failure exits non-zero:
      blocks with the contexts kept: every block a channel's block holds
      whole is parsed with the vector's payload and the JAX catalog's
      lines; channels 0-1 equal the CPU path; K4 and K5 against their
-     plain versions; each monitor timed with its stage split and
+     plain versions and timed in both input forms (K4 on the monitor's
+     uint8 bits and on int32 LLRs, K5 with its weight row broadcast and
+     written out) beside the first designs' recorded times and beside
+     the lanes-per-word designs that lost to them
+     (``csrc/alt/viterbi_lanes.cu``, built by a second nvcc beside the
+     library's and held bit for bit to the kernels), K5 also over a
+     sweep of word counts, after the build log has shown neither kernel
+     uses local memory; each monitor timed with its stage split and
      profile.
   6. the event pipelines at 320 channels, 3 s blocks (n_sym 14,398), two
      blocks with the contexts kept, each channel with its own lead of
@@ -175,13 +182,22 @@ K3_CHAIN_CYCLES = 30 + 5 * 4
 # 4.  The per-chunk phases (the scan, the interpolation, voicing and
 # amps) depend on no carry and are not in it.
 K2_CHAIN_CYCLES = 29 + 8 + 8 + 5 * (25 + 4) + 55 + 12 + 12 + 4
-# per K4 step, the metrics' own dependent chain in csrc/p25_trellis.cu: an
-# integer add, then the three compare-and-select pairs over prev 1..3,
-# ~4 cycles each; the 16 nibble costs depend on the loads only
+# per K4 step, the metrics' own dependent chain in csrc/p25_trellis.cu
+# (one thread per word reading its row from shared memory: the loads
+# and the 16 nibble costs depend on no metric): an integer
+# add, then the three compare-and-select pairs over prev 1..3, ~4 cycles
+# each; no shuffle joins it
 K4_CHAIN_CYCLES = 4 + 3 * (4 + 4)
-# per K5 step in csrc/conv_k5.cu: the add of the branch cost (FP32), the
-# compare and the select
+# per K5 step in csrc/conv_k5.cu (one thread per word, the 16 states in
+# its registers, so no shuffle joins the chain): the add of the branch
+# cost (FP32), the compare and the select
 K5_CHAIN_CYCLES = 4 + 4 + 4
+# K4's and K5's first designs (one thread per word reading its row in
+# place) at these word counts, as PERF.md section 6 records them (NVIDIA
+# H100 80GB HBM3, 700 W; LLRs, materialised weights), for the lines of
+# the present kernels
+K4_BEFORE_MS = {38400: 0.1245, 131072: 0.4328}
+K5_BEFORE_MS = {11840: 0.1398, 65536: 0.3494, 22720: 0.1240}
 # per K6 step in csrc/conv_k3.cu: the integer add of the branch cost, the
 # compare and the select (the four states' chains run side by side)
 K6_CHAIN_CYCLES = 4 + 4 + 4
@@ -467,12 +483,50 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    info = kernels.build_info()
+    # K4's and K5's lanes-per-word designs, which lost to the kernels
+    # (not shipped): their own nvcc, run beside the library's build
+    import ctypes
+    import subprocess
+    lanes_src = os.path.join(kernels.CSRC, "alt", "viterbi_lanes.cu")
+    lanes_so = os.path.join(kernels.BUILD_DIR, "viterbi_lanes.so")
+    os.makedirs(kernels.BUILD_DIR, exist_ok=True)
+    with subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
+                           "-o", lanes_so, lanes_src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True) as lanes_cc:
+        info = kernels.build_info()
+        lanes_log = lanes_cc.communicate()[0]
+    if lanes_cc.returncode:
+        raise RuntimeError(f"nvcc failed on {lanes_src}:\n{lanes_log}")
+    lanes = ctypes.CDLL(lanes_so)
+    lanes.dsd_conv_k5_lanes.argtypes = [ctypes.c_int, ctypes.c_void_p,
+                                        ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int, ctypes.c_void_p]
+    lanes.dsd_p25_trellis_lanes.argtypes = [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p]
+    for k, v in sorted(kernels.ptxas_report(lanes_log).items()):
+        log(f"lanes-per-word design {k}: {v['registers']} registers, "
+            f"{v['stack']} bytes stack frame")
     log(f"kernels built in {info['seconds']:.2f} s -> "
         f"{os.path.relpath(info['path'], HERE)}")
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
+    # K4's and K5's four instances: registers, stack and spills; neither
+    # may use local memory
+    k45_res = {k: v for k, v in kernels.ptxas_report(info["log"]).items()
+               if "conv_k5_kernel" in k or "p25_trellis_kernel" in k}
+    if len(k45_res) != 4:
+        raise RuntimeError(f"expected 4 K4/K5 kernel instances in the "
+                           f"build log, found {sorted(k45_res)}")
+    for k, v in sorted(k45_res.items()):
+        log(f"K4/K5 resources, {k}: {v['registers']} registers, "
+            f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+            f"{v['spill_loads']} bytes spill stores / loads")
+        if v["stack"] or v["spill_stores"] or v["spill_loads"]:
+            raise RuntimeError(f"{k} uses local memory")
 
     t0 = time.perf_counter()
     tables = params.load(dev)
@@ -603,12 +657,15 @@ def main() -> int:
     report = {}
     clk = sm_clock_mhz()
 
-    def show(name, err, k_ms, plain_ms, b_ms, b_by, extra="", shape=None):
+    def show(name, err, k_ms, plain_ms, b_ms, b_by, extra="", shape=None,
+             form=None):
         log(f"  {name}: kernel {k_ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of "
             f"the bound{extra}")
         row = {"max_abs_err": err, "ms": k_ms, "plain_ms": plain_ms,
                "bound_ms": b_ms, "bound_by": b_by}
+        if form is not None:
+            row["form"] = form
         if shape is None:
             report[name] = row
         else:                   # a further shape of a kernel already shown
@@ -1684,7 +1741,56 @@ def main() -> int:
                * rng.integers(1, 128, (n, 196))).astype(np.int32)
         return data, bits, llr
 
-    def check_k4(n, launches_path, shape=None):
+    def before(table, n, k_ms):
+        """The first design's recorded time at this word count, if any."""
+        if n not in table:
+            return ""
+        return (f"; the first design (one thread per word reading in "
+                f"place) recorded {table[n]:.4f} ms here, now "
+                f"{table[n] / k_ms:.2f}x faster")
+
+    def time_k4_lanes(bt, lv, x):
+        """K4's four-lanes design on the kernel's own input form, held to
+        the kernel bit for bit, then timed."""
+        want = fdev.p25_12_decode_batch(bt, lv)
+        bits, cost = torch.empty_like(want[0]), torch.empty_like(want[1])
+
+        def run():
+            kernels.check(lanes.dsd_p25_trellis_lanes(
+                x.data_ptr(), int(lv is None), bits.data_ptr(),
+                cost.data_ptr(), x.shape[0], kernels.stream_handle(x)),
+                "p25_trellis_lanes")
+        run()
+        if not (torch.equal(bits, want[0]) and torch.equal(cost, want[1])):
+            raise RuntimeError("K4's four-lanes design disagrees with K4")
+        return cuda_ms(run, 20)
+
+    def time_k5_lanes(st_, w, stride, want):
+        """K5's 16- and 4-lanes designs on the kernel's input form (``w``
+        one row at ``stride`` 0, else [N, 2n]), each held to the kernel's
+        bits ``want`` bit for bit, then timed: {lanes: ms}."""
+        out = torch.empty_like(want)
+        times = {}
+        for L in (16, 4):
+            def run():
+                kernels.check(lanes.dsd_conv_k5_lanes(
+                    L, st_.data_ptr(), w.data_ptr(), stride, out.data_ptr(),
+                    st_.shape[0], st_.shape[1] // 2,
+                    kernels.stream_handle(st_)), "conv_k5_lanes")
+            run()
+            if not torch.equal(out, want):
+                raise RuntimeError(f"K5's {L}-lanes design disagrees with "
+                                   f"K5")
+            times[L] = cuda_ms(run, 20)
+        return times
+
+    def k45_row(name, main):
+        return report[name] if main else report[name]["other_shapes"][-1]
+
+    def check_k4(n, launches_path, main):
+        """K4 against its plain version on hard bits and on LLRs, timed
+        in both forms: bits (the P25 monitor's, the kernel forming the
+        ±64 LLRs) and int32 LLRs (the first design's timed form)."""
         data, bits, llr = k4_words(n)
         bt = torch.as_tensor(bits, device=dev)
         lt = torch.as_tensor(llr, device=dev)
@@ -1695,21 +1801,29 @@ def main() -> int:
             if not (torch.equal(gb, wb) and torch.equal(gc, wc)):
                 raise RuntimeError("K4 disagrees with its plain version")
             n_exact = int((gb.cpu().numpy() == data).all(1).sum())
-        k_ms = cuda_ms(lambda: fdev.p25_12_decode_batch(bt, lt), 20)
-        plain_ms = cuda_ms(lambda: fdev.p25_12_decode_plain(bt, lt), 2)
-        b_ms, b_by = bound(nbytes(lt, gb, gc), 0)
         floor_ms = 49 * K4_CHAIN_CYCLES / (clk * 1e3)
         log(f"K4 p25_trellis [{n},196] -> [{n},96] + [{n}]: bits and costs "
             f"equal the plain version's on hard bits and on LLRs (tol 0); "
             f"{n_exact}/{n} words with 0-8 flipped bits decode to their data")
-        show("p25_trellis", 0.0, k_ms, plain_ms, b_ms, b_by,
-             f"; chain floor ~{floor_ms:.5f} ms (49 steps x "
-             f"{K4_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
-             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
-             f"{launches_path}", shape=shape)
-        (report["p25_trellis"] if shape is None else
-         report["p25_trellis"]["other_shapes"][-1])["chain_floor_ms"] = \
-            floor_ms
+        for form, lv, x in (("uint8 bits", None, bt), ("int32 LLRs", lt, lt)):
+            lanes_ms = time_k4_lanes(bt, lv, x)
+            k_ms = cuda_ms(lambda: fdev.p25_12_decode_batch(bt, lv), 20)
+            plain_ms = cuda_ms(lambda: fdev.p25_12_decode_plain(bt, lv), 2)
+            b_ms, b_by = bound(nbytes(x, gb, gc), 0)
+            first = main and form == "uint8 bits"
+            show("p25_trellis", 0.0, k_ms, plain_ms, b_ms, b_by,
+                 f"; [{n},196] {form}; chain floor ~{floor_ms:.5f} ms (49 "
+                 f"steps x {K4_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
+                 f"{100 * floor_ms / k_ms:.2f}% of it; launches per path "
+                 f"run {launches_path}"
+                 + (before(K4_BEFORE_MS, n, k_ms) if lv is not None else ""),
+                 shape=None if first else [n, 196], form=form)
+            row = k45_row("p25_trellis", first)
+            row["chain_floor_ms"] = floor_ms
+            row["lanes4_ms"] = lanes_ms
+            log(f"    four lanes a word (csrc/alt/viterbi_lanes.cu, not "
+                f"shipped) {lanes_ms:.4f} ms: the kernel is "
+                f"{lanes_ms / k_ms:.2f}x faster")
 
     def k5_words(n, soft=False):
         """``n`` CAC-like K5 inputs: random 171 bits with the 4 flush bits
@@ -1718,13 +1832,7 @@ def main() -> int:
         with noise in [0, 1] and random weights."""
         bits = np.concatenate([rng.integers(0, 2, (n, 171)),
                                np.zeros((n, 4), np.int64)], axis=1)
-        sym = np.zeros((n, 350), np.float32)
-        s = np.zeros(n, np.int64)
-        for i in range(175):
-            b = bits[:, i]
-            sym[:, 2 * i] = conv._O1[s, b]
-            sym[:, 2 * i + 1] = conv._O2[s, b]
-            s = conv._NEXT[s, b]
+        sym = conv.encode_rows(bits)
         rate = rng.integers(0, 7, (n, 1)) / 350.0
         flip = rng.random((n, 350)) < rate
         sym[flip] = 1.0 - sym[flip]
@@ -1736,35 +1844,89 @@ def main() -> int:
         return (bits[:, :171].astype(np.uint8), sym.astype(np.float32),
                 wt.astype(np.float32))
 
-    def check_k5(n, launches_path, shape=None):
+    def time_k5(n, steps, st_, row, launches_path, main, label):
+        """K5 timed in both weight forms: one row as a stride-0 view (the
+        paths' form; the kernel stages it once a block) and written out
+        row by row (the first design's timed form)."""
+        floor_ms = steps * K5_CHAIN_CYCLES / (clk * 1e3)
+        view = row.expand(n, -1)
+        full = view.contiguous()
+        got = fdev.conv_k5_decode_batch(st_, view)
+        for form, wt_, w_in in (("broadcast weight row", view, row),
+                                ("materialised weights", full, full)):
+            lanes_ms = time_k5_lanes(st_, w_in, 0 if wt_ is view
+                                     else 2 * steps, got)
+            k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(st_, wt_), 20)
+            plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(st_, wt_),
+                               1)
+            b_ms, b_by = bound(nbytes(st_, w_in, got), 0)
+            first = main and wt_ is view
+            show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by,
+                 f"; {label} [{n},{2 * steps}] {form}; chain floor "
+                 f"~{floor_ms:.5f} ms ({steps} steps x {K5_CHAIN_CYCLES} "
+                 f"cycles at {clk:.0f} MHz), {100 * floor_ms / k_ms:.2f}% "
+                 f"of it; launches per path run {launches_path}"
+                 + (before(K5_BEFORE_MS, n, k_ms) if wt_ is full else ""),
+                 shape=None if first else [n, 2 * steps], form=form)
+            r = k45_row("conv_k5", first)
+            r["chain_floor_ms"] = floor_ms
+            r["lanes16_ms"], r["lanes4_ms"] = lanes_ms[16], lanes_ms[4]
+            log(f"    lanes per word (csrc/alt/viterbi_lanes.cu, not "
+                f"shipped): 16 lanes {lanes_ms[16]:.4f} ms, 4 lanes "
+                f"{lanes_ms[4]:.4f} ms: the kernel is "
+                f"{min(lanes_ms.values()) / k_ms:.2f}x faster than the "
+                f"better")
+
+    def check_k5(n, launches_path, main):
+        """K5 against its plain version on CAC-punctured hard symbols
+        (the CAC's weight row, broadcast and written out) and on soft
+        symbols with soft weights, then timed."""
         data, sym, wt = k5_words(n)
         st_ = torch.as_tensor(sym, device=dev)
         wt_ = torch.as_tensor(wt, device=dev)
+        row = wt_[0].clone()
         got = fdev.conv_k5_decode_batch(st_, wt_)
         want = fdev.conv_k5_decode_plain(st_, wt_)
+        bcast = fdev.conv_k5_decode_batch(st_, row.expand(n, -1))
         _d, ssym, swt = k5_words(min(n, 4096), soft=True)
         ss, sw = (torch.as_tensor(ssym, device=dev),
                   torch.as_tensor(swt, device=dev))
         soft_eq = torch.equal(fdev.conv_k5_decode_batch(ss, sw),
                               fdev.conv_k5_decode_plain(ss, sw))
-        if not (torch.equal(got, want) and soft_eq):
+        if not (torch.equal(got, want) and torch.equal(bcast, want)
+                and soft_eq):
             raise RuntimeError("K5 disagrees with its plain version")
         n_exact = int((got[:, :171].cpu().numpy() == data).all(1).sum())
-        k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(st_, wt_), 20)
-        plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(st_, wt_), 1)
-        b_ms, b_by = bound(nbytes(st_, wt_, got), 0)
-        floor_ms = 175 * K5_CHAIN_CYCLES / (clk * 1e3)
         log(f"K5 conv_k5 [{n},350] -> [{n},175]: bits equal the plain "
-            f"version's on CAC-punctured hard symbols and on soft symbols "
-            f"with soft weights (tol 0); {n_exact}/{n} words with 0-6 "
-            f"flipped symbols decode to their data")
-        show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by,
-             f"; chain floor ~{floor_ms:.5f} ms (175 steps x "
-             f"{K5_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
-             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
-             f"{launches_path}", shape=shape)
-        (report["conv_k5"] if shape is None else
-         report["conv_k5"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+            f"version's on CAC-punctured hard symbols (the weight row "
+            f"broadcast and written out) and on soft symbols with soft "
+            f"weights (tol 0); {n_exact}/{n} words with 0-6 flipped symbols "
+            f"decode to their data")
+        time_k5(n, 175, st_, row, launches_path, main, "NXDN CAC")
+        if not main:
+            sweep_k5(st_, row)
+
+    def sweep_k5(st_, row):
+        """K5 and its lanes designs over word counts with the weight row
+        broadcast: one warp, then 1, 4, 8 and 15 warps of 32 words an SM
+        (the thread-per-word kernel's blocks are one warp each)."""
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        sweep = []
+        for k in (0, 1, 4, 8, 15):
+            m = min(max(k * 32 * sms, 32), st_.shape[0])
+            s_ = st_[:m]
+            got = fdev.conv_k5_decode_batch(s_, row.expand(m, -1))
+            lanes_ms = time_k5_lanes(s_, row, 0, got)
+            k_ms = cuda_ms(
+                lambda: fdev.conv_k5_decode_batch(s_, row.expand(m, -1)), 20)
+            sweep.append({"words": m, "ms": k_ms,
+                          "lanes16_ms": lanes_ms[16],
+                          "lanes4_ms": lanes_ms[4]})
+            log(f"  conv_k5 sweep [{m},350] broadcast row "
+                f"({m / (32 * sms):.3g} warps of the kernel an SM): kernel "
+                f"{k_ms:.4f} ms, 16 lanes {lanes_ms[16]:.4f}, 4 lanes "
+                f"{lanes_ms[4]:.4f}")
+        report["conv_k5"]["sweep"] = sweep
 
     pipe, launches["p25cc"] = run_monitor(
         "P25 CC path", "p25",
@@ -1777,9 +1939,8 @@ def main() -> int:
     log(f"P25 CC path: {pipe.crc_fallbacks} list-decode recoveries, "
         f"{pipe.crc_errors} blocks failed (the TSDUs a block end cuts); "
         f"K4 words per launch {n4}")
-    check_k4(n4, launches["p25cc"]["p25_12_decode_batch"])
-    check_k4(K4_SYNTH_N, launches["p25cc"]["p25_12_decode_batch"],
-             shape=[K4_SYNTH_N, 196])
+    check_k4(n4, launches["p25cc"]["p25_12_decode_batch"], True)
+    check_k4(K4_SYNTH_N, launches["p25cc"]["p25_12_decode_batch"], False)
     time_monitor("P25 CC path", pipe, mon["p25"][3], False, p25_stage)
     del pipe
 
@@ -1801,9 +1962,8 @@ def main() -> int:
         ccbatch.BatchedNxdnControlPipeline(
             2, FS, device="cpu", tables=params.load_cc("nxdn48", "cpu")))
     n5 = -(-len(pipe.last_cacs[0]) // 32) * 32
-    check_k5(n5, launches["nxdncc"]["conv_k5_decode_batch"])
-    check_k5(K5_SYNTH_N, launches["nxdncc"]["conv_k5_decode_batch"],
-             shape=[K5_SYNTH_N, 350])
+    check_k5(n5, launches["nxdncc"]["conv_k5_decode_batch"], True)
+    check_k5(K5_SYNTH_N, launches["nxdncc"]["conv_k5_decode_batch"], False)
     time_monitor("NXDN CC path", pipe, mon["nxdn48"][3], True, nxdn_stage)
     del pipe, mon
 
@@ -2024,13 +2184,7 @@ def main() -> int:
         kept symbols, as ``m17_stream_decode_device`` hands them over."""
         bits = np.concatenate([rng.integers(0, 2, (n, 144)),
                                np.zeros((n, 4), np.int64)], axis=1)
-        sym = np.zeros((n, 296), np.float32)
-        st = np.zeros(n, np.int64)
-        for i in range(148):
-            b = bits[:, i]
-            sym[:, 2 * i] = conv._O1[st, b]
-            sym[:, 2 * i + 1] = conv._O2[st, b]
-            st = conv._NEXT[st, b]
+        sym = conv.encode_rows(bits)
         keep = _m17_tables()[2]
         wt = np.zeros((n, 296), np.float32)
         wt[:, keep] = 1.0
@@ -2039,26 +2193,20 @@ def main() -> int:
         sym[flip] = 1.0 - sym[flip]
         sym[wt == 0] = 0.0
         st_, wt_ = (torch.as_tensor(a, device=dev) for a in (sym, wt))
+        row = wt_[0].clone()
         got = fdev.conv_k5_decode_batch(st_, wt_)
-        if not torch.equal(got, fdev.conv_k5_decode_plain(st_, wt_)):
+        if not (torch.equal(got, fdev.conv_k5_decode_plain(st_, wt_))
+                and torch.equal(got, fdev.conv_k5_decode_batch(
+                    st_, row.expand(n, -1)))):
             raise RuntimeError("K5 disagrees with its plain version on "
                                "M17's inputs")
         n_exact = int((got[:, :144].cpu().numpy() == bits[:, :144]).all(
             1).sum())
-        k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(st_, wt_), 20)
-        plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(st_, wt_), 1)
-        b_ms, b_by = bound(nbytes(st_, wt_, got), 0)
-        floor_ms = 148 * K5_CHAIN_CYCLES / (clk * 1e3)
         log(f"K5 conv_k5 at M17's shape [{n},296] -> [{n},148]: bits equal "
             f"the plain version's (tol 0) on P2-depunctured 0/1 symbols "
-            f"with 0/1 weights; {n_exact}/{n} frames with 0-6 flipped "
-            f"symbols decode to their data")
-        show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by,
-             f"; chain floor ~{floor_ms:.5f} ms (148 steps x "
-             f"{K5_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
-             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
-             f"{launches_path}", shape=[n, 296])
-        report["conv_k5"]["other_shapes"][-1]["chain_floor_ms"] = floor_ms
+            f"with 0/1 weights, broadcast and written out; {n_exact}/{n} "
+            f"frames with 0-6 flipped symbols decode to their data")
+        time_k5(n, 148, st_, row, launches_path, False, "M17")
 
     def dstar_stage(pipe, feh):
         t1 = time.perf_counter()

@@ -53,6 +53,20 @@ def encode(bits: np.ndarray) -> np.ndarray:
     return out
 
 
+def encode_rows(bits: np.ndarray) -> np.ndarray:
+    """Encode each row of ``[N, n]`` bits as it stands (no flush bits
+    appended: the rows carry their own) → ``[N, 2n]`` float32 symbols,
+    :func:`encode`'s state walk taken one step for every row at once."""
+    bits = np.asarray(bits, dtype=np.int64)
+    sym = np.zeros((bits.shape[0], 2 * bits.shape[1]), np.float32)
+    st = np.zeros(bits.shape[0], np.int64)
+    for i in range(bits.shape[1]):
+        sym[:, 2 * i] = _O1[st, bits[:, i]]
+        sym[:, 2 * i + 1] = _O2[st, bits[:, i]]
+        st = _NEXT[st, bits[:, i]]
+    return sym
+
+
 def decode_soft(symbols: np.ndarray, weights: np.ndarray | None = None,
                 nbits: int | None = None) -> np.ndarray:
     """Viterbi-decode 2N soft symbols (values in [0,1], or hard 0/1).

@@ -274,11 +274,25 @@ def p25_12_decode_plain(bits196: torch.Tensor,
     return _dibits_to_bits96(data), best_v
 
 
+def _k4_input(bits196: torch.Tensor, llr196: torch.Tensor | None):
+    """K4's input as the kernel reads it: (``[N, 196]`` tensor, hard).
+    Without LLRs the bits (uint8, or bool viewed as uint8) go in as they
+    are and the kernel forms the ±64 LLRs itself; with LLRs, int32.
+    Either is contiguous and 16-byte aligned (the kernel stages each
+    block's rows in 16-byte pieces), copied only where it is not."""
+    hard = llr196 is None
+    x = (bits196.view(torch.uint8) if hard else llr196).contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()
+    return x, hard
+
+
 def p25_12_decode_batch(bits196: torch.Tensor,
                         llr196: torch.Tensor | None = None):
-    """Batched P25 rate-1/2 trellis decode: ``[N, 196]`` uint8 bits (or
-    int32 LLRs ``llr196``) → (``[N, 96]`` uint8 data bits, ``[N]`` int32
-    path costs).  A CUDA tensor launches kernel K4; a CPU tensor runs
+    """Batched P25 rate-1/2 trellis decode: ``[N, 196]`` uint8 or bool
+    bits (or int32 LLRs ``llr196``) → (``[N, 96]`` uint8 data bits, ``[N]`` int32
+    path costs).  A CUDA tensor launches kernel K4 (on the bits
+    themselves when no LLRs are given); a CPU tensor runs
     :func:`p25_12_decode_plain`."""
     if bits196.device.type == "cpu":
         return p25_12_decode_plain(bits196, llr196)
@@ -286,17 +300,19 @@ def p25_12_decode_batch(bits196: torch.Tensor,
     if bits196.shape[1:] != (196,):
         raise ValueError(f"bits196: expected [N, 196], got "
                          f"{tuple(bits196.shape)}")
-    llr = _hard_llr(bits196) if llr196 is None else llr196
-    kernels.require(llr, "llr196", torch.int32, (N, 196), contiguous=False)
-    llr = llr.contiguous()
-    if llr.data_ptr() % 16:          # the kernel reads 16-byte pieces
-        llr = llr.clone()
-    bits = torch.empty((N, 96), dtype=torch.uint8, device=llr.device)
-    cost = torch.empty(N, dtype=torch.int32, device=llr.device)
+    if llr196 is None:
+        kernels.require(bits196, "bits196", (torch.uint8, torch.bool),
+                        contiguous=False)
+    else:
+        kernels.require(llr196, "llr196", torch.int32, (N, 196),
+                        contiguous=False)
+    x, hard = _k4_input(bits196, llr196)
+    bits = torch.empty((N, 96), dtype=torch.uint8, device=x.device)
+    cost = torch.empty(N, dtype=torch.int32, device=x.device)
     if N:
         err = kernels.load().dsd_p25_trellis(
-            llr.data_ptr(), bits.data_ptr(), cost.data_ptr(), N,
-            kernels.stream_handle(llr))
+            x.data_ptr(), int(hard), bits.data_ptr(), cost.data_ptr(), N,
+            kernels.stream_handle(x))
         kernels.check(err, "p25_trellis")
         p25_12_decode_batch.launches += 1
     return bits, cost
@@ -349,12 +365,31 @@ def conv_k5_decode_plain(sym: torch.Tensor, wt: torch.Tensor
     return torch.stack(bits[::-1], dim=1).to(torch.uint8)
 
 
+def _k5_inputs(sym: torch.Tensor, wt: torch.Tensor):
+    """K5's inputs as the kernel reads them: (symbols, weights, weight row
+    stride in elements).  The symbols contiguous and 8-byte aligned (the
+    kernel copies them in 8-byte pairs).  Weights whose row stride is 0
+    (an ``expand`` of one row, as the NXDN and M17 paths pass them) stay
+    one row, stride 0, which the kernel stages once per block; any other
+    layout goes in contiguous, stride 2n.  A tensor is copied only where
+    it is not in that form or not aligned."""
+    N, n2 = sym.shape
+    sym = sym.contiguous()
+    if sym.data_ptr() % 8:
+        sym = sym.clone()
+    if N and wt.stride() == (0, 1):
+        row = wt[0]
+        return sym, row if row.data_ptr() % 8 == 0 else row.clone(), 0
+    wt = wt.contiguous()
+    return sym, wt if wt.data_ptr() % 8 == 0 else wt.clone(), n2
+
+
 def conv_k5_decode_batch(sym: torch.Tensor, wt: torch.Tensor
                          ) -> torch.Tensor:
     """Batched K=5 rate-1/2 Viterbi: ``[N, 2n]`` float32 soft symbols +
-    weights → ``[N, n]`` uint8 decoded bits (flush bits included;
-    callers slice).  A CUDA tensor launches kernel K5; a CPU tensor runs
-    :func:`conv_k5_decode_plain`."""
+    weights (an ``expand`` of one row stays one row) → ``[N, n]`` uint8
+    decoded bits (flush bits included; callers slice).  A CUDA tensor
+    launches kernel K5; a CPU tensor runs :func:`conv_k5_decode_plain`."""
     if sym.device.type == "cpu":
         return conv_k5_decode_plain(sym, wt)
     N, n2 = sym.shape
@@ -363,14 +398,12 @@ def conv_k5_decode_batch(sym: torch.Tensor, wt: torch.Tensor
                          f"{tuple(wt.shape)}: expected two equal [N, 2n]")
     kernels.require(sym, "sym", torch.float32, contiguous=False)
     kernels.require(wt, "wt", torch.float32, contiguous=False)
-    # the kernel reads each step's symbol and weight pairs as 8 bytes
-    sym, wt = (x.contiguous() if x.data_ptr() % 8 == 0 else x.clone(
-        memory_format=torch.contiguous_format) for x in (sym, wt))
     bits = torch.empty((N, n2 // 2), dtype=torch.uint8, device=sym.device)
     if N and n2:
+        sym, wt, wt_stride = _k5_inputs(sym, wt)
         err = kernels.load().dsd_conv_k5(
-            sym.data_ptr(), wt.data_ptr(), bits.data_ptr(), N, n2 // 2,
-            kernels.stream_handle(sym))
+            sym.data_ptr(), wt.data_ptr(), wt_stride, bits.data_ptr(), N,
+            n2 // 2, kernels.stream_handle(sym))
         kernels.check(err, "conv_k5")
         conv_k5_decode_batch.launches += 1
     return bits

@@ -14,7 +14,8 @@ recovery), compiled by the host C++ compiler into a second library
 
 Both build at first use into ``dsdneo_tpu_torch/build/`` (gitignored),
 named by a hash of their sources and flags, so an edited source never
-loads a stale library.  Nothing here runs at import time: the CPU tests
+loads a stale library; the compiler's output stays beside each
+(``.so.log``), so the resource report outlives the build.  Nothing here runs at import time: the CPU tests
 import every module on a machine with no ``nvcc``.
 """
 
@@ -24,6 +25,7 @@ import ctypes
 import glob
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -56,10 +58,10 @@ _SIGNATURES = {
     "dsd_adpcm_enc": [_P, _P, _P, _P, _I, _I, _P],
     # words, exp_table, log_table, out, N, n, nroots, fcr, stream
     "dsd_rs_syndromes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # llr, bits, cost, N, stream
-    "dsd_p25_trellis": [_P, _P, _P, _I, _P],
-    # sym, wt, bits, N, n, stream
-    "dsd_conv_k5": [_P, _P, _P, _I, _I, _P],
+    # llr or bits, hard (1: uint8 bits), bits, cost, N, stream
+    "dsd_p25_trellis": [_P, _I, _P, _P, _I, _P],
+    # sym, wt, wt row stride (0 or 2n), bits, N, n, stream
+    "dsd_conv_k5": [_P, _P, _I, _P, _I, _I, _P],
     # bits, out, N, n, stream
     "dsd_conv_k3": [_P, _P, _I, _I, _P],
     # x, out, R, T, a, b, diff, stream
@@ -140,9 +142,10 @@ def _build(lib: _Lib, name: str, flags: list[str], srcs: list[str],
            make) -> str:
     """Build ``srcs`` into ``build/<name>_<hash>.so`` unless it exists.
     ``make(out)`` compiles the library to ``out`` in a scratch directory
-    and returns the compiler's output; the directory goes whatever
-    happens, and the library appears under its name only when it is
-    whole."""
+    and returns the compiler's output, which is kept beside the library
+    (``.so.log``) and read back when a later process finds it built; the
+    directory goes whatever happens, and the library appears under its
+    name only when it is whole, its log already beside it."""
     so = os.path.join(BUILD_DIR, f"{name}_{_digest(flags, srcs)}.so")
     t0 = time.perf_counter()
     if not os.path.exists(so):
@@ -150,7 +153,16 @@ def _build(lib: _Lib, name: str, flags: list[str], srcs: list[str],
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             out = os.path.join(tmp, "lib.so")
             lib.build_log = make(out)
+            with open(os.path.join(tmp, "log"), "w") as f:
+                f.write(lib.build_log)
+            os.replace(os.path.join(tmp, "log"), so + ".log")
             os.replace(out, so)
+    else:
+        try:
+            with open(so + ".log") as f:
+                lib.build_log = f.read()
+        except FileNotFoundError:
+            lib.build_log = ""
     lib.build_s = time.perf_counter() - t0
     return so
 
@@ -199,11 +211,34 @@ def load_host():
 
 
 def build_info() -> dict:
-    """Build seconds (0 if the library was already built), library
-    path, and the compiler's per-kernel resource report."""
+    """Build seconds (~0 if the library was already built), library
+    path, and the compiler's per-kernel resource report (this build's,
+    or the one kept beside a library built before)."""
     load()
     return {"seconds": _LIB.build_s, "path": _LIB.path,
             "log": _LIB.build_log}
+
+
+def ptxas_report(log: str) -> dict[str, dict[str, int]]:
+    """Each kernel's resources from ``-Xptxas -v`` output: mangled entry
+    name → ``registers``, ``stack`` (bytes of stack frame, i.e. local
+    memory), ``spill_stores`` and ``spill_loads`` (bytes)."""
+    out: dict[str, dict[str, int]] = {}
+    entry = props = None
+    for line in log.splitlines():
+        if m := re.search(r"Compiling entry function '([^']+)'", line):
+            entry = out.setdefault(m.group(1), {})
+        elif m := re.search(r"Function properties for (\S+)", line):
+            props = out.get(m.group(1))
+        elif m := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                            r"stores, (\d+) bytes spill loads", line):
+            if props is not None:
+                props.update(zip(("stack", "spill_stores", "spill_loads"),
+                                 map(int, m.groups())))
+        elif (m := re.search(r"Used (\d+) registers", line)) and entry \
+                is not None:
+            entry["registers"] = int(m.group(1))
+    return out
 
 
 def stream_handle(t: torch.Tensor) -> ctypes.c_void_p:
@@ -217,14 +252,15 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+def require(t: torch.Tensor, name: str,
+            dtype: torch.dtype | tuple[torch.dtype, ...],
             shape: tuple | None = None, contiguous: bool = True) -> None:
-    """The wrapper's input checks: a CUDA tensor of ``dtype`` (and
-    ``shape``, where given), contiguous unless the kernel takes
-    strides."""
+    """The wrapper's input checks: a CUDA tensor of ``dtype`` (or of one
+    of a tuple of them) and ``shape``, where given, contiguous unless the
+    kernel takes strides."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "

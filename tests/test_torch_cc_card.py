@@ -1,7 +1,13 @@
 """Kernels K4 and K5 and the three control-channel monitors on the card.
 
 K4 (the P25 trellis Viterbi) and K5 (the K=5 soft Viterbi) against their
-plain PyTorch versions, bits and costs identical; each monitor's card
+plain PyTorch versions, bits and costs identical: at batch sizes around
+the kernels' 32-word tiles (0, 1, 31, 32, 33, 4099 words), K4 on LLRs
+and on hard bits (which it turns into ±64 LLRs itself), K5 at the CAC's
+175 steps and M17's 148 (and at 1, 33 and 512, around its 32-step
+chunks) on hard and soft inputs, on inputs whose candidate costs tie,
+with one weight row for every word (a stride-0 view) and on unaligned
+views; each monitor's card
 path against its CPU path on two channels, two blocks with the context
 kept: the same accepted blocks, the same blobs, the same event lines;
 the NID second-chance decode (``nid_decode_positions``) on the card,
@@ -53,8 +59,8 @@ def _p25_words(n: int, seed: int):
     """Encoded TSBK trellis words with 0-6 flipped bits each, and int32
     LLRs of random magnitude on them."""
     rng = np.random.default_rng(seed)
-    words = np.stack([trellis.p25_12_encode(rng.integers(0, 2, 96))
-                      for _ in range(n)]).astype(np.uint8)
+    words = np.array([trellis.p25_12_encode(rng.integers(0, 2, 96))
+                      for _ in range(n)], dtype=np.uint8).reshape(n, 196)
     for i in range(n):
         words[i, rng.choice(196, size=i % 7, replace=False)] ^= 1
     llr = ((1 - 2 * words.astype(np.int32))
@@ -63,19 +69,84 @@ def _p25_words(n: int, seed: int):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [192, 4099])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 192, 4099])
 def test_k4_matches_plain(n):
     dev = _card()
     words, llr = _p25_words(n, seed=n)
     for lv in (None, llr):
         want = fdev.p25_12_decode_plain(
             torch.as_tensor(words), None if lv is None else torch.as_tensor(lv))
+        before = fdev.p25_12_decode_batch.launches
         got = fdev.p25_12_decode_batch(
             torch.as_tensor(words, device=dev),
             None if lv is None else torch.as_tensor(lv, device=dev))
         torch.cuda.synchronize()
+        assert fdev.p25_12_decode_batch.launches == before + (n > 0)
+        assert got[0].shape == (n, 96) and got[1].shape == (n,)
         assert torch.equal(got[0].cpu(), want[0])
         assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [33, 4099])
+def test_k4_hard_bits_equal_their_llrs(n):
+    """The kernel's uint8 mode is its LLR mode on the ±64 LLRs the bits
+    stand for, and the plain version on the bits; bool bits go in as
+    uint8."""
+    dev = _card()
+    words, _llr = _p25_words(n, seed=7 * n)
+    bt = torch.as_tensor(words, device=dev)
+    hard = fdev.p25_12_decode_batch(bt)
+    soft = fdev.p25_12_decode_batch(bt, fdev._hard_llr(bt))
+    flag = fdev.p25_12_decode_batch(bt.bool())
+    want = fdev.p25_12_decode_plain(torch.as_tensor(words))
+    for got in (hard, soft, flag):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64, torch.float32])
+def test_k4_takes_bits_as_uint8_or_bool_only(dtype):
+    """The kernel reads bits as bytes: the wrapper raises on any other
+    dtype rather than cast (a cast would wrap values the plain version
+    reads whole)."""
+    dev = _card()
+    words, _llr = _p25_words(4, seed=11)
+    with pytest.raises(ValueError, match="bits196"):
+        fdev.p25_12_decode_batch(torch.as_tensor(words, device=dev).to(dtype))
+
+
+def _k5_case(n: int, steps: int, soft: bool, seed: int):
+    """``n`` K5 inputs of ``steps`` steps: random bits with 4 flush bits
+    through the K=5 code, 1 in 7 symbols punctured (weight 0), 0-4 flips;
+    ``soft``: noise on the symbols, clipped to [0, 1], and random
+    weights."""
+    rng = np.random.default_rng(seed)
+    bits = np.concatenate([rng.integers(0, 2, (n, max(steps - 4, 0))),
+                           np.zeros((n, min(steps, 4)), np.int64)], axis=1)
+    sym = conv.encode_rows(bits)
+    wt = (rng.random((n, 2 * steps)) >= 1 / 7).astype(np.float32)
+    flip = rng.random((n, 2 * steps)) < rng.integers(0, 5, (n, 1)) / (
+        2 * steps)
+    sym[flip] = 1.0 - sym[flip]
+    if soft:
+        sym = np.clip(sym + rng.normal(0, 0.3, sym.shape), 0, 1)
+        wt = wt * rng.random(wt.shape)
+    return sym.astype(np.float32), wt.astype(np.float32)
+
+
+def _k5_equal(dev, sym, wt):
+    """Launch K5 on ``sym`` and ``wt`` (numpy or tensors) and hold it to
+    the plain version on the CPU."""
+    s, w = (torch.as_tensor(a) for a in (sym, wt))
+    before = fdev.conv_k5_decode_batch.launches
+    got = fdev.conv_k5_decode_batch(s.to(dev), w.to(dev))
+    torch.cuda.synchronize()
+    assert fdev.conv_k5_decode_batch.launches == before + (s.numel() > 0)
+    want = fdev.conv_k5_decode_plain(s.cpu(), w.cpu())
+    assert got.shape == want.shape
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
@@ -105,6 +176,77 @@ def test_k5_matches_plain(soft):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("steps", [175, 148])
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 4099])
+def test_k5_matches_plain_around_the_tile(n, steps):
+    dev = _card()
+    for soft in (False, True):
+        _k5_equal(dev, *_k5_case(n, steps, soft, seed=n + steps + soft))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 33, 512])
+def test_k5_matches_plain_around_the_chunks(steps):
+    """Step counts at the edges of the kernel's 32-step chunks and its
+    512-step limit (whose survivors and buffers need more than 48 KiB of
+    shared memory a block)."""
+    dev = _card()
+    for soft in (False, True):
+        _k5_equal(dev, *_k5_case(65, steps, soft, seed=steps + soft))
+    sym, wt = _k5_case(65, steps, True, seed=steps)
+    row = torch.as_tensor(wt[0])
+    _k5_equal(dev, sym, row.to(dev).expand(65, -1))
+
+
+@pytest.mark.cuda
+def test_k5_ties_take_pa_and_start_from_state_0():
+    """Every candidate ties (symbols 0.5 with unit weights, or zero
+    weights): the kernel keeps pa where pb is not strictly cheaper, as
+    the plain version does, so the path stays in state 0; and a word
+    encoded from state 15 is decoded from state 0, whose 1e30 start
+    keeps the other states out of the first steps."""
+    dev = _card()
+    n, steps = 40, 175
+    half = np.full((n, 2 * steps), 0.5, np.float32)
+    for sym, wt in ((half, np.ones_like(half)),
+                    (half, np.zeros_like(half)),
+                    (np.zeros_like(half), np.zeros_like(half))):
+        _k5_equal(dev, sym, wt)
+        got = fdev.conv_k5_decode_batch(torch.as_tensor(sym, device=dev),
+                                        torch.as_tensor(wt, device=dev))
+        assert not got.any()
+    rng = np.random.default_rng(3)
+    sym = np.zeros((n, 2 * steps), np.float32)
+    st = np.full(n, 15, np.int64)
+    for i in range(steps):
+        b = rng.integers(0, 2, n) if i < steps - 4 else np.zeros(n, np.int64)
+        sym[:, 2 * i] = conv._O1[st, b]
+        sym[:, 2 * i + 1] = conv._O2[st, b]
+        st = conv._NEXT[st, b]
+    sym[:, 1::7] = 0.5
+    _k5_equal(dev, sym, np.ones_like(sym))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [175, 148])
+def test_k5_broadcast_weight_row_equals_materialised(steps):
+    """A stride-0 view of one weight row (as the NXDN and M17 paths pass
+    it) decodes as the same weights written out row by row."""
+    dev = _card()
+    for soft in (False, True):
+        sym, wt = _k5_case(1000, steps, soft, seed=steps + 5 * soft)
+        row = torch.as_tensor(wt[0], device=dev)
+        st = torch.as_tensor(sym, device=dev)
+        view = row.expand(1000, -1)
+        assert view.stride() == (0, 1)
+        a = fdev.conv_k5_decode_batch(st, view)
+        b = fdev.conv_k5_decode_batch(st, view.contiguous())
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        _k5_equal(dev, sym, view)
+
+
+@pytest.mark.cuda
 def test_k4_k5_take_unaligned_views():
     """Inputs that start off the kernels' 16- and 8-byte load boundaries
     (a contiguous view one element into a buffer) decode as aligned
@@ -128,6 +270,21 @@ def test_k4_k5_take_unaligned_views():
     wt = torch.ones(sym.shape, dtype=torch.float32, device=dev)
     got = fdev.conv_k5_decode_batch(sbuf[1:].view(sym.shape), wt)
     want = fdev.conv_k5_decode_plain(torch.as_tensor(sym), wt.cpu())
+    assert torch.equal(got.cpu(), want)
+    # hard bits one byte into a buffer (off the 16-byte staging copies);
+    # a weight row 4 bytes into one, broadcast (off the 8-byte pairs)
+    bbuf = torch.zeros(words.size + 1, dtype=torch.uint8, device=dev)
+    bbuf[1:] = torch.as_tensor(words.ravel(), device=dev)
+    got = fdev.p25_12_decode_batch(bbuf[1:].view(64, 196))
+    want = fdev.p25_12_decode_plain(torch.as_tensor(words))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+    wbuf = torch.zeros(sym.shape[1] + 1, dtype=torch.float32, device=dev)
+    wbuf[1:] = torch.as_tensor(rng.random(sym.shape[1]), device=dev)
+    view = wbuf[1:].expand(64, -1)
+    assert view.data_ptr() % 8 and view.stride() == (0, 1)
+    got = fdev.conv_k5_decode_batch(sbuf[1:].view(sym.shape), view)
+    want = fdev.conv_k5_decode_plain(torch.as_tensor(sym), view.cpu())
     assert torch.equal(got.cpu(), want)
 
 

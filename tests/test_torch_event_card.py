@@ -2,7 +2,9 @@
 
 K6 (the D-STAR header's K=3 Viterbi) against its plain PyTorch version,
 bits identical, on header codewords with errors, random words, the
-tie-heavy all-zero and all-one words and an unaligned view; the gated
+tie-heavy all-zero and all-one words and an unaligned view; K5 (the
+K=5 Viterbi of M17's stream frames) at M17's 148 steps with its stride-0
+P2 weight row, at batch sizes around its 32-word tiles; the gated
 front end on the card against its CPU path with cuDNN's TF32 switch on
 in the process (the FIR switches it off itself); each pipeline's card
 path against its CPU path on two channels, two blocks with the contexts
@@ -23,8 +25,9 @@ from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.dsp import firdes
 from dsdneo_tpu_torch.engine import demod
 from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
-from dsdneo_tpu_torch.engine.m17batch import BatchedM17VoicePipeline
-from dsdneo_tpu_torch.fec import device as fdev
+from dsdneo_tpu_torch.engine.m17batch import (BatchedM17VoicePipeline,
+                                              _consts as m17_consts)
+from dsdneo_tpu_torch.fec import conv, device as fdev
 from dsdneo_tpu_torch.protocol.dmr.encode import vector_block
 from dsdneo_tpu_torch.protocol.dstar import encode as dstar_encode
 from dsdneo_tpu_torch.protocol.m17 import encode as m17_encode
@@ -90,6 +93,35 @@ def test_k6_takes_unaligned_and_odd_views():
     odd = torch.as_tensor(words[:, :658].copy())
     assert torch.equal(fdev.conv_k3_decode_batch(odd.to(dev)).cpu(),
                        fdev.conv_k3_decode_plain(odd))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [0, 1, 31, 32, 33, 4099])
+def test_k5_at_m17s_shape(n):
+    """K5 as ``m17_stream_decode_device`` calls it: [n, 296] 0/1 symbols
+    (the 24 punctured ones 0), the path's own weight row expanded to a
+    stride-0 view, 0-6 flipped kept symbols; hard and, off the path, soft
+    symbols on the same row; bits equal the plain version's."""
+    dev = _card()
+    rng = np.random.default_rng(n + 17)
+    row = m17_consts(str(dev))["wt"]
+    keep = row.cpu().numpy() > 0
+    bits = np.concatenate([rng.integers(0, 2, (n, 144)),
+                           np.zeros((n, 4), np.int64)], axis=1)
+    sym = conv.encode_rows(bits)
+    flip = (rng.random((n, 296)) < rng.integers(0, 7, (n, 1)) / 272) & keep
+    sym[flip] = 1.0 - sym[flip]
+    sym[:, ~keep] = 0.0
+    soft = np.clip(sym + rng.normal(0, 0.3, sym.shape), 0, 1) * keep
+    wt = row.expand(n, -1)
+    outs = []
+    for s in (sym, soft.astype(np.float32)):
+        got = fdev.conv_k5_decode_batch(torch.as_tensor(s, device=dev), wt)
+        want = fdev.conv_k5_decode_plain(torch.as_tensor(s), wt.cpu())
+        assert torch.equal(got.cpu(), want)
+        outs.append(got.cpu().numpy())
+    if n:
+        assert (outs[0][:, :144] == bits[:, :144]).mean() > 0.99
 
 
 def _blocks(kind):
