@@ -31,7 +31,7 @@ The paths, each at 320 channels through the entry points a user calls:
     the gated front end; K3, and K8 (the one-pole IIR) in the CLI's
     monitor-audio conditioning of the decoded PCM
     (``dsp.audio_filters.condition_audio``, de-emphasis "nfm" and the
-    3400 Hz low-pass);
+    3400 Hz low-pass, one cascade launch a block);
   - EDACS: ``BatchedEdacsControlPipeline(320)``, 3 s blocks of a
     continuous control channel; no kernel of the table.
 
@@ -43,7 +43,9 @@ Phases, in order; any failure exits non-zero:
      paths: 320 distinct channels each (own leading offset and noise
      seed; on CQPSK also an own carrier offset within ±300 Hz) built
      from the test vectors in ``dsdneo_tpu_torch/data``; the AMBE
-     families' leads are 0-96 random dibits;
+     families' leads are 0-96 random dibits; the build log must show
+     every instance of K4, K5, K6 and K8 without local memory (no stack
+     frame, no spills);
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes, with its time, its bound (the larger of bytes over
      3.35 TB/s and operations over the 67 TFLOP/s FP32 peak; for the
@@ -143,9 +145,20 @@ Phases, in order; any failure exits non-zero:
      with the vector's messages and the JAX catalog's lines, channels
      0-1 equal to the CPU path's, the frames a top-K of 96 (the JAX
      package's) would accept counted beside the port's 128, timed
-     (pipelined).  In phase 2, K8 behind all four filters at
-     [320, 24000] and at a ragged length, bit for bit against its plain
-     version.
+     (pipelined).  K8 must be launched exactly 4 times on the YSF and
+     dPMR paths (one cascade a block), and is held bit for bit to its
+     plain version and timed at their decoded PCM, one filter and the
+     cascade.  In phase 2, K8 behind all four filters and as the cascade
+     at [320, 24000] and at a ragged length, bit for bit against its
+     plain version (the cascade against two plain calls); then timed
+     beside its second design (``csrc/alt/one_pole_v2.cu``) and beside
+     itself built at 16 and 32 rows a block (``DSD_K8_ROWS``), each held
+     bit for bit to it, on aligned, ragged and unaligned rows; its cycles
+     a step from the slope of its time over T; and the compiled loops
+     (``cuobjdump -sass``) of K8, K6 and their earlier designs.  In phase
+     6, K6 beside its first design (``csrc/alt/conv_k3_v1.cu``), held
+     bit for bit to it.  These earlier designs are built, each by its own
+     nvcc, beside the library in phase 1.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -203,10 +216,22 @@ K5_BEFORE_MS = {11840: 0.1398, 65536: 0.3494, 22720: 0.1240}
 K6_CHAIN_CYCLES = 4 + 4 + 4
 K6_SYNTH_N = 65536           # K6's larger grid (words)
 # per K8 step in csrc/one_pole.cu: the fused multiply-add on the carried
-# output (the product of the input is off the chain)
+# output (the product of the input is off the chain; the cascade's second
+# chain runs beside the first, fed a step behind)
 K8_CHAIN_CYCLES = 4
 K8_T = 24000                 # 3 s of 8 kHz PCM
-K8_RAGGED_T = 4001           # a length the kernel's 16-byte copies skip
+K8_RAGGED_T = 4001           # a length that is not a multiple of 4
+# K6's first and K8's second design, as PERF.md section 6 records them
+# (NVIDIA H100 80GB HBM3, 700 W; K8 one filter a launch), and the
+# predictions written for the present kernels before their first run,
+# (low, high) ms, by word count or row length
+K6_BEFORE_MS = {888: 0.0679, 65536: 0.2930}
+K6_PREDICTED_MS = {888: (0.006, 0.015), 65536: (0.04, 0.08)}
+K8_BEFORE_MS = {24000: 0.3552, 22400: 0.3303, 17920: 0.2629, 4001: 0.1719}
+K8_PREDICTED_MS = {("one filter", 24000): (0.06, 0.10),
+                   ("cascade", 22400): (0.07, 0.12),
+                   ("cascade", 17920): (0.055, 0.10),
+                   ("one filter", 4001): (0.015, 0.03)}
 EDACS_MODES = ("standard", "ea", "esk", "standard")  # by channel % 4;
                                                      # % 4 == 3 inverted
 # the gated front end, card vs its CPU path: soft symbols within this
@@ -268,6 +293,41 @@ def sm_clock_mhz() -> float:
                           "--format=csv,noheader,nounits"], check=True,
                          capture_output=True, text=True, timeout=30)
     return float(out.stdout.split()[0])
+
+
+def sass_loops(cuobjdump: str, so: str, stem: str) -> list[str]:
+    """The loops of at least 24 instructions (from a backward branch's
+    target to its last backward branch) of the first function of library
+    ``so`` whose name holds ``stem``, from ``cuobjdump -sass``: the size
+    and instruction mix of each."""
+    import collections
+    import re
+    import subprocess
+    text = subprocess.run([cuobjdump, "-sass", so], check=True,
+                          capture_output=True, text=True).stdout
+    ops, cur = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            cur = stem in line and not ops
+        elif cur and (m := re.search(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;",
+                                     line)):
+            ops.append((int(m.group(1), 16), m.group(2)))
+    ends = {}                       # loop head -> its last backward branch
+    for a, op in ops:
+        m = re.search(r"\bBRA (0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) <= a:
+            ends[int(m.group(1), 16)] = a
+    out = []
+    for lo, hi in sorted(ends.items()):
+        body = [op for a, op in ops if lo <= a <= hi]
+        if len(body) >= 24:
+            mix = collections.Counter(
+                re.sub(r"^@!?U?P[0-9T]+\s+", "", op).split()[0]
+                for op in body)
+            out.append(f"loop at 0x{lo:x}: {len(body)} instructions ("
+                       + ", ".join(f"{k} {v}" for k, v in
+                                   mix.most_common(8)) + ")")
+    return out or [f"no loop of 24 instructions ({len(ops)} in all)"]
 
 
 def no_reference_modules() -> None:
@@ -483,22 +543,38 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # K4's and K5's lanes-per-word designs, which lost to the kernels
-    # (not shipped): their own nvcc, run beside the library's build
+    # the designs that lost to the kernels (not shipped), each built by its
+    # own nvcc beside the library's build: K4's and K5's lanes per word,
+    # K6's first design, K8's second design and the present K8 at 16 and
+    # 32 rows a block
     import ctypes
     import subprocess
-    lanes_src = os.path.join(kernels.CSRC, "alt", "viterbi_lanes.cu")
-    lanes_so = os.path.join(kernels.BUILD_DIR, "viterbi_lanes.so")
+    alt_src = {"viterbi_lanes": ("alt/viterbi_lanes.cu", []),
+               "conv_k3_v1": ("alt/conv_k3_v1.cu", []),
+               "one_pole_v2": ("alt/one_pole_v2.cu", []),
+               "one_pole_rows16": ("one_pole.cu", ["-DDSD_K8_ROWS=16"]),
+               "one_pole_rows32": ("one_pole.cu", ["-DDSD_K8_ROWS=32"])}
     os.makedirs(kernels.BUILD_DIR, exist_ok=True)
-    with subprocess.Popen([kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared",
-                           "-o", lanes_so, lanes_src],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True) as lanes_cc:
+    alt_cc = {name: subprocess.Popen(
+        [kernels._nvcc(), *kernels.NVCC_FLAGS, *defs, "-shared", "-o",
+         os.path.join(kernels.BUILD_DIR, f"{name}.so"),
+         os.path.join(kernels.CSRC, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, (src, defs) in alt_src.items()}
+    try:
         info = kernels.build_info()
-        lanes_log = lanes_cc.communicate()[0]
-    if lanes_cc.returncode:
-        raise RuntimeError(f"nvcc failed on {lanes_src}:\n{lanes_log}")
-    lanes = ctypes.CDLL(lanes_so)
+    finally:
+        alt_log = {name: cc.communicate()[0] for name, cc in alt_cc.items()}
+    alt = {}
+    for name, cc in alt_cc.items():
+        if cc.returncode:
+            raise RuntimeError(f"nvcc failed on {alt_src[name][0]}:\n"
+                               f"{alt_log[name]}")
+        alt[name] = ctypes.CDLL(os.path.join(kernels.BUILD_DIR, f"{name}.so"))
+        for k, v in sorted(kernels.ptxas_report(alt_log[name]).items()):
+            log(f"design not shipped, {name}, {k}: {v['registers']} "
+                f"registers, {v['stack']} bytes stack frame")
+    lanes = alt["viterbi_lanes"]
     lanes.dsd_conv_k5_lanes.argtypes = [ctypes.c_int, ctypes.c_void_p,
                                         ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_void_p, ctypes.c_int,
@@ -506,27 +582,37 @@ def main() -> int:
     lanes.dsd_p25_trellis_lanes.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p]
-    for k, v in sorted(kernels.ptxas_report(lanes_log).items()):
-        log(f"lanes-per-word design {k}: {v['registers']} registers, "
-            f"{v['stack']} bytes stack frame")
+    alt["conv_k3_v1"].dsd_conv_k3.argtypes = kernels._SIGNATURES[
+        "dsd_conv_k3"]
+    # x, out, R, T, a, b, diff, stream: one filter a launch
+    alt["one_pole_v2"].dsd_one_pole.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    for rows in (16, 32):
+        alt[f"one_pole_rows{rows}"].dsd_one_pole.argtypes = \
+            kernels._SIGNATURES["dsd_one_pole"]
     log(f"kernels built in {info['seconds']:.2f} s -> "
         f"{os.path.relpath(info['path'], HERE)}")
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
-    # K4's and K5's four instances: registers, stack and spills; neither
-    # may use local memory
-    k45_res = {k: v for k, v in kernels.ptxas_report(info["log"]).items()
-               if "conv_k5_kernel" in k or "p25_trellis_kernel" in k}
-    if len(k45_res) != 4:
-        raise RuntimeError(f"expected 4 K4/K5 kernel instances in the "
-                           f"build log, found {sorted(k45_res)}")
-    for k, v in sorted(k45_res.items()):
-        log(f"K4/K5 resources, {k}: {v['registers']} registers, "
-            f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
-            f"{v['spill_loads']} bytes spill stores / loads")
-        if v["stack"] or v["spill_stores"] or v["spill_loads"]:
-            raise RuntimeError(f"{k} uses local memory")
+    # the instances of K4 (2), K5 (2), K6 (2) and K8 (6: 3 modes x
+    # aligned or not): registers, stack and spills; none may use local
+    # memory
+    want_inst = {"p25_trellis_kernel": 2, "conv_k5_kernel": 2,
+                 "conv_k3_kernel": 2, "one_pole_kernel": 6}
+    res = kernels.ptxas_report(info["log"])
+    for stem, count in want_inst.items():
+        inst = {k: v for k, v in res.items() if stem in k}
+        if len(inst) != count:
+            raise RuntimeError(f"expected {count} {stem} instances in the "
+                               f"build log, found {sorted(inst)}")
+        for k, v in sorted(inst.items()):
+            log(f"K4-K8 resources, {k}: {v['registers']} registers, "
+                f"{v['stack']} bytes stack frame, {v['spill_stores']} / "
+                f"{v['spill_loads']} bytes spill stores / loads")
+            if v["stack"] or v["spill_stores"] or v["spill_loads"]:
+                raise RuntimeError(f"{k} uses local memory")
 
     t0 = time.perf_counter()
     tables = params.load(dev)
@@ -875,29 +961,67 @@ def main() -> int:
         x[:, T // 3:T // 3 + 1500] = 0.0
         return x.contiguous()
 
-    def time_k8(x):
-        """K8's time at ``x``'s shape (the de-emphasis), its bound and its
-        chain floor, in ms."""
-        R, T = x.shape
-        got = af.deemphasis(x)
-        k_ms = cuda_ms(lambda: af.deemphasis(x), 20)
-        b_ms, b_by = bound(nbytes(x, got), 3 * R * T)
-        floor_ms = T * K8_CHAIN_CYCLES / (clk * 1e3)
-        return k_ms, b_ms, b_by, floor_ms
+    k8_de = af.deemphasis_pole(8000.0, 750.0)
+    k8_lp = af.lowpass_pole(8000.0, 3400.0)
 
-    def check_k8(x, shape=None):
-        """K8 behind each filter against its plain version on ``x``, bit
-        for bit; the de-emphasis timed, beside its plain run's time."""
+    def show_k8(x, cascade, want, plain_ms, extra, shape=None):
+        """K8 at ``x`` (the de-emphasis, or its cascade with the 3400 Hz
+        low-pass) held bit for bit to ``want``, the plain version's result
+        on ``x`` (``plain_ms`` its time), and timed beside its bound, its
+        chain floor, the second design's recorded time and this PR's
+        prediction."""
         R, T = x.shape
-        plain_ms = None
-        for name, fn, a, diff in k8_filters:
-            got = fn(x)
+        form = "cascade" if cascade else "one filter"
+
+        def fn():
+            return af._one_pole_card(x, 2 if cascade else 0, k8_de, k8_lp)
+        got = fn()
+        err = float((got - want).abs().max())
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K8's {form} at [{R},{T}] is not "
+                               f"bit-identical to its plain version: {err}")
+        k_ms = cuda_ms(fn, 20)
+        b_ms, b_by = bound(nbytes(x, got), (6 if cascade else 3) * R * T)
+        floor_ms = T * K8_CHAIN_CYCLES / (clk * 1e3)
+        pred = K8_PREDICTED_MS.get((form, T))
+        before = K8_BEFORE_MS.get(T)
+        show("one_pole", err, k_ms, plain_ms, b_ms, b_by,
+             f"; {form}; max_abs_err {err} (tol 0); chain floor "
+             f"~{floor_ms:.4f} ms ({T} steps x {K8_CHAIN_CYCLES} cycles at "
+             f"{clk:.0f} MHz), {100 * floor_ms / k_ms:.1f}% of it; "
+             f"predicted "
+             f"{'-'.join(map(str, pred)) if pred else 'no prediction'} ms"
+             + ("" if before is None else
+                f"; second design {before:.4f} ms a filter") + extra,
+             shape=shape, form=form)
+        (report["one_pole"] if shape is None else
+         report["one_pole"]["other_shapes"][-1]).update(
+            chain_floor_ms=floor_ms, predicted_ms=pred, before_ms=before)
+
+    def k8_plain(x):
+        """The plain de-emphasis of ``x`` and its cascade with the low-pass
+        (``one_pole_plain`` twice), each with its time in ms."""
+        y, outs, ms = x, [], 0.0
+        for a in (k8_de, k8_lp):
             torch.cuda.synchronize()
             t1 = time.perf_counter()
-            want = af.one_pole_plain(x, a, diff)
+            y = af.one_pole_plain(y, a)
             torch.cuda.synchronize()
-            if plain_ms is None:
-                plain_ms = (time.perf_counter() - t1) * 1e3
+            ms += (time.perf_counter() - t1) * 1e3
+            outs += [y, ms]
+        return tuple(outs)
+
+    def check_k8(x, shape=None):
+        """K8 behind each filter, and the cascade of the de-emphasis and
+        the low-pass through ``condition_audio``, against their plain
+        versions on ``x``, bit for bit; the de-emphasis and the cascade
+        timed beside the plain versions' times."""
+        R, T = x.shape
+        y_de, ms_de, y_cas, ms_cas = k8_plain(x)
+        for name, fn, a, diff in k8_filters:
+            got = fn(x)
+            want = (y_de if (a, diff) == (k8_de, False) else
+                    af.one_pole_plain(x, a, diff))
             n_diff = int((got != want).sum())
             log(f"K8 one_pole [{R},{T}] {name}: {n_diff} samples differ "
                 f"from the plain version (tol 0: bit-identical); "
@@ -905,17 +1029,87 @@ def main() -> int:
             if n_diff:
                 raise RuntimeError(f"K8 is not bit-identical to its plain "
                                    f"version behind {name}")
-        k_ms, b_ms, b_by, floor_ms = time_k8(x)
-        show("one_pole", 0.0, k_ms, plain_ms, b_ms, b_by,
-             f"; chain floor ~{floor_ms:.4f} ms ({T} steps x "
-             f"{K8_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
-             f"{100 * floor_ms / k_ms:.1f}% of it; the plain time is the "
-             f"de-emphasis's", shape=shape)
-        (report["one_pole"] if shape is None else
-         report["one_pole"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+        got = af.condition_audio(x, deemph="nfm", audio_lpf_hz=3400)
+        n_diff = int((got != y_cas).sum())
+        log(f"K8 one_pole [{R},{T}] cascade (condition_audio nfm, 3400 Hz, "
+            f"one launch): {n_diff} samples differ from two plain calls "
+            "(tol 0: bit-identical)")
+        if n_diff:
+            raise RuntimeError("K8's cascade is not bit-identical to two "
+                               "plain calls")
+        show_k8(x, False, y_de, ms_de, "", shape=shape)
+        show_k8(x, True, y_cas, ms_cas, "; the plain time is two calls'",
+                shape=shape or [R, T])
 
     check_k8(k8_audio(C, K8_T))
     check_k8(k8_audio(C, K8_RAGGED_T), shape=[C, K8_RAGGED_T])
+
+    def k8_design(name, x, mode):
+        """K8's second design (one filter a launch: the cascade is two)
+        or the present one built at 16 or 32 rows a block, on ``x``."""
+        R, T = x.shape
+        lib, src, out = alt[name], x, None
+        if name == "one_pole_v2":
+            for a in (k8_de,) if mode == 0 else (k8_de, k8_lp):
+                out = torch.empty_like(x)
+                kernels.check(lib.dsd_one_pole(
+                    src.data_ptr(), out.data_ptr(), R, T, *af._coeffs(a), 0,
+                    kernels.stream_handle(x)), name)
+                src = out
+        else:
+            out = torch.empty_like(x)
+            kernels.check(lib.dsd_one_pole(
+                x.data_ptr(), out.data_ptr(), R, T, *af._coeffs(k8_de),
+                *af._coeffs(k8_lp), mode, kernels.stream_handle(x)), name)
+        return out
+
+    # K8 beside its second design and at 16 and 32 rows a block (rows
+    # 16-byte aligned, ragged, and a view 4 bytes off alignment), each
+    # held bit for bit to the kernel; then the kernel's cycles a step,
+    # from the slope of its time over T
+    for label, R, T, off in (("", C, K8_T, 0), ("", C, K8_RAGGED_T, 0),
+                             (", 4 bytes off alignment", C, K8_T, 1)):
+        buf = torch.zeros(R * T + off, device=dev)
+        buf[off:] = k8_audio(R, T).flatten()
+        xd = buf[off:].view(R, T)
+        parts = []
+        for mode, form in ((0, "one filter"), (2, "cascade")):
+            want = af._one_pole_card(xd, mode, k8_de, k8_lp)
+            t = [cuda_ms(lambda: af._one_pole_card(xd, mode, k8_de, k8_lp),
+                         20)]
+            for name in ("one_pole_v2", "one_pole_rows16",
+                         "one_pole_rows32"):
+                if not torch.equal(k8_design(name, xd, mode), want):
+                    raise RuntimeError(f"K8's design {name} differs from "
+                                       f"the kernel at [{R},{T}]{label}")
+                t.append(cuda_ms(lambda: k8_design(name, xd, mode), 20))
+            parts.append(f"{form}: kernel (8 rows a block) {t[0]:.4f}, "
+                         f"second design {t[1]:.4f}, 16 rows {t[2]:.4f}, "
+                         f"32 rows {t[3]:.4f}")
+        log(f"K8 designs at [{R},{T}]{label} (ms; each bit for bit equal "
+            f"to the kernel): {'; '.join(parts)}")
+    for label, T0, T1 in (("16-byte-aligned rows", 4000, 24000),
+                          ("ragged rows", 4001, 24001)):
+        x0, x1 = k8_audio(C, T0), k8_audio(C, T1)
+        for mode, form in ((0, "one filter"), (2, "cascade")):
+            t0, t1 = (cuda_ms(lambda xx=xx: af._one_pole_card(
+                xx, mode, k8_de, k8_lp), 20) for xx in (x0, x1))
+            slope = (t1 - t0) / (T1 - T0)
+            log(f"K8 [{C}, T], {label}, {form}: {t0:.4f} ms at T = {T0}, "
+                f"{t1:.4f} at {T1}: {slope * clk * 1e3:.2f} cycles a step "
+                f"at {clk:.0f} MHz, {(t0 - slope * T0) * 1e3:.2f} us fixed")
+    del xd, x0, x1, buf
+    # the compiled loops of K8 and K6, and of their earlier designs
+    cuobjdump = os.path.join(os.path.dirname(kernels._nvcc()), "cuobjdump")
+    for so, stem in (("one_pole_v2.so", "one_pole_kernelILb1ELb0E"),
+                     (info["path"], "one_pole_kernelILi0ELb1E"),
+                     (info["path"], "one_pole_kernelILi2ELb1E"),
+                     ("conv_k3_v1.so", "conv_k3_kernel"),
+                     (info["path"], "conv_k3_kernelILb1E")):
+        so = os.path.join(kernels.BUILD_DIR, so)
+        for line in (sass_loops(cuobjdump, so, stem)
+                     if os.path.isfile(cuobjdump) else ["no cuobjdump"]):
+            log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 3. the paths at C=320 ----------------------------------------------
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
@@ -2163,19 +2357,36 @@ def main() -> int:
         n_exact = int((got.cpu().numpy()[:-2] == info[:-2]).all(1).sum())
         k_ms = cuda_ms(lambda: fdev.conv_k3_decode_batch(wt), 20)
         plain_ms = cuda_ms(lambda: fdev.conv_k3_decode_plain(wt), 1)
+        # the first design (csrc/alt/conv_k3_v1.cu), held to the kernel
+        v1_out = torch.empty_like(got)
+
+        def v1():
+            kernels.check(alt["conv_k3_v1"].dsd_conv_k3(
+                wt.data_ptr(), v1_out.data_ptr(), n, 330,
+                kernels.stream_handle(wt)), "conv_k3_v1")
+        v1()
+        if not torch.equal(v1_out, got):
+            raise RuntimeError("K6's first design disagrees with K6")
+        v1_ms = cuda_ms(v1, 20)
         b_ms, b_by = bound(nbytes(wt, got), 0)
         floor_ms = 330 * K6_CHAIN_CYCLES / (clk * 1e3)
         log(f"K6 conv_k3 [{n},660] -> [{n},330]: bits equal the plain "
             f"version's (tol 0) on codewords with 0-3 flipped bits and on "
             f"the all-zero and all-one words; {n_exact}/{n - 2} codewords "
             f"decode to their data")
+        pred = K6_PREDICTED_MS.get(n)
+        before = K6_BEFORE_MS.get(n)
         show("conv_k3", 0.0, k_ms, plain_ms, b_ms, b_by,
              f"; chain floor ~{floor_ms:.5f} ms (330 steps x "
              f"{K6_CHAIN_CYCLES} cycles at {clk:.0f} MHz), "
-             f"{100 * floor_ms / k_ms:.2f}% of it; launches per path run "
-             f"{launches_path}", shape=shape)
+             f"{100 * floor_ms / k_ms:.2f}% of it; predicted "
+             f"{'-'.join(map(str, pred)) if pred else 'no prediction'} ms; "
+             f"first design {v1_ms:.4f} ms in this run (recorded "
+             f"{before} ms); launches per path run {launches_path}",
+             shape=shape)
         (report["conv_k3"] if shape is None else
-         report["conv_k3"]["other_shapes"][-1])["chain_floor_ms"] = floor_ms
+         report["conv_k3"]["other_shapes"][-1]).update(
+            chain_floor_ms=floor_ms, predicted_ms=pred, before_ms=before)
 
     def check_k5_m17(n, launches_path):
         """K5 at M17's word count on M17-like inputs: random 144-bit
@@ -2270,24 +2481,23 @@ def main() -> int:
 
     def conditioned(label):
         """``post`` of the voice paths: the CLI's conditioning of each
-        block's decoded PCM on the card (de-emphasis "nfm", the 3400 Hz
-        low-pass: K8 twice), held bit for bit to the plain version on f16
-        block 0, whose PCM K8 is timed at after the path's run."""
+        block's decoded PCM on the card (de-emphasis "nfm" then the 3400
+        Hz low-pass: one K8 cascade launch), held bit for bit to two
+        plain calls on f16 block 0, whose PCM K8 is timed at after the
+        path's run."""
         def post(pcm, fmt, blk):
             x = torch.as_tensor(pcm, device=dev)
             y = af.condition_audio(x, deemph="nfm", audio_lpf_hz=3400)
             if fmt == "f16" and blk == 0:
-                want = af.one_pole_plain(
-                    af.one_pole_plain(x, af.deemphasis_pole(8000.0, 750.0)),
-                    af.lowpass_pole(8000.0, 3400.0))
-                n_diff = int((y != want).sum())
+                plain = k8_plain(x)
+                n_diff = int((y != plain[2]).sum())
                 log(f"{label}: condition_audio(nfm, 3400 Hz) on the decoded "
                     f"{list(x.shape)} PCM on the card: {n_diff} samples "
                     "differ from the plain version (tol 0)")
                 if n_diff or not torch.isfinite(y).all():
                     raise RuntimeError(f"{label}: K8 on the decoded PCM "
                                        "disagrees with its plain version")
-                k8_pcm[label] = x
+                k8_pcm[label] = x, plain
         return post
 
     def burst_frames(pipe):
@@ -2336,14 +2546,19 @@ def main() -> int:
             xblocks, C, burst_frames, judge, (k3fn, k8fn), idle8,
             cls(2, FS, device="cpu", tables=params.load_burst(kind, "cpu")),
             post=conditioned(label))
-        k_ms, b_ms, b_by, floor_ms = time_k8(k8_pcm[label])
-        show("one_pole", 0.0, k_ms, float("nan"), b_ms, b_by,
-             f"; chain floor ~{floor_ms:.4f} ms, {100 * floor_ms / k_ms:.1f}"
-             f"% of it; at the {label}'s decoded PCM; launches per path "
-             f"run {launches[kind]['one_pole']}",
-             shape=list(k8_pcm[label].shape))
-        report["one_pole"]["other_shapes"][-1].update(
-            chain_floor_ms=floor_ms, plain_ms=None)
+        # two formats x two blocks, one cascade launch each
+        if launches[kind]["one_pole"] != 4:
+            raise RuntimeError(f"{label}: K8 launched "
+                               f"{launches[kind]['one_pole']}x on the path, "
+                               "expected 4 (one cascade a block)")
+        pcm, (y_de, ms_de, y_cas, ms_cas) = k8_pcm[label]
+        for cascade, want, ms in ((False, y_de, ms_de),
+                                  (True, y_cas, ms_cas)):
+            show_k8(pcm, cascade, want, ms,
+                    f"; at the {label}'s decoded PCM; launches per path "
+                    f"run {launches[kind]['one_pole']}",
+                    shape=list(pcm.shape))
+        del pcm, y_de, y_cas
         if kind == "ysf":
             pipe = cls(C, FS, pcm_fmt="adpcm", tables=bt)
             topk_fill(pipe, pipe.frontend_sync_device(xblocks[0]), label)

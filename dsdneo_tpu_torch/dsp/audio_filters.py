@@ -76,12 +76,11 @@ def one_pole_plain(x: torch.Tensor, a: float, diff: bool = False
     return _ftz(x - out) if diff else out
 
 
-def one_pole(x: torch.Tensor, a: float, diff: bool = False) -> torch.Tensor:
-    """One-pole IIR over the last axis of ``x`` ``[R, T]`` float32: ``y``,
-    or ``x − y`` when ``diff``.  A CUDA tensor launches kernel K8; a CPU
-    tensor runs :func:`one_pole_plain`."""
-    if x.device.type == "cpu":
-        return one_pole_plain(x, a, diff)
+def _one_pole_card(x: torch.Tensor, mode: int, a: float, a2: float = 0.0
+                   ) -> torch.Tensor:
+    """Kernel K8 on ``x`` ``[R, T]`` float32 on the card: ``mode`` 0
+    gives ``y``, 1 ``x − y``, 2 the cascade of pole ``a`` then pole
+    ``a2``.  Counts its launch on :func:`one_pole`."""
     if x.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)}: expected [R, T]")
     kernels.require(x, "x", torch.float32, contiguous=False)
@@ -89,16 +88,35 @@ def one_pole(x: torch.Tensor, a: float, diff: bool = False) -> torch.Tensor:
     R, T = x.shape
     out = torch.empty_like(x)
     if R and T:
-        af, bf = _coeffs(a)
         err = kernels.load().dsd_one_pole(
-            x.data_ptr(), out.data_ptr(), R, T, af, bf, int(diff),
-            kernels.stream_handle(x))
+            x.data_ptr(), out.data_ptr(), R, T, *_coeffs(a), *_coeffs(a2),
+            mode, kernels.stream_handle(x))
         kernels.check(err, "one_pole")
         one_pole.launches += 1
     return out
 
 
+def one_pole(x: torch.Tensor, a: float, diff: bool = False) -> torch.Tensor:
+    """One-pole IIR over the last axis of ``x`` ``[R, T]`` float32: ``y``,
+    or ``x − y`` when ``diff``.  A CUDA tensor launches kernel K8; a CPU
+    tensor runs :func:`one_pole_plain`."""
+    if x.device.type == "cpu":
+        return one_pole_plain(x, a, diff)
+    return _one_pole_card(x, int(diff), a)
+
+
 one_pole.launches = 0
+
+
+def one_pole_cascade(x: torch.Tensor, a: float, a2: float) -> torch.Tensor:
+    """The one-pole IIR of pole ``a`` and then that of pole ``a2`` over
+    the last axis of ``x`` ``[R, T]`` float32, equal bit for bit to two
+    :func:`one_pole` calls.  A CUDA tensor launches kernel K8 once (both
+    recurrences in one pass); a CPU tensor runs :func:`one_pole_plain`
+    twice, its plain version."""
+    if x.device.type == "cpu":
+        return one_pole_plain(one_pole_plain(x, a), a2)
+    return _one_pole_card(x, 2, a, a2)
 
 
 def deemphasis_pole(fs: float, tau_us: float) -> float:
@@ -142,11 +160,15 @@ def condition_audio(pcm: torch.Tensor, deemph: str = "",
     positive, the ``DSD_NEO_DEEMPH`` de-emphasis (``"50"``, ``"75"`` or
     ``"nfm"``; ``""`` and ``"off"`` skip it) and the
     ``DSD_NEO_AUDIO_LPF`` one-pole low-pass when ``audio_lpf_hz`` is
-    positive."""
+    positive.  With both filters on, one :func:`one_pole_cascade` runs
+    them."""
     pcm = pcm.to(torch.float32)
     if gain > 0:
         pcm = pcm * (gain / 25.0)
     tau = DEEMPH_TAU_US.get(deemph)
+    if tau is not None and audio_lpf_hz > 0:
+        return one_pole_cascade(pcm, deemphasis_pole(8000.0, tau),
+                                lowpass_pole(8000.0, float(audio_lpf_hz)))
     if tau is not None:
         pcm = deemphasis(pcm, fs=8000.0, tau_us=tau)
     if audio_lpf_hz > 0:

@@ -44,6 +44,7 @@ CXX_FLAGS = ["-O2", "-fPIC", "-shared", "-std=c++17", "-pthread"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
+_F = ctypes.c_float
 # C entry points of the card library: name → argtypes (each returns int,
 # a cudaError_t)
 _SIGNATURES = {
@@ -64,9 +65,9 @@ _SIGNATURES = {
     "dsd_conv_k5": [_P, _P, _I, _P, _I, _I, _P],
     # bits, out, N, n, stream
     "dsd_conv_k3": [_P, _P, _I, _I, _P],
-    # x, out, R, T, a, b, diff, stream
-    "dsd_one_pole": [_P, _P, _I, _I, ctypes.c_float, ctypes.c_float, _I,
-                     _P],
+    # x, out, R, T, a, b, a2, b2, mode (0 y, 1 x - y, 2 the cascade),
+    # stream
+    "dsd_one_pole": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {

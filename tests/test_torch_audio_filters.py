@@ -10,7 +10,10 @@ CPU.
     coefficients;
   - ``fma_f32_rn`` against the exactly rounded ``a·b + c``;
   - ``condition_audio`` against ``cli._condition_audio`` for every
-    de-emphasis curve, low-pass and gain, bit for bit;
+    de-emphasis curve, low-pass and gain, bit for bit, and with both
+    filters on (the cascade) against the JAX de-emphasis then low-pass
+    in one ``jax.jit``, on audio whose silent stretch decays into the
+    flushed subnormals;
   - the host classes (``AutoGain``, ``AudioGate``, ``AudioConcealer``):
     equal outputs and state over a sequence of blocks.
 """
@@ -108,6 +111,23 @@ def test_condition_audio_equals_the_cli(deemph, lpf, gain):
                       np.float32)
     got = P.condition_audio(torch.as_tensor(x), deemph, lpf, gain)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("deemph, tau", [("50", 50.0), ("75", 75.0),
+                                         ("nfm", 750.0)])
+@pytest.mark.parametrize("lpf", [3400, 2500])
+def test_condition_audio_cascade_equals_the_jitted_filters(deemph, tau, lpf):
+    """Both filters on (the cascade: ``one_pole_plain`` twice on the CPU)
+    against the JAX de-emphasis then low-pass inside one ``jax.jit``."""
+    x = _audio("silence")
+    want = np.asarray(jax.jit(lambda v: J.audio_lpf(
+        J.deemphasis(v, fs=8000.0, tau_us=tau), fs=8000.0, fc=float(lpf)))(
+        jnp.asarray(x)))
+    got = P.condition_audio(torch.as_tensor(x), deemph, lpf)
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    # the silent stretch decays through the subnormals to flushed zeros
+    assert (want[:, 1899] == 0).any()
 
 
 def test_host_classes_equal_the_jax_package():

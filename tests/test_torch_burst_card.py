@@ -2,13 +2,16 @@
 card.
 
 K8 (the one-pole IIR of the audio filters) against its plain PyTorch
-version, bit for bit, behind all four filters: 4-aligned rows, a ragged
-length and an unaligned view (the kernel's 4-byte copies), and a silent
-stretch (both flush subnormals to zero); ``condition_audio`` on the
-card against the CPU; each path's card run against its CPU path on two
-channels, two blocks with the carry or the contexts kept: the same
-accepted frames, bits and error counts, the f16 PCM within 2e-3 of the
-peak (YSF, dPMR), the same blobs and event lines (EDACS).
+version, bit for bit, behind all four filters: 4-aligned rows, the YSF
+and dPMR PCM shapes, ragged lengths, one step, a row shorter than a
+tile, one row and 33, each also as a view 4 bytes off alignment (the
+bulk copies' 16-byte-aligned supersets), with a silent stretch (both
+flush subnormals to zero); the cascade (de-emphasis then low-pass in
+one launch) against two plain calls; every mode of the kernel; ``condition_audio`` on the card against the CPU; each path's
+card run against its CPU path on two channels, two blocks with the
+carry or the contexts kept: the same accepted frames, bits and error
+counts, the f16 PCM within 2e-3 of the peak (YSF, dPMR), the same blobs
+and event lines (EDACS).
 
 Every test needs a card (``cuda`` marker; skips without one) and none
 imports JAX, so this file runs on the card's machine:
@@ -17,6 +20,8 @@ The CPU paths are held to the JAX package by
 ``test_torch_audio_filters.py``, ``test_torch_ysf.py``,
 ``test_torch_dpmr.py`` and ``test_torch_edacs.py``.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -48,19 +53,88 @@ def _audio(R, T, seed):
     return x
 
 
+def _on_card(x, dev, offset=0):
+    """``x`` on the card, ``offset`` floats into its buffer (1: a view 4
+    bytes off the 16-byte alignment of the kernel's bulk copies)."""
+    buf = torch.zeros(x.size + offset, dtype=torch.float32, device=dev)
+    buf[offset:] = torch.as_tensor(x.ravel(), device=dev)
+    return buf[offset:].view(x.shape)
+
+
+@functools.lru_cache(maxsize=None)
+def _plain(name, shape):
+    """The filter ``name`` on the CPU (its plain version) of the audio of
+    ``shape``, once for both offsets."""
+    return getattr(af, name)(torch.as_tensor(_audio(*shape, seed=shape[1])))
+
+
+# the YSF and dPMR paths' decoded PCM, a ragged length, one step, a row
+# shorter than a tile, a length that is not a multiple of the tile, one
+# row and 33 rows (one past a block of 8, 16 or 32)
+K8_SHAPES = [(64, 4096), (33, 1037), (5, 130), (320, 22400), (320, 17920),
+             (320, 4001), (7, 1), (1, 100), (1, 4001), (33, 4096)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(64, 4096), (33, 1037), (5, 130)])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", K8_SHAPES)
 @pytest.mark.parametrize("name", FILTERS)
-def test_k8_matches_plain(name, shape):
+def test_k8_matches_plain(name, shape, offset):
     dev = _card()
     x = _audio(*shape, seed=shape[1])
     before = af.one_pole.launches
-    got = getattr(af, name)(torch.as_tensor(x, device=dev))
+    got = getattr(af, name)(_on_card(x, dev, offset))
     torch.cuda.synchronize()
-    want = getattr(af, name)(torch.as_tensor(x))
+    want = _plain(name, shape)
     assert af.one_pole.launches == before + 1
     assert got.dtype == torch.float32 and got.shape == shape
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("shape", [(320, 22400), (320, 17920), (33, 4001),
+                                   (1, 1), (9, 300)])
+def test_k8_cascade_is_one_launch_of_two_filters(shape, offset):
+    """``condition_audio`` with de-emphasis and low-pass on makes one K8
+    launch (the cascade), equal bit for bit to two ``one_pole_plain``
+    calls; ``one_pole_cascade`` with other poles likewise."""
+    dev = _card()
+    x = _audio(*shape, seed=shape[1] + 1)
+    xc = _on_card(x, dev, offset)
+    before = af.one_pole.launches
+    got = af.condition_audio(xc, "nfm", 3400)
+    torch.cuda.synchronize()
+    assert af.one_pole.launches == before + 1
+    de, lp = af.deemphasis_pole(8000.0, 750.0), af.lowpass_pole(8000.0,
+                                                                3400.0)
+    assert torch.equal(got.cpu(), _plain_cascade(shape, de, lp))
+    got = af.one_pole_cascade(xc, 0.3, 0.95)
+    assert torch.equal(got.cpu(), _plain_cascade(shape, 0.3, 0.95))
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_cascade(shape, a, a2):
+    """Two ``one_pole_plain`` calls, poles ``a`` then ``a2``, on the CPU
+    on the cascade test's audio of ``shape``."""
+    x = torch.as_tensor(_audio(*shape, seed=shape[1] + 1))
+    return af.one_pole_plain(af.one_pole_plain(x, a), a2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_k8_every_mode(mode):
+    """The kernel's three modes (y, x - y, the cascade) with other poles,
+    on 4-aligned and ragged rows, aligned and not, over block edges (8
+    rows a block)."""
+    dev = _card()
+    for shape, offset in (((70, 1024), 0), ((41, 1037), 0), ((41, 1037), 1)):
+        x = _audio(*shape, seed=3 + mode)
+        got = af._one_pole_card(_on_card(x, dev, offset), mode, 0.9, 0.4)
+        xt = torch.as_tensor(x)
+        want = (af.one_pole_plain(af.one_pole_plain(xt, 0.9), 0.4)
+                if mode == 2 else af.one_pole_plain(xt, 0.9, bool(mode)))
+        assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda

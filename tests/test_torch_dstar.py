@@ -5,7 +5,10 @@
     point ``conv_k3_decode_batch`` on CPU tensors) against the JAX
     ``conv_k3_decode_batch`` and the host ``_viterbi_k3``, bit for bit:
     header codewords with 0-2 injected errors, random words, and the
-    tie-heavy all-zero and all-one words;
+    tie-heavy all-zero and all-one words; and the card kernel's own
+    arithmetic (metrics less the common branch cost, the byte-table
+    traceback), modelled in numpy, against the JAX function on any
+    uint8 input;
   - ``fec.device.dstar_ambe_ecc_batch`` against the JAX function on
     encoded frames with 0-3 errors and on random frames: parameters and
     error counts equal;
@@ -95,6 +98,67 @@ def test_k6_plain_short_words():
         np.testing.assert_array_equal(
             tdev.conv_k3_decode_plain(torch.as_tensor(w)).numpy(),
             np.asarray(jdev.conv_k3_decode_batch(jnp.asarray(w))))
+
+
+def _k6_kernel_model(words):
+    """Kernel K6's arithmetic (``csrc/conv_k3.cu``) in numpy: the metrics
+    kept less the branch cost s1 + s0 every candidate carries (u = +1
+    for a zero input, -1 otherwise), each state's take bit set only when
+    pb is strictly cheaper, the end state the first of least metric, and
+    the traceback through each step's byte table of next states (byte st
+    holds (st >> 1) + 2 * take_b(st)).  Returns the bits and the largest
+    metric magnitude seen."""
+    N, n = words.shape[0], words.shape[1] // 2
+    s1 = words[:, 0::2].astype(np.int64)
+    s0 = words[:, 1::2].astype(np.int64)
+    m = np.zeros((N, 4), np.int64)
+    takes = np.zeros((N, n), np.int64)
+    peak = 0
+    for t in range(n):
+        u1 = np.where(s1[:, t] == 0, 1, -1)
+        u0 = np.where(s0[:, t] == 0, 1, -1)
+        w = u1 + u0
+        pairs = ((m[:, 0], m[:, 2] + w), (m[:, 0] + w, m[:, 2]),
+                 (m[:, 1] + u1, m[:, 3] + u0), (m[:, 1] + u0, m[:, 3] + u1))
+        new = []
+        for k, (a, b) in enumerate(pairs):
+            took_b = b < a
+            takes[:, t] |= took_b.astype(np.int64) << k
+            new.append(np.where(took_b, b, a))
+        m = np.stack(new, axis=1)
+        peak = max(peak, int(np.abs(m).max()))
+    st = np.argmin(m, axis=1)
+    out = np.zeros((N, n), np.uint8)
+    for t in range(n - 1, -1, -1):
+        out[:, t] = st & 1
+        table = 0x01010000 + 2 * ((takes[:, t] * 0x00204081) & 0x01010101)
+        st = (table >> (8 * st)) & 0xFF
+    return out, peak
+
+
+@pytest.mark.parametrize("kind", ["codewords", "bytes", "sparse", "ties"])
+def test_k6_kernel_arithmetic_decides_as_the_jax_function(kind):
+    """The card kernel's reformulation (relative metrics, the byte-table
+    traceback) against the jitted JAX function, bit for bit, on any
+    uint8 input; the metrics stay within +-2n."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "codewords":
+        words = _k3_words(rng, 12)
+    elif kind == "bytes":
+        words = rng.integers(0, 256, (24, 660)).astype(np.uint8)
+    elif kind == "sparse":
+        words = (rng.integers(0, 256, (24, 98)) *
+                 (rng.random((24, 98)) < 0.3)).astype(np.uint8)
+    else:
+        words = np.stack([np.zeros(40, np.uint8), np.ones(40, np.uint8),
+                          np.full(40, 255, np.uint8),
+                          np.tile([0, 1], 20).astype(np.uint8),
+                          np.tile([1, 0, 0, 1], 10).astype(np.uint8)])
+    got, peak = _k6_kernel_model(words)
+    want = np.asarray(jax.jit(jdev.conv_k3_decode_batch)(
+        jnp.asarray(words)))
+    np.testing.assert_array_equal(got, want)
+    assert peak <= words.shape[1]
 
 
 def test_dstar_ambe_ecc_matches_jax(tables):

@@ -2,7 +2,9 @@
 
 K6 (the D-STAR header's K=3 Viterbi) against its plain PyTorch version,
 bits identical, on header codewords with errors, random words, the
-tie-heavy all-zero and all-one words and an unaligned view; K5 (the
+tie-heavy all-zero and all-one words, at word counts around its 32-word
+blocks up to 65,536 and at 1, 7, 330 and 512 steps, on an unaligned view
+and odd steps; more than 512 steps refused; K5 (the
 K=5 Viterbi of M17's stream frames) at M17's 148 steps with its stride-0
 P2 weight row, at batch sizes around its 32-word tiles; the gated
 front end on the card against its CPU path with cuDNN's TF32 switch on
@@ -45,46 +47,73 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _k3_words(n, seed):
-    """Codewords of the K=3 code (the encoder's lattice run forward) with
-    0-3 flipped bits, random words, all-zero and all-one words."""
+def _k3_words(n, seed, steps=330):
+    """``n`` codewords of ``steps`` steps of the K=3 code (random info
+    bits, the last two 0 where there are three or more; the encoder
+    vectorized and held to the lattice run forward on the first words)
+    with 0-3 flipped bits, then 8 random words and the all-zero and
+    all-one words: [n + 10, 2 * steps] uint8."""
     rng = np.random.default_rng(seed)
-    trans = fdev.K3_TRANS
-    words = []
-    for i in range(n):
-        st, w = 0, []
-        for b in np.concatenate([rng.integers(0, 2, 328), [0, 0]]):
-            ns = ((st << 1) | int(b)) & 3
-            pa, a1, a0, _pb, b1, b0 = trans[ns]
-            w += [a1, a0] if st == pa else [b1, b0]
+    info = rng.integers(0, 2, (n, steps))
+    if steps >= 3:
+        info[:, -2:] = 0
+    b1 = np.pad(info, ((0, 0), (1, 0)))[:, :-1]
+    b2 = np.pad(info, ((0, 0), (2, 0)))[:, :-2]
+    w = np.stack([info ^ b1 ^ b2, info ^ b2], -1).reshape(n, 2 * steps)
+    for i in range(min(n, 3)):
+        st, ref = 0, []
+        for b in info[i].tolist():
+            ns = ((st << 1) | b) & 3
+            pa, a1, a0, _pb, c1, c0 = fdev.K3_TRANS[ns]
+            ref += [a1, a0] if st == pa else [c1, c0]
             st = ns
-        w = np.array(w, np.uint8)
-        w[rng.choice(660, size=i % 4, replace=False)] ^= 1
-        words.append(w)
-    words += [rng.integers(0, 2, 660).astype(np.uint8) for _ in range(8)]
-    words += [np.zeros(660, np.uint8), np.ones(660, np.uint8)]
-    return np.stack(words)
+        assert np.array_equal(w[i], ref)
+    w = w.astype(np.uint8)
+    k = np.arange(n) % 4
+    for j in range(3):
+        pos = rng.integers(0, 2 * steps, n)
+        w[np.arange(n)[k > j], pos[k > j]] ^= 1
+    rest = [rng.integers(0, 2, (8, 2 * steps)).astype(np.uint8),
+            np.zeros((1, 2 * steps), np.uint8),
+            np.ones((1, 2 * steps), np.uint8)]
+    return np.concatenate([w, *rest])
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [30, 4099])
-def test_k6_matches_plain(n):
+@pytest.mark.parametrize("N, steps", [
+    (0, 330), (1, 330), (31, 330), (32, 330), (33, 330), (888, 330),
+    (4099, 330), (65536, 330), (40, 1), (40, 7), (75, 512), (4099, 512)])
+def test_k6_matches_plain(N, steps):
+    """``N`` words (the random, all-zero and all-one words first) of
+    ``steps`` steps, bits identical to the plain version's."""
     dev = _card()
-    words = _k3_words(n, n)
+    words = _k3_words(max(N - 10, 0), N, steps)
+    words = np.concatenate([words[-10:], words[:-10]])[:N]
     want = fdev.conv_k3_decode_plain(torch.as_tensor(words))
     before = fdev.conv_k3_decode_batch.launches
     got = fdev.conv_k3_decode_batch(torch.as_tensor(words, device=dev))
     torch.cuda.synchronize()
-    assert fdev.conv_k3_decode_batch.launches == before + 1
+    assert fdev.conv_k3_decode_batch.launches == before + (N > 0)
+    assert got.shape == (N, steps) and got.dtype == torch.uint8
     assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.cuda
-def test_k6_takes_unaligned_and_odd_views():
-    """An input one byte into a buffer (off the 4-byte loads), and an odd
-    step count (off the 2-byte stores), decode as the plain version."""
+def test_k6_refuses_more_than_512_steps():
     dev = _card()
-    words = _k3_words(64, 3)
+    with pytest.raises(RuntimeError):
+        fdev.conv_k3_decode_batch(torch.zeros((4, 1026), dtype=torch.uint8,
+                                              device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64, 4099])
+def test_k6_takes_unaligned_and_odd_views(n):
+    """An input one byte into a buffer (rows off the 4-byte copies and
+    16-byte reads), and an odd step count (odd row lengths), decode as
+    the plain version."""
+    dev = _card()
+    words = _k3_words(n, 3)
     buf = torch.zeros(words.size + 1, dtype=torch.uint8, device=dev)
     buf[1:] = torch.as_tensor(words.ravel(), device=dev)
     got = fdev.conv_k3_decode_batch(buf[1:].view(words.shape))
