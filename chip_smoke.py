@@ -22,10 +22,11 @@ The paths, each at 320 channels through the entry points a user calls:
     8 superframes, 640 output streams; K1, K3;
   - NXDN48: ``BatchedNxdnVoicePipeline(320, mode="nxdn48")``, 3 s blocks
     of 36 full-voice frames per channel; K1, K3;
-  - ADP: ``BatchedP2VoicePipeline(16, keyring=...)`` on an ADP/RC4
-    encrypted stream; K1, K3 and K7 (the RS syndrome screen of the ESS).
-    16 channels: the RC4 keystream is host Python, and encrypted
-    traffic at 320 channels would measure that, not the card;
+  - ADP: ``BatchedP2VoicePipeline(320, keyring=...)`` on an ADP/RC4
+    encrypted stream, 1.457 s blocks; K1, K3 and K7 (the RS syndrome
+    screen of the ESS, ~2,330 words a block).  The RC4 keystream is
+    host Python, so the step measures the host's ESS work, which its
+    own stage shows;
   - YSF and dPMR: ``BatchedYsfVoicePipeline(320)``,
     ``BatchedDpmrVoicePipeline(320)``, 3 s blocks of bursty voice behind
     the gated front end; K3, and K8 (the one-pole IIR) in the CLI's
@@ -44,8 +45,8 @@ Phases, in order; any failure exits non-zero:
      seed; on CQPSK also an own carrier offset within ±300 Hz) built
      from the test vectors in ``dsdneo_tpu_torch/data``; the AMBE
      families' leads are 0-96 random dibits; the build log must show
-     every instance of K4, K5, K6 and K8 without local memory (no stack
-     frame, no spills);
+     every instance of K4, K5, K6, K7 and K8 without local memory (no
+     stack frame, no spills);
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes, with its time, its bound (the larger of bytes over
      3.35 TB/s and operations over the 67 TFLOP/s FP32 peak; for the
@@ -55,8 +56,7 @@ Phases, in order; any failure exits non-zero:
      K3 at [320, 25920] and at the DMR path's [320, 46080]; K1 at the
      X2, P2 and NXDN48 blocks; K3 at P2's [640, 23040] and NXDN48's
      [320, 23040] (held to its plain version on 32 rows: the plain loop
-     takes ~18 s at [320, 46080]); K7 at the ADP phase's word count and
-     at 20,480 words, half of them clean RS(63,35) codewords; and the RRC
+     takes ~18 s at [320, 46080]); and the RRC
      matched filter (``dsp.frontend.fir_complex``, 81 taps,
      [320, 144000] complex) on the card against the CPU on channels 0-1,
      with cuDNN's TF32 switch on around it;
@@ -94,9 +94,24 @@ Phases, in order; any failure exits non-zero:
      the card is not below the CPU path's on channels 0-1.  On X2, P2
      and NXDN48 the card's PCM of channels 0-1 is held to the CPU
      path's up to the first frame whose bits differ.
-  4. the ADP phase: with the key in the keyring every frame from the
-     second superframe on decodes to the vector's plaintext bits and
-     the first superframe stays cipher; K7 is launched.
+  4. the ADP phase at 320 channels through the AMBE paths' loop (f16
+     and adpcm, two blocks with the carry kept): with the key in the
+     keyring every one of the 640 slot streams decodes every frame from
+     the second superframe on to the vector's plaintext bits, the first
+     block's first superframe stays cipher, the PCM is finite, channels
+     0-1 equal the CPU path, and K7 launches once a block; timed
+     (pipelined, stage split with the decode's ESS path and its job,
+     word, host-decode and RC4 counts, profile).  Then K7 against its
+     plain version at the path's word count and at 5,120 and 20,480
+     words, half of them clean RS(63,35) codewords, bit for bit, with
+     the designs it replaced or beat (``csrc/alt/rs_syndromes_v1.cu``,
+     the first; ``rs_syndromes_v2.cu``, bit-sliced;
+     ``rs_syndromes_mma.cu``, the product on int8 mma; each held bit for
+     bit to it), an empty launch, the ESS path's call (host words, and
+     the words uploaded first, the form before) and the library
+     yardstick (an f32 ``torch.matmul`` of the words' bit planes by the
+     code's GF(2) parity matrix, mod 2, repacked; the port never calls
+     it) timed in the same call, and the SASS of every design's loops.
   5. the control-channel monitors (P25 TSBK with K1 and K4, DMR CSBK with
      K1, NXDN CAC with K1 and K5) at 320 channels, 3 s blocks, two
      blocks with the contexts kept: every block a channel's block holds
@@ -245,8 +260,15 @@ K4_SYNTH_N = 131072           # K4's and K5's larger grids (words)
 K5_SYNTH_N = 65536
 SPIN_CYCLES = 20_000_000     # ~10 ms: the card's lead over the host in cuda_ms
 TDMA_MAX_LEAD = 96           # X2, P2, NXDN leading offsets (dibits)
-ADP_C = 16                   # channels of the encrypted P2 phase
-K7_SYNTH_N = 20480           # K7's large synthetic word count
+K7_SHAPES_N = (5120, 20480)  # K7's word counts beside the path's: the
+                             # clear P2 block's with a keyring, synthetic
+# K7's first design at 20,480 words (PERF.md section 6; NVIDIA H100 80GB
+# HBM3, 700 W), and K7's targets by word count ("path": the ADP path's
+# ~2,330 words): at most this many ms above an empty launch
+# ("above_empty") or in all ("ms")
+K7_BEFORE_MS = {20480: 0.0256}
+K7_TARGET = {"path": ("above_empty", 0.001), 5120: ("above_empty", 0.001),
+             20480: ("ms", 0.0044)}
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
 # kernel names in a profile
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
@@ -255,6 +277,29 @@ OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
 
 def log(*a) -> None:
     print(*a, flush=True)
+
+
+def k7_mma_table(n: int, nroots: int, fcr: int):
+    """The matrix H of K7's int8-mma design (csrc/alt/rs_syndromes_mma.cu),
+    as its lanes read it: uint8 [roots padded to 28, 6 * JP / 32 k-steps,
+    32 lanes, 2 registers, 4 bytes], JP = 32 or 64 symbols.  Row
+    (b, j), k-step s = JP/32 * b + j // 32, is bit b of symbol j; column
+    (i, o) bit o of S_i: bit o of alpha^(b + (n-1-j)(fcr+i)); lane 4g + t
+    holds k = 4t .. 4t + 3 and 16 + 4t .. of column o = g."""
+    import numpy as np
+    from dsdneo_tpu_torch.fec.rs import gf64_tables
+    spb = 1 if n <= 32 else 2
+    R = -(-nroots // 28) * 28
+    gexp, _ = gf64_tables()
+    b, j, i, o = np.ix_(np.arange(6), np.arange(32 * spb), np.arange(R),
+                        np.arange(8))
+    h = (((gexp[(b + (n - 1 - j) * (fcr + i)) % 63] >> np.minimum(o, 5)) & 1)
+         * (j < n) * (i < nroots) * (o < 6))
+    i, s, lane, reg, t = np.ix_(np.arange(R), np.arange(6 * spb),
+                                np.arange(32), np.arange(2), np.arange(4))
+    jj = (s % spb) * 32 + reg * 16 + (lane & 3) * 4 + t
+    return np.ascontiguousarray(h[s // spb, jj, i, lane >> 2]
+                                .astype(np.uint8))
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -295,11 +340,12 @@ def sm_clock_mhz() -> float:
     return float(out.stdout.split()[0])
 
 
-def sass_loops(cuobjdump: str, so: str, stem: str) -> list[str]:
+def sass_loops(cuobjdump: str, so: str, stem: str,
+               whole: bool = False) -> list[str]:
     """The loops of at least 24 instructions (from a backward branch's
     target to its last backward branch) of the first function of library
     ``so`` whose name holds ``stem``, from ``cuobjdump -sass``: the size
-    and instruction mix of each."""
+    and instruction mix of each; with ``whole``, first the function's."""
     import collections
     import re
     import subprocess
@@ -317,16 +363,18 @@ def sass_loops(cuobjdump: str, so: str, stem: str) -> list[str]:
         m = re.search(r"\bBRA (0x[0-9a-f]+)", op)
         if m and int(m.group(1), 16) <= a:
             ends[int(m.group(1), 16)] = a
-    out = []
+    def mix(body, top):
+        c = collections.Counter(re.sub(r"^@!?U?P[0-9T]+\s+", "", op).split()[0]
+                                for op in body)
+        return ", ".join(f"{k} {v}" for k, v in c.most_common(top))
+
+    out = ([f"whole function: {len(ops)} instructions ("
+            + mix([op for _a, op in ops], 12) + ")"] if whole else [])
     for lo, hi in sorted(ends.items()):
         body = [op for a, op in ops if lo <= a <= hi]
         if len(body) >= 24:
-            mix = collections.Counter(
-                re.sub(r"^@!?U?P[0-9T]+\s+", "", op).split()[0]
-                for op in body)
             out.append(f"loop at 0x{lo:x}: {len(body)} instructions ("
-                       + ", ".join(f"{k} {v}" for k, v in
-                                   mix.most_common(8)) + ")")
+                       + mix(body, 8) + ")")
     return out or [f"no loop of 24 instructions ({len(ops)} in all)"]
 
 
@@ -372,11 +420,14 @@ def check_launches(label: str, counted, runs, idle) -> dict:
     return launches
 
 
-def time_path(label: str, ident: str, pipe, blocks, block_s: float, pick):
+def time_path(label: str, ident: str, pipe, blocks, block_s: float, pick,
+              part=None):
     """The pipelined loop of the JAX package's bench over ``N_TIMED``
     blocks, the stage split of one block, and a profile of two blocks.
-    ``pick(pipe, fe6)`` is the path's host picker.  Returns the step in
-    seconds."""
+    ``pick(pipe, fe6)`` is the path's host picker; ``part``, where given,
+    is (name, fn): ``fn(pipe)``, read after the split's decode, returns
+    the seconds of a part of "pick + voice decode" that the pipeline
+    times itself, and a line on it.  Returns the step in seconds."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -416,11 +467,17 @@ def time_path(label: str, ident: str, pipe, blocks, block_s: float, pick):
     h = pipe.decode_from_frontend(fe6)
     torch.cuda.synchronize()
     stages["pick + voice decode"] = time.perf_counter() - t1
+    note = ""
+    if part is not None:
+        sec, line = part[1](pipe)
+        stages[f"of which {part[0]}"] = sec
+        note = f"; {part[0]}: {line}"
     t1 = time.perf_counter()
     pipe.fetch_pcm(h)
     stages["PCM to host + expand"] = time.perf_counter() - t1
     log(f"{label} stages (ms): " + ", ".join(f"{k} {v * 1e3:.1f}"
-                                            for k, v in stages.items()))
+                                            for k, v in stages.items())
+        + note)
 
     # device time by kernel and busy share over two blocks
     torch.cuda.synchronize()
@@ -545,12 +602,15 @@ def main() -> int:
 
     # the designs that lost to the kernels (not shipped), each built by its
     # own nvcc beside the library's build: K4's and K5's lanes per word,
-    # K6's first design, K8's second design and the present K8 at 16 and
-    # 32 rows a block
+    # K6's first design, K7's first, bit-sliced and int8-mma designs, K8's
+    # second design and the present K8 at 16 and 32 rows a block
     import ctypes
     import subprocess
     alt_src = {"viterbi_lanes": ("alt/viterbi_lanes.cu", []),
                "conv_k3_v1": ("alt/conv_k3_v1.cu", []),
+               "rs_syndromes_v1": ("alt/rs_syndromes_v1.cu", []),
+               "rs_syndromes_v2": ("alt/rs_syndromes_v2.cu", []),
+               "rs_syndromes_mma": ("alt/rs_syndromes_mma.cu", []),
                "one_pole_v2": ("alt/one_pole_v2.cu", []),
                "one_pole_rows16": ("one_pole.cu", ["-DDSD_K8_ROWS=16"]),
                "one_pole_rows32": ("one_pole.cu", ["-DDSD_K8_ROWS=32"])}
@@ -584,6 +644,15 @@ def main() -> int:
         ctypes.c_int, ctypes.c_void_p]
     alt["conv_k3_v1"].dsd_conv_k3.argtypes = kernels._SIGNATURES[
         "dsd_conv_k3"]
+    # words, exp table, log table, out, N, n, nroots, fcr, stream
+    alt["rs_syndromes_v1"].dsd_rs_syndromes.argtypes = [
+        ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # words, exp table, out, N, n, nroots, fcr, stream
+    alt["rs_syndromes_v2"].dsd_rs_syndromes.argtypes = [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    # words, table (k7_mma_table), out, N, n, nroots, stream
+    alt["rs_syndromes_mma"].dsd_rs_syndromes_mma.argtypes = [
+        ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     # x, out, R, T, a, b, diff, stream: one filter a launch
     alt["one_pole_v2"].dsd_one_pole.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
@@ -596,11 +665,12 @@ def main() -> int:
     for line in info["log"].splitlines():
         if "registers" in line or "Compiling entry" in line:
             log("  ptxas:", line.strip())
-    # the instances of K4 (2), K5 (2), K6 (2) and K8 (6: 3 modes x
-    # aligned or not): registers, stack and spills; none may use local
+    # the instances of K4 (2), K5 (2), K6 (2), K7 (1) and K8 (6: 3 modes
+    # x aligned or not): registers, stack and spills; none may use local
     # memory
     want_inst = {"p25_trellis_kernel": 2, "conv_k5_kernel": 2,
-                 "conv_k3_kernel": 2, "one_pole_kernel": 6}
+                 "conv_k3_kernel": 2, "rs_syndromes_kernel": 1,
+                 "one_pole_kernel": 6}
     res = kernels.ptxas_report(info["log"])
     for stem, count in want_inst.items():
         inst = {k: v for k, v in res.items() if stem in k}
@@ -674,8 +744,7 @@ def main() -> int:
     adp = {k[4:]: v for k, v in ptab.test_vector().items()
            if k.startswith("adp_")}
     a_B = len(adp["dibits"]) * 8
-    _atv, _a_leads, a_blocks = tdma_blocks(adp, 8, a_B, encode.tdma_fm_iq,
-                                           ADP_C)
+    _atv, _a_leads, a_blocks = tdma_blocks(adp, 8, a_B, encode.tdma_fm_iq)
     # the control-channel monitors: the vectors of data/cc_tables.npz,
     # 3 s blocks, own lead of 0-96 dibits (a suffix of the vector's
     # filler, which scores no false sync) and own noise per channel
@@ -725,7 +794,7 @@ def main() -> int:
         f"{cfo.min():.1f}..{cfo.max():.1f} Hz); DMR B={d_B} "
         f"({d_block_s:.4f} s) n_sym={d_n_sym}, superframes per channel "
         f"{min(len(w[0]) for w in d_want)}..{max(len(w[0]) for w in d_want)}"
-        f"; X2 B={x_B}, P2 B={p_B}, NXDN48 B={n_B}, ADP C={ADP_C} "
+        f"; X2 B={x_B}, P2 B={p_B}, NXDN48 B={n_B}, ADP "
         f"B={a_B}; control channels B={B}: P25 "
         f"{len(mon['p25'][1]['starts'])} TSDUs, DMR "
         f"{len(mon['dmr'][1]['starts'])} CSBKs, NXDN48 "
@@ -873,56 +942,6 @@ def main() -> int:
     check_k1(x_blocks[0], xtab.taps, shape=[C, x_B])
     check_k1(p_blocks[0], ptab.taps, shape=[C, p_B])
     check_k1(n_blocks[0], ntab.taps, shape=[C, n_B])
-
-    # K7: syndromes of words half of which are clean RS(63,35) codewords
-    # (data combined over GF(64) from the code's 35 unit codewords), the
-    # other half with 1-14 symbols changed
-    code = rs_63_35()
-    gexp, glog = gf64_tables()
-    basis = np.stack([code.encode(np.eye(35, dtype=np.int64)[i])
-                      for i in range(35)])
-
-    def rs_words(n):
-        data = rng.integers(0, 64, size=(n, 35))
-        w = np.zeros((n, 63), np.int64)
-        for i in range(35):
-            m = (data[:, i:i + 1] != 0) & (basis[i] != 0)
-            w ^= np.where(m, gexp[(glog[data[:, i:i + 1]]
-                                   + glog[basis[i]]) % 63], 0)
-        bad = np.arange(n) >= n // 2
-        for r in np.flatnonzero(bad):
-            pos = rng.choice(63, int(rng.integers(1, 15)), replace=False)
-            w[r, pos] ^= rng.integers(1, 64, size=pos.size)
-        return torch.as_tensor(w.astype(np.int32), device=dev), bad
-
-    def check_k7(n, shape=None):
-        words, bad = rs_words(n)
-        got = fdev.rs_syndromes_batch(words, 28, 1)
-        want = fdev.rs_syndromes_plain(words, 28, 1)
-        n_diff = int((got != want).sum())
-        nz = (got != 0).any(1).cpu().numpy()
-        # the kernel's time is the launch's; the entry point first reads
-        # the symbols' range on the host, so each of its calls waits for
-        # the card
-        k_ms = cuda_ms(lambda: fdev.rs_syndromes_launch(words, 28, 1), 50)
-        entry_ms = cuda_ms(lambda: fdev.rs_syndromes_batch(words, 28, 1), 20)
-        plain_ms = cuda_ms(lambda: fdev.rs_syndromes_plain(words, 28, 1), 5)
-        log(f"K7 rs_syndromes [{n},63] -> [{n},28]: {n_diff} syndromes "
-            f"differ (tol 0: bit-identical); clean words screened clean "
-            f"{int((~nz[~bad]).sum())}/{int((~bad).sum())}, changed words "
-            f"flagged {int(nz[bad].sum())}/{int(bad.sum())}")
-        if n_diff or nz[~bad].any() or not nz[bad].all():
-            raise RuntimeError("K7 disagrees with its plain version or "
-                               "with the code")
-        b_ms, b_by = bound(nbytes(words, got), 0)
-        show("rs_syndromes", 0.0, k_ms, plain_ms, b_ms, b_by,
-             f"; the entry point with its range check {entry_ms:.4f} ms",
-             shape=shape)
-
-    # the ADP phase's word count: a 2V ESS word per slot per superframe
-    adp_n = ADP_C * 2 * int(adp["params"][0])
-    check_k7(adp_n)
-    check_k7(K7_SYNTH_N, shape=[K7_SYNTH_N, 63])
 
     # the CQPSK path's matched filter on the card against the CPU, with
     # the process's cuDNN TF32 switch on: fir_complex must not need it off
@@ -1632,37 +1651,235 @@ def main() -> int:
               n_blocks, BLOCK_S, lambda p, fe6: p.pick_frames(*fe6[1:]))
     del n_blocks
 
-    # ADP: the encrypted P2 stream with its key, at 16 channels
+    # -- 4. ADP: the encrypted P2 stream with its key, at C channels ------
     n_sf, _seed, _alg, kid, key, _mi = (int(v) for v in adp["params"])
     keys = KeyRing()
     keys.scalar[kid] = key
-    for fn in counted:
-        fn.launches = 0
-    pipe = BatchedP2VoicePipeline(ADP_C, FS, keyring=keys, pcm_fmt="adpcm",
-                                  tables=ptab)
-    t1 = time.perf_counter()
-    pcm = pipe.fetch_pcm(pipe.decode_block_async(a_blocks[0]))
-    dt = time.perf_counter() - t1
-    counts, exact = p2_exact(pipe, adp["bits49"], (n_sf - 1) * 18, skip=18)
-    bits, _e, arrs, jobs = pipe.last_frames
-    first = [bits.cpu().numpy()[np.flatnonzero(arrs[4] == r)[:18]]
-             for r in range(2 * ADP_C)]
-    cipher = all((f != adp["bits49"][r % 2][:18]).any()
-                 for r, f in enumerate(first))
-    launches["adp"] = check_launches("ADP phase", counted,
-                                     (k1fn, k3fn, k7fn), (k2fn, k4fn, k5fn))
-    check_pcm("ADP phase", pcm, 32768.0 / 32767.0)
-    n2v = sum(j[4] == "2v" for j in jobs)
-    log(f"ADP phase, {ADP_C} channels, one block of {a_B} samples: "
-        f"{int(exact.sum())}/{2 * ADP_C} slot streams decode "
-        f"{counts.min()}..{counts.max()} frames, every frame from the "
-        f"second superframe on equal to the plaintext bits; first "
-        f"superframe still cipher: {cipher}; {len(jobs)} ESS jobs, {n2v} "
-        f"RS words screened by K7; {dt * 1e3:.1f} ms")
-    if not exact.all() or not cipher:
-        raise RuntimeError("ADP phase: the keystream did not decrypt "
-                           "from the second superframe on")
+    a_words = []
+
+    def adp_judge(pipe, fmt, blk):
+        """Every slot stream exact from the second superframe on; the
+        first block's first superframe still cipher."""
+        counts, exact = p2_exact(pipe, adp["bits49"], (n_sf - 1) * 18,
+                                 skip=18)
+        if not exact.all():
+            bad = np.flatnonzero(~exact)
+            raise RuntimeError(
+                f"ADP phase {fmt} block {blk}: slot streams "
+                f"{bad[:8].tolist()} decoded {counts[bad[:8]].tolist()} "
+                f"frames (want >= {(n_sf - 1) * 18}, every one from the "
+                "second superframe on equal to the plaintext bits)")
+        bits, _e, arrs, _jobs = pipe.last_frames
+        bits = bits.cpu().numpy()
+        if blk == 0:
+            for r in range(2 * pipe.C):
+                sel = np.flatnonzero(arrs[4] == r)
+                sel = sel[np.argsort(arrs[5][sel])][:18]
+                if not (bits[sel] != adp["bits49"][r % 2][:18]).any():
+                    raise RuntimeError(
+                        f"ADP phase {fmt} block 0: slot stream {r} "
+                        "decrypted its first superframe, whose ESS comes "
+                        "after it")
+        ess = pipe.last_ess
+        if fmt != "cpu":
+            a_words.append(ess["rs_words"])
+        return (f"{len(counts)}/{len(counts)} slot streams decode "
+                f"{counts.min()}..{counts.max()} frames, every frame from "
+                f"the second superframe on equal to the plaintext bits"
+                + ("; the first superframe still cipher" if blk == 0
+                   else "")
+                + f"; ESS: {ess['jobs']} jobs, {ess['rs_words']} RS words "
+                f"screened by K7, {ess['host_rs_decodes']} host RS(63,35) "
+                f"decodes, {ess['rc4_keystreams']} RC4 keystreams")
+
+    launches["adp"] = run_ambe_path(
+        "ADP phase", lambda fmt: BatchedP2VoicePipeline(
+            C, FS, keyring=keys, pcm_fmt=fmt, tables=ptab),
+        a_blocks, 2 * C, p2_frames, adp_judge, (k1fn, k3fn, k7fn),
+        (k2fn, k4fn, k5fn),
+        BatchedP2VoicePipeline(2, FS, keyring=keys, device="cpu",
+                               tables=params.load_tdma("p25p2", "cpu")))
+    if launches["adp"]["rs_syndromes_batch"] != len(a_words):
+        raise RuntimeError(
+            f"ADP phase: K7 launched {launches['adp']['rs_syndromes_batch']}"
+            f" times in {len(a_words)} blocks, want one a block")
+
+    def ess_part(pipe):
+        """The decode's ESS path, as the pipeline timed and counted it."""
+        e = pipe.last_ess
+        return e["seconds"], (
+            f"{e['jobs']} ESS jobs, {e['rs_words']} RS words screened by "
+            f"K7, {e['host_rs_decodes']} host RS(63,35) decodes, "
+            f"{e['rc4_keystreams']} RC4 keystreams")
+
+    time_path("ADP phase", ident,
+              BatchedP2VoicePipeline(C, FS, keyring=keys, pcm_fmt="adpcm",
+                                     tables=ptab),
+              a_blocks, a_B / FS, lambda p, fe6: p.walk_frames(*fe6[1:]),
+              part=("ESS path (host + K7)", ess_part))
+    del a_blocks
     no_reference_modules()
+
+    # -- K7 at the ADP path's word count and at 5,120 and 20,480 words ------
+    # syndromes of words half of which are clean RS(63,35) codewords (data
+    # combined over GF(64) from the code's 35 unit codewords), the other
+    # half with 1-14 symbols changed
+    code = rs_63_35()
+    gexp, glog = gf64_tables()
+    basis = np.stack([code.encode(np.eye(35, dtype=np.int64)[i])
+                      for i in range(35)])
+
+    def rs_words(n):
+        data = rng.integers(0, 64, size=(n, 35))
+        w = np.zeros((n, 63), np.int64)
+        for i in range(35):
+            m = (data[:, i:i + 1] != 0) & (basis[i] != 0)
+            w ^= np.where(m, gexp[(glog[data[:, i:i + 1]]
+                                   + glog[basis[i]]) % 63], 0)
+        bad = np.arange(n) >= n // 2
+        for r in np.flatnonzero(bad):
+            pos = rng.choice(63, int(rng.integers(1, 15)), replace=False)
+            w[r, pos] ^= rng.integers(1, 64, size=pos.size)
+        return torch.as_tensor(w.astype(np.int32), device=dev), bad
+
+    # the library yardstick (never called by the port): syndromes are
+    # GF(2)-linear in a word's 6n bits, so they are the 6 * nroots bits of
+    # bits @ H mod 2, H [6n, 6 nroots] with row 6j + b, column 6i + o bit o
+    # of 2^b * beta_i^(n-1-j); one f32 matmul, exact (sums <= 378), TF32
+    # off (set in phase 1)
+    six = torch.arange(6, device=dev)
+    jj, bb, ii, oo = np.ix_(np.arange(63), np.arange(6), np.arange(28),
+                            np.arange(6))
+    h_mat = torch.as_tensor(((gexp[(glog[1 << bb] + (1 + ii) * (62 - jj))
+                                   % 63] >> oo) & 1).reshape(378, 168)
+                            .astype(np.float32), device=dev)
+
+    def bit_planes(words):
+        return ((words[..., None] >> six) & 1).reshape(
+            words.shape[0], -1).float()
+
+    def k7_library(bits):
+        s = torch.matmul(bits, h_mat).remainder_(2).to(torch.int32)
+        return (s.view(-1, 28, 6) << six).sum(-1, dtype=torch.int32)
+
+    exp_d, log_d = (torch.as_tensor(t, device=dev) for t in gf64_tables())
+
+    mma_tab = torch.as_tensor(k7_mma_table(63, 28, 1), device=dev)
+
+    def k7_v1(words, out):
+        kernels.check(alt["rs_syndromes_v1"].dsd_rs_syndromes(
+            words.data_ptr(), exp_d.data_ptr(), log_d.data_ptr(),
+            out.data_ptr(), words.shape[0], 63, 28, 1,
+            kernels.stream_handle(words)), "rs_syndromes_v1")
+
+    def k7_v2(words, out):
+        kernels.check(alt["rs_syndromes_v2"].dsd_rs_syndromes(
+            words.data_ptr(), exp_d.data_ptr(), out.data_ptr(),
+            words.shape[0], 63, 28, 1, kernels.stream_handle(words)),
+            "rs_syndromes_v2")
+
+    def k7_mma(words, out):
+        kernels.check(alt["rs_syndromes_mma"].dsd_rs_syndromes_mma(
+            words.data_ptr(), mma_tab.data_ptr(), out.data_ptr(),
+            words.shape[0], 63, 28, kernels.stream_handle(words)),
+            "rs_syndromes_mma")
+
+    def wall_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t1) * 1e3 / reps
+
+    def check_k7(n, shape=None, key=None):
+        words, bad = rs_words(n)
+        host = words.cpu().numpy()
+        got = fdev.rs_syndromes_batch(words, 28, 1)
+        want = fdev.rs_syndromes_plain(words, 28, 1)
+        v1_out, v2_out, mma_out = (torch.empty_like(want) for _ in range(3))
+        k7_v1(words, v1_out)
+        k7_v2(words, v2_out)
+        k7_mma(words, mma_out)
+        lib = k7_library(bit_planes(words))
+        from_host = fdev.rs_syndromes_batch(host, 28, 1, device=dev)
+        diffs = {k: int((v != want).sum()) for k, v in (
+            ("kernel", got), ("first design", v1_out),
+            ("bit-sliced design", v2_out), ("int8 mma design", mma_out),
+            ("library", lib), ("host words", from_host))}
+        nz = (got != 0).any(1).cpu().numpy()
+        bits = bit_planes(words)
+        t = {"ms": cuda_ms(lambda: fdev.rs_syndromes_launch(words, 28, 1),
+                           50),
+             "v1_ms": cuda_ms(lambda: k7_v1(words, v1_out), 50),
+             "v2_ms": cuda_ms(lambda: k7_v2(words, v2_out), 50),
+             "mma_ms": cuda_ms(lambda: k7_mma(words, mma_out), 50),
+             "empty_launch_ms": cuda_ms(lambda: torch.cuda._sleep(0), 50),
+             "library_ms": cuda_ms(lambda: torch.matmul(bits, h_mat), 50),
+             "library_with_expansion_ms": cuda_ms(
+                 lambda: k7_library(bit_planes(words)), 20),
+             # the ESS path's call, the syndromes copied back, on the host
+             # clock: host words (the card is not read before the launch)
+             # and the earlier form, the words uploaded first and their
+             # range read on the card
+             "entry_host_words_wall_ms": wall_ms(
+                 lambda: fdev.rs_syndromes_batch(
+                     host, 28, 1, device=dev).cpu(), 20),
+             "entry_cuda_tensor_wall_ms": wall_ms(
+                 lambda: fdev.rs_syndromes_batch(torch.as_tensor(
+                     host, device=dev), 28, 1).cpu(), 20)}
+        plain_ms = cuda_ms(lambda: fdev.rs_syndromes_plain(words, 28, 1), 5)
+        target = K7_TARGET[key or n]
+        log(f"K7 rs_syndromes [{n},63] -> [{n},28]: syndromes that differ "
+            f"from the plain version (tol 0: bit-identical): {diffs}; clean "
+            f"words screened clean {int((~nz[~bad]).sum())}/"
+            f"{int((~bad).sum())}, changed words flagged "
+            f"{int(nz[bad].sum())}/{int(bad.sum())}")
+        if any(diffs.values()) or nz[~bad].any() or not nz[bad].all():
+            raise RuntimeError("K7, one of its other designs or the "
+                               "yardstick disagrees with the plain version "
+                               "or the code")
+        b_ms, b_by = bound(nbytes(words, got), 0)
+        log(f"  K7 [{n},63]: kernel {t['ms']:.4f} ms, first design {t['v1_ms']:.4f} (recorded "
+            f"{K7_BEFORE_MS.get(n, '-')}), bit-sliced design "
+            f"{t['v2_ms']:.4f}, int8 mma design {t['mma_ms']:.4f}, empty "
+            f"launch "
+            f"{t['empty_launch_ms']:.4f} (kernel - empty "
+            f"{(t['ms'] - t['empty_launch_ms']) * 1e3:.2f} us), library "
+            f"matmul {t['library_ms']:.4f} (with the bit expansion and "
+            f"repack {t['library_with_expansion_ms']:.4f}), entry point "
+            f"{t['entry_host_words_wall_ms']:.4f} host words / "
+            f"{t['entry_cuda_tensor_wall_ms']:.4f} uploaded first (wall, "
+            f"the syndromes copied back); "
+            f"faster than the first design: {t['ms'] < t['v1_ms']}, the "
+            f"bit-sliced: {t['ms'] < t['v2_ms']}, the int8 mma: "
+            f"{t['ms'] < t['mma_ms']}; not slower than the matmul: "
+            f"{t['ms'] <= t['library_ms']}")
+        k_ms = t.pop("ms")
+        over = k_ms - (t["empty_launch_ms"] if target[0] == "above_empty"
+                       else 0.0)
+        log(f"  K7 [{n},63] target: at most {target[1]} ms "
+            f"{'above an empty launch' if target[0] == 'above_empty' else 'in all'}"
+            f", measured {over:.4f}: met {over <= target[1]}")
+        show("rs_syndromes", 0.0, k_ms, plain_ms, b_ms, b_by, shape=shape)
+        row = (report["rs_syndromes"] if shape is None
+               else report["rs_syndromes"]["other_shapes"][-1])
+        row.update(t, words=n, target={target[0]: target[1]},
+                   target_met=bool(over <= target[1]))
+
+    check_k7(a_words[0], key="path")
+    for n in K7_SHAPES_N:
+        check_k7(n, shape=[n, 63])
+    for so, stem in ((info["path"], "rs_syndromes_kernel"),
+                     *((os.path.join(kernels.BUILD_DIR, f"{name}.so"), stem)
+                       for name, stem in (
+                           ("rs_syndromes_v1", "rs_syndromes_kernel"),
+                           ("rs_syndromes_v2", "rs_syndromes_kernel"),
+                           ("rs_syndromes_mma", "rs_syndromes_mma_kernel")))):
+        for line in (sass_loops(cuobjdump, so, stem, whole=True)
+                     if os.path.isfile(cuobjdump) else ["no cuobjdump"]):
+            log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 5. the control-channel monitors at C=320 ------------------------
     from dsdneo_tpu_torch.engine import ccbatch
@@ -2636,14 +2853,15 @@ def main() -> int:
              "dsdneo_tpu/fec/device.py:229", "conv_k3_decode_batch"),
             ("one_pole", "dsdneo_tpu_torch/csrc/one_pole.cu",
              "dsdneo_tpu/dsp/audio_filters.py:19", "one_pole")]
-    # no single PyTorch call computes any of the eight functions.
+    # one PyTorch call computes K7's function (rs_syndromes's library_ms:
+    # the yardstick's f32 matmul); none computes any of the other seven.
     # "launches" sums the paths' runs; "launches_by_path" splits it
     log(ident)
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": src, "replaces": rep,
          "launches": sum(by[fn] for by in launches.values()),
          "launches_by_path": {p: by[fn] for p, by in launches.items()},
-         **report[n], "library_ms": None}
+         "library_ms": None, **report[n]}
         for n, src, rep, fn in rows]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

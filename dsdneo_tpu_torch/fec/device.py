@@ -17,8 +17,9 @@ scores are exact and the argmax is the JAX package's, bit for bit.  The
 ``params.TILE_BYTES``.
 
 Also the GF(64) Reed-Solomon syndrome screen (``rs_syndromes_batch``,
-the JAX package's ``_rs_syndrome_fn``): on a CUDA tensor it launches
-kernel K7 (``csrc/rs_syndromes.cu``), on a CPU tensor it runs
+the JAX package's ``_rs_syndrome_fn``): on a CUDA tensor, or host
+words sent to the card, it launches kernel K7 (``csrc/rs_syndromes.cu``,
+a GF(2) product on the tensor cores), on a CPU tensor it runs
 :func:`rs_syndromes_plain`.
 
 And three Viterbi decoders, each a plain PyTorch loop over time
@@ -44,6 +45,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import kernels
+from dsdneo_tpu_torch.device import require_cuda
 from dsdneo_tpu_torch.fec import conv, trellis
 from dsdneo_tpu_torch.fec.rs import gf64_tables
 from dsdneo_tpu_torch.params import TILE_BYTES
@@ -108,6 +110,42 @@ def ambe_ecc_batch(bits72: torch.Tensor, tables):
 
 # -- RS syndrome screen (kernel K7) -------------------------------------------
 _GF_CACHE: dict = {}
+_K7_CACHE: dict = {}
+
+
+def k7_table(n: int, nroots: int, fcr: int) -> np.ndarray:
+    """Kernel K7's 0/1 matrix H for words of ``n`` symbols and ``nroots``
+    roots from α^fcr, in the order the kernel's lanes read it: uint32
+    ``[ceil(nroots / 8), 6, 2, 32, 2]`` (root group q, syndrome bit o,
+    k-step s, lane, register).  Row (b, j) of H is bit b of symbol j,
+    column (i, o) bit o of S_i; the entry is bit o of α^(b + (n-1-j)(fcr+i))
+    (zero for j ≥ n or i ≥ nroots).  A kernel dword M = 2b + h holds rows
+    (b, 32h + t) at bit t, M ≥ 12 zero; lane 4g + t of n-tile (q, o) holds
+    dwords 8s + t and 8s + 4 + t of column (8q + g, o), the B fragment of
+    ``mma.m16n8k256``."""
+    exp_t, _log_t = gf64_tables()
+    R = -(-nroots // 8) * 8
+    b, j, i, o = np.ix_(np.arange(6), np.arange(64), np.arange(R),
+                        np.arange(6))
+    h = (((exp_t[(b + (n - 1 - j) * (fcr + i)) % 63] >> o) & 1)
+         * ((j < n) & (i < nroots))).astype(np.uint32)
+    hb = np.zeros((16, R, 6), np.uint32)            # [M, column i, o]
+    hb[:12] = (h.reshape(6, 2, 32, R, 6)
+               << np.arange(32, dtype=np.uint32)[:, None, None]
+               ).sum(axis=2, dtype=np.uint32).reshape(12, R, 6)
+    q, o, s, lane, reg = np.ix_(np.arange(R // 8), np.arange(6),
+                                np.arange(2), np.arange(32), np.arange(2))
+    return np.ascontiguousarray(
+        hb[8 * s + 4 * reg + (lane & 3), 8 * q + (lane >> 2), o])
+
+
+def _k7_tensor(device, n: int, nroots: int, fcr: int) -> torch.Tensor:
+    """:func:`k7_table` on ``device``, built once per shape."""
+    key = (str(device), n, nroots, fcr)
+    if key not in _K7_CACHE:
+        _K7_CACHE[key] = torch.as_tensor(k7_table(n, nroots, fcr).view(
+            np.int32), device=device)
+    return _K7_CACHE[key]
 
 
 def _gf_tensors(device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -146,23 +184,39 @@ def rs_syndromes_plain(words: torch.Tensor, nroots: int, fcr: int = 1
     return torch.cat(out).to(torch.int32)
 
 
-def rs_syndromes_batch(words: torch.Tensor, nroots: int, fcr: int = 1
+def rs_syndromes_batch(words, nroots: int, fcr: int = 1, device=None
                        ) -> torch.Tensor:
     """Batched GF(2^6) syndromes: ``[N, n]`` integer symbols (n ≤ 63) →
     ``[N, nroots]`` int32.  All-zero syndromes ⇒ a clean codeword, which
     skips the host decoder.  GF(64) only: a symbol ≥ 64 (a GF(256) code
-    such as DMR's RS(12,9)) raises, as in the JAX package; the check
-    reads the symbols' range on the host, so a CUDA call waits for the
-    card."""
-    if words.numel():
-        lo, hi = (int(v) for v in torch.aminmax(words))
-        if hi >= 64:
-            raise ValueError(
-                "rs_syndromes_batch covers the GF(2^6) RS-63 family only; "
-                f"got symbol {hi} >= 64 (GF(256) codes such as "
-                "RS(12,9) need their own field tables)")
-        if lo < 0:
-            raise ValueError("rs_syndromes_batch: negative symbol")
+    such as DMR's RS(12,9)) raises, as in the JAX package.
+
+    ``words`` is a tensor or host words (a numpy array).  Host words
+    have their range checked on the host, then are copied to ``device``
+    (the card when none is given), so nothing is read back from the card
+    before the launch.  A tensor stays where it lies unless ``device`` is
+    given; a CUDA tensor's range is read back from the card.  On the CPU
+    the plain version runs, on the card kernel K7."""
+    host = not isinstance(words, torch.Tensor)
+    if host:
+        words = np.asarray(words)
+        lo, hi = (int(words.min()), int(words.max())) if words.size else (0, 0)
+    else:
+        lo, hi = ((int(v) for v in torch.aminmax(words)) if words.numel()
+                  else (0, 0))
+    if hi >= 64:
+        raise ValueError(
+            "rs_syndromes_batch covers the GF(2^6) RS-63 family only; "
+            f"got symbol {hi} >= 64 (GF(256) codes such as "
+            "RS(12,9) need their own field tables)")
+    if lo < 0:
+        raise ValueError("rs_syndromes_batch: negative symbol")
+    if host:
+        words = torch.from_numpy(np.ascontiguousarray(words, np.int32))
+        if device is None:
+            device = require_cuda()
+    if device is not None:
+        words = words.to(device)
     if words.device.type == "cpu":
         return rs_syndromes_plain(words, nroots, fcr)
     out = rs_syndromes_launch(words, nroots, fcr)
@@ -181,15 +235,18 @@ def rs_syndromes_launch(words: torch.Tensor, nroots: int, fcr: int = 1
     N, n = words.shape
     if not 1 <= n <= 63:
         raise ValueError(f"words: expected 1..63 symbols, got {n}")
+    if nroots < 1 or fcr < 0:
+        raise ValueError(f"expected nroots >= 1 and fcr >= 0, got "
+                         f"{nroots}, {fcr}")
     kernels.require(words, "words", words.dtype, contiguous=False)
     w = words.to(torch.int32).contiguous()
-    exp_t, log_t = _gf_tensors(words.device)
     out = torch.empty((N, nroots), dtype=torch.int32, device=words.device)
     if N == 0:
         return out
+    tab = _k7_tensor(words.device, n, nroots, fcr)
     err = kernels.load().dsd_rs_syndromes(
-        w.data_ptr(), exp_t.data_ptr(), log_t.data_ptr(), out.data_ptr(),
-        N, n, nroots, fcr, kernels.stream_handle(w))
+        w.data_ptr(), tab.data_ptr(), out.data_ptr(), N, n, nroots,
+        kernels.stream_handle(w))
     kernels.check(err, "rs_syndromes")
     return out
 

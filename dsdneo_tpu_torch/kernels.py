@@ -57,8 +57,8 @@ _SIGNATURES = {
                       _I, _I, ctypes.c_float, ctypes.c_float, _P],
     # pcm, step_table, index_table, out, S, T, stream
     "dsd_adpcm_enc": [_P, _P, _P, _P, _I, _I, _P],
-    # words, exp_table, log_table, out, N, n, nroots, fcr, stream
-    "dsd_rs_syndromes": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # words, table (fec.device.k7_table), out, N, n, nroots, stream
+    "dsd_rs_syndromes": [_P, _P, _P, _I, _I, _I, _P],
     # llr or bits, hard (1: uint8 bits), bits, cost, N, stream
     "dsd_p25_trellis": [_P, _I, _P, _P, _I, _P],
     # sym, wt, wt row stride (0 or 2n), bits, N, n, stream

@@ -350,6 +350,52 @@ def test_p2_adp_decrypts_and_carries_crypto_state(tables, corrupt,
         assert decoded == []
 
 
+def test_p2_adp_ess_screen_flags_the_words_jax_flags(tables, monkeypatch):
+    """The ESS path's K7 screen over two blocks, three dibits of one 2V
+    ESS word flipped: the port hands the screen host words (numpy, so
+    their range is checked on the host and nothing is read from the
+    device before the launch), the same RS(63,35) words as the JAX
+    pipeline, and finds the same ones clean."""
+    adp = adp_vector(tables)
+    _n_sf, _seed, _alg, kid, key, _mi = (int(v) for v in adp["params"])
+    dib = adp["dibits"].copy()
+    dib[40 + 2 * 720 + 20 + np.array([80, 95, 110])] ^= 2
+    xs = _adp_blocks(tables, dib)
+    seen = {"jax": [], "torch": []}
+
+    def spy(side, real):
+        def screen(words, *a, **kw):
+            out = real(words, *a, **kw)
+            if side == "torch":
+                assert isinstance(words, np.ndarray)
+            seen[side].append((np.asarray(words),
+                               np.asarray(out).any(axis=1)))
+            return out
+        return screen
+
+    monkeypatch.setattr(jfec, "rs_syndromes_batch",
+                        spy("jax", jfec.rs_syndromes_batch))
+    monkeypatch.setattr(tp2, "rs_syndromes_batch",
+                        spy("torch", tp2.rs_syndromes_batch))
+    jk, tk = JKeyRing(), KeyRing()
+    jk.scalar[kid] = key
+    tk.scalar[kid] = key
+    jp = jp2.BatchedP2VoicePipeline(C, keyring=jk)
+    tp = tp2.BatchedP2VoicePipeline(C, keyring=tk, device="cpu",
+                                    tables=tables)
+    for x in xs:
+        jp.decode_block_bits49(x)
+        tp.decode_block_bits49(x)
+    assert len(seen["jax"]) == len(seen["torch"]) == 2
+    for (jw, jflag), (tw, tflag) in zip(seen["jax"], seen["torch"]):
+        np.testing.assert_array_equal(tw, jw)
+        np.testing.assert_array_equal(tflag, jflag)
+    flags = np.concatenate([f for _w, f in seen["torch"]])
+    assert flags.any() and not flags.all()
+    assert tp.last_ess["rs_words"] == len(seen["torch"][1][0])
+    assert tp.last_ess["host_rs_decodes"] == int(seen["torch"][1][1].sum())
+
+
 def test_p2_adp_without_keyring_leaves_cipher(tables):
     """No keyring: the frames decode to the cipher bits, as in the JAX
     pipeline, and the crypto state is not touched."""
