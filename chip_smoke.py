@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
-four control-channel monitors and two event pipelines.
+five control-channel monitors and two event pipelines.
 
     python3 chip_smoke.py
 
@@ -34,7 +34,10 @@ The paths, each at 320 channels through the entry points a user calls:
     (``dsp.audio_filters.condition_audio``, de-emphasis "nfm" and the
     3400 Hz low-pass, one cascade launch a block);
   - EDACS: ``BatchedEdacsControlPipeline(320)``, 3 s blocks of a
-    continuous control channel; no kernel of the table.
+    continuous control channel; no kernel of the table;
+  - P2 CC: ``BatchedP2ControlPipeline(320, 0xBEE00, 0x14C, 0x293)``,
+    the JAX bench's P25 Phase 2 TDMA control channel (``bench.py:604``:
+    6 superframes of scrambled SACCH MAC PDUs, 2.1767 s blocks); K1.
 
 Phases, in order; any failure exits non-zero:
 
@@ -126,6 +129,22 @@ Phases, in order; any failure exits non-zero:
      sweep of word counts, after the build log has shown neither kernel
      uses local memory; each monitor timed with its stage split and
      profile.
+  5b. the P25 Phase 2 TDMA monitor at 320 channels on the bench's
+     stream (IDEN_UP TDMA, the TG 101 grant on channel 0x1018 and
+     NET_STS, 30 dB), each channel with its own lead of 0-96 dibits and
+     its own noise, two blocks with the contexts kept: every xCCH
+     timeslot of every frame a channel's block holds whole parsed (a
+     SACCH line at its position and no error line), every one through
+     the screen (0 RS fallbacks, 0 CRC errors), the grant and the
+     2-slot TDMA iden entry on every channel, channels 0-1's packed
+     bursts and events (lines and fields) equal to the CPU path's, K1
+     launched once a block and no other kernel; K1 at the block's
+     length against its plain version; the sync matches per channel
+     beside the JAX package's top-K of 64; the blind recovery on 4
+     channels without WACN/SYS/NAC (recovered once on each in block 0,
+     every burst of block 1 through the screen); timed (pipelined, 6
+     blocks) with its stage split (pick, device gather, host screen,
+     host parse), profile and peak memory.
   6. the event pipelines at 320 channels, 3 s blocks (n_sym 14,398), two
      blocks with the contexts kept, each channel with its own lead of
      0-96 dibits of dead air and its own noise, through the gated front
@@ -269,6 +288,13 @@ K7_SHAPES_N = (5120, 20480)  # K7's word counts beside the path's: the
 K7_BEFORE_MS = {20480: 0.0256}
 K7_TARGET = {"path": ("above_empty", 0.001), 5120: ("above_empty", 0.001),
              20480: ("ms", 0.0044)}
+# the P25 Phase 2 TDMA control channel: the JAX bench's stream (bench.py:604,
+# tests/test_p2ccbatch.py): WACN, SYSID, NAC, the grant and the iden base
+P2CC_KEY = (0xBEE00, 0x14C, 0x293)
+P2CC_SUPERFRAMES = 6
+P2CC_CENTER_HZ = 851_000_000.0
+P2CC_GRANT_CH = (1 << 12) | 24
+P2CC_TG = 101
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
 # kernel names in a profile
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
@@ -1962,13 +1988,14 @@ def main() -> int:
         return n_checked, n_failed
 
     def time_monitor(label, pipe, xblocks, pipelined, stage,
-                     unit="blocks parsed"):
+                     unit="blocks parsed", block_s=BLOCK_S):
         """The JAX bench's loop (``pipelined``: dispatch block N+1's front
         end before finishing block N, ``bench.py:334``; else the plain
-        per-block loop, ``bench.py:375-389``) over ``N_TIMED`` blocks,
-        the stage split of one block and a profile of two.
-        ``stage(pipe, fe)`` runs the pick and the device decode + blob
-        fetch alone, returning their seconds."""
+        per-block loop, ``bench.py:375-389``) over ``N_TIMED`` blocks of
+        ``block_s`` seconds, the stage split of one block and a profile
+        of two.  ``stage(pipe, fe)`` runs the pick and the device decode
+        + blob fetch alone, returning their seconds, or a dict of the
+        seconds of named stages that the parse does not include."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         pipe.decode_block_events(xblocks[0])                   # warm
@@ -1992,8 +2019,8 @@ def main() -> int:
         step_s = (time.perf_counter() - t1) / N_TIMED
         per_block = n_tot / N_TIMED
         log(f"{label} {'pipelined' if pipelined else 'per-block'} step "
-            f"({ident}): {step_s * 1e3:.1f} ms per {BLOCK_S:.4g} s block of "
-            f"{C} channels = {C * BLOCK_S / step_s:.1f}x realtime; "
+            f"({ident}): {step_s * 1e3:.1f} ms per {block_s:.4g} s block of "
+            f"{C} channels = {C * block_s / step_s:.1f}x realtime; "
             f"{per_block:.0f} {unit} per step = "
             f"{per_block / step_s:.0f} per second")
         stages = {}
@@ -2007,17 +2034,19 @@ def main() -> int:
         t1 = time.perf_counter()
         feh = pipe.frontend_finish(fe)
         stages["candidates to host"] = time.perf_counter() - t1
-        stages["pick (host)"], stages["device decode + blob"] = stage(pipe,
-                                                                      feh)
+        split = stage(pipe, feh)
+        if not isinstance(split, dict):
+            split = {"pick (host)": split[0],
+                     "device decode + blob": split[1]}
+        stages.update(split)
         t1 = time.perf_counter()
         pipe.events_from_frontend(feh)
         whole = time.perf_counter() - t1
-        stages["host parse"] = (whole - stages["pick (host)"]
-                                - stages["device decode + blob"])
+        stages["host parse"] = whole - sum(split.values())
         log(f"{label} stages (ms): " + ", ".join(
             f"{k} {v * 1e3:.1f}" for k, v in stages.items())
-            + " (host parse: the pick, decode and parse together less the "
-              "pick and the decode alone)")
+            + f" (host parse: the pick, decode and parse together less "
+              f"{', '.join(split)} alone)")
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -2377,6 +2406,177 @@ def main() -> int:
     check_k5(K5_SYNTH_N, launches["nxdncc"]["conv_k5_decode_batch"], False)
     time_monitor("NXDN CC path", pipe, mon["nxdn48"][3], True, nxdn_stage)
     del pipe, mon
+
+    # -- 5b. the P25 Phase 2 TDMA control channel at C=320 -----------------
+    # the JAX bench's stream (bench.py:604): 6 superframes of scrambled
+    # SACCH MAC PDUs (IDEN_UP TDMA, the TG 101 grant, NET_STS), 2.1767 s;
+    # own lead of 0-96 dibits of filler and own noise per channel, from a
+    # generator of their own so the other phases' inputs stay as they were
+    p2rng = np.random.default_rng(SEED + 2)
+
+    def p2cc_msgs(_sf, g):
+        if g % 4 == 1:
+            return [encode.p2_mac_iden_up_tdma(1, P2CC_CENTER_HZ, 6250.0)]
+        if g % 4 == 2:
+            return [encode.p2_mac_group_grant(P2CC_GRANT_CH, P2CC_TG, 5555)]
+        return [encode.p2_mac_net_sts(*P2CC_KEY[:2])]
+
+    t0 = time.perf_counter()
+    pc_dib = encode.p2_cc_superframes(P2CC_SUPERFRAMES, *P2CC_KEY, p2cc_msgs)
+    pc_B = len(pc_dib) * 8
+    pc_block_s = pc_B / FS
+    pc_n_sym = pc_B // 8 - 2
+    pc_leads = p2rng.integers(0, TDMA_MAX_LEAD + 1, size=C)
+    pc_seeds = p2rng.permutation(1 << 20)[:2 * C]
+    pc_blocks = [torch.as_tensor(encode.p2_cc_block(
+        pc_dib, pc_leads, pc_seeds[i::2], pc_B)).to(dev) for i in range(2)]
+    # the frames a channel's block holds whole (the pick accepts a frame
+    # at t when t + 720 < n_sym), and their xCCH timeslots' positions
+    pc_frames = [[int(l) + 40 + 720 * k for k in range(3 * P2CC_SUPERFRAMES)
+                  if int(l) + 40 + 720 * k + 720 < pc_n_sym]
+                 for l in pc_leads]
+    pc_slots = [sorted(t + 20 + 180 * ts for t in fr for ts in range(4))
+                for fr in pc_frames]
+    log(f"P2 CC set-up {time.perf_counter() - t0:.1f} s: B={pc_B} "
+        f"({pc_block_s:.4f} s) n_sym={pc_n_sym}, leads "
+        f"{pc_leads.min()}..{pc_leads.max()}, whole frames per channel "
+        f"{min(map(len, pc_frames))}..{max(map(len, pc_frames))}")
+    check_k1(pc_blocks[0], ptab.taps, shape=[C, pc_B])
+
+    def p2cc_judge(label, pipe, blk, n0s, chans):
+        """Every xCCH timeslot of every whole frame parsed (a SACCH line at
+        its position, no other), the grant (TG 101 on its channel) and
+        the 2-slot TDMA iden entry on every channel."""
+        for c in chans:
+            evs = pipe.ctxs[c].events[n0s[c]:]
+            got = sorted(e.pos for e in evs
+                         if e.line.startswith("       P25p2 SACCH"))
+            if got != pc_slots[c]:
+                raise RuntimeError(
+                    f"{label} block {blk} channel {c}: SACCH lines at "
+                    f"{sorted(set(got) ^ set(pc_slots[c]))[:6]} differ from "
+                    "the timeslots of the whole frames")
+            if any("ERR" in e.line for e in evs):
+                raise RuntimeError(f"{label} block {blk} channel {c}: an "
+                                   "error line")
+            grants = [e.fields for e in pipe.ctxs[c].events
+                      if e.fields.get("grant")]
+            st = pipe.ctxs[c].state
+            if not grants or any((g["tg"], g["channel"]) != (
+                    P2CC_TG, P2CC_GRANT_CH) for g in grants):
+                raise RuntimeError(f"{label} channel {c}: grants {grants[:2]}")
+            if st.iden_table.entries.get(1, (0, 0, 0, 0))[3] != 2:
+                raise RuntimeError(f"{label} channel {c}: no 2-slot TDMA "
+                                   "iden entry")
+
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the peak counts what other phases left allocated (their input blocks)
+    pc_mem0 = torch.cuda.memory_allocated()
+    pipe = ccbatch.BatchedP2ControlPipeline(
+        C, FS, *P2CC_KEY, tables=ptab)
+    cpu_pipe = ccbatch.BatchedP2ControlPipeline(
+        2, FS, *P2CC_KEY, device="cpu",
+        tables=params.load_tdma("p25p2", "cpu"))
+    xcch = []
+    for blk, xb in enumerate(pc_blocks):
+        n0s = [len(ctx.events) for ctx in pipe.ctxs]
+        t1 = time.perf_counter()
+        n = pipe.decode_block_events(xb)
+        dt = time.perf_counter() - t1
+        p2cc_judge("P2 CC path", pipe, blk, n0s, range(C))
+        want = sum(map(len, pc_slots))
+        if n != want or pipe.rs_fallbacks or pipe.crc_errors:
+            raise RuntimeError(f"P2 CC path block {blk}: {n} MAC PDUs "
+                               f"parsed of {want}, {pipe.rs_fallbacks} RS "
+                               f"fallbacks, {pipe.crc_errors} errors")
+        xcch.append(pipe.last_xcch)
+        log(f"P2 CC path block {blk}: {n} MAC PDUs parsed over {C} channels"
+            f", every xCCH timeslot of every whole frame ({want}), all "
+            f"through the screen (0 RS fallbacks, 0 CRC errors); the grant "
+            f"and the 2-slot iden on every channel; {dt * 1e3:.1f} ms")
+    launches["p2cc"] = check_launches(
+        "P2 CC path", counted, (k1fn,), tuple(f for f in counted
+                                              if f is not k1fn))
+    if k1fn.launches != len(pc_blocks):
+        raise RuntimeError(f"P2 CC path: K1 launched {k1fn.launches}x for "
+                           f"{len(pc_blocks)} blocks")
+    log(f"P2 CC path: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
+        f"{pc_mem0 / 1e9:.2f} GB allocated before the phase")
+    no_reference_modules()
+    for blk, xb in enumerate(pc_blocks):
+        cpu_pipe.decode_block_events(xb[:2].cpu())
+        sel = xcch[blk][0] < 2
+        if not all(np.array_equal(a[sel], b) for a, b in
+                   zip(xcch[blk], cpu_pipe.last_xcch)):
+            raise RuntimeError(f"P2 CC path block {blk}: the card's bursts "
+                               "of channels 0-1 differ from the CPU path's")
+    for c in range(2):
+        a = [(e.line, e.pos, e.fields) for e in pipe.ctxs[c].events]
+        b = [(e.line, e.pos, e.fields) for e in cpu_pipe.ctxs[c].events]
+        if a != b:
+            raise RuntimeError(f"P2 CC path: channel {c}'s events differ "
+                               "from the CPU path's")
+    log(f"P2 CC card vs CPU plain path, channels 0-1, both blocks: packed "
+        f"bursts byte for byte and events ({len(a)} on channel 1, lines and "
+        "fields) equal")
+    vq = pipe.frontend_sync_device(pc_blocks[0])[2]
+    n_pass = (vq.astype(np.float32) / 127.0 >= pipe.threshold).sum(1)
+    log(f"P2 CC path: sync matches at or above the {pipe.threshold} "
+        f"threshold per channel {int(n_pass.min())}..{int(n_pass.max())}, "
+        f"in the port's top {vq.shape[1]} (the JAX package keeps 64)")
+
+    # the blind recovery: 4 channels with no parameters
+    blind = ccbatch.BatchedP2ControlPipeline(4, FS, tables=ptab)
+    n_b = [blind.decode_block_events(pc_blocks[0][:4])]
+    for c in range(4):
+        st = blind.ctxs[c].state
+        rec = [e for e in blind.ctxs[c].events if "recovered from RS parity"
+               in e.line]
+        if (st.p2_wacn, st.p2_sysid, st.p2_cc) != P2CC_KEY or len(rec) != 1:
+            raise RuntimeError(f"P2 CC blind channel {c}: parameters "
+                               f"{(st.p2_wacn, st.p2_sysid, st.p2_cc)}, "
+                               f"{len(rec)} recovery lines")
+    n0s = [len(ctx.events) for ctx in blind.ctxs]
+    fb0 = blind.rs_fallbacks
+    n_b.append(blind.decode_block_events(pc_blocks[1][:4]))
+    p2cc_judge("P2 CC blind", blind, 1, n0s, range(4))
+    want = sum(map(len, pc_slots[:4]))
+    if n_b[1] != want or blind.rs_fallbacks != fb0 or blind.crc_errors:
+        raise RuntimeError(f"P2 CC blind block 1: {n_b[1]} of {want} parsed, "
+                           f"{blind.rs_fallbacks - fb0} RS fallbacks")
+    log(f"P2 CC blind recovery, 4 channels without WACN/SYS/NAC: block 0 "
+        f"{n_b[0]} MAC PDUs parsed, the parameters recovered from RS parity "
+        f"on every channel (one 'recovered' line each); block 1 {n_b[1]} "
+        f"of {want} through the screen, 0 RS fallbacks")
+    del blind
+
+    def p2cc_stage(pipe, feh):
+        dibits_dev, idx, vq, duid, isch, n_sym = feh
+        t1 = time.perf_counter()
+        ch, tpos, sfp, duidv, _slot = pipe.pick_xcch(idx, vq, duid, isch,
+                                                     n_sym)
+        t_pick = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        packed = pipe.gather_xcch(dibits_dev, ch, tpos)
+        t_gather = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pipe.screen_xcch(packed, ch, sfp, duidv)
+        return {"pick (ISCH resolution + pick_xcch)": t_pick,
+                "device gather + blob": t_gather,
+                "host screen (unpack, descramble, two products)":
+                    time.perf_counter() - t1}
+
+    torch.cuda.reset_peak_memory_stats()
+    time_monitor("P2 CC path", pipe, pc_blocks, True, p2cc_stage,
+                 "MAC PDUs parsed", block_s=pc_block_s)
+    log(f"P2 CC path timed: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, of which "
+        f"{pc_mem0 / 1e9:.2f} GB allocated before the phase")
+    del pipe, cpu_pipe, pc_blocks
 
     # -- 6. the event pipelines at C=320 -----------------------------------
     from dsdneo_tpu_torch.engine import demod

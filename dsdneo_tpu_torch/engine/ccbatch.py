@@ -1,6 +1,6 @@
 """Batched many-channel control-channel monitors: I/Q → trunking events.
 
-Counterpart of ``dsdneo_tpu/engine/ccbatch.py`` for four monitors.
+Counterpart of ``dsdneo_tpu/engine/ccbatch.py`` for its five monitors.
 Everything through the CRC screen runs on the card; the host parses only
 the CRC-valid payload blocks through the protocol catalogs and keeps one
 ``DecoderContext`` per channel, so grants feed trunk following:
@@ -37,12 +37,22 @@ EDACS (``BatchedEdacsControlPipeline``):
   dual-polarity BCH(40,28) screen → the host parses the valid message
   pairs with the standard or the EA catalog (``protocol.edacs``).
 
-The P25 and DMR monitors offer a payload-keyed parse cache: control
-channels repeat identical blocks many times a second, and a repeat
-re-emits the first parse's events.  The products of the codebook and
-CRC screens are float32 matrix products of 0/1 and ±1 terms, exact in
-full float32 (the card's TF32 switch for matrix products stays off).
-P25 Phase 2 control waits for its slice.
+P25 Phase 2 TDMA xCCH (``BatchedP2ControlPipeline``):
+  the Phase 2 voice pipeline's front end (K1) with the DUID and ISCH
+  fields of every candidate → the host resolves the superframe position
+  and picks the SACCH/FACCH timeslots (``pick_xcch``) →
+  :func:`p2_xcch_gather_device` packs them on the card → the host
+  descrambles them and screens them with two GF(2) products per kind
+  (RS(63,35) parity and CRC12, float32 numpy) → the MAC catalog
+  (``protocol.p25.p2_mac``) parses the clean bursts; the others fall
+  back to the serial RS(63,35) erasure decode, and scrambled bursts of a
+  channel without WACN/SYS/NAC feed the blind recovery of its seed.
+
+The P25, DMR and P25p2 monitors offer a payload-keyed parse cache:
+control channels repeat identical blocks many times a second, and a
+repeat re-emits the first parse's events.  The products of the codebook
+and CRC screens are float32 matrix products of 0/1 and ±1 terms, exact
+in full float32 (the card's TF32 switch for matrix products stays off).
 """
 
 from __future__ import annotations
@@ -62,6 +72,9 @@ from dsdneo_tpu_torch.engine.dmrbatch import _dibits_to_bits
 from dsdneo_tpu_torch.engine.nxdnbatch import (FRAME_DIBITS,
                                                BatchedNxdnVoicePipeline,
                                                _lich_parity_ok)
+from dsdneo_tpu_torch.engine.p2batch import (SCRAMBLE_BITS, TS_DIBITS,
+                                             BatchedP2VoicePipeline)
+from dsdneo_tpu_torch.engine.p2batch import FRAME_DIBITS as P2_FRAME_DIBITS
 from dsdneo_tpu_torch.engine.voicebatch import (BatchedP25VoicePipeline,
                                                 _status_strip_map,
                                                 correlate_syncs_device)
@@ -73,7 +86,9 @@ from dsdneo_tpu_torch.protocol.base import DecoderContext
 from dsdneo_tpu_torch.protocol.dmr.csbk import decode_csbk
 from dsdneo_tpu_torch.protocol.edacs.decoder import EdacsDecoder, _bch_basis
 from dsdneo_tpu_torch.protocol.nxdn.decoder import NxdnDecoder
+from dsdneo_tpu_torch.protocol.p25 import p2_xcch
 from dsdneo_tpu_torch.protocol.p25.phase1 import P25P1Decoder
+from dsdneo_tpu_torch.protocol.p25.phase2 import P25P2Decoder
 from dsdneo_tpu_torch.symbols.framesync import (SYNC_DEFS, SyncHit,
                                                 sync_levels)
 
@@ -858,6 +873,308 @@ class BatchedEdacsControlPipeline:
                      mt=v1 >> 23, word=v1)
             n += 1
         return n
+
+    def events(self, c: int):
+        return self.ctxs[c].events
+
+
+# -- P25 Phase 2 TDMA control channel ------------------------------------------------
+def p2_xcch_gather_device(dibits: torch.Tensor, ch: torch.Tensor,
+                          tpos: torch.Tensor) -> torch.Tensor:
+    """The 180 dibits of every accepted xCCH timeslot, packed to
+    ``[N, 45]`` bytes (360 bits msb first; reference p25p2_frame.c
+    timeslot geometry; the 4th timeslot of a frame is only 320 bits,
+    and its tail gathers the next sync, which the payload and parity
+    never read).  Packed on the device: at fleet scale the burst blob is
+    the monitor's largest copy to the host.  Pad bursts use
+    ``ch == C``."""
+    Tn = dibits.shape[1]
+    gp = torch.clamp(tpos[:, None]
+                     + torch.arange(TS_DIBITS, device=dibits.device),
+                     0, Tn - 1)
+    chc = torch.clamp(ch, max=dibits.shape[0] - 1)
+    return _pack_bits(_dibits_to_bits(dibits[chc[:, None], gp]))
+
+
+@lru_cache(maxsize=1)
+def _xcch_index_arrays() -> dict:
+    """(payload, parity) bit positions of each xCCH kind: the vectorized
+    form of ``p2_xcch.extract_sacch`` / ``extract_facch``."""
+    sp = np.r_[2:74, 76:184].astype(np.int64)
+    sq = np.r_[184:244, 246:318].astype(np.int64)
+    fp = np.r_[2:74, 76:138, 180:202].astype(np.int64)
+    fq = np.r_[202:244, 246:318].astype(np.int64)
+    return {"sacch": (sp, sq), "facch": (fp, fq)}
+
+
+class BatchedP2ControlPipeline(BatchedP2VoicePipeline):
+    """Batched P25 Phase 2 TDMA control-channel monitor over ``[C, B, 2]``
+    float32 I/Q blocks on ``device`` (the card when none is given; raises
+    when there is no card); reference ``state->p25_cc_is_tdma``, a TDMA
+    LCCH control channel at 6000 symbols/s
+    (src/protocol/p25/p25_trunk_sm.c:289 and phase2/p25p2_vpdu.c
+    MAC_SIGNAL handling).
+
+    The front end (kernel K1), the sync filter and the DUID and ISCH
+    gathers are the voice pipeline's; instead of voice timeslots it
+    accepts the xCCH bursts (SACCH/FACCH/LCCH), gathers and packs them
+    on the device (:func:`p2_xcch_gather_device`), and screens them on
+    the host with two GF(2) products per burst kind (the systematic
+    RS(63,35) encode map and the CRC12 contribution table), so only
+    clean bursts go to the MAC parse and channel-errored bursts fall
+    back to the serial Berlekamp-Massey erasure decode.  With
+    ``wacn=sysid=nac=0`` each channel's scramble parameters are
+    recovered blind from RS parity linearity
+    (``P25P2Decoder._try_recover_params``).  Events land in
+    ``ctxs[c].events``."""
+
+    # duid → (kind, scrambled, lcch); reference p25p2_frame.c typing
+    XCCH_DUIDS = {3: ("sacch", True, False), 12: ("sacch", False, False),
+                  4: ("sacch", True, True), 13: ("sacch", False, True),
+                  9: ("facch", True, False), 15: ("facch", False, False)}
+
+    def __init__(self, C: int, fs: float = 48000.0, wacn: int = 0,
+                 sysid: int = 0, nac: int = 0,
+                 sync_threshold: float = 0.62, parse_cache: bool = True,
+                 *, device=None, tables: params.TdmaTables | None = None):
+        super().__init__(C, fs=fs, wacn=wacn, sysid=sysid, nac=nac,
+                         sync_threshold=sync_threshold, device=device,
+                         tables=tables)
+        self.ctxs = [DecoderContext() for _ in range(C)]
+        self.decs = [P25P2Decoder() for _ in range(C)]
+        if wacn and sysid and nac:
+            for ctx in self.ctxs:
+                s = ctx.state
+                s.p2_wacn, s.p2_sysid, s.p2_cc = wacn, sysid, nac
+                s.nac = nac
+        self.parse_cache = parse_cache
+        self._pcache: list[dict] = [dict() for _ in range(C)]
+        self._hit_def = _sync_def(self.SYNC_NAMES[0])
+        self._scr_tables: dict = {}
+        self.rs_fallbacks = 0
+        self.crc_errors = 0
+        self.last_xcch = None
+
+    # -- host walk -----------------------------------------------------------------
+    def pick_xcch(self, idx, vq, duid, isch, n_sym: int):
+        """Accepted frames → the xCCH timeslot jobs (ch, tpos, sfpos,
+        duid, slot): the control-channel counterpart of ``walk_frames``'
+        voice selection, sharing its batched ISCH superframe
+        resolution.  ``sfpos`` is -1 where no ISCH location word has been
+        seen yet."""
+        n_pat = self.tables.sync_len
+        oka, sf_start_all = self._resolve_isch_batch(vq, isch)
+        j_ch, j_tpos, j_sf, j_duid, j_slot = ([] for _ in range(5))
+        for c in range(idx.shape[0]):
+            ok = oka[c]
+            if not ok.any():
+                continue
+            order = np.argsort(idx[c][ok], kind="stable")
+            positions = idx[c][ok][order]
+            duids_v = self._duid_lut[duid[c][ok][order]]        # [W, 4]
+            sf_start = sf_start_all[c][ok][order]
+            sf_pos = None
+            last = -10 ** 9
+            for w, t in enumerate(positions.tolist()):
+                if (t - last < P2_FRAME_DIBITS - 8
+                        or t + P2_FRAME_DIBITS >= n_sym):
+                    continue
+                last = t
+                for ts in range(4):
+                    s = int(sf_start[w][ts])
+                    if s >= 0:
+                        sf_pos = s
+                    # -1: the superframe position is unresolved, so a
+                    # scrambled burst can be neither descrambled nor
+                    # accumulated for the blind recovery at a guessed
+                    # position (the serial guard skips sf_pos=None)
+                    p = sf_pos if sf_pos is not None else -1
+                    if sf_pos is not None:
+                        sf_pos = (sf_pos + 1) % 12
+                    d = int(duids_v[w][ts])
+                    if d in self.XCCH_DUIDS:
+                        j_ch.append(c)
+                        j_tpos.append(t + n_pat + TS_DIBITS * ts)
+                        j_sf.append(p)
+                        j_duid.append(d)
+                        j_slot.append(ts % 2)
+        if not j_ch:
+            return tuple(np.zeros(0, np.int32) for _ in range(5))
+        return tuple(np.asarray(a, np.int32)
+                     for a in (j_ch, j_tpos, j_sf, j_duid, j_slot))
+
+    def _scramble_table(self, key) -> np.ndarray:
+        tbl = self._scr_tables.get(key)
+        if tbl is None:
+            tbl = p2_xcch.generate_scramble_bits(*key, SCRAMBLE_BITS)
+            self._scr_tables[key] = tbl
+        return tbl
+
+    def gather_xcch(self, dibits_dev, ch, tpos) -> np.ndarray:
+        """The picked timeslots' packed bytes ``[N, 45]`` on the host
+        (the jobs padded to 64s, as the JAX package pads them)."""
+        N = ch.shape[0]
+        Np = -(-N // 64) * 64
+        dev = self.device
+        return p2_xcch_gather_device(
+            dibits_dev, _padded(ch, Np, self.C, dev),
+            _padded(tpos, Np, 0, dev)).cpu().numpy()[:N]
+
+    def screen_xcch(self, packed, ch, sfp, duidv):
+        """The host screen of the packed bursts: unpack, descramble with
+        each channel's LFSR table at each timeslot's superframe position
+        (+20 bit alignment, ``P25P2Decoder._descramble``), and the two
+        float32 products per burst kind (numpy takes float32 products
+        through BLAS; the sums are at most 360, so they are exact).
+        Returns (raw bits ``[N, 360]``, descrambled bits, ``have``: the
+        burst can be descrambled, ``res_ok``: its RS parity is
+        consistent, ``crc_ok``: its CRC12 holds)."""
+        bits = np.unpackbits(packed, axis=1)                    # [N, 360]
+        N = bits.shape[0]
+        # per-burst flags from 16-entry DUID tables, and the masks built
+        # with one fancy-gather per distinct scramble key
+        scr_lut = np.zeros(16, dtype=bool)
+        kind_lut = np.zeros(16, dtype=np.int8)
+        for d, (kind, scr, _l) in self.XCCH_DUIDS.items():
+            scr_lut[d] = scr
+            kind_lut[d] = 0 if kind == "sacch" else 1
+        scrambled = scr_lut[duidv]
+        keys = [(c.state.p2_wacn, c.state.p2_sysid, c.state.p2_cc)
+                for c in self.ctxs]
+        key_ok = np.asarray([all(k) for k in keys], dtype=bool)
+        have = key_ok[ch] & (~scrambled | (sfp >= 0))
+        mask = np.zeros_like(bits)
+        need = scrambled & have
+        if need.any():
+            uniq: dict = {}
+            gid = np.asarray([uniq.setdefault(k, len(uniq)) for k in keys],
+                             dtype=np.int32)
+            bgid = gid[ch]
+            off360 = np.arange(360)
+            for key, g in uniq.items():
+                if not all(key):
+                    continue
+                sel = need & (bgid == g)
+                if not sel.any():
+                    continue
+                base = 360 * sfp[sel] + 20
+                mask[sel] = self._scramble_table(key)[base[:, None] + off360]
+        x = bits ^ mask
+        idxmap = _xcch_index_arrays()
+        res_ok = np.zeros(N, dtype=bool)
+        crc_ok = np.zeros(N, dtype=bool)
+        kinds = kind_lut[duidv]
+        for kb, kind in ((0, "sacch"), (1, "facch")):
+            sel = np.flatnonzero(kinds == kb)
+            if sel.size == 0:
+                continue
+            pay_i, par_i = idxmap[kind]
+            pays = x[sel][:, pay_i]
+            pars = x[sel][:, par_i]
+            M = p2_xcch.xcch_encode_matrix(kind).astype(np.float32)
+            res = (pays.astype(np.float32) @ M).astype(np.int32)
+            res_ok[sel] = (res % 2 == pars).all(axis=1)
+            nd = 168 if kind == "sacch" else 144
+            T12 = p2_xcch.crc12_matrix(nd).astype(np.float32)
+            crc = (pays[:, :nd].astype(np.float32) @ T12).astype(np.int32) % 2
+            crc_ok[sel] = ((crc ^ 1)                         # 0xFFF inverted
+                           == pays[:, nd:nd + 12]).all(axis=1)
+        return bits, x, have, res_ok, crc_ok
+
+    def decode_block_events(self, iq) -> int:
+        """One ``[C, B]`` block end to end; events land in
+        ``ctxs[c].events``.  Returns the number of MAC PDUs parsed."""
+        return self.events_from_frontend(
+            self.frontend_finish(self.frontend_dispatch(iq)))
+
+    def events_from_frontend(self, fe6) -> int:
+        """Pick, device gather, host screen and the per-burst parse from
+        a finished front end; returns the number of MAC PDUs parsed."""
+        dibits_dev, idx, vq, duid, isch, n_sym = fe6
+        ch, tpos, sfp, duidv, slotv = self.pick_xcch(idx, vq, duid, isch,
+                                                     n_sym)
+        N = ch.shape[0]
+        if N == 0:
+            self.last_xcch = None
+            return 0
+        packed = self.gather_xcch(dibits_dev, ch, tpos)
+        self.last_xcch = (ch, tpos, sfp, duidv, packed)
+        raw, x, have, res_ok, crc_ok = self.screen_xcch(packed, ch, sfp,
+                                                        duidv)
+        pay_idx = {k: v[0] for k, v in _xcch_index_arrays().items()}
+        n_parsed = 0
+        for i in range(N):
+            c, t, p = int(ch[i]), int(tpos[i]), int(sfp[i])
+            kind, scr, lcch = self.XCCH_DUIDS[int(duidv[i])]
+            slot = int(slotv[i])
+            ctx, dec = self.ctxs[c], self.decs[c]
+            hit = SyncHit(pos=t, score=1.0, sync=self._hit_def)
+            if scr and not have[i]:
+                s = ctx.state
+                if all((s.p2_wacn, s.p2_sysid, s.p2_cc)) and p >= 0:
+                    # the blind recovery succeeded earlier in this block
+                    # (have[] was computed before the loop): decode with
+                    # the recovered parameters instead of solving the
+                    # seed again and emitting the recovery once more
+                    dec.sf_pos = p
+                    detail = dec._xcch(raw[i], 0, kind, scrambled=True,
+                                       lcch=lcch, ctx=ctx, have_params=True,
+                                       hit=hit, slot=slot)
+                    if detail and "ERR" in detail:
+                        self.crc_errors += 1
+                    else:
+                        n_parsed += 1
+                    continue
+                # the blind recovery: the serial decoder accumulates
+                # bursts; once solved, later blocks take the fast screen.
+                # An unresolved superframe position sets sf_pos=None, so
+                # the serial guard skips the burst instead of feeding the
+                # recovery a wrong position
+                dec.sf_pos = p if p >= 0 else None
+                dec._xcch(raw[i], 0, kind, scrambled=True, lcch=lcch,
+                          ctx=ctx, have_params=False, hit=hit, slot=slot)
+                continue
+            if res_ok[i] and (lcch or crc_ok[i]):
+                n_parsed += 1
+                self._parse_mac(c, t, kind, x[i][pay_idx[kind]], slot, dec)
+            else:
+                # channel errors: the serial RS(63,35) erasure decode
+                self.rs_fallbacks += 1
+                dec.sf_pos = p if p >= 0 else None
+                detail = dec._xcch(raw[i], 0, kind, scrambled=scr, lcch=lcch,
+                                   ctx=ctx, have_params=True, hit=hit,
+                                   slot=slot)
+                if detail and "ERR" in detail:
+                    self.crc_errors += 1
+                else:
+                    n_parsed += 1
+        return n_parsed
+
+    def _parse_mac(self, c: int, t: int, kind: str, payload: np.ndarray,
+                   slot: int, dec) -> None:
+        """Host MAC-PDU walk of one clean xCCH payload, with the
+        payload-keyed parse cache (control channels repeat the same PDUs
+        many times a second; see ``BatchedP25ControlPipeline``)."""
+        ctx = self.ctxs[c]
+        iden_v = getattr(getattr(ctx.state, "iden_table", None),
+                         "version", 0)
+        key = (payload.tobytes(), kind, slot & 1, iden_v)
+        if self.parse_cache:
+            hitv = self._pcache[c].get(key)
+            if hitv is not None:
+                for line, fields in hitv:
+                    ctx.emit(line, "p25p2", t, **fields)
+                return
+        hit = SyncHit(pos=t, score=1.0, sync=self._hit_def)
+        n0 = len(ctx.events)
+        detail = dec._mac_pdu(payload, kind, ctx, hit, slot)
+        name = {"sacch": "SACCH", "facch": "FACCH"}[kind]
+        ctx.emit(f"       P25p2 {name}{detail}", "p25p2", t, slot=slot)
+        if self.parse_cache:
+            pc = self._pcache[c]
+            if len(pc) >= PARSE_CACHE_MAX:
+                pc.clear()
+            pc[key] = [(e.line, dict(e.fields)) for e in ctx.events[n0:]]
 
     def events(self, c: int):
         return self.ctxs[c].events

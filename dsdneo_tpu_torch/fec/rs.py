@@ -2,9 +2,10 @@
 decode.
 
 The port's own copy of ``dsdneo_tpu/fec/rs.py`` (``ReedSolomon``,
-``rs_63_35``) for the one code the ported voice paths decode, without
-erasures, which no caller of the port passes: Berlekamp-Massey, a Chien
-search and Forney's formula, in exact integers.  Symbol order: data
+``rs_63_35``) for the one code the ported paths decode: Berlekamp-Massey
+with erasures folded in (the SACCH and FACCH decode passes the symbols
+their layout does not transmit), a Chien search and Forney's formula,
+in exact integers.  Symbol order: data
 first, then parity; ``r[0]`` is the coefficient of the highest degree.
 The field tables (x^6 + x + 1) come from ``data/tdma_tables.npz``.  The
 voice path decodes on the host only the words whose syndromes, screened
@@ -82,19 +83,29 @@ class ReedSolomon:
             out.append(acc)
         return out
 
-    def decode(self, word) -> tuple[np.ndarray, int]:
+    def decode(self, word, erasures=None) -> tuple[np.ndarray, int]:
         """``[n]`` received symbols → (corrected word, symbols corrected),
-        the count -1 when the word cannot be decoded."""
+        the count -1 when the word cannot be decoded.  ``erasures``: the
+        positions known to be unreliable (at most ``nroots`` are used)."""
         r = np.asarray(word, dtype=np.int32).copy()
         n, nroots, q1 = self.n, self.nroots, self.q1
         S = self.syndromes(r)
         if not any(S):
             return r, 0
-        # Berlekamp-Massey: the error locator, lowest degree first
+        # the erasure locator prod (1 - X_j z), lowest degree first
         lam = [1] + [0] * nroots
+        n_eras = 0
+        for pos in sorted(set(erasures or ())):
+            if n_eras >= nroots or pos >= n:
+                continue
+            x = self.exp[(n - 1 - pos) % q1]
+            for j in range(nroots, 0, -1):
+                lam[j] ^= self._mul(lam[j - 1], x)
+            n_eras += 1
+        # Berlekamp-Massey from the erasure locator: the errata locator
         B = lam.copy()
-        L = 0
-        for i in range(nroots):
+        L = n_eras
+        for i in range(n_eras, nroots):
             delta = 0
             for j in range(L + 1):
                 delta ^= self._mul(lam[j], S[i - j])
@@ -102,10 +113,10 @@ class ReedSolomon:
             if delta != 0:
                 T = [lam[j] ^ self._mul(B[j], delta)
                      for j in range(nroots + 1)]
-                if 2 * L <= i:
+                if 2 * L <= i + n_eras:
                     inv_d = self._inv(delta)
                     B = [self._mul(c, inv_d) for c in lam]
-                    L = i + 1 - L
+                    L = i + 1 + n_eras - L
                 lam = T
         deg = max((j for j in range(nroots + 1) if lam[j]), default=0)
         if deg == 0:

@@ -1,8 +1,9 @@
 """Decode events and the per-channel decode context (host).
 
-The port's own copy of ``DecodeEvent`` and ``DecoderContext`` of
-``dsdneo_tpu/protocol/base.py``: the event sink every catalog emits
-into and the cross-frame state it reads and writes.
+The port's own copy of ``DecodeEvent``, ``DecoderContext`` and
+``ProtocolDecoder`` of ``dsdneo_tpu/protocol/base.py``: the event sink
+every catalog emits into, the cross-frame state it reads and writes, and
+the base class of the per-channel protocol decoders.
 """
 
 from __future__ import annotations
@@ -74,3 +75,12 @@ class DecoderContext:
         if s.p2_siteid:
             parts.append(f"Site: {s.p2_siteid:03d}; ")
         return "".join(parts)
+
+
+class ProtocolDecoder:
+    """Base class: one instance per decode session per protocol family.
+    The serial stream entry point (``handle``, over a dibit reader) waits
+    for the port's serial decoders; the batched monitors call the
+    decoders' burst methods."""
+
+    protocol: str = ""

@@ -2,9 +2,9 @@
 
 The port's own copy of ``SyncDef``, ``SyncHit`` and the rows of
 ``SYNC_DEFS`` in ``dsdneo_tpu/symbols/framesync.py`` that its monitors
-name (P25 Phase 1, DMR BS data and voice, NXDN FSW, D-STAR voice and
-header, YSF, M17 stream, dPMR FS2, EDACS), in that table's order.  A catalog reads a
-hit's position and its definition's name.
+name (P25 Phase 1 and Phase 2, DMR BS data and voice, NXDN FSW, D-STAR
+voice and header, YSF, M17 stream, dPMR FS2, EDACS), in that table's
+order.  A catalog reads a hit's position and its definition's name.
 """
 
 from __future__ import annotations
@@ -31,6 +31,8 @@ class SyncDef:
 SYNC_DEFS: list[SyncDef] = [
     SyncDef("+P25p1", "111113113311333313133333", "p25p1", "frame"),
     SyncDef("-P25p1", "333331331133111131311111", "p25p1", "frame", True),
+    SyncDef("+P25p2", "11131131111333133333", "p25p2", "frame"),
+    SyncDef("-P25p2", "33313313333111311111", "p25p2", "frame", True),
     SyncDef("+DMR BS data", "313333111331131131331131", "dmr", "bs_data"),
     SyncDef("+DMR BS voice", "131111333113313313113313", "dmr", "bs_voice"),
     SyncDef("-DMR BS voice", "313333111331131131331131", "dmr", "bs_voice", True),

@@ -1,4 +1,4 @@
-"""Kernels K4 and K5 and the three control-channel monitors on the card.
+"""Kernels K4 and K5 and the four control-channel monitors on the card.
 
 K4 (the P25 trellis Viterbi) and K5 (the K=5 soft Viterbi) against their
 plain PyTorch versions, bits and costs identical: at batch sizes around
@@ -13,13 +13,14 @@ kept: the same accepted blocks, the same blobs, the same event lines;
 the NID second-chance decode (``nid_decode_positions``) on the card,
 reached through the TSDU pick; and the same card-against-CPU check for
 the P25 monitor's CQPSK mode and for the DMR monitor on channels whose
-FM is negated.
+FM is negated; the P25 Phase 2 TDMA monitor at 64 channels against its
+CPU path (kernel K1 on its front end).
 
 Every test needs a card (``cuda`` marker; skips without one) and none
 imports JAX, so this file runs on the card's machine:
 ``python -m pytest --noconftest -q -m cuda tests/test_torch_*.py``.
-The CPU path is held to the JAX package by ``test_torch_cc.py`` and
-``test_torch_viterbi.py``.
+The CPU path is held to the JAX package by ``test_torch_cc.py``,
+``test_torch_p2cc.py`` and ``test_torch_viterbi.py``.
 """
 
 import numpy as np
@@ -411,3 +412,40 @@ def test_dmr_monitor_on_an_inverted_channel_on_card_matches_cpu():
     for c in range(2):
         assert ([(e.line, e.pos) for e in card.events(c)]
                 == [(e.line, e.pos) for e in cpu.events(c)])
+
+
+@pytest.mark.cuda
+def test_p2cc_monitor_on_card_matches_cpu():
+    """The P25 Phase 2 TDMA control-channel monitor at 64 channels (own
+    lead of 0-96 dibits and own noise each), keyed, two blocks with the
+    contexts kept: every channel's events on the card equal the CPU
+    path's, every burst takes the fast screen, and K1 is launched once a
+    block."""
+    from dsdneo_tpu_torch.ops import fir_discriminate as k1mod
+    from dsdneo_tpu_torch.protocol.p25 import encode as p25_encode
+    dev = _card()
+    C = 64
+    key = {"wacn": 0xBEE00, "sysid": 0x14C, "nac": 0x293}
+    dib = p25_encode.p2_cc_superframes(3, key["wacn"], key["sysid"],
+                                       key["nac"])
+    rng = np.random.default_rng(13)
+    leads = rng.integers(0, 97, C)
+    blocks = [p25_encode.p2_cc_block(dib, leads, rng.integers(0, 1 << 20, C),
+                                     len(dib) * 8) for _ in range(2)]
+    card = ccbatch.BatchedP2ControlPipeline(
+        C, device=dev, tables=params.load_tdma("p25p2", dev), **key)
+    cpu = ccbatch.BatchedP2ControlPipeline(
+        C, device="cpu", tables=params.load_tdma("p25p2", "cpu"), **key)
+    k1 = k1mod.fir_discriminate.launches
+    for x in blocks:
+        n_card = card.decode_block_events(torch.as_tensor(x, device=dev))
+        n_cpu = cpu.decode_block_events(x)
+        assert n_card == n_cpu and n_card >= C * 4 * 8
+        for a, b in zip(card.last_xcch, cpu.last_xcch):
+            np.testing.assert_array_equal(a, b)
+    assert k1mod.fir_discriminate.launches == k1 + 2
+    assert card.rs_fallbacks == cpu.rs_fallbacks == 0
+    assert card.crc_errors == cpu.crc_errors == 0
+    for c in range(C):
+        assert ([(e.line, e.pos, e.fields) for e in card.events(c)]
+                == [(e.line, e.pos, e.fields) for e in cpu.events(c)])

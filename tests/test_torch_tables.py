@@ -41,6 +41,9 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.symbols.framesync", "dsdneo_tpu_torch.core.affiliation",
     "dsdneo_tpu_torch.protocol.p25.phase1",
     "dsdneo_tpu_torch.protocol.p25.p2_mac",
+    "dsdneo_tpu_torch.protocol.p25.mac_tables",
+    "dsdneo_tpu_torch.protocol.p25.harris",
+    "dsdneo_tpu_torch.protocol.p25.phase2",
     "dsdneo_tpu_torch.protocol.dmr.csbk",
     "dsdneo_tpu_torch.protocol.nxdn.decoder", "dsdneo_tpu_torch.protocol.nmea",
     "dsdneo_tpu_torch.symbols.slicer", "dsdneo_tpu_torch.engine.demod",
