@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
-five control-channel monitors and two event pipelines.
+five control-channel monitors, two event pipelines and the serial decode
+path.
 
     python3 chip_smoke.py
 
@@ -38,6 +39,13 @@ The paths, each at 320 channels through the entry points a user calls:
   - P2 CC: ``BatchedP2ControlPipeline(320, 0xBEE00, 0x14C, 0x293)``,
     the JAX bench's P25 Phase 2 TDMA control channel (``bench.py:604``:
     6 superframes of scrambled SACCH MAC PDUs, 2.1767 s blocks); K1.
+  - serial: ``engine.decoder.decode_samples`` (one channel, the CLI's
+    offline decode entry) on three 60 s streams at 48 kHz: a P25 Phase 1
+    voice call as C4FM and as CQPSK (part of it ADP-keyed, the key in a
+    ``KeyRing``) and an EDACS control channel with ProVoice voice
+    superframes (the ``provoice`` mode); no kernel of the table: the
+    serial front end is plain PyTorch on the card and the protocol walk
+    runs on the host, as in the JAX package.
 
 Phases, in order; any failure exits non-zero:
 
@@ -193,6 +201,21 @@ Phases, in order; any failure exits non-zero:
      6, K6 beside its first design (``csrc/alt/conv_k3_v1.cu``), held
      bit for bit to it.  These earlier designs are built, each by its own
      nvcc, beside the library in phase 1.
+
+  8. the serial decode path: ``demod_fm``'s step at the C4FM cell's
+     block [320, 144000] (channels 0-1 equal to the CPU path on dibits
+     off the thresholds; its time by CUDA events), then
+     ``decode_samples`` on the card over each whole 60 s stream of
+     ``data/serial_tables.npz`` (``engine.serialvec``): every LDU
+     accepted with the vector's voice bits, the keyed ones decrypted to
+     its clear bits, the LC on every LDU1 and the TDULC, every LDU2's
+     encryption sync; every EDACS frame with its message and every
+     ProVoice superframe with its LID, BF and frames; the PCM finite and
+     not silent; the first 10 s of each decoded on the card and on the
+     CPU with equal events and the PCM within 2e-3 of the peak.  Each
+     stream's x-realtime and its split (front end, host walk, synthesis),
+     the peak device memory and the launches of K1-K8 during the phase
+     (all 0) are printed.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -576,6 +599,167 @@ def cc_expected(kind: str, ct, tv, lead: int, n_sym: int):
         elif t + 192 < n_sym:
             out[t] = ([j], True)
     return out
+
+
+def serial_phase(ident: str, dev, block, counted) -> dict:
+    """Phase 8: the serial front end at the C4FM cell's block, then
+    ``decode_samples`` on the card over the three 60 s streams of
+    ``data/serial_tables.npz``, each judged whole and its first 10 s held
+    to the CPU path; returns the kernels' launches during the phase."""
+    import numpy as np
+    import torch
+    from dsdneo_tpu_torch.crypto.keyring import KeyRing
+    from dsdneo_tpu_torch.engine import decoder as sdec
+    from dsdneo_tpu_torch.engine import demod as sdemod
+    from dsdneo_tpu_torch.engine import serialvec as SV
+    from dsdneo_tpu_torch.vocoder import synth
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    # demod_fm's step at [320, 144000]: the card against the CPU path on
+    # channels 0-1, dibits off the slicer's thresholds
+    taps = torch.as_tensor(sdemod._taps_for("p25_c4fm", FS), device=dev)
+    n_sym = int((block.shape[1] - 2 * 10) // 10)
+
+    def step():
+        return sdemod.demod_fm_step(block, taps, 10.0, True, n_sym)
+
+    gd, gs, _p = step()
+    cd, cs, _p = sdemod.demod_fm_step(block[:2].cpu(), taps.cpu(), 10.0,
+                                      True, n_sym)
+    gd2, gs2 = gd[:2].cpu().numpy(), gs[:2].cpu().numpy()
+    off = np.min(np.abs(np.abs(cs.numpy())[..., None]
+                        - np.array([0.0, 2.0])), axis=-1) > 0.05
+    bad = int((gd2 != cd.numpy())[off].sum())
+    if bad:
+        raise RuntimeError(f"demod_fm at {list(block.shape[:2])}: {bad} "
+                           "dibits off the thresholds differ from the CPU "
+                           "path on channels 0-1")
+    ms = cuda_ms(step, 5)
+    x_np = torch.view_as_complex(block.contiguous()).cpu().numpy()
+    t1 = time.perf_counter()
+    sdemod.demod_fm(x_np, "p25p1", FS, device=dev)
+    wall = (time.perf_counter() - t1) * 1e3
+    log(f"serial: demod_fm at [{block.shape[0]}, {block.shape[1]}] "
+        f"(the C4FM cell's block): {ms:.3f} ms on the card for the step "
+        f"(CUDA events), {wall:.1f} ms for the call with the host copies; "
+        f"channels 0-1 equal to the CPU path on {int(off.sum())} dibits off "
+        f"the thresholds (soft within {np.abs(gs2 - cs.numpy()).max():.2e}) "
+        f"[{ident}]")
+    del gd, gs, x_np
+
+    # the split of decode_samples: the front end (the demod call, on the
+    # card), the synthesis (the voice frames' synthesize_frames, on the
+    # card) and the host walk (the rest)
+    spent = {"front": 0.0, "synth": 0.0}
+
+    def timed(key, fn):
+        def wrap(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[key] += time.perf_counter() - t
+        return wrap
+
+    real = (sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames)
+    sdec.demod_fm = timed("front", real[0])
+    sdec.demod_cqpsk_path = timed("front", real[1])
+    synth.synthesize_frames = timed("synth", real[2])
+    tv = SV.vector()
+    _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
+    try:
+        for name, mode, cq in (("P25p1 C4FM call", "p25p1", False),
+                               ("P25p1 CQPSK call", "p25p1", True),
+                               ("EDACS + ProVoice", "provoice", False)):
+            if mode == "provoice":
+                x, n10 = SV.pv_iq(tv), 10 * 9600 * SV.PV_SPS
+            else:
+                x, n10 = SV.p25_iq(tv, cqpsk=cq), 10 * 4800 * SV.P25_SPS
+            secs = len(x) / FS
+            out = {}
+            for where, xs in (("card", x), ("cpu10", x[:n10]),
+                              ("card10", x[:n10])):
+                kr = KeyRing()
+                kr.scalar[kid] = key
+                sink = SV.ImbeSink()
+                for k in spent:
+                    spent[k] = 0.0
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ctx = sdec.decode_samples(
+                    xs, mode, cqpsk=cq, keyring=kr, mbe_sink=sink,
+                    device="cpu" if where == "cpu10" else dev)
+                out[where] = (ctx, sink, time.perf_counter() - t1,
+                              dict(spent))
+            ctx, sink, wall, sp = out["card"]
+            if mode == "provoice":
+                got = SV.judge_pv(tv, ctx)
+            else:
+                got = SV.judge_p25(tv, ctx, sink)
+            pcm = SV.pcm(ctx)
+            if mode != "provoice":
+                if not (np.isfinite(pcm).all() and np.abs(pcm).max() > 0.05):
+                    raise RuntimeError(f"serial {name}: PCM not finite or "
+                                       "silent")
+            diff = SV.events_equal(out["cpu10"][0].events,
+                                   out["card10"][0].events)
+            if diff is not None:
+                raise RuntimeError(f"serial {name}: the card's first 10 s "
+                                   f"differ from the CPU path: {diff}")
+            a, b = SV.pcm(out["cpu10"][0]), SV.pcm(out["card10"][0])
+            if a.shape != b.shape or (a.size and np.abs(a - b).max()
+                                      > 2e-3 * np.abs(a).max()):
+                raise RuntimeError(f"serial {name}: the card's first 10 s "
+                                   "PCM is not within 2e-3 of the peak of "
+                                   "the CPU path's")
+            walk = wall - sp["front"] - sp["synth"]
+            # device busy over the first 10 s, against its unprofiled wall
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                sdec.decode_samples(x[:n10], mode, cqpsk=cq, keyring=kr,
+                                    device=dev)
+                torch.cuda.synchronize()
+            dev_us = {}
+            for e in prof.key_averages():
+                if (e.device_type == DeviceType.CUDA
+                        and e.self_device_time_total > 0):
+                    dev_us[e.key] = (dev_us.get(e.key, 0.0)
+                                     + e.self_device_time_total)
+            busy = sum(dev_us.values()) / 1e3
+            top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+            log(f"serial {name} profile, first 10 s: device busy "
+                f"{busy:.1f} ms = {100 * busy / (out['card10'][2] * 1e3):.1f}"
+                f"% of the unprofiled decode ({out['card10'][2] * 1e3:.1f} "
+                f"ms), idle {100 - 100 * busy / (out['card10'][2] * 1e3):.1f}"
+                f"%; top: " + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
+                                        for k, v in top) + f" [{ident}]")
+            log(f"serial {name}: {secs:.1f} s decoded on the card in "
+                f"{wall:.3f} s = {secs / wall:.2f}x realtime; split: front "
+                f"end {sp['front'] * 1e3:.1f} ms, host walk "
+                f"{walk * 1e3:.1f} ms, synthesis {sp['synth'] * 1e3:.1f} ms "
+                f"({len(sink.bits)} voice frames); {len(ctx.events)} events;"
+                f" judged: {got}; PCM {pcm.size} samples, peak "
+                f"{float(np.abs(pcm).max()) if pcm.size else 0.0:.3f}; the "
+                f"first 10 s equal to the CPU path ({len(b)} PCM samples "
+                f"within {float(np.abs(a - b).max()) if a.size else 0.0:.2e}"
+                f"); the CPU path took {out['cpu10'][2]:.3f} s for 10 s "
+                f"[{ident}]")
+    finally:
+        sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames = real
+    peak = torch.cuda.max_memory_allocated()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    log(f"serial phase: peak device memory {peak / 1e9:.3f} GB "
+        f"({mem0 / 1e9:.3f} GB allocated before the phase); launches of "
+        f"K1-K8 during the phase: {launches} (all 0: the serial path "
+        f"reaches no kernel of the table, as in the JAX package) [{ident}]")
+    return launches
 
 
 def main() -> int:
@@ -3033,6 +3217,10 @@ def main() -> int:
     time_monitor("EDACS monitor", pipe, burst["edacs"][3], True, edacs_stage,
                  "frames parsed")
     del pipe, ev, burst
+
+    # -- 8. the serial decode path (decode_samples) -------------------------
+    launches["serial"] = serial_phase(ident, dev, blocks[0], counted)
+    del blocks
 
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")

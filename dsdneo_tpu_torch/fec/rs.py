@@ -1,8 +1,9 @@
-"""Reed-Solomon RS(63,35) over GF(64) on the host: the P25 Phase 2 ESS
-decode.
+"""Reed-Solomon codes over GF(64) on the host: the P25 Phase 2 ESS decode
+and the P25 Phase 1 hexword codes.
 
 The port's own copy of ``dsdneo_tpu/fec/rs.py`` (``ReedSolomon``,
-``rs_63_35``) for the one code the ported paths decode: Berlekamp-Massey
+``rs_63_35``, and the shortened Phase 1 codes ``rs_24_12_13``,
+``rs_24_16_9`` and ``rs_36_20_17``): Berlekamp-Massey
 with erasures folded in (the SACCH and FACCH decode passes the symbols
 their layout does not transmit), a Chien search and Forney's formula,
 in exact integers.  Symbol order: data
@@ -166,3 +167,21 @@ class ReedSolomon:
 def rs_63_35() -> ReedSolomon:
     """P25 Phase 2 RS(63,35,29): SACCH, FACCH and the ESS."""
     return ReedSolomon(63, 35, fcr=1)
+
+
+@functools.lru_cache(maxsize=None)
+def rs_24_12_13() -> ReedSolomon:
+    """P25 RS(24,12,13): LDU1 and TDULC link control (shortened)."""
+    return ReedSolomon(24, 12, fcr=1)
+
+
+@functools.lru_cache(maxsize=None)
+def rs_24_16_9() -> ReedSolomon:
+    """P25 RS(24,16,9): the LDU2 encryption sync (shortened)."""
+    return ReedSolomon(24, 16, fcr=1)
+
+
+@functools.lru_cache(maxsize=None)
+def rs_36_20_17() -> ReedSolomon:
+    """P25 RS(36,20,17): the HDU (shortened)."""
+    return ReedSolomon(36, 20, fcr=1)

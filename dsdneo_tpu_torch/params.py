@@ -26,6 +26,7 @@ stored.  Nothing here imports the JAX package.
 from __future__ import annotations
 
 import os
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -39,6 +40,7 @@ TDMA_TABLES_NPZ = os.path.join(_DATA, "tdma_tables.npz")
 CC_TABLES_NPZ = os.path.join(_DATA, "cc_tables.npz")
 EVENT_TABLES_NPZ = os.path.join(_DATA, "event_tables.npz")
 BURST_TABLES_NPZ = os.path.join(_DATA, "burst_tables.npz")
+SERIAL_TABLES_NPZ = os.path.join(_DATA, "serial_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN
@@ -78,6 +80,24 @@ def bch_63_16_codebook() -> np.ndarray:
     return np.concatenate([msgs, parity], axis=1)
 
 
+SYNTH_KEYS = ("synth_bin_w", "synth_bin_cos", "synth_bin_sin")
+
+
+def _synth_tensors(t: dict[str, np.ndarray], device) -> dict:
+    """The synthesis noise grid on ``device``: the bins' frequencies
+    ``[79]``, their cosine and sine bases ``[79, 160]``, each bin's
+    harmonic slot and its phase offset (the JAX synth's own f64
+    expression, cast to f32 as it casts it)."""
+    kk = np.arange(N_BINS)
+    arrays = {k: np.asarray(t[k], np.float32) for k in SYNTH_KEYS}
+    arrays["synth_phi_off"] = (2.399963 * (kk // MAX_L)
+                               * (kk + 3)).astype(np.float32)
+    out = {k: torch.as_tensor(v, device=device) for k, v in arrays.items()}
+    out["synth_bin_l"] = torch.as_tensor(kk % MAX_L, dtype=torch.int64,
+                                         device=device)
+    return out
+
+
 class _VoiceTables:
     """What the table sets share: the numpy originals in ``np`` (host-side
     code reads them), the front end's constants, the PCM wire and
@@ -102,15 +122,8 @@ class _VoiceTables:
         self.adpcm_step = self.i32(t["adpcm_step"])
         self.adpcm_index = self.i32(t["adpcm_index"])
 
-        # synthesis noise grid; the per-bin phase offset is the JAX
-        # synth's own f64 expression, cast to f32 as it casts it
-        self.synth_bin_w = self.f32(t["synth_bin_w"])          # [79]
-        self.synth_bin_cos = self.f32(t["synth_bin_cos"])      # [79, 160]
-        self.synth_bin_sin = self.f32(t["synth_bin_sin"])
-        kk = np.arange(N_BINS)
-        self.synth_bin_l = self.i64(kk % MAX_L)
-        self.synth_phi_off = self.f32(
-            (2.399963 * (kk // MAX_L) * (kk + 3)).astype(np.float32))
+        # synthesis noise grid
+        vars(self).update(_synth_tensors(t, self._dev))
 
     def _as(self, a, dtype):
         return torch.as_tensor(np.asarray(a, dtype), device=self._dev)
@@ -234,6 +247,22 @@ def load(device=None) -> P25Tables:
     """The checked-in ``data/p25p1_tables.npz`` on ``device``: the card
     when none is given (raises when there is no card)."""
     return from_numpy(_read_npz(TABLES_NPZ), _device(device))
+
+
+_SYNTH: dict[str, SimpleNamespace] = {}
+
+
+def load_synth(device) -> SimpleNamespace:
+    """The synthesis noise grid of ``data/p25p1_tables.npz`` on
+    ``device`` (kept once per device): what ``vocoder.synth.synthesize``
+    needs of the tables, without the voice path's other tables."""
+    dev = torch.device(device)
+    key = str(dev)
+    if key not in _SYNTH:
+        with np.load(TABLES_NPZ) as z:
+            _SYNTH[key] = SimpleNamespace(**_synth_tensors(
+                {k: z[k] for k in SYNTH_KEYS}, dev))
+    return _SYNTH[key]
 
 
 def dmr_from_numpy(tables: dict[str, np.ndarray], device) -> DmrTables:

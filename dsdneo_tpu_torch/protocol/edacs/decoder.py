@@ -6,8 +6,8 @@ BCH(40,28) code of the control channel's two 40-bit words (a shortened
 bits and 12 parity bits, most significant first) and the standard and
 extended-addressing (EA) message catalogs the batched monitor parses
 its BCH-valid words with (reference src/protocol/edacs/edacs-fme.c).
-The serial frame reader (``EdacsDecoder.handle``) waits for the port's
-serial decode path.
+``EdacsDecoder.handle`` is the serial frame reader of the serial decode
+path (``engine.decoder``), registered for ``edacs``.
 """
 
 from __future__ import annotations
@@ -17,7 +17,8 @@ from functools import lru_cache
 import numpy as np
 
 from dsdneo_tpu_torch.params import _poly_mod
-from dsdneo_tpu_torch.protocol.base import DecoderContext
+from dsdneo_tpu_torch.protocol.base import (DecoderContext, DibitReader,
+                                            ProtocolDecoder, register)
 from dsdneo_tpu_torch.protocol.edacs.afs import state_split
 from dsdneo_tpu_torch.symbols.framesync import SyncHit
 
@@ -60,12 +61,71 @@ def _lcn_status(lcn: int) -> str:
     return LCN_STATUS.get(lcn, "")
 
 
-class EdacsDecoder:
-    """The EDACS message catalogs: ``_standard`` and ``_extended`` parse
+@register("edacs")
+class EdacsDecoder(ProtocolDecoder):
+    """The EDACS frame reader and message catalogs: ``handle`` votes the
+    frame's two BCH(40,28) words; ``_standard`` and ``_extended`` parse
     one BCH-valid pair of 28-bit messages into the frame's line and emit
     the grant events into the context."""
 
     protocol = "edacs"
+
+    def handle(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> int:
+        pos = hit.end
+        if pos + 240 > len(reader.dibits):
+            return len(reader.dibits)
+        dd = reader.dibits[pos:pos + 240].astype(np.uint8)
+        bits = (dd >> 1) & 1                      # 2-level: negative symbol = 1
+        if reader.invert:
+            bits = bits ^ 1
+        frames = [self._word(bits[i * 40:(i + 1) * 40]) for i in range(6)]
+        msg1 = self._vote(frames[0], frames[1], frames[2])
+        msg2 = self._vote(frames[3], frames[4], frames[5])
+        # resolve channel polarity by BCH validity (an inverted channel
+        # complements every 40-bit word)
+        inverted = reader.invert
+        if (edacs_bch_encode(msg1 >> 12) != msg1
+                or edacs_bch_encode(msg2 >> 12) != msg2):
+            m1c = (~msg1) & 0xFFFFFFFFFF
+            m2c = (~msg2) & 0xFFFFFFFFFF
+            if (edacs_bch_encode(m1c >> 12) == m1c
+                    and edacs_bch_encode(m2c >> 12) == m2c):
+                msg1, msg2 = m1c, m2c
+                inverted = not inverted
+            else:
+                ctx.emit(f"Sync: {'-' if inverted else '+'}EDACS  BCH FAIL",
+                         "edacs", hit.pos)
+                return pos + 240
+        m1, m2 = msg1 >> 12, msg2 >> 12
+        # ESK (Encryption Sync Key) scramble: 8-bit mask XORed over the
+        # top command bits (reference edacs_process_valid_frame
+        # fr_esk_mask = esk_mask << 20)
+        esk = int(getattr(ctx.state, "edacs_esk", 0) or 0)
+        if esk:
+            m1 ^= (esk & 0xFF) << 20
+            m2 ^= (esk & 0xFF) << 20
+        if getattr(ctx.state, "edacs_ea", False):
+            line = self._extended(m1, m2, ctx, hit)
+        else:
+            line = self._standard(m1, m2, ctx, hit)
+        # both 28-bit words passed BCH: carry the raw command as a
+        # structured field (validated-decode evidence for auto mode)
+        ctx.emit(f"Sync: {'-' if inverted else '+'}EDACS {line}", "edacs",
+                 hit.pos, mt=m1 >> 23, word=m1)
+        return pos + 240
+
+    @staticmethod
+    def _word(bits: np.ndarray) -> int:
+        v = 0
+        for b in bits:
+            v = (v << 1) | int(b)
+        return v
+
+    @staticmethod
+    def _vote(a: int, b: int, c: int) -> int:
+        b = (~b) & 0xFFFFFFFFFF
+        return (a & b) | (a & c) | (b & c)
+
 
     # -- extended addressing (EA) mode ------------------------------------
     def _extended(self, msg1: int, msg2: int, ctx: DecoderContext,

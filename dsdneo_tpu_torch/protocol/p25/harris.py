@@ -1,13 +1,12 @@
-"""L3Harris vendor payloads of the P25 Phase 2 MAC path: talker GPS
-and the self-contained talker alias.
+"""L3Harris vendor payloads shared by the P25 Phase 1 LCW and Phase 2
+MAC paths: talker GPS and the talker alias.
 
-The port's own copy of ``_f``, ``decode_harris_gps`` and
-``sanitize_alias_char`` of ``dsdneo_tpu/protocol/p25/harris.py``
+The port's own copy of ``dsdneo_tpu/protocol/p25/harris.py``
 (reference src/core/gps/dsd_gps.c nmea_harris, :477-560: the GPS fields
 start at bit 40 of the assembled buffer; src/core/util/dsd_alias.c
 l3h_embedded_alias_*: the MAC message 0xA8 carries the alias text from
-byte 4).  The Phase 1 fragment assembler waits for the port's Phase 1
-link-control path.
+byte 4; the Phase 1 LCW carries four 7-byte fragments, 0x32-0x35,
+which ``HarrisAliasAssembler`` collects).
 """
 
 from __future__ import annotations
@@ -67,3 +66,42 @@ def sanitize_alias_char(v: int) -> str:
     if 0x19 < v < 0x7F:
         return chr(v)
     return "" if v == 0 else " "
+
+
+class HarrisAliasAssembler:
+    """Phase-1 fragment collection (LCW opcodes 0x32-0x35, 7 alias
+    bytes each at bits 16+; reference
+    l3h_embedded_alias_blocks_phase1).  Fragment 0 restarts the set;
+    continuations without it are dropped.  Returns the assembled text
+    once fragments 0-1 are in (reference decodes incrementally) and
+    clears after fragment 3."""
+
+    def __init__(self) -> None:
+        self.frags: list[bytes | None] = [None] * 4
+
+    def add(self, op: int, bits: np.ndarray) -> str | None:
+        ptr = op - 0x32
+        if not 0 <= ptr <= 3:
+            return None
+        raw = bytes(_f(bits, 16 + 8 * i, 8) for i in range(7))
+        if ptr == 0:
+            self.frags = [None] * 4
+        elif self.frags[0] is None:
+            return None
+        self.frags[ptr] = raw
+        text = None
+        if self.frags[0] is not None and self.frags[1] is not None:
+            # skip a second pair that just repeats the first
+            # (l3h_alias_is_repeated_pair_fragment)
+            parts = []
+            for i, fr in enumerate(self.frags):
+                if fr is None:
+                    continue
+                if i >= 2 and fr == self.frags[i - 2]:
+                    continue
+                parts.append(fr)
+            text = "".join(sanitize_alias_char(v)
+                           for fr in parts for v in fr).strip()
+        if ptr == 3:
+            self.frags = [None] * 4
+        return text or None

@@ -1,25 +1,346 @@
-"""The P25 Phase 1 TSBK catalog (host, numpy only).
+"""P25 Phase 1 (C4FM/CQPSK) frame decoder.
 
-The port's own copy of the TSBK part of ``P25P1Decoder`` in
-``dsdneo_tpu/protocol/p25/phase1.py`` (``_iden_table``,
-``_chan_freq_note``, ``_iden_update``, ``_tsbk_isp``,
-``_tsbk_isp_mfid90``, ``_queued_deny``, ``_mfid90``, ``_tsbk``): every
-branch of the decision logic as it stands there, so a CRC-valid TSBK
-gives the same event lines and fields in both packages.  The LDU, HDU,
-TDULC and MPDU readers are not here: the batched control-channel
-monitor (``engine.ccbatch``) parses TSBK payloads only.
+Host-side protocol layer over the device dibit stream.  Structure
+citations into the reference for parity checking:
+  - NID read order / status skip: src/engine/dispatch/dispatch_p25p1.c:86-141
+  - TSDU/TSBK: src/protocol/p25/phase1/p25p1_tsbk.c (trellis + CRC16)
+  - LDU1 layout: src/protocol/p25/phase1/p25p1_ldu1.c:185-286
+  - LCW formats: src/protocol/p25/p25_lcw.c
+
+The port's own copy of ``dsdneo_tpu/protocol/p25/phase1.py`` (numpy
+only), registered for ``p25p1``: the serial frame walk (NID, HDU, LDU1
+and LDU2 with the host IMBE vocoder and the ADP / DES-OFB voice
+decrypt, TDULC, TSDU, MPDU) and the TSBK catalog that the batched
+control-channel monitor (``engine.ccbatch``) also parses its payloads
+with.  Every branch of the decision logic is as it stands there, so a
+frame gives the same event lines and fields in both packages.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dsdneo_tpu_torch.protocol.base import DecoderContext
+from dsdneo_tpu_torch.fec import blockcodes, crc, rs, trellis
+from dsdneo_tpu_torch.protocol.base import (DecoderContext, DibitReader,
+                                      ProtocolDecoder, register)
 from dsdneo_tpu_torch.symbols.framesync import SyncHit
 
+DUID_NAMES = {0x0: "HDU", 0x3: "TDU", 0x5: "LDU1", 0x7: "TSDU",
+              0xA: "LDU2", 0xC: "PDU", 0xF: "TDULC"}
 
-class P25P1Decoder:
+
+def _bits_to_int(bits) -> int:
+    v = 0
+    for b in bits:
+        v = (v << 1) | int(b)
+    return v
+
+
+@register("p25p1")
+class P25P1Decoder(ProtocolDecoder):
     protocol = "p25p1"
+
+    def handle(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> int:
+        reader.strip_status = True
+        nid = self._read_nid(reader, ctx)
+        if nid is None:
+            return reader.pos
+        nac, duid = nid
+        s = ctx.state
+        if nac not in (0, 0xFFF):
+            s.nac = nac
+            s.p2_cc = nac
+        name = DUID_NAMES.get(duid, f"DUID {duid:X}")
+        header = f"Sync: {hit.sync.name} | {ctx.frame_info()}{name}"
+        ctx.emit(header, "p25p1", hit.pos, nac=nac, duid=duid)
+
+        if duid == 0x7:
+            self._tsdu(reader, hit, ctx)
+        elif duid == 0x5:
+            self._ldu1(reader, hit, ctx)
+        elif duid == 0xA:
+            self._ldu2(reader, hit, ctx)
+        elif duid == 0x0:
+            self._hdu(reader, hit, ctx)
+        elif duid == 0xF:
+            self._tdulc(reader, hit, ctx)
+        elif duid == 0xC:
+            self._mpdu(reader, hit, ctx)
+        elif duid == 0x3:
+            pass  # terminator: nothing further to read before next sync
+        self._classify_status(reader, ctx)
+        return reader.pos
+
+    @staticmethod
+    def _classify_status(reader: DibitReader, ctx: DecoderContext) -> None:
+        """Classify the frame's transmission direction from the stripped
+        status dibits (reference p25_status_symbol.c, sdrtrunk
+        semantics: 01/11 count repeater/outbound, 00 counts subscriber,
+        10 is ignored) — drives the advisory auto-PPM AFC gate
+        (DSD_NEO_P25_AFC_STATUS_GATE)."""
+        rep = sub = 0
+        for d in reader.status_dibits:
+            if d in (0x1, 0x3):
+                rep += 1
+            elif d == 0x0:
+                sub += 1
+        if rep > sub:
+            cls = "infrastructure"
+        elif sub > 0:
+            cls = "subscriber"
+        else:
+            cls = "unknown"
+        ctx.state.p25_ss_classification = cls
+
+    # -- MPDU (packet data unit) ------------------------------------------
+    # reference p25p1_pdu_data.c p25_sap_label (decimal SAPs)
+    _SAP_NAMES = {0: "User Data", 1: "Encrypted User Data",
+                  2: "Circuit Data", 3: "Circuit Data Control",
+                  4: "Packet Data", 5: "Address Resolution Protocol",
+                  6: "SNDCP Packet Data Control",
+                  15: "Packet Data Scan Preamble",
+                  29: "Packet Data Encryption Support",
+                  31: "Extended Address",
+                  32: "Registration and Authorization",
+                  33: "Channel Reassignment", 34: "System Configuration",
+                  35: "Mobile Radio Loopback",
+                  36: "Mobile Radio Statistics",
+                  37: "Mobile Radio Out of Service",
+                  38: "Mobile Radio Paging",
+                  39: "Mobile Radio Configuration",
+                  40: "Unencrypted Key Management",
+                  41: "Encrypted Key Management",
+                  48: "Location Service",
+                  61: "Trunking Control",
+                  63: "Encrypted Trunking Control"}
+
+    def _mpdu(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        """Multi-block PDU: header + blocks, each a 1/2-rate trellis
+        codeword (reference p25p1_mdpu.c processMPDU; header fields
+        p25p1_pdu_data.c p25_read_pdu_header_fields)."""
+        hdr = self._mpdu_block(reader, crc_gate=True)
+        if hdr is None:
+            return
+        if crc.crc16_bits(hdr[:80], init=0, xorout=0xFFFF) != _bits_to_int(hdr[80:96]):
+            ctx.emit(" P25 Data Header CRC Error", "p25p1", hit.pos)
+            return
+        b = np.packbits(hdr[:96]).astype(np.int64)
+        an = (int(b[0]) >> 6) & 1
+        io = (int(b[0]) >> 5) & 1
+        fmt = int(b[0]) & 0x1F
+        sap = int(b[1]) & 0x3F
+        mfid = int(b[2])
+        address = (int(b[3]) << 16) | (int(b[4]) << 8) | int(b[5])
+        blks = int(b[6]) & 0x7F
+        pad = int(b[7]) & 0x1F
+        line = f" P25 Data - AN: {an}; IO: {io}; FMT: {fmt:02X}; "
+        sap_s = self._SAP_NAMES.get(sap, "Reserved")
+        line += (f"\n F: {(int(b[6]) >> 7) & 1}; Blocks: {blks:02X};"
+                 f" Pad: {pad}; MFID: {mfid:02X}; SAP: {sap:02X} [{sap_s}];")
+        line += f" {'DST' if io else 'SRC'} LLID: {address};"
+        ctx.emit(line, "p25p1", hit.pos, sap=sap, blocks=blks)
+        data = []
+        raw_blocks = []
+        for _ in range(min(blks, 32)):
+            blk = self._mpdu_block(reader)
+            if blk is None:
+                break
+            data.append(np.packbits(blk[:96]))
+            raw_blocks.append(blk)
+        if sap in (61, 63) and raw_blocks:   # decimal (p25_sap_is_trunking_control)
+            if fmt in (0x15, 0x17):
+                # AMBTC/UMBTC: native multi-block trunking layouts
+                # (p25p1_pdu_trunking.c); fall back to the TSBK bridge
+                # for layouts that coincide with the single-block form
+                from dsdneo_tpu_torch.protocol.p25.mbt import decode_mbt
+                mpdu = np.concatenate([b[:12].astype(np.int64)]
+                                      + [d.astype(np.int64) for d in data])
+                if not decode_mbt(mpdu, ctx, hit, self):
+                    for blk in raw_blocks:
+                        self._tsbk(blk, hit, ctx)
+            else:
+                for blk in raw_blocks:
+                    self._tsbk(blk, hit, ctx)
+        if data and sap not in (61, 63):
+            payload = np.concatenate(data)
+            d = self._mpdu_data_sap(sap, payload, b, io, pad, ctx, hit)
+            if d is None:
+                hexs = "".join(f"{int(x):02X}" for x in payload[:24])
+                d = f" P25 PDU Payload ({len(payload)} bytes) {hexs}"
+            ctx.emit(d, "p25p1", hit.pos, payload=payload)
+
+    def _mpdu_data_sap(self, sap: int, payload: np.ndarray, b: np.ndarray,
+                       io: int, pad: int, ctx: DecoderContext,
+                       hit: SyncHit) -> str | None:
+        """Data-SAP routing on completed clear PDUs (reference
+        p25_decode_clear_pdu_payload p25p1_pdu_data.c:988-1006:
+        0 = IPv4, 4 = SNDCP packet data + IPv4, 6 = SNDCP control,
+        32 = RegAuth, 34 = SysCfg, 48 = location/NMEA)."""
+        off = int(b[9]) & 0x3F
+        plen = max(0, len(payload) - 4 - pad)   # strip CRC32 + pad
+        body = payload[off:plen]
+        if len(body) == 0:
+            return None
+        if sap in (0x00, 0x04):
+            from dsdneo_tpu_torch.protocol.dmr.ip_pdu import decode_ip_pdu
+            pre = ""
+            if sap == 0x04 and off == 2 and len(payload) >= 2:
+                # SNDCP packet header nibbles ahead of the IP datagram
+                typ, nsapi = int(payload[0]) >> 4, int(payload[0]) & 0xF
+                pre = (f" SNDCP Packet Header"
+                       f" {self._sndcp_type(typ, io == 1)}"
+                       f" NSAPI:{nsapi} IPComp:{int(payload[1]) >> 4}"
+                       f" UDPComp:{int(payload[1]) & 0xF};")
+            ip = decode_ip_pdu(body)
+            return (pre + ip) if ip else (pre or None)
+        if sap == 0x06:
+            typ, nsapi = int(body[0]) >> 4, int(body[0]) & 0xF
+            return f" SNDCP {self._sndcp_type(typ, io == 1)} NSAPI:{nsapi}"
+        if sap == 0x20:
+            return (f" RegAuth subtype:{int(body[0])}"
+                    f" bytes:{len(body)}")
+        if sap == 0x22:
+            return (f" SysCfg subtype:{int(body[0])}"
+                    f" b1:{int(body[1]) if len(body) > 1 else 0}"
+                    f" b2:{int(body[2]) if len(body) > 2 else 0}"
+                    f" bytes:{len(body)}")
+        if sap == 0x30:
+            return self._location_data(body)
+        return None
+
+    @staticmethod
+    def _sndcp_type(typ: int, outbound: bool) -> str:
+        """SNDCP message types (p25p1_pdu_data.c
+        p25_sndcp_type_label)."""
+        if outbound:
+            return {0: "Activate TDS Context Accept",
+                    1: "Deactivate TDS Context Accept",
+                    2: "Deactivate TDS Context Request",
+                    3: "Activate TDS Context Reject",
+                    4: "RF Unconfirmed Data",
+                    5: "RF Confirmed Data"}.get(typ, "Outbound Unknown")
+        return {0: "Activate TDS Context Request",
+                1: "Deactivate TDS Context Accept",
+                2: "Deactivate TDS Context Request",
+                5: "RF Confirmed Data"}.get(typ, "Inbound Unknown")
+
+    @staticmethod
+    def _location_data(body: np.ndarray) -> str:
+        """SAP 48 location: validated ASCII NMEA sentence, else
+        best-effort UTF-8 text (reference
+        p25_handle_sap48_location_data + nmea_sentence_checker)."""
+        if int(body[0]) in (0x24, 0x21):        # '$' or '!'
+            from dsdneo_tpu_torch.protocol.nmea import nmea_sentence_check
+            return nmea_sentence_check(body)
+        text = "".join(chr(int(v)) if 0x20 <= int(v) < 0x7F else " "
+                       for v in body).strip()
+        return f" Location Data Text: {text}" if text else " Location Data;"
+
+    def _mpdu_block(self, reader: DibitReader,
+                    crc_gate: bool = False) -> np.ndarray | None:
+        if reader.remaining() < 98:
+            return None
+        bits, rel = reader.read_bits(98)
+        llr = ((1 - 2 * bits.astype(np.int32))
+               * np.clip(rel * 64, 1, 127)).astype(np.int32)
+        if crc_gate:
+            return self._trellis_crc_select(bits, llr)
+        data96, _cost = trellis.p25_12_decode(bits, llr)
+        return data96
+
+    @staticmethod
+    def _trellis_crc_select(bits: np.ndarray, llr: np.ndarray) -> np.ndarray:
+        """Ranked-list trellis decode gated by the outer CRC16: try the
+        candidates best-first and return the first that passes, else the
+        best path (reference tsbk_select_crc_candidate, p25p1_tsbk.c:111
+        over p25_12_soft_llr_list).
+
+        The soft-decision knobs (docs/cli.md:500-505) shape the ranked
+        retries: DSD_NEO_P25_SOFT_ERASURE_THRESHOLD (shared) /
+        DSD_NEO_P25P1_SOFT_ERASURE_THRESHOLD (phase override) bound the
+        list depth — lower is more conservative, higher expands — and
+        DSD_NEO_P25_SOFT_HARD_OVERRIDE=0 keeps a CRC-passing hard
+        Viterbi decode even when a soft candidate ranks better."""
+        from dsdneo_tpu_torch.runtime import config as rtcfg
+        cfg = rtcfg.get()
+        thr = cfg.p25p1_soft_erasure_threshold or cfg.soft_erasure_threshold
+        if not cfg.p25_soft_hard_override:
+            data96, _cost = trellis.p25_12_decode(bits, llr)
+            if crc.crc16_bits(data96[:80], init=0,
+                              xorout=0xFFFF) == _bits_to_int(data96[80:96]):
+                return data96
+        depth = max(1, min(trellis.MAX_CANDIDATES, -(-int(thr) // 8)))
+        cands = trellis.p25_12_decode_list(bits, llr, max_candidates=depth)
+        for data96, _metric in cands:
+            if crc.crc16_bits(data96[:80], init=0,
+                              xorout=0xFFFF) == _bits_to_int(data96[80:96]):
+                return data96
+        if cands:
+            return cands[0][0]
+        data96, _cost = trellis.p25_12_decode(bits, llr)
+        return data96
+
+    # -- TDULC ------------------------------------------------------------
+    def _tdulc(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        """Terminator with Link Control: 6 data + 6 parity dodeca words,
+        each Golay(24,12), then RS(24,12,13) over the hexword pairs
+        (reference p25p1_tdulc.c tdulc_read_data_and_parity_words /
+        tdulc_build_lcw_payload)."""
+        if reader.remaining() < 150:
+            return
+        gol = blockcodes.golay_24_12()
+        words = np.zeros((12, 12), dtype=np.uint8)
+        for w in range(12):
+            bits, rel = reader.read_bits(12)
+            msg, _e = gol.decode(bits, rel)
+            words[w] = [(msg >> (11 - i)) & 1 for i in range(12)]
+        # hexwords in plain stream order: word w yields hexwords 2w
+        # (bits 0-5) and 2w+1 (bits 6-11); validated against the
+        # p25p1_cqpsk_vc fixture's TDULC Group Voice LCWs
+        hexwords = np.zeros(24, dtype=np.int64)
+        for w in range(12):
+            hexwords[2 * w] = _bits_to_int(words[w][0:6])
+            hexwords[2 * w + 1] = _bits_to_int(words[w][6:12])
+        code = rs.rs_24_12_13()
+        dec, nerr = code.decode(hexwords)
+        if nerr < 0:
+            ctx.emit(" TDULC RS FEC ERR", "p25p1", hit.pos)
+            return
+        lc_bits = np.zeros(72, dtype=np.uint8)
+        for i in range(12):
+            for j in range(6):
+                lc_bits[6 * i + j] = (int(dec[i]) >> (5 - j)) & 1
+        self._lcw(lc_bits, hit, ctx)
+
+    # -- NID --------------------------------------------------------------
+    def _read_nid(self, reader: DibitReader, ctx: DecoderContext):
+        """63-bit BCH(63,16) + parity bit; soft ML decode."""
+        if reader.remaining() < 40:
+            return None
+        bits, rel = reader.read_bits(32)       # status dibit auto-stripped
+        code, code_rel = bits[:63], rel[:63]
+        bch = blockcodes.bch_63_16()
+        msg, errs = bch.decode(code, code_rel)
+        if errs > 16:                           # implausible decode: noise
+            return None
+        nac = msg >> 4
+        duid = msg & 0xF
+        return nac, duid
+
+    # -- TSDU -------------------------------------------------------------
+    def _tsdu(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        for _ in range(3):
+            if reader.remaining() < 110:
+                return
+            bits, rel = reader.read_bits(98)
+            llr = ((1 - 2 * bits.astype(np.int32)) * np.clip(rel * 64, 1, 127)).astype(np.int32)
+            data96 = self._trellis_crc_select(bits, llr)
+            if crc.crc16_bits(data96[:80], init=0, xorout=0xFFFF) != _bits_to_int(data96[80:96]):
+                ctx.emit(" TSBK CRC ERR", "p25p1", hit.pos)
+                return
+            last = self._tsbk(data96, hit, ctx)
+            if last:
+                return
 
     @staticmethod
     def _iden_table(ctx: DecoderContext):
@@ -652,3 +973,234 @@ class P25P1Decoder:
         else:
             ctx.emit(f" TSBK OP [{opcode:02X}]", "p25p1", hit.pos)
         return bool(lb)
+
+    # -- LDU1 -------------------------------------------------------------
+    def _read_hexwords(self, reader: DibitReader, n: int):
+        """Read n Hamming(10,6,3)-protected hexbits → (values, err flags)."""
+        ham = blockcodes.hamming_10_6_3()
+        vals = np.zeros(n, dtype=np.int64)
+        errs = np.zeros(n, dtype=np.int64)
+        for i in range(n):
+            bits, rel = reader.read_bits(5)
+            m, e = ham.decode(bits, rel)
+            vals[i] = m
+            errs[i] = e
+        return vals, errs
+
+    def _ldu1(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        if reader.remaining() < 820:
+            return
+        imbe = []
+        hexwords = np.zeros(24, dtype=np.int64)
+        hexerrs = np.zeros(24, dtype=np.int64)
+        w = 0
+        for seg in range(8):
+            bits, _ = reader.read_bits(72)
+            imbe.append(bits)
+            if seg >= 1 and seg <= 6:
+                vals, errs = self._read_hexwords(reader, 4)
+                hexwords[w:w + 4] = vals
+                hexerrs[w:w + 4] = errs
+                w += 4
+            elif seg == 7:
+                reader.read(16)                    # LSD (2×(16,8) codewords)
+        bits, _ = reader.read_bits(72)
+        imbe.append(bits)
+
+        code = rs.rs_24_12_13()
+        word = hexwords.copy()
+        eras = [int(i) for i in np.nonzero(hexerrs >= 2)[0]]
+        dec, nerr = code.decode(word, erasures=eras)
+        lc_bits = np.zeros(72, dtype=np.uint8)
+        for i in range(12):
+            for j in range(6):
+                lc_bits[i * 6 + j] = (dec[i] >> (5 - j)) & 1
+        if nerr < 0:
+            ctx.emit(" LDU1 LC RS FEC ERR", "p25p1", hit.pos)
+        else:
+            self._lcw(lc_bits, hit, ctx)
+        ctx.emit(" LDU1 VOICE (9 IMBE frames)", "p25p1", hit.pos,
+                 imbe=np.stack(imbe))
+        self._voice(imbe, ctx)
+
+    def _voice(self, imbe_frames: list[np.ndarray], ctx: DecoderContext) -> None:
+        """IMBE ECC (+ ADP/RC4 decrypt when keyed) + parameter decode +
+        synthesis → 8 kHz PCM.
+
+        Keystream discipline per the reference LDU layout: the two LSD
+        octets sit between voice frames 8 and 9 and consume 2 keystream
+        octets (p25p1_ldu1.c:185-186, p25p1_ldu2.c:207-208), so the
+        rolling offset skips 2 before the 9th frame."""
+        from dsdneo_tpu_torch.protocol.p25.imbe_frame import decode_imbe_ecc
+        from dsdneo_tpu_torch.vocoder.glue import MbeGlue, imbe_tone_info
+        from dsdneo_tpu_torch.vocoder.mbe import decode_imbe_4400
+        glue = getattr(ctx.state, "imbe_glue", None)
+        if glue is None:
+            glue = ctx.state.imbe_glue = MbeGlue()
+        prev = getattr(ctx.state, "imbe_prev", None)
+        sink = getattr(ctx, "mbe_sink", None)
+        directives = []
+        for i, fr in enumerate(imbe_frames):
+            bits88, errs = decode_imbe_ecc(fr)
+            if i == 8:
+                ctx.state.ks_offset = getattr(ctx.state, "ks_offset", 0) + 2
+            bits88 = self._decrypt_imbe(bits88, ctx)
+            if sink is not None:
+                sink.write(bits88, errs)
+            if getattr(ctx.state, "payload_log", False):
+                # -Z console payload logging (reference opts->payload)
+                hx = np.packbits(bits88.astype(np.uint8)).tobytes().hex()
+                ctx.emit(f" IMBE {hx.upper()} err {errs}", "p25p1", 0)
+            # the MBE glue contract (vocoder.glue, reference dsd_mbe.c /
+            # mbelib process semantics): tone codes synthesize tones,
+            # invalid non-voice codes and over-threshold frames repeat
+            # the last good parameters a bounded number of times, then
+            # mute
+            from dsdneo_tpu_torch.vocoder.glue import imbe_raw_b0
+            tone = imbe_tone_info(bits88)
+            if tone is not None:
+                directives.append(glue.condition(None, errs, tone))
+                continue
+            if imbe_raw_b0(bits88) > 207:
+                # invalid non-voice code: process-failure path
+                directives.append(glue.condition(
+                    None, glue.err_threshold + 1 + errs, None))
+                continue
+            # full parameter decode only for frames that can use it
+            frame = decode_imbe_4400(bits88, prev=prev)
+            kind, arg = glue.condition(frame, errs, None)
+            if kind == "voice":
+                prev = frame
+            directives.append((kind, arg))
+        ctx.state.imbe_prev = prev
+        pcm = glue.render(directives, ctx.device)
+        # encrypted-without-key audio is muted (reference
+        # unmute_encrypted_p25 default 0); -q reverse mute flips it
+        mute = bool(getattr(ctx.state, "p25_enc_unbroken", False)) \
+            ^ bool(getattr(ctx.state, "reverse_mute", False))
+        if pcm.size and not mute:
+            ctx.emit_audio(pcm, slot=0)
+        if ctx.events:
+            # per-call error accounting on the owning LDU event
+            # (reference p25_p1_voice_err_hist rolling average)
+            ctx.events[-1].fields.setdefault("voice_err_avg",
+                                             round(glue.err_avg(), 2))
+
+    def _decrypt_imbe(self, bits88: np.ndarray, ctx: DecoderContext) -> np.ndarray:
+        """Keyed voice decrypt: ADP/RC4 (ALG 0xAA) or DES-OFB (0x81),
+        XORing 11 keystream octets per voice frame at a rolling offset.
+
+        Reference parity (dsd_mbe.c / p25p1_hdu.c:429 / p25p1_ldu2.c:238):
+        the RC4 keystream position starts at absolute drop 267 per
+        superframe; DES-OFB starts at octet 19 (8 discard + 8 LC + 3
+        reserved).  Both advance 11 per frame and 2 extra across the LSD
+        (handled by ``_voice``); the offset resets only after LDU2's own
+        voice has been decrypted (ldu2_collect_voice_symbols)."""
+        s = ctx.state
+        kr = getattr(s, "keyring", None)
+        algid = getattr(s, "payload_algid", 0)
+        enc = algid not in (0, 0x80)
+        s.p25_enc_unbroken = enc          # cleared below once a key applies
+        if kr is None or algid not in (0xAA, 0x81):
+            return bits88
+        key = kr.lookup(getattr(s, "payload_kid", 0))
+        mi = getattr(s, "payload_mi", 0)
+        if key is None or mi == 0:
+            return bits88
+        s.p25_enc_unbroken = False
+        off = getattr(s, "ks_offset", 0)
+        if algid == 0xAA:
+            from dsdneo_tpu_torch.crypto.keystream import p25_adp_keystream
+            ks = p25_adp_keystream(key, mi, 11, drop=267 + off)
+        else:
+            from dsdneo_tpu_torch.crypto.keystream import des_ofb_keystream
+            mi64 = (mi >> 8) & ((1 << 64) - 1)
+            start = 19 + off
+            ks = des_ofb_keystream(key, mi64, start + 11)[start:start + 11]
+        s.ks_offset = off + 11
+        ks_bits = np.unpackbits(np.asarray(ks, dtype=np.uint8))
+        return (np.asarray(bits88, dtype=np.uint8) ^ ks_bits[:88])
+
+    def _lcw(self, bits: np.ndarray, hit: SyncHit, ctx: DecoderContext) -> None:
+        """Link Control Word: full TIA-102.AABF-D catalog in lcw.py
+        (reference p25_lcw.c formats + MFID90/A4/D8 vendor opcodes)."""
+        from dsdneo_tpu_torch.protocol.p25.lcw import decode_lcw
+        decode_lcw(bits, hit, ctx, self)
+
+    # -- LDU2 / HDU (voice continuation / header) -------------------------
+    def _ldu2(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        if reader.remaining() < 820:
+            return
+        imbe = []
+        hexwords = np.zeros(24, dtype=np.int64)
+        w = 0
+        for seg in range(8):
+            bits, _ = reader.read_bits(72)
+            imbe.append(bits)
+            if 1 <= seg <= 6:
+                vals, _errs = self._read_hexwords(reader, 4)
+                hexwords[w:w + 4] = vals
+                w += 4
+            elif seg == 7:
+                reader.read(16)
+        bits, _ = reader.read_bits(72)
+        imbe.append(bits)
+        code = rs.rs_24_16_9()
+        dec, nerr = code.decode(hexwords)
+        ess_next = None
+        if nerr >= 0:
+            es_bits = np.zeros(96, dtype=np.uint8)
+            for i in range(16):
+                for j in range(6):
+                    es_bits[i * 6 + j] = (dec[i] >> (5 - j)) & 1
+            algid = _bits_to_int(es_bits[72:80])
+            kid = _bits_to_int(es_bits[80:96])
+            mi = _bits_to_int(es_bits[0:72])
+            ess_next = (algid, kid, mi)
+            ctx.emit(f" LDU2 ALG ID [{algid:02X}] KEY ID [{kid:04X}]",
+                     "p25p1", hit.pos, algid=algid, kid=kid)
+        ctx.emit(" LDU2 VOICE (9 IMBE frames)", "p25p1", hit.pos,
+                 imbe=np.stack(imbe))
+        # LDU2's own voice continues the PRIOR superframe keystream; the
+        # new ESS takes effect only afterwards, when the offset resets
+        # (reference ldu2_collect_voice_symbols: dropL=267/octet=0 set
+        # after the 9 frames, p25p1_ldu2.c:238-239).
+        self._voice(imbe, ctx)
+        s2 = ctx.state
+        if ess_next is not None:
+            s2.payload_algid, s2.payload_kid, s2.payload_mi = ess_next
+        s2.ks_offset = 0
+
+    def _hdu(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> None:
+        """Header Data Unit: 36 Golay(18,6)-protected hexbits, RS(36,20,17)."""
+        if reader.remaining() < 350:
+            return
+        gol = blockcodes.golay_18_6_8()
+        hexwords = np.zeros(36, dtype=np.int64)
+        for i in range(36):
+            bits, rel = reader.read_bits(9)
+            m, _e = gol.decode(bits, rel)
+            hexwords[i] = m
+        code = rs.rs_36_20_17()
+        dec, nerr = code.decode(hexwords)
+        if nerr < 0:
+            ctx.emit(" HDU RS FEC ERR", "p25p1", hit.pos)
+            return
+        bits120 = np.zeros(120, dtype=np.uint8)
+        for i in range(20):
+            for j in range(6):
+                bits120[i * 6 + j] = (dec[i] >> (5 - j)) & 1
+        # HDU layout (reference p25p1_hdu.c hdu_extract_mi_algid_kid,
+        # rows mapped to transmit order): MI 0:72, MFID 72:80,
+        # ALGID 80:88, KID 88:104, TGID 104:120
+        mfid = _bits_to_int(bits120[72:80])
+        algid = _bits_to_int(bits120[80:88])
+        kid = _bits_to_int(bits120[88:104])
+        tgid = _bits_to_int(bits120[104:120])
+        mi = _bits_to_int(bits120[0:72])
+        s2 = ctx.state
+        s2.payload_algid, s2.payload_kid, s2.payload_mi = algid, kid, mi
+        s2.ks_offset = 0            # superframe start (hdu.c:429 dropL=267)
+        ctx.emit(f" HDU ALG ID [{algid:02X}] KEY ID [{kid:04X}] TG [{tgid}]"
+                 + (f" MFID [{mfid:02X}]" if mfid else ""),
+                 "p25p1", hit.pos, algid=algid, tgid=tgid)

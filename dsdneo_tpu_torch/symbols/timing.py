@@ -130,3 +130,31 @@ def recover_symbols(d: torch.Tensor, sps: float, win_symbols: int = 256,
     g1 = torch.gather(d, 1, i0 + 1)
     # XLA contracts g0·(1 − frac) + g1·frac into fma(g0, 1 − frac, g1·frac)
     return fma_f32(g0, 1.0 - frac, g1 * frac), pos
+
+
+def recover_symbols_fixed(d: torch.Tensor, sps: float,
+                          win_symbols: int = 256,
+                          max_symbols: int | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Single global timing phase variant (no drift tracking) — the
+    ``DSD_NEO_WINDOW_FREEZE`` branch of the serial front end.  The tone's
+    sum runs over the whole row in XLA's order (``tree_sum``); on the
+    card, cos and sin of the phase (up to ~3.6e6 rad on a 60 s row)
+    reduce their arguments otherwise than the C library, so the card is
+    held to the CPU path on dibits off the slicer's thresholds."""
+    c, n = d.shape
+    dev = d.device
+    dc = tree_sum(d)[:, None] * float(np.float32(1.0 / n))
+    e = (d - dc) ** 2
+    idx = torch.arange(n, dtype=torch.float32, device=dev)
+    cs, sn = cos_sin(idx * float(np.float32(-2.0 * math.pi / sps)))
+    tau = floor_mod(-atan2(tree_sum(e * sn), tree_sum(e * cs))
+                    * (sps / (2 * math.pi)), sps)
+    K = max_symbols if max_symbols is not None else int((n - 2 * sps) // sps)
+    k = torch.arange(K, dtype=torch.float32, device=dev)
+    pos = torch.clamp(k[None, :] * sps + tau[:, None], 0.0, n - 2.0)
+    i0 = torch.floor(pos).to(torch.int64)
+    frac = pos - i0.to(torch.float32)
+    g0 = torch.gather(d, 1, i0)
+    g1 = torch.gather(d, 1, i0 + 1)
+    return fma_f32(g0, 1.0 - frac, g1 * frac), pos

@@ -18,14 +18,22 @@ bank under ``params.TILE_BYTES``; the phase θ and its carry, a few
 hundred small sequential adds, are taken once for all channels before
 the chunks.  Plain PyTorch: the JAX package
 computes this outside any Pallas kernel.
+
+``synthesize_frames`` is the host vocoder's entry (the serial decode
+path's): a list of decoded frames synthesized as one stream on the
+decode's device, with the JAX package's noise phases
+(``default_rng(1234)``) and its peak normalisation.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from dsdneo_tpu_torch import params
+from dsdneo_tpu_torch.device import require_cuda
 from dsdneo_tpu_torch.dsp.frontend import floor_mod
 from dsdneo_tpu_torch.params import MAX_L, TILE_BYTES
 
@@ -191,3 +199,25 @@ def synthesize(w0, amps, voiced, noise_phase, *, tables):
         w0[None], amps[None], voiced[None], noise_phase[None], z, z,
         torch.zeros_like(amps[:1]), tables=tables)
     return pcm[0]
+
+
+def synthesize_frames(frames, device=None) -> np.ndarray:
+    """list[MbeFrame] → concatenated float PCM ``[F·160]`` (numpy),
+    synthesized on ``device``: the card when none is given (raises when
+    there is none)."""
+    from dsdneo_tpu_torch.vocoder.mbe import frames_to_arrays
+    if not frames:
+        return np.zeros(0, dtype=np.float32)
+    dev = require_cuda() if device is None else torch.device(device)
+    w0, amps, voiced = frames_to_arrays(frames)
+    rng = np.random.default_rng(1234)
+    noise = rng.uniform(0, 2 * np.pi,
+                        size=voiced.shape).astype(np.float32)
+    pcm = synthesize(*(torch.from_numpy(a).to(dev)
+                       for a in (w0, amps, voiced, noise)),
+                     tables=params.load_synth(dev))
+    out = pcm.cpu().numpy().reshape(-1)
+    peak = np.abs(out).max()
+    if peak > 0.5:
+        out = out * (0.5 / peak)
+    return out

@@ -1,0 +1,110 @@
+"""The serial decode path on the card against the port's CPU path.
+
+``decode_samples`` on ~4 s of each stream of ``data/serial_tables.npz``
+(the P25 Phase 1 call as C4FM and as CQPSK with its keyed superframes,
+the EDACS/ProVoice stream in the ``provoice`` mode) on the card and on
+the CPU: the same event lines, positions and fields (IMBE and IMBE-7100
+bits bit for bit), the same voice parameter bits, both decodes holding
+the vector (``engine.serialvec`` judges), and the PCM within 2e-3 of the
+CPU path's peak (the voice paths' bound).
+
+``demod_cqpsk_path`` on the card with its automatic window count
+(``cfo_windows > 1``: one window per 0.25 s), with ``DSD_NEO_TED_GAIN``
+and with the carried estimate of ``DSD_NEO_COSTAS_DAMPING``
+(``cfo_prior``): the soft symbols within 5e-3 of the CPU path's (the
+card's cos and sin of phases up to ~10^6 rad round otherwise than the C
+library's), the dibits equal off the slicer's thresholds, and the carried
+estimate within 0.5 Hz.
+
+Every test needs a card (``cuda`` marker; skips without one) and none
+imports JAX, so this file runs on the card's machine:
+``python -m pytest --noconftest -q -m cuda tests/test_torch_*.py``.
+The CPU path is held to the JAX package by ``test_torch_serial.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from dsdneo_tpu_torch.crypto.keyring import KeyRing
+from dsdneo_tpu_torch.engine import demod
+from dsdneo_tpu_torch.engine.decoder import decode_samples
+from dsdneo_tpu_torch.engine import serialvec as SV
+from dsdneo_tpu_torch.runtime import config as rtcfg
+
+PCM_REL = 2e-3
+SOFT_TOL = 5e-3
+EDGE = 0.05
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+def _decode(x, mode, device, **kw):
+    _n, _tg, _src, key, kid, _seed = (int(v) for v in
+                                      SV.vector()["p25_ids"])
+    kr = KeyRing()
+    kr.scalar[kid] = key
+    sink = SV.ImbeSink()
+    ctx = decode_samples(x, mode, keyring=kr, mbe_sink=sink, device=device,
+                         **kw)
+    return ctx, sink
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["c4fm", "cqpsk", "provoice"])
+def test_decode_samples_card_against_cpu(stream):
+    dev = _card()
+    tv = SV.vector()
+    if stream == "provoice":
+        n = 4 * 9600
+        x, mode, kw = SV.pv_iq(tv, n), "provoice", {}
+    else:
+        n = 4 * 4800
+        x = SV.p25_iq(tv, n, cqpsk=stream == "cqpsk")
+        mode, kw = "p25p1", {"cqpsk": stream == "cqpsk"}
+    gc, gs = _decode(x, mode, dev, **kw)
+    cc, cs = _decode(x, mode, "cpu", **kw)
+    assert SV.events_equal(cc.events, gc.events) is None, \
+        SV.events_equal(cc.events, gc.events)
+    assert len(gs.bits) == len(cs.bits)
+    if cs.bits:
+        np.testing.assert_array_equal(np.stack(gs.bits), np.stack(cs.bits))
+    if stream == "provoice":
+        assert SV.judge_pv(tv, gc, n)["provoice_superframes"] >= 15
+    else:
+        assert SV.judge_p25(tv, gc, gs, n)["keyed_ldus"] >= 8
+    a, b = SV.pcm(cc), SV.pcm(gc)
+    assert a.shape == b.shape
+    if a.size:
+        assert np.isfinite(b).all() and np.abs(b).max() > 0.05
+        assert np.abs(a - b).max() <= PCM_REL * np.abs(a).max()
+
+
+@pytest.mark.cuda
+def test_demod_cqpsk_path_windows_and_knobs_on_the_card(monkeypatch):
+    dev = _card()
+    tv = SV.vector()
+    x = SV.p25_iq(tv, 6 * 4800, cqpsk=True)          # 6 s: 24 windows
+    monkeypatch.setenv("DSD_NEO_TED_GAIN", "1.3")
+    monkeypatch.setenv("DSD_NEO_COSTAS_DAMPING", "1.5")
+    emas = []
+    for d in ("cpu", dev):
+        monkeypatch.setattr(rtcfg, "_config", None)
+        monkeypatch.setattr(demod.demod_cqpsk_path, "_cfo_ema", 120.0,
+                            raising=False)
+        out = demod.demod_cqpsk_path(x, "p25p1", device=d)
+        emas.append(demod.demod_cqpsk_path._cfo_ema)
+        if d == "cpu":
+            cd, cs = out
+        else:
+            gd, gs = out
+    assert rtcfg.get().cfo_windows == 0           # the automatic count
+    assert abs(emas[0] - emas[1]) <= 0.5
+    assert np.abs(cs - gs).max() <= SOFT_TOL
+    off = np.min(np.abs(np.abs(cs)[:, None] - np.array([0.0, 2.0])),
+                 axis=1) > EDGE
+    np.testing.assert_array_equal(cd[off], gd[off])

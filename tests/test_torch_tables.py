@@ -58,7 +58,19 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.edacs.afs",
     "dsdneo_tpu_torch.protocol.edacs.encode",
     "dsdneo_tpu_torch.protocol.ysf.encode",
-    "dsdneo_tpu_torch.protocol.dpmr.encode")
+    "dsdneo_tpu_torch.protocol.dpmr.encode",
+    "dsdneo_tpu_torch.runtime.config", "dsdneo_tpu_torch.fec.gf",
+    "dsdneo_tpu_torch.fec.blockcodes",
+    "dsdneo_tpu_torch.protocol.p25.imbe_frame",
+    "dsdneo_tpu_torch.vocoder.imbe", "dsdneo_tpu_torch.vocoder.mbe",
+    "dsdneo_tpu_torch.vocoder.glue", "dsdneo_tpu_torch.protocol.p25.lcw",
+    "dsdneo_tpu_torch.protocol.p25.mbt",
+    "dsdneo_tpu_torch.protocol.dmr.ip_pdu",
+    "dsdneo_tpu_torch.protocol.dmr.lrrp", "dsdneo_tpu_torch.protocol.dmr.gps",
+    "dsdneo_tpu_torch.protocol.provoice.decoder",
+    "dsdneo_tpu_torch.protocol.provoice.imbe7100",
+    "dsdneo_tpu_torch.protocol.provoice.encode",
+    "dsdneo_tpu_torch.engine.decoder", "dsdneo_tpu_torch.engine.serialvec")
 
 
 @pytest.fixture(scope="module")
@@ -373,6 +385,61 @@ def test_burst_paths_run_without_the_jax_package():
         "modulate=ee.fm_iq, lead_dibits=tv['lead'])\n"
         "p = BatchedEdacsControlPipeline(1, device='cpu')\n"
         "assert p.decode_block_events(x) >= 10\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+
+
+@pytest.fixture(scope="module")
+def serial_exported():
+    from export_torch_tables import build_serial_tables
+    return build_serial_tables(check=False)
+
+
+@pytest.mark.parametrize("kind", ["p25", "pv"])
+def test_serial_npz_equals_exporter(serial_exported, kind):
+    """The checked-in ``serial_tables.npz`` is what the exporter builds
+    from the JAX package's encoders now (the exporter also holds each
+    stream to the JAX ``decode_samples`` before it writes them)."""
+    from dsdneo_tpu_torch.params import SERIAL_TABLES_NPZ
+    with np.load(SERIAL_TABLES_NPZ) as z:
+        stored = {k: z[k] for k in z.files}
+    assert sorted(serial_exported) == sorted(stored)
+    keys = [k for k in serial_exported if k.startswith(kind + "_")]
+    assert f"{kind}_dibits" in keys
+    for k in keys:
+        a, b = np.asarray(serial_exported[k]), np.asarray(stored[k])
+        assert a.dtype == b.dtype and a.shape == b.shape, k
+        np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_serial_decode_runs_without_the_jax_package():
+    """Import ``engine.decoder`` and decode 1.5 s of the P25 call (its
+    first keyed superframe included) and 1 s of the EDACS/ProVoice
+    stream on the CPU, each held to its vector: no module of the JAX
+    package, and no jax, is ever loaded."""
+    code = (
+        "import sys\n"
+        "from dsdneo_tpu_torch.engine.decoder import decode_samples\n"
+        "from dsdneo_tpu_torch.engine import serialvec as SV\n"
+        "from dsdneo_tpu_torch.crypto.keyring import KeyRing\n"
+        "tv = SV.vector()\n"
+        "kr = KeyRing()\n"
+        "kr.scalar[int(tv['p25_ids'][4])] = int(tv['p25_ids'][3])\n"
+        "sink = SV.ImbeSink()\n"
+        "ctx = decode_samples(SV.p25_iq(tv, 7200), 'p25p1', keyring=kr, "
+        "mbe_sink=sink, device='cpu')\n"
+        "got = SV.judge_p25(tv, ctx, sink, 7200)\n"
+        "assert got['keyed_ldus'] >= 2, got\n"
+        "ctx = decode_samples(SV.pv_iq(tv, 9600), 'provoice', "
+        "device='cpu')\n"
+        "assert SV.judge_pv(tv, ctx, 9600)['provoice_superframes'] >= 3\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

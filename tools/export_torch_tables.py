@@ -149,6 +149,7 @@ DATA = os.path.join(ROOT, "dsdneo_tpu_torch", "data")
 OUT = os.path.join(DATA, "p25p1_tables.npz")
 OUT_DMR = os.path.join(DATA, "dmr_tables.npz")
 OUT_TDMA = os.path.join(DATA, "tdma_tables.npz")
+OUT_SERIAL = os.path.join(DATA, "serial_tables.npz")
 
 TV_NAC = 0x293
 TV_N_LDUS = 16
@@ -1488,6 +1489,309 @@ def build_burst_tables() -> dict[str, np.ndarray]:
     return t
 
 
+# -- the serial decode path's streams (serial_tables.npz) ----------------
+SERIAL_SECONDS = 60.0     # each stream: 2.88 M samples at 48 kHz
+SERIAL_NAC = 0x293
+SERIAL_TG = 2501
+SERIAL_SRC = 1234567
+SERIAL_KEY = 0x0123456789  # the ADP key, in the KeyRing under SERIAL_KID
+SERIAL_KID = 0x0042
+SERIAL_P25_SEED = 14
+SERIAL_PV_SEED = 15
+SERIAL_LEAD = 240         # random dibits before the first frame
+SERIAL_FALSE_SYNC_MAX = 0.5   # the P25 call (TV_FALSE_SYNC_MAX)
+SERIAL_EDACS_RUN = 4      # EDACS frames between ProVoice superframes
+
+
+def _bits_of(v: int, n: int) -> np.ndarray:
+    return np.array([(v >> (n - 1 - i)) & 1 for i in range(n)], np.uint8)
+
+
+def _hexwords(bits: np.ndarray) -> np.ndarray:
+    b = np.asarray(bits, np.int64).reshape(-1, 6)
+    return (b << np.arange(5, -1, -1)).sum(axis=1)
+
+
+def _dibits_of_bits(bits) -> np.ndarray:
+    b = np.asarray(bits, np.uint8)
+    return ((b[0::2] << 1) | b[1::2]).astype(np.uint8)
+
+
+def _p25_frame(duid: int, payload: np.ndarray) -> np.ndarray:
+    """Sync, NID and ``payload`` data dibits with the status dibits in
+    place (``protocol.p25.encode._with_status``)."""
+    from dsdneo_tpu.protocol.p25 import encode as E
+    data = np.concatenate([E.nid_dibits(SERIAL_NAC, duid), payload])
+    return np.concatenate([E.SYNC_DIBITS,
+                           E._with_status(data, start=len(E.SYNC_DIBITS))])
+
+
+def _p25_ldu(duid: int, frames144: np.ndarray, hex24: np.ndarray,
+             lsd: np.ndarray) -> np.ndarray:
+    """An LDU1 (``duid`` 5) or LDU2 (10) in ``P25P1Decoder._ldu1`` /
+    ``_ldu2`` read order: nine voice frames, four Hamming(10,6,3)
+    hexwords after each of frames 1-6, the 16 LSD dibits after frame 7
+    (``tests/test_crypto_vendor.py:213-225``)."""
+    from dsdneo_tpu.fec import blockcodes
+    ham = blockcodes.hamming_10_6_3()
+    parts, w = [], 0
+    for seg in range(9):
+        parts.append(_dibits_of_bits(frames144[seg]))
+        if 1 <= seg <= 6:
+            for _ in range(4):
+                parts.append(_dibits_of_bits(ham.encode(int(hex24[w]))))
+                w += 1
+        elif seg == 7:
+            parts.append(lsd)
+    return _p25_frame(duid, np.concatenate(parts))
+
+
+def _lc_group_voice(tg: int, src: int) -> np.ndarray:
+    """The 72-bit Group Voice Channel User LC (LCF 0x00, MFID 0)."""
+    return np.concatenate([_bits_of(0, 32), _bits_of(tg, 16),
+                           _bits_of(src, 24)])
+
+
+def _sync_of(name: str) -> np.ndarray:
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    d = next(d for d in SYNC_DEFS if d.name == name)
+    return np.array([int(c) for c in d.pattern], np.uint8)
+
+
+def _frame_ok(prev: np.ndarray, nxt: np.ndarray, names,
+              margin: float) -> bool:
+    """No clean false sync of ``names`` (either polarity) at the 41
+    start positions 48 to 8 before the start of ``nxt`` (a frame whose
+    sync follows ``prev``), where a hit could take its place in the
+    greedy pick; a hit within 8 positions is refined onto the sync."""
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    seg = np.concatenate([prev[-48:], nxt[:48]])
+    for d in SYNC_DEFS:
+        if d.name in names:
+            if np.abs(_sync_corr(seg, d.levels))[:41].max() >= margin:
+                return False
+    return True
+
+
+def _p25_call_vector() -> dict[str, np.ndarray]:
+    """A 60 s P25 Phase 1 voice call at 4800 symbols/s: random lead,
+    HDU (ALGID 0x80), LDU1/LDU2 superframes carrying the Group Voice
+    Channel User LC (RS(24,12,13)) and the encryption sync
+    (RS(24,16,9)), superframes k with k % 4 in (1, 2) ADP-keyed (each
+    LDU2 announcing the next superframe's ALGID, KEY ID and MI), then a
+    TDULC with the same LC and random tail.  The voice frames are
+    ``vocoder.imbe.encode_frame`` parameter strings (XORed with the ADP
+    keystream where keyed) through ``encode_imbe_ecc``; a superframe or
+    lead whose end would put a clean false sync where it could shadow
+    the next sync is drawn again."""
+    from dsdneo_tpu.crypto.keystream import p25_adp_keystream
+    from dsdneo_tpu.fec import blockcodes, rs
+    from dsdneo_tpu.protocol.p25.imbe_frame import encode_imbe_ecc
+    from dsdneo_tpu.vocoder.imbe import (ImbeParams, encode_frame,
+                                         harmonics_for_b0)
+    names = ("+P25p1",)
+    sync = _sync_of("+P25p1")
+
+    def ok(seg):
+        return _frame_ok(seg, sync, names, SERIAL_FALSE_SYNC_MAX)
+
+    rng = np.random.default_rng(SERIAL_P25_SEED)
+    n_total = int(SERIAL_SECONDS * 4800)
+    lc = _lc_group_voice(SERIAL_TG, SERIAL_SRC)
+    lc_hex = rs.rs_24_12_13().encode(_hexwords(lc))
+
+    while True:
+        lead = rng.integers(0, 4, SERIAL_LEAD).astype(np.uint8)
+        if ok(lead):
+            break
+    hdu_bits = np.concatenate([_bits_of(0, 72), _bits_of(0, 8),
+                               _bits_of(0x80, 8), _bits_of(0, 16),
+                               _bits_of(SERIAL_TG, 16)])
+    gol = blockcodes.golay_18_6_8()
+    hdu_hex = rs.rs_36_20_17().encode(_hexwords(hdu_bits))
+    hdu = _p25_frame(0x0, np.concatenate(
+        [_dibits_of_bits(gol.encode(int(h))) for h in hdu_hex]))
+    tdulc = _p25_frame(0xF, np.concatenate(
+        [_dibits_of_bits(blockcodes.golay_24_12().encode(
+            (int(lc_hex[2 * w]) << 6) | int(lc_hex[2 * w + 1])))
+         for w in range(12)]))
+    if not ok(hdu):
+        raise RuntimeError("a false sync at the end of the HDU")
+    ldu_len = len(_p25_ldu(0x5, np.zeros((9, 144), np.uint8),
+                           np.zeros(24, np.int64), np.zeros(16, np.uint8)))
+    n_sf = (n_total - len(lead) - len(hdu) - len(tdulc) - 64) // (2 * ldu_len)
+
+    def keyed(k):
+        return k % 4 in (1, 2)
+
+    mis = [(int(rng.integers(1, 1 << 62)) << 8) if keyed(k) else 0
+           for k in range(n_sf + 1)]
+    segs = [lead, hdu]
+    pos = len(lead) + len(hdu)
+    ldu_pos, ldu_duid, imbe, clear, ldu_keyed, ess = [], [], [], [], [], []
+    prev = None
+    w0_b0 = 80
+    for k in range(n_sf):
+        ks = (p25_adp_keystream(SERIAL_KEY, mis[k], 202, drop=267)
+              if keyed(k) else np.zeros(202, np.uint8))
+        nk = k + 1
+        es = np.concatenate([_bits_of(mis[nk], 72),
+                             _bits_of(0xAA if keyed(nk) else 0x80, 8),
+                             _bits_of(SERIAL_KID if keyed(nk) else 0, 16)])
+        es_hex = rs.rs_24_16_9().encode(_hexwords(es))
+        while True:
+            state = prev
+            sf_imbe, sf_clear, sf = [], [], []
+            for half, (duid, hexw) in enumerate(((0x5, lc_hex),
+                                                 (0xA, es_hex))):
+                f144 = np.zeros((9, 144), np.uint8)
+                f88 = np.zeros((9, 88), np.uint8)
+                for j in range(9):
+                    b0 = int(np.clip(w0_b0 + rng.integers(-6, 7), 20, 180))
+                    w0, L, K = harmonics_for_b0(b0)
+                    p = ImbeParams(b0=b0, w0=w0, L=L, K=K,
+                                   voiced_bands=rng.integers(
+                                       0, 2, K).astype(np.uint8),
+                                   log_m=rng.uniform(1.0, 5.0, size=L),
+                                   gain_code=int(rng.integers(20, 50)))
+                    f88[j] = encode_frame(p, state)
+                    state = p
+                    off = 101 * half + 11 * j + (2 if j == 8 else 0)
+                    kb = np.unpackbits(ks[off:off + 11])[:88]
+                    f144[j] = encode_imbe_ecc(f88[j] ^ kb)
+                lsd = rng.integers(0, 4, 16).astype(np.uint8)
+                sf.append(_p25_ldu(duid, f144, hexw, lsd))
+                sf_imbe.append(f144)
+                sf_clear.append(f88)
+            if ok(sf[0]) and ok(sf[1]):
+                break
+        prev = state
+        for half in range(2):
+            ldu_pos.append(pos)
+            ldu_duid.append((0x5, 0xA)[half])
+            imbe.append(sf_imbe[half])
+            clear.append(sf_clear[half])
+            ldu_keyed.append(keyed(k))
+            pos += len(sf[half])
+        ess.append((0xAA if keyed(nk) else 0x80,
+                    SERIAL_KID if keyed(nk) else 0))
+        segs += sf
+    tdulc_pos = pos
+    segs.append(tdulc)
+    pos += len(tdulc)
+    segs.append(rng.integers(0, 4, n_total - pos).astype(np.uint8))
+    dib = np.concatenate(segs)
+    assert len(dib) == n_total
+    imbe = np.stack(imbe)
+    clear = np.stack(clear)
+    return {
+        "p25_dibits": dib,
+        "p25_hdu_pos": np.int64(len(lead)),
+        "p25_ldu_pos": np.asarray(ldu_pos, np.int64),
+        "p25_ldu_duid": np.asarray(ldu_duid, np.int64),
+        "p25_imbe": np.packbits(imbe, axis=-1),
+        "p25_clear88": np.packbits(clear, axis=-1),
+        "p25_keyed": np.asarray(ldu_keyed, bool),
+        "p25_ess": np.asarray(ess, np.int64),
+        "p25_tdulc_pos": np.int64(tdulc_pos),
+        "p25_ids": np.array([SERIAL_NAC, SERIAL_TG, SERIAL_SRC, SERIAL_KEY,
+                             SERIAL_KID, SERIAL_P25_SEED], np.int64),
+    }
+
+
+def _pv_vector() -> dict[str, np.ndarray]:
+    """A 60 s EDACS control channel at 9600 symbols/s with ProVoice voice
+    superframes: runs of ``SERIAL_EDACS_RUN`` frames of the EDACS
+    vector of ``burst_tables.npz`` (its messages in order, cycling)
+    between ProVoice superframes (``provoice_stream_dibits``, no lead or
+    tail) of four random ``encode_imbe7100_ecc`` frames with a random LID
+    and BF; a superframe whose end would put a clean false sync where it
+    could shadow the next sync is drawn again, a run is longer where its
+    last frame would do so before the ProVoice sync, and the stream is
+    cut to 60 s."""
+    from dsdneo_tpu.protocol.provoice.encode import provoice_stream_dibits
+    from dsdneo_tpu.protocol.provoice.imbe7100 import encode_imbe7100_ecc
+    ev = _edacs_vector()
+    ed_dib, starts = ev["edacs_tv_dibits"], ev["edacs_tv_starts"]
+    msg1 = ev["edacs_tv_msg1"]
+    names = ("+EDACS", "+ProVoice", "+ProVoice EA")
+    pv_sync = _sync_of("+ProVoice")
+    rng = np.random.default_rng(SERIAL_PV_SEED)
+    n_total = int(SERIAL_SECONDS * 9600)
+    segs = [ev["edacs_tv_lead"]]
+    pos = len(segs[0])
+    e_pos, e_word, p_pos, p_lid, p_bf, p_frames = [], [], [], [], [], []
+    i = 0
+
+    def frame(fi):
+        return ed_dib[starts[fi]:starts[fi] + 288]
+
+    while pos < n_total:
+        run = 0
+        # a run ends where the frame's end keeps the ProVoice sync clear
+        while run < SERIAL_EDACS_RUN or not _frame_ok(
+                segs[-1], pv_sync, names, EDACS_FALSE_SYNC_MAX):
+            fi = i % len(starts)
+            e_pos.append(pos)
+            e_word.append(int(msg1[fi]))
+            segs.append(frame(fi))
+            pos += 288
+            i += 1
+            run += 1
+        nxt = frame(i % len(starts))
+        while True:
+            fr = np.stack([encode_imbe7100_ecc(
+                rng.integers(0, 2, 90).astype(np.uint8)) for _ in range(4)])
+            lid, bf = (int(v) for v in rng.integers(0, 1 << 16, 2))
+            seg = provoice_stream_dibits(fr, lid=lid, bf=bf, lead=0, tail=0)
+            if _frame_ok(seg, nxt, names, EDACS_FALSE_SYNC_MAX):
+                break
+        p_pos.append(pos)
+        p_lid.append(lid)
+        p_bf.append(bf)
+        p_frames.append(fr)
+        segs.append(seg)
+        pos += len(seg)
+    dib = np.concatenate(segs)[:n_total]
+    # only whole frames count
+    e_keep = np.asarray(e_pos) + 288 <= n_total
+    p_keep = np.asarray(p_pos) + 768 <= n_total
+    return {
+        "pv_dibits": dib,
+        "pv_edacs_pos": np.asarray(e_pos, np.int64)[e_keep],
+        "pv_edacs_word": np.asarray(e_word, np.int64)[e_keep],
+        "pv_pos": np.asarray(p_pos, np.int64)[p_keep],
+        "pv_lid": np.asarray(p_lid, np.int64)[p_keep],
+        "pv_bf": np.asarray(p_bf, np.int64)[p_keep],
+        "pv_frames": np.packbits(np.stack(p_frames)[p_keep], axis=-1),
+        "pv_seeds": np.array([SERIAL_PV_SEED, SERIAL_EDACS_RUN], np.int64),
+    }
+
+
+def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
+    """The serial decode path's two 60 s streams, each held to the JAX
+    package's ``decode_samples`` over its whole length when ``check``
+    (the port's ``engine.serialvec`` judges: every LDU, LC, ESS and
+    keyed frame, every EDACS frame and ProVoice superframe)."""
+    t = {**_p25_call_vector(), **_pv_vector()}
+    if check:
+        _check_serial(t)
+    return t
+
+
+def _check_serial(t: dict[str, np.ndarray]) -> None:
+    from dsdneo_tpu.crypto.keyring import KeyRing
+    from dsdneo_tpu.engine.decoder import decode_samples
+    from dsdneo_tpu_torch.engine import serialvec as SV
+    kr = KeyRing()
+    kr.scalar[SERIAL_KID] = SERIAL_KEY
+    sink = SV.ImbeSink()
+    ctx = decode_samples(SV.p25_iq(t), "p25p1", keyring=kr, mbe_sink=sink)
+    SV.judge_p25(t, ctx, sink)
+    ctx = decode_samples(SV.pv_iq(t), "provoice")
+    SV.judge_pv(t, ctx)
+
+
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
     """Write ``tables`` to ``path`` unless the file already holds equal
     arrays (an npz of equal arrays still differs in its bytes)."""
@@ -1513,6 +1817,7 @@ def main() -> int:
     print(_write_if_changed(OUT_CC, build_cc_tables()))
     print(_write_if_changed(OUT_EVENT, build_event_tables()))
     print(_write_if_changed(OUT_BURST, build_burst_tables()))
+    print(_write_if_changed(OUT_SERIAL, build_serial_tables()))
     return 0
 
 
