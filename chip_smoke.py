@@ -40,12 +40,17 @@ The paths, each at 320 channels through the entry points a user calls:
     the JAX bench's P25 Phase 2 TDMA control channel (``bench.py:604``:
     6 superframes of scrambled SACCH MAC PDUs, 2.1767 s blocks); K1.
   - serial: ``engine.decoder.decode_samples`` (one channel, the CLI's
-    offline decode entry) on three 60 s streams at 48 kHz: a P25 Phase 1
+    offline decode entry) on five 60 s streams at 48 kHz: a P25 Phase 1
     voice call as C4FM and as CQPSK (part of it ADP-keyed, the key in a
-    ``KeyRing``) and an EDACS control channel with ProVoice voice
-    superframes (the ``provoice`` mode); no kernel of the table: the
-    serial front end is plain PyTorch on the card and the protocol walk
-    runs on the host, as in the JAX package.
+    ``KeyRing``), an EDACS control channel with ProVoice voice
+    superframes (the ``provoice`` mode), a DMR BS stream with traffic on
+    both slots (CSBKs, a rate-3/4 data call, a UDT, short LCs, group
+    calls with the embedded LC and a talker alias, one call under Basic
+    Privacy and one under RC4 with late entry; the ``dmr`` mode with
+    both keys), also on an inverted channel under ``force_polarity``,
+    and an X2-TDMA voice stream (the ``x2tdma`` mode); no kernel of the
+    table: the serial front end is plain PyTorch on the card and the
+    protocol walk runs on the host, as in the JAX package.
 
 Phases, in order; any failure exits non-zero:
 
@@ -210,9 +215,16 @@ Phases, in order; any failure exits non-zero:
      accepted with the vector's voice bits, the keyed ones decrypted to
      its clear bits, the LC on every LDU1 and the TDULC, every LDU2's
      encryption sync; every EDACS frame with its message and every
-     ProVoice superframe with its LID, BF and frames; the PCM finite and
-     not silent; the first 10 s of each decoded on the card and on the
-     CPU with equal events and the PCM within 2e-3 of the peak.  Each
+     ProVoice superframe with its LID, BF and frames; every DMR burst's
+     lines (CSBK catalog, data call with its CRC32, UDT text, short LC,
+     voice LC header, PI header, terminator, embedded LC, talker alias,
+     the RC4 MI refreshes) and every AMBE frame's bits, the RC4 and Basic
+     Privacy calls decrypted to their clear bits, upright and on an
+     inverted channel under ``force_polarity``; every X2-TDMA superframe
+     the decoder walks with its 18 AMBE frames; the PCM finite and not
+     silent; the first 10 s of each decoded on the card and on the CPU
+     with equal events and voice bits and each slot's PCM within 2e-3 of
+     the peak.  Each
      stream's x-realtime and its split (front end, host walk, synthesis),
      the peak device memory and the launches of K1-K8 during the phase
      (all 0) are printed.
@@ -674,36 +686,65 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
     synth.synthesize_frames = timed("synth", real[2])
     tv = SV.vector()
     _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
+    dmr_attrs = {"dmr_bp_key_id": int(tv["dmr_ids"][4])}
+    import dsdneo_tpu_torch.vocoder.mbe as mbe
+
+    def keyring():
+        kr = KeyRing()
+        kr.scalar[kid] = key
+        kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
+        return kr
+
+    def decode(xs, mode, cq, where, attrs=None):
+        """One decode_samples call: (ctx, its AMBE/IMBE sink, wall s,
+        the split)."""
+        for k in spent:
+            spent[k] = 0.0
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if mode == "x2tdma":
+            with SV.AmbeSpy(mbe) as sink:
+                ctx = sdec.decode_samples(xs, mode, device=where)
+        else:
+            sink = SV.ImbeSink()
+            ctx = sdec.decode_samples(xs, mode, cqpsk=cq, keyring=keyring(),
+                                      mbe_sink=sink, state_attrs=attrs,
+                                      device=where)
+        return ctx, sink, time.perf_counter() - t1, dict(spent)
+
+    streams = (
+        ("P25p1 C4FM call", "p25p1", False, lambda: SV.p25_iq(tv),
+         4800 * SV.P25_SPS, None),
+        ("P25p1 CQPSK call", "p25p1", True,
+         lambda: SV.p25_iq(tv, cqpsk=True), 4800 * SV.P25_SPS, None),
+        ("EDACS + ProVoice", "provoice", False, lambda: SV.pv_iq(tv),
+         9600 * SV.PV_SPS, None),
+        ("DMR BS call", "dmr", False, lambda: SV.dmr_iq(tv),
+         4800 * SV.DMR_SPS, dmr_attrs),
+        ("X2-TDMA", "x2tdma", False, lambda: SV.x2_iq(tv),
+         6000 * SV.X2_SPS, None))
     try:
-        for name, mode, cq in (("P25p1 C4FM call", "p25p1", False),
-                               ("P25p1 CQPSK call", "p25p1", True),
-                               ("EDACS + ProVoice", "provoice", False)):
-            if mode == "provoice":
-                x, n10 = SV.pv_iq(tv), 10 * 9600 * SV.PV_SPS
-            else:
-                x, n10 = SV.p25_iq(tv, cqpsk=cq), 10 * 4800 * SV.P25_SPS
+        for name, mode, cq, make, per_s, attrs in streams:
+            x = make()
+            n10 = 10 * per_s
             secs = len(x) / FS
             out = {}
             for where, xs in (("card", x), ("cpu10", x[:n10]),
                               ("card10", x[:n10])):
-                kr = KeyRing()
-                kr.scalar[kid] = key
-                sink = SV.ImbeSink()
-                for k in spent:
-                    spent[k] = 0.0
-                torch.cuda.synchronize()
-                t1 = time.perf_counter()
-                ctx = sdec.decode_samples(
-                    xs, mode, cqpsk=cq, keyring=kr, mbe_sink=sink,
-                    device="cpu" if where == "cpu10" else dev)
-                out[where] = (ctx, sink, time.perf_counter() - t1,
-                              dict(spent))
+                out[where] = decode(xs, mode, cq,
+                                    "cpu" if where == "cpu10" else dev,
+                                    attrs)
             ctx, sink, wall, sp = out["card"]
             if mode == "provoice":
                 got = SV.judge_pv(tv, ctx)
+            elif mode == "dmr":
+                got = SV.judge_dmr(tv, ctx, sink, rc4=True, bp=True)
+            elif mode == "x2tdma":
+                got = SV.judge_x2(tv, ctx, sink)
             else:
                 got = SV.judge_p25(tv, ctx, sink)
-            pcm = SV.pcm(ctx)
+            pcm = np.concatenate([SV.pcm(ctx, s) for s in sorted(ctx.audio)]
+                                 or [np.zeros(0, np.float32)])
             if mode != "provoice":
                 if not (np.isfinite(pcm).all() and np.abs(pcm).max() > 0.05):
                     raise RuntimeError(f"serial {name}: PCM not finite or "
@@ -713,18 +754,33 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
             if diff is not None:
                 raise RuntimeError(f"serial {name}: the card's first 10 s "
                                    f"differ from the CPU path: {diff}")
-            a, b = SV.pcm(out["cpu10"][0]), SV.pcm(out["card10"][0])
-            if a.shape != b.shape or (a.size and np.abs(a - b).max()
-                                      > 2e-3 * np.abs(a).max()):
+            c10, g10 = out["cpu10"][0], out["card10"][0]
+            if sorted(c10.audio) != sorted(g10.audio):
                 raise RuntimeError(f"serial {name}: the card's first 10 s "
-                                   "PCM is not within 2e-3 of the peak of "
-                                   "the CPU path's")
+                                   "carry PCM on other slots")
+            worst = 0.0
+            for slot in c10.audio:
+                a, b = SV.pcm(c10, slot), SV.pcm(g10, slot)
+                if a.shape != b.shape or (a.size and np.abs(a - b).max()
+                                          > 2e-3 * np.abs(a).max()):
+                    raise RuntimeError(f"serial {name}: the card's first "
+                                       f"10 s PCM of slot {slot} is not "
+                                       "within 2e-3 of the peak of the CPU "
+                                       "path's")
+                if a.size:
+                    worst = max(worst, float(np.abs(a - b).max()))
+            if len(out["cpu10"][1].bits) != len(out["card10"][1].bits) or (
+                    out["cpu10"][1].bits and not np.array_equal(
+                        np.stack(out["cpu10"][1].bits),
+                        np.stack(out["card10"][1].bits))):
+                raise RuntimeError(f"serial {name}: the card's first 10 s "
+                                   "voice bits differ from the CPU path's")
+            n10_pcm = sum(len(SV.pcm(g10, s)) for s in g10.audio)
             walk = wall - sp["front"] - sp["synth"]
             # device busy over the first 10 s, against its unprofiled wall
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
-                sdec.decode_samples(x[:n10], mode, cqpsk=cq, keyring=kr,
-                                    device=dev)
+                decode(x[:n10], mode, cq, dev, attrs)
                 torch.cuda.synchronize()
             dev_us = {}
             for e in prof.key_averages():
@@ -734,10 +790,10 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                                      + e.self_device_time_total)
             busy = sum(dev_us.values()) / 1e3
             top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+            w10 = out["card10"][2] * 1e3
             log(f"serial {name} profile, first 10 s: device busy "
-                f"{busy:.1f} ms = {100 * busy / (out['card10'][2] * 1e3):.1f}"
-                f"% of the unprofiled decode ({out['card10'][2] * 1e3:.1f} "
-                f"ms), idle {100 - 100 * busy / (out['card10'][2] * 1e3):.1f}"
+                f"{busy:.1f} ms = {100 * busy / w10:.1f}% of the unprofiled "
+                f"decode ({w10:.1f} ms), idle {100 - 100 * busy / w10:.1f}"
                 f"%; top: " + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
                                         for k, v in top) + f" [{ident}]")
             log(f"serial {name}: {secs:.1f} s decoded on the card in "
@@ -747,10 +803,22 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 f"({len(sink.bits)} voice frames); {len(ctx.events)} events;"
                 f" judged: {got}; PCM {pcm.size} samples, peak "
                 f"{float(np.abs(pcm).max()) if pcm.size else 0.0:.3f}; the "
-                f"first 10 s equal to the CPU path ({len(b)} PCM samples "
-                f"within {float(np.abs(a - b).max()) if a.size else 0.0:.2e}"
-                f"); the CPU path took {out['cpu10'][2]:.3f} s for 10 s "
-                f"[{ident}]")
+                f"first 10 s equal to the CPU path ({n10_pcm} PCM samples "
+                f"within {worst:.2e}); the CPU path took "
+                f"{out['cpu10'][2]:.3f} s for 10 s [{ident}]")
+            if mode == "dmr":
+                # the same stream on an inverted channel, read under the
+                # inverted expectation: DMR's inverted syncs are the other
+                # burst type's, so every hit is reinterpreted as its twin
+                inv = {**attrs, "force_polarity": {"dmr": True}}
+                ctx, sink, wall, sp = decode(SV.dmr_iq(tv, invert=True),
+                                             mode, cq, dev, inv)
+                got = SV.judge_dmr(tv, ctx, sink, invert=True, rc4=True,
+                                   bp=True)
+                log(f"serial {name}, inverted channel with force_polarity: "
+                    f"{secs:.1f} s decoded on the card in {wall:.3f} s = "
+                    f"{secs / wall:.2f}x realtime; judged: {got} "
+                    f"[{ident}]")
     finally:
         sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames = real
     peak = torch.cuda.max_memory_allocated()

@@ -10,11 +10,14 @@ hands each hit to its family's serial decoder, which walks the streams
 with a ``DibitReader`` and emits events; the voice decoders synthesize
 PCM on the same device.
 
-The port's serial decoders are those of P25 Phase 1 (``p25p1``), EDACS
-(``edacs``) and ProVoice (``provoice``), registered when this module is
-imported.  A mode that hunts a family the port has no serial decoder
-for raises ``NotImplementedError`` naming the family, and so does
-``mode="auto"`` (``detect_mode`` tries every family).
+The port's serial decoders are those of P25 Phase 1 (``p25p1``), DMR
+(``dmr``: the BS/MS/DM bursts with their data, CSBK, SLC, UDT, late-entry
+and voice-cipher modules), X2-TDMA (``x2tdma``), EDACS (``edacs``) and
+ProVoice (``provoice``), registered when this module is imported.  A
+mode that hunts a family the port has no serial decoder for (NXDN,
+D-STAR, YSF, dPMR, M17, P25 Phase 2) raises ``NotImplementedError``
+naming the family, and so does ``mode="auto"`` (``detect_mode`` tries
+every family).
 """
 
 from __future__ import annotations
@@ -28,9 +31,11 @@ from dsdneo_tpu_torch.engine.demod import demod_cqpsk_path, demod_fm
 from dsdneo_tpu_torch.engine.modes import MODES, ModeConfig
 from dsdneo_tpu_torch.protocol import base as proto_base
 # importing the decoders registers them
+import dsdneo_tpu_torch.protocol.dmr  # noqa: F401
 import dsdneo_tpu_torch.protocol.edacs.decoder  # noqa: F401
 import dsdneo_tpu_torch.protocol.p25.phase1  # noqa: F401
 import dsdneo_tpu_torch.protocol.provoice.decoder  # noqa: F401
+import dsdneo_tpu_torch.protocol.x2tdma  # noqa: F401
 from dsdneo_tpu_torch.symbols import framesync
 
 

@@ -1,14 +1,17 @@
-"""Reed-Solomon codes over GF(64) on the host: the P25 Phase 2 ESS decode
-and the P25 Phase 1 hexword codes.
+"""Reed-Solomon codes on the host: the P25 Phase 2 ESS decode, the P25
+Phase 1 hexword codes and DMR's full-LC RS(12,9).
 
 The port's own copy of ``dsdneo_tpu/fec/rs.py`` (``ReedSolomon``,
-``rs_63_35``, and the shortened Phase 1 codes ``rs_24_12_13``,
-``rs_24_16_9`` and ``rs_36_20_17``): Berlekamp-Massey
+``rs_63_35``, the shortened Phase 1 codes ``rs_24_12_13``,
+``rs_24_16_9`` and ``rs_36_20_17`` over GF(64), and ``rs_12_9`` over
+GF(256)): Berlekamp-Massey
 with erasures folded in (the SACCH and FACCH decode passes the symbols
 their layout does not transmit), a Chien search and Forney's formula,
 in exact integers.  Symbol order: data
 first, then parity; ``r[0]`` is the coefficient of the highest degree.
-The field tables (x^6 + x + 1) come from ``data/tdma_tables.npz``.  The
+The field tables (GF(64): x^6 + x + 1, GF(256): x^8 + x^4 + x^3 + x^2 +
+1) are ``fec.gf.GF2m``'s; K7's GF(64) tables (``gf64_tables``) come from
+``data/tdma_tables.npz`` and equal them.  The
 voice path decodes on the host only the words whose syndromes, screened
 on the card by ``fec.device.rs_syndromes_batch`` (kernel K7), are not
 all zero.
@@ -21,6 +24,7 @@ import functools
 import numpy as np
 
 from dsdneo_tpu_torch import params
+from dsdneo_tpu_torch.fec.gf import GF2m
 
 
 @functools.lru_cache(maxsize=1)
@@ -33,11 +37,14 @@ def gf64_tables() -> tuple[np.ndarray, np.ndarray]:
 
 
 class ReedSolomon:
-    """RS(n, k) over GF(64) with first consecutive root α^fcr."""
+    """RS(n, k) over GF(2^m) (GF(64) by default) with first consecutive
+    root α^fcr."""
 
-    def __init__(self, n: int, k: int, fcr: int = 1):
-        self.exp, self.log = (t.tolist() for t in gf64_tables())
-        self.q1 = 63
+    def __init__(self, n: int, k: int, fcr: int = 1, m: int = 6,
+                 prim_poly: int | None = None):
+        f = GF2m(m, prim_poly)
+        self.exp, self.log = f.exp_table.tolist(), f.log_table.tolist()
+        self.q1 = (1 << m) - 1
         self.n, self.k, self.nroots, self.fcr = n, k, n - k, fcr
         # generator g(x) = prod (x - α^(fcr+i)), lowest degree first
         g = [1]
@@ -185,3 +192,10 @@ def rs_24_16_9() -> ReedSolomon:
 def rs_36_20_17() -> ReedSolomon:
     """P25 RS(36,20,17): the HDU (shortened)."""
     return ReedSolomon(36, 20, fcr=1)
+
+
+@functools.lru_cache(maxsize=None)
+def rs_12_9() -> ReedSolomon:
+    """DMR RS(12,9,4) over GF(256): the full LC of the voice LC header
+    and the terminator (ETSI TS 102 361-1 B.3.6)."""
+    return ReedSolomon(12, 9, fcr=0, m=8, prim_poly=0b100011101)

@@ -1,0 +1,3 @@
+from dsdneo_tpu_torch.protocol.dmr import bs
+
+__all__ = ["bs"]

@@ -2,10 +2,12 @@
 
 ``decode_samples`` on ~4 s of each stream of ``data/serial_tables.npz``
 (the P25 Phase 1 call as C4FM and as CQPSK with its keyed superframes,
-the EDACS/ProVoice stream in the ``provoice`` mode) on the card and on
-the CPU: the same event lines, positions and fields (IMBE and IMBE-7100
-bits bit for bit), the same voice parameter bits, both decodes holding
-the vector (``engine.serialvec`` judges), and the PCM within 2e-3 of the
+the EDACS/ProVoice stream in the ``provoice`` mode, the DMR stream
+upright and on an inverted channel with ``force_polarity``, the X2-TDMA
+stream) on the card and on the CPU: the same event lines, positions and
+fields (IMBE, IMBE-7100 and AMBE bits bit for bit), the same voice
+parameter bits, the card's decode holding the vector
+(``engine.serialvec`` judges), and each slot's PCM within 2e-3 of the
 CPU path's peak (the voice paths' bound).
 
 ``demod_cqpsk_path`` on the card with its automatic window count
@@ -44,24 +46,41 @@ def _card():
 
 
 def _decode(x, mode, device, **kw):
-    _n, _tg, _src, key, kid, _seed = (int(v) for v in
-                                      SV.vector()["p25_ids"])
+    tv = SV.vector()
+    _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
     kr = KeyRing()
     kr.scalar[kid] = key
+    kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
     sink = SV.ImbeSink()
+    if mode == "x2tdma":
+        import dsdneo_tpu_torch.vocoder.mbe as mbe
+        with SV.AmbeSpy(mbe) as sink:
+            ctx = decode_samples(x, mode, device=device, **kw)
+        return ctx, sink
     ctx = decode_samples(x, mode, keyring=kr, mbe_sink=sink, device=device,
                          **kw)
     return ctx, sink
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stream", ["c4fm", "cqpsk", "provoice"])
+@pytest.mark.parametrize("stream", ["c4fm", "cqpsk", "provoice", "dmr",
+                                    "dmr_inverted", "x2tdma"])
 def test_decode_samples_card_against_cpu(stream):
     dev = _card()
     tv = SV.vector()
     if stream == "provoice":
         n = 4 * 9600
         x, mode, kw = SV.pv_iq(tv, n), "provoice", {}
+    elif stream.startswith("dmr"):
+        n = 4 * 4800
+        inv = stream == "dmr_inverted"
+        x, mode = SV.dmr_iq(tv, n, invert=inv), "dmr"
+        kw = {"state_attrs": {"dmr_bp_key_id": int(tv["dmr_ids"][4]),
+                              **({"force_polarity": {"dmr": True}}
+                                 if inv else {})}}
+    elif stream == "x2tdma":
+        n = 4 * 6000
+        x, mode, kw = SV.x2_iq(tv, n), "x2tdma", {}
     else:
         n = 4 * 4800
         x = SV.p25_iq(tv, n, cqpsk=stream == "cqpsk")
@@ -75,13 +94,20 @@ def test_decode_samples_card_against_cpu(stream):
         np.testing.assert_array_equal(np.stack(gs.bits), np.stack(cs.bits))
     if stream == "provoice":
         assert SV.judge_pv(tv, gc, n)["provoice_superframes"] >= 15
+    elif stream.startswith("dmr"):
+        assert SV.judge_dmr(tv, gc, gs, 0, n, invert=inv, rc4=True,
+                            bp=True)["bp_frames"] >= 72
+    elif stream == "x2tdma":
+        assert SV.judge_x2(tv, gc, gs, n)["superframes"] >= 12
     else:
         assert SV.judge_p25(tv, gc, gs, n)["keyed_ldus"] >= 8
-    a, b = SV.pcm(cc), SV.pcm(gc)
-    assert a.shape == b.shape
-    if a.size:
-        assert np.isfinite(b).all() and np.abs(b).max() > 0.05
-        assert np.abs(a - b).max() <= PCM_REL * np.abs(a).max()
+    assert sorted(cc.audio) == sorted(gc.audio)
+    for slot in cc.audio:
+        a, b = SV.pcm(cc, slot), SV.pcm(gc, slot)
+        assert a.shape == b.shape
+        if a.size:
+            assert np.isfinite(b).all() and np.abs(b).max() > 0.05
+            assert np.abs(a - b).max() <= PCM_REL * np.abs(a).max()
 
 
 @pytest.mark.cuda

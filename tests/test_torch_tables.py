@@ -70,7 +70,16 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.provoice.decoder",
     "dsdneo_tpu_torch.protocol.provoice.imbe7100",
     "dsdneo_tpu_torch.protocol.provoice.encode",
-    "dsdneo_tpu_torch.engine.decoder", "dsdneo_tpu_torch.engine.serialvec")
+    "dsdneo_tpu_torch.engine.decoder", "dsdneo_tpu_torch.engine.serialvec",
+    "dsdneo_tpu_torch.fec.bptc", "dsdneo_tpu_torch.fec.trellis34",
+    "dsdneo_tpu_torch.protocol.dmr", "dsdneo_tpu_torch.protocol.dmr.bs",
+    "dsdneo_tpu_torch.protocol.dmr.ambe_frame",
+    "dsdneo_tpu_torch.protocol.dmr.late_entry",
+    "dsdneo_tpu_torch.protocol.dmr.slc", "dsdneo_tpu_torch.protocol.dmr.udt",
+    "dsdneo_tpu_torch.protocol.dmr.data", "dsdneo_tpu_torch.protocol.x2tdma",
+    "dsdneo_tpu_torch.protocol.x2tdma.decoder",
+    "dsdneo_tpu_torch.crypto.retevis_rc2", "dsdneo_tpu_torch.crypto.pc4",
+    "dsdneo_tpu_torch.crypto.pc5", "dsdneo_tpu_torch.crypto.vendor")
 
 
 @pytest.fixture(scope="module")
@@ -402,7 +411,7 @@ def serial_exported():
     return build_serial_tables(check=False)
 
 
-@pytest.mark.parametrize("kind", ["p25", "pv"])
+@pytest.mark.parametrize("kind", ["p25", "pv", "dmr", "x2"])
 def test_serial_npz_equals_exporter(serial_exported, kind):
     """The checked-in ``serial_tables.npz`` is what the exporter builds
     from the JAX package's encoders now (the exporter also holds each
@@ -421,9 +430,13 @@ def test_serial_npz_equals_exporter(serial_exported, kind):
 
 def test_serial_decode_runs_without_the_jax_package():
     """Import ``engine.decoder`` and decode 1.5 s of the P25 call (its
-    first keyed superframe included) and 1 s of the EDACS/ProVoice
-    stream on the CPU, each held to its vector: no module of the JAX
-    package, and no jax, is ever loaded."""
+    first keyed superframe included), 1 s of the EDACS/ProVoice stream,
+    3 s of the DMR stream with every DMR voice cipher set (Basic Privacy,
+    CSI72, TYT16, TYT-EP, Retevis RC2, PC4, PC5, the Hytera, Kenwood and
+    Anytone keystreams, a static keystream and, through the Vertex map,
+    its key-ID lookup) and the RC4 call with its key, and 2 s of the
+    X2-TDMA stream on the CPU, the clear ones held to their vectors: no
+    module of the JAX package, and no jax, is ever loaded."""
     code = (
         "import sys\n"
         "from dsdneo_tpu_torch.engine.decoder import decode_samples\n"
@@ -440,6 +453,34 @@ def test_serial_decode_runs_without_the_jax_package():
         "ctx = decode_samples(SV.pv_iq(tv, 9600), 'provoice', "
         "device='cpu')\n"
         "assert SV.judge_pv(tv, ctx, 9600)['provoice_superframes'] >= 3\n"
+        "from dsdneo_tpu_torch.crypto import pc4, pc5, retevis_rc2, vendor\n"
+        "h = '0123456789ABCDEF0123456789ABCDEF'\n"
+        "attrs = {'dmr_bp_key_id': 7, 'dmr_csi72_key': bytes(range(9)), "
+        "'dmr_tyt16_key': 0xABCD, 'dmr_tyt_ep_key': 1 << 100, "
+        "'dmr_retevis_rc2': retevis_rc2.RetevisRC2.from_hex(h), "
+        "'dmr_tyt_ap': pc4.PC4.from_hex(h), "
+        "'dmr_baofeng_pc5': pc5.PC5.from_hex(h)}\n"
+        "for sf in ({'dmr_hytera_bp': (0x123456789A,)}, "
+        "{'dmr_kenwood_key': 12345}, {'dmr_anytone_key': 0x1234}, "
+        "{'dmr_static_ks': vendor.StaticKeystream.parse('DEADBEEF:32')}, "
+        "{'dmr_vertex_ks_map': {0: vendor.StaticKeystream.parse('AB:8')}}):\n"
+        "    ctx = decode_samples(SV.dmr_iq(tv, 14400), 'dmr', "
+        "state_attrs={**attrs, **sf}, device='cpu')\n"
+        "    assert sum('VC' in e.line for e in ctx.events) >= 30\n"
+        "    assert ctx.audio and ctx.state.dmr_vc_frame_count >= 90\n"
+        "kr = KeyRing()\n"
+        "kr.scalar[int(tv['dmr_ids'][2])] = int(tv['dmr_ids'][1])\n"
+        "start = int(tv['dmr_windows'][0])\n"
+        "sink = SV.ImbeSink()\n"
+        "ctx = decode_samples(SV.dmr_iq(tv, 19200, start=start), 'dmr', "
+        "keyring=kr, mbe_sink=sink, device='cpu')\n"
+        "assert SV.judge_dmr(tv, ctx, sink, start, 19200, "
+        "rc4=True)['rc4_frames'] >= 72\n"
+        "import dsdneo_tpu_torch.vocoder.mbe as mbe\n"
+        "with SV.AmbeSpy(mbe) as spy:\n"
+        "    ctx = decode_samples(SV.x2_iq(tv, 12000), 'x2tdma', "
+        "device='cpu')\n"
+        "assert SV.judge_x2(tv, ctx, spy, 12000)['superframes'] >= 5\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"
@@ -449,6 +490,26 @@ def test_serial_decode_runs_without_the_jax_package():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_port_sources_import_no_jax_module():
+    """No line of the port's sources imports jax or a module of the JAX
+    package, inside a function included (the serial decoders import
+    their helpers in their methods)."""
+    import re
+    pat = re.compile(r"^\s*(from|import)\s+(jax|jaxlib|dsdneo_tpu)(\.|\s|$)")
+    bad = []
+    for top, _dirs, files in os.walk(os.path.join(ROOT, "dsdneo_tpu_torch")):
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(top, f)
+                with open(path) as fh:
+                    for i, line in enumerate(fh, 1):
+                        if pat.match(line):
+                            bad.append(f"{path}:{i}: {line.strip()}")
+    with open(os.path.join(ROOT, "chip_smoke.py")) as fh:
+        bad += [line for line in fh if pat.match(line)]
+    assert not bad, bad
 
 
 def test_port_never_imports_jax():

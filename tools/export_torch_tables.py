@@ -1768,12 +1768,620 @@ def _pv_vector() -> dict[str, np.ndarray]:
     }
 
 
+# -- the DMR BS and X2-TDMA serial streams ---------------------------------
+SERIAL_DMR_SEED = 16
+SERIAL_DMR_TOTAL = int(SERIAL_SECONDS * 4800)
+SERIAL_DMR_CC = 1
+SERIAL_DMR_LEAD = 120     # random dibits before the first slot-burst
+SERIAL_DMR_KEY = 0x1122334455     # the RC4 key, in the KeyRing under
+SERIAL_DMR_KID = 0x05             # SERIAL_DMR_KID
+SERIAL_DMR_MI = 0x2468ACE1        # the RC4 call's PI-header MI
+SERIAL_DMR_BP = 7                 # the Basic Privacy key ID
+SERIAL_DMR_FALSE_SYNC_MAX = 0.55  # |correlation| off the true syncs
+SERIAL_X2_SEED = 2                # synth_x2_voice_stream's first seed
+SERIAL_X2_CHUNK = 8               # superframes per synth_x2_voice_stream
+SERIAL_DMR_ALIAS = "DSD-NEO 15"   # the talker alias of one call
+_DMR_BS_DATA = "313333111331131131331131"
+_DMR_BS_VOICE = "131111333113313313113313"
+# the CSBKs between calls: TV_Grant and C_ALOHA
+_DMR_CSBK_OPS = ((49, 0), (25, 0))
+
+
+def _sync_dibits(pattern: str) -> np.ndarray:
+    return np.array([1 if c == "1" else 3 for c in pattern], np.uint8)
+
+
+def _dmr_lc(flco: int, fid: int, so: int, tg: int, src: int) -> np.ndarray:
+    """A 72-bit full LC: PF|R|FLCO, FID, service options, target, source."""
+    return np.concatenate([_bits_of(flco & 0x3F, 8), _bits_of(fid, 8),
+                           _bits_of(so, 8), _bits_of(tg, 24),
+                           _bits_of(src, 24)])
+
+
+def _dmr_alias_lcs(text: str) -> list[np.ndarray]:
+    """The talker alias header (FLCO 4, 7-bit format, 7 characters) and
+    block 1 (FLCO 5, 8 more) carrying ``text``."""
+    bits = np.concatenate([_bits_of(ord(c), 7) for c in text]
+                          + [np.zeros(7 * 15, np.uint8)])
+    hdr = np.concatenate([_bits_of(4, 8), _bits_of(0, 8), _bits_of(0, 2),
+                          _bits_of(len(text), 5), bits[:49]])
+    blk = np.concatenate([_bits_of(5, 8), _bits_of(0, 8), bits[49:105]])
+    return [hdr, blk]
+
+
+def _dmr_full_lc96(lc72: np.ndarray) -> np.ndarray:
+    """The voice LC header / terminator payload: the 9 LC octets and the
+    RS(12,9) parity under the 0x96 mask (``DmrBsDecoder._vlc_header``)."""
+    from dsdneo_tpu.fec import rs
+    syms = np.asarray(lc72, np.int64).reshape(9, 8) @ (1 << np.arange(7, -1, -1))
+    cw = rs.rs_12_9().encode(syms)
+    cw[9:] ^= 0x96
+    return np.concatenate([_bits_of(int(v), 8) for v in cw])
+
+
+def _dmr_emb_lc128(lc72: np.ndarray) -> np.ndarray:
+    """72 LC bits + the 5-bit checksum (octet sum mod 31) as the BPTC
+    16×8 matrix of the embedded LC, column-major
+    (``DmrBsDecoder._embedded_lc`` inverted)."""
+    from dsdneo_tpu.fec.blockcodes import hamming_16_11_4
+    ham = hamming_16_11_4()
+    octs = np.asarray(lc72, np.int64).reshape(9, 8) @ (1 << np.arange(7, -1, -1))
+    data = np.concatenate([lc72, _bits_of(int(octs.sum()) % 31, 5)])
+    mat = np.zeros((8, 16), np.uint8)
+    mat[0, :11], mat[1, :11] = data[0:11], data[11:22]
+    for r in range(5):
+        mat[2 + r, :10] = data[22 + 10 * r:32 + 10 * r]
+        mat[2 + r, 10] = data[72 + r]
+    for r in range(7):
+        mat[r] = ham.codebook[int(mat[r, :11] @ (1 << np.arange(10, -1, -1)))]
+    mat[7] = mat[:7].sum(axis=0) & 1
+    return mat.T.reshape(-1)
+
+
+def _h17(data12: np.ndarray) -> np.ndarray:
+    """Hamming(17,12,3) of the CACH short LC (``slc.hamming17123``)."""
+    d = np.zeros(17, np.uint8)
+    d[:12] = data12
+    d[12] = d[0] ^ d[1] ^ d[2] ^ d[3] ^ d[6] ^ d[7] ^ d[9]
+    d[13] = d[0] ^ d[1] ^ d[2] ^ d[3] ^ d[4] ^ d[7] ^ d[8] ^ d[10]
+    d[14] = d[1] ^ d[2] ^ d[3] ^ d[4] ^ d[5] ^ d[8] ^ d[9] ^ d[11]
+    d[15] = d[0] ^ d[1] ^ d[4] ^ d[5] ^ d[7] ^ d[10]
+    d[16] = d[0] ^ d[1] ^ d[2] ^ d[5] ^ d[6] ^ d[8] ^ d[11]
+    return d
+
+
+def _slc_fragments(data28: np.ndarray) -> list[np.ndarray]:
+    """A 28-bit short LC → its four 17-bit CACH fragments (CRC8, three
+    Hamming(17,12,3), the (i·4) mod 67 interleave)."""
+    from dsdneo_tpu.protocol.dmr.slc import crc8_dmr
+    d36 = np.zeros(36, np.uint8)
+    d36[:28] = data28
+    d36[28:] = _bits_of(crc8_dmr(d36, 28), 8)
+    deint = np.zeros(68, np.uint8)
+    for k in range(3):
+        deint[17 * k:17 * k + 17] = _h17(d36[12 * k:12 * k + 12])
+    raw = np.zeros(68, np.uint8)
+    raw[(np.arange(67) * 4) % 67] = deint[:67]
+    raw[67] = deint[67]
+    return [raw[17 * k:17 * k + 17] for k in range(4)]
+
+
+def _dmr_data_burst(bits196: np.ndarray, cc: int, dtype: int) -> np.ndarray:
+    """196 on-air payload bits → the 132 burst dibits around the BS data
+    sync, with the Golay(20,8) slot type."""
+    from dsdneo_tpu.fec.blockcodes import golay_20_8
+    st = golay_20_8().codebook[((cc & 0xF) << 4) | (dtype & 0xF)]
+    pay = _dibits_of_bits(bits196)
+    std = _dibits_of_bits(st)
+    return np.concatenate([pay[:49], std[:5], _sync_dibits(_DMR_BS_DATA),
+                           std[5:], pay[49:]])
+
+
+def _dmr_voice_burst(frames72: np.ndarray, center48) -> np.ndarray:
+    """Three 72-bit AMBE frames around a 24-dibit centre (the voice sync
+    or the EMB and an embedded-LC fragment)."""
+    v = _dibits_of_bits(np.concatenate(frames72))
+    c = (_sync_dibits(_DMR_BS_VOICE) if center48 is None
+         else _dibits_of_bits(center48))
+    return np.concatenate([v[:54], c, v[54:]])
+
+
+def _dmr_sync_corr_max(dib: np.ndarray, lo: int, hi: int,
+                       skip: list[tuple[int, int]]) -> float:
+    """max |correlation| of every DMR sync definition over the window
+    starts [lo, hi) outside the ``skip`` ranges."""
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    lo = max(lo, 0)
+    seg = dib[lo:hi + 23]
+    if len(seg) < 24:
+        return 0.0
+    keep = np.ones(len(seg) - 23, bool)
+    for a, b in skip:
+        keep[max(a - lo, 0):max(b - lo, 0)] = False
+    if not keep.any():
+        return 0.0
+    best = 0.0
+    for d in SYNC_DEFS:
+        if d.protocol == "dmr":
+            c = np.abs(_sync_corr(seg, d.levels))[:len(keep)]
+            best = max(best, float(c[keep].max()))
+    return best
+
+
+def _dmr_programs(rng) -> tuple[list[list[tuple]], list[dict]]:
+    """The two slots' burst programs: per slot a list of burst specs
+    (kind, args), and the calls.  Slot 0: grants and ALOHAs, clear group
+    calls, the RC4 call last; slot 1: the data call, the UDT, a clear
+    call with the talker alias, the Basic Privacy call, clear calls."""
+    calls: list[dict] = []
+    n_slot = (SERIAL_DMR_TOTAL - SERIAL_DMR_LEAD) // 144 // 2
+
+    def csbks(slot, n):
+        return [("csbk", None)] * n            # drawn with the stream
+
+    def call(slot, tg, src, n_sf, cipher=0, alias=False):
+        so = 0x40 if cipher else 0x00
+        k = len(calls)
+        calls.append({"slot": slot, "tg": tg, "src": src, "n_sf": n_sf,
+                      "cipher": cipher, "alias": alias})
+        lc = _dmr_lc(0, 0, so, tg, src)
+        out = [("vlc", lc), ("vlc", lc)]
+        if cipher == 2:
+            out.append(("pi", 0x21, SERIAL_DMR_KID, SERIAL_DMR_MI))
+        emb = [lc] * n_sf
+        if alias:
+            emb[1:3] = _dmr_alias_lcs(SERIAL_DMR_ALIAS)
+        for sf in range(n_sf):
+            frags = _dmr_emb_lc128(emb[sf])
+            for vc in range(1, 7):
+                out.append(("voice", k, sf, vc,
+                            frags[32 * (vc - 2):32 * (vc - 1)]
+                            if 2 <= vc <= 5 else None))
+        out.append(("tlc", lc))
+        return out
+
+    def data_call(slot):
+        hb = np.zeros(96, np.uint8)
+        hb[0] = 1                              # group
+        hb[4:8] = _bits_of(3, 4)               # DPF 3: confirmed
+        hb[16:40] = _bits_of(100, 24)
+        hb[40:64] = _bits_of(200, 24)
+        hb[64] = 1                             # final
+        hb[65:72] = _bits_of(2, 7)             # 2 blocks follow
+        hb[80:96] = _bits_of(crc.crc16_bits(hb[:80], init=0, xorout=0xFFFF)
+                             ^ 0xCCCC, 16)
+        payload = np.frombuffer(b"Hello DMR data world over trellis 34",
+                                np.uint8)[:32].copy()
+        sw = payload.copy()
+        sw[0::2], sw[1::2] = payload[1::2], payload[0::2]
+        cv = crc32_bits(np.unpackbits(sw))
+        full = np.concatenate([payload, np.packbits(_bits_of(cv, 32))])
+        return [("dhdr", hb), ("r34", full[:18]), ("r34", full[18:])]
+
+    def udt(slot):
+        h = np.zeros(96, np.uint8)
+        h[12:16] = _bits_of(4, 4)              # ISO8 text
+        h[16:40] = _bits_of(5678, 24)
+        h[40:64] = _bits_of(1234, 24)
+        h[64:69] = _bits_of(10, 5)             # pad nibbles
+        h[80:96] = _bits_of(crc.crc16_bits(h[:80], init=0, xorout=0xFFFF)
+                            ^ 0xCCCC, 16)
+        app = np.zeros(96, np.uint8)
+        app[:40] = np.unpackbits(np.frombuffer(b"HELLO", np.uint8))
+        app[80:] = _bits_of(crc.crc16_bits(app[:80], init=0,
+                                           xorout=0xFFFF), 16)
+        return [("dhdr", h), ("r12", app)]
+
+    from dsdneo_tpu.fec import crc
+    from dsdneo_tpu.protocol.dmr.data import crc32_bits
+    s0 = (csbks(0, 4) + call(0, 101, 1001, 3) + csbks(0, 3))
+    s1 = (csbks(1, 1) + data_call(1) + udt(1) + csbks(1, 1)
+          + call(1, 201, 2001, 3, alias=True) + csbks(1, 2))
+    s1 += call(1, 202, 2002, 4, cipher=1) + csbks(1, 3)
+    tg = 0
+    while len(s0) < n_slot - 150:
+        tg += 1
+        s0 += call(0, 110 + tg, 1100 + tg, 3 + tg % 4) + csbks(0, 2 + tg % 3)
+    while len(s1) < n_slot - 40:
+        tg += 1
+        s1 += call(1, 210 + tg, 2100 + tg, 3 + tg % 4) + csbks(1, 2 + tg % 3)
+    s0 += call(0, 303, 3003, 5, cipher=2)
+    for s in (s0, s1):
+        if len(s) > n_slot:
+            raise RuntimeError("a slot's program runs past the stream")
+        s += [("idle",)] * (n_slot - len(s))
+    return [s0, s1], calls
+
+
+_SLC_SYS_PARMS = np.concatenate([_bits_of(0x2, 4), _bits_of(1, 2),
+                                 _bits_of(5, 7), _bits_of(0b01011, 5),
+                                 _bits_of(1, 1), _bits_of(123, 9)])
+SERIAL_DMR_SLC_EVERY = 400    # slot-bursts between C_SYS_PARMS short LCs
+
+
+def _dmr_call_vector() -> dict[str, np.ndarray]:
+    """A 60 s DMR BS stream at 4800 symbols/s with traffic on both slots
+    (``_dmr_programs``): every slot-burst a CACH (TACT with the slot and
+    either a single-fragment SLC activity update or, every
+    ``SERIAL_DMR_SLC_EVERY`` bursts, the four fragments of a
+    C_SYS_PARMS short LC) and a data burst (BPTC(196,96), rate 3/4 or
+    rate 1/2 payload, Golay(20,8) slot type, BS data sync) or a voice
+    burst (three AMBE+2 frames through ``encode_ambe_ecc``, the BS voice
+    sync on VC1, the EMB and an embedded-LC fragment on VC2-VC5).  The
+    calls' voice frames are random parameter strings: in the clear, under
+    Basic Privacy key ``SERIAL_DMR_BP`` or under RC4 (ALG 0x21, PI
+    header, the MI advancing each superframe, the late-entry fragments
+    in the first four C3 bits).  The random parts (voice frames, idle
+    payloads, grants, the CACH of bursts whose CACH no decoder reads)
+    are drawn again until no sync correlation reaches
+    ``SERIAL_DMR_FALSE_SYNC_MAX`` off the true syncs, no voice sync
+    has a valid slot type under the data hypothesis, and no superframe
+    of a call that is not RC4 carries a valid late-entry MI.  The
+    expected detail of each data burst comes from the JAX package's own
+    ``DmrBsDecoder`` methods."""
+    from dsdneo_tpu.crypto.keystream import (dmr_basic_keystream,
+                                             rc4_keystream)
+    from dsdneo_tpu.fec import crc
+    from dsdneo_tpu.fec.blockcodes import (golay_20_8, hamming_7_4,
+                                           qr_16_7_6)
+    from dsdneo_tpu.fec.bptc import bptc_196_96_encode
+    from dsdneo_tpu.fec.trellis34 import encode_r34
+    from dsdneo_tpu.protocol.base import DecoderContext
+    from dsdneo_tpu.protocol.dmr.ambe_frame import encode_ambe_ecc
+    from dsdneo_tpu.protocol.dmr.bs import CACH_INTERLEAVE, DmrBsDecoder
+    from dsdneo_tpu.protocol.dmr.late_entry import (late_entry_decode,
+                                                    late_entry_encode,
+                                                    mi_advance32)
+    from dsdneo_tpu.protocol.dmr.slc import SlcAssembler
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS, SyncHit
+    rng = np.random.default_rng(SERIAL_DMR_SEED)
+    progs, calls = _dmr_programs(rng)
+    cc = SERIAL_DMR_CC
+    n_b = len(progs[0]) * 2
+    total = SERIAL_DMR_TOTAL
+    lead, end = SERIAL_DMR_LEAD, SERIAL_DMR_LEAD + 144 * n_b
+    dib = rng.integers(0, 4, total).astype(np.uint8)
+    bp = dmr_basic_keystream(SERIAL_DMR_BP)
+    gol20, h74, qr = golay_20_8(), hamming_7_4(), qr_16_7_6()
+    dtypes = {"csbk": 3, "idle": 9, "vlc": 1, "tlc": 2, "pi": 0,
+              "dhdr": 6, "r34": 8, "r12": 7}
+    specs = [progs[b % 2][b // 2] for b in range(n_b)]
+    pos = lead + 66 + 144 * np.arange(n_b)
+    voice = np.array([s[0] == "voice" for s in specs])
+    synced = np.array([s[0] != "voice" or s[3] == 1 for s in specs])
+    rc4ks: dict = {}
+    for k, c in enumerate(calls):
+        if c["cipher"] == 2:
+            mi = SERIAL_DMR_MI
+            for sf in range(c["n_sf"]):
+                rk = SERIAL_DMR_KEY.to_bytes(5, "big") + mi.to_bytes(4, "big")
+                rc4ks[k, sf] = (np.stack([np.unpackbits(rc4_keystream(
+                    rk, 7, drop=256 + 7 * i))[:49] for i in range(18)]),
+                    late_entry_encode(mi))
+                mi = mi_advance32(mi)
+
+    # the CACH of every burst: the slot, and an SLC where a decoder reads
+    # it (data bursts and VC1)
+    cach_p17: dict = {}
+    slc_text = [""] * n_b
+    in_call = [False, False]
+    pending: list = []
+    for b in range(n_b):
+        slot, kind = b % 2, specs[b][0]
+        if kind in ("vlc", "pi", "voice"):
+            in_call[slot] = True
+        if synced[b]:
+            if b % SERIAL_DMR_SLC_EVERY == 0:
+                pending = list(zip((1, 3, 3, 2),
+                                   _slc_fragments(_SLC_SYS_PARMS)))
+            if pending:
+                cach_p17[b] = pending.pop(0)
+                if not pending:
+                    a = SlcAssembler()
+                    for lcss, f in zip((1, 3, 3, 2),
+                                       _slc_fragments(_SLC_SYS_PARMS)):
+                        slc_text[b] = a.feed(lcss, f) or ""
+            else:
+                acts = [0x8 if in_call[s] else 0x2 for s in (0, 1)]
+                p17 = _h17(np.concatenate([_bits_of(1, 4),
+                                           _bits_of(acts[0], 4),
+                                           _bits_of(acts[1], 4)]))
+                cach_p17[b] = (0, p17)
+                slc_text[b] = SlcAssembler().feed(0, p17) or ""
+        if kind == "tlc":
+            in_call[slot] = False
+
+    def cach(b, lcss, p17):
+        c = np.zeros(24, np.uint8)
+        c[:7] = h74.codebook[(1 << 3) | ((b % 2) << 2) | lcss]
+        c[7:] = p17
+        return _dibits_of_bits(c[CACH_INTERLEAVE])
+
+    frames: dict = {}
+    payload: dict = {}
+
+    def draw(b: int) -> None:
+        """Burst ``b``'s dibits, its random parts drawn afresh."""
+        spec, base = specs[b], lead + 144 * b
+        kind = spec[0]
+        lcss, p17 = cach_p17.get(
+            b, (0, rng.integers(0, 2, 17).astype(np.uint8)))
+        dib[base:base + 12] = cach(b, lcss, p17)
+        if kind == "voice":
+            k, sf, vc, frag = spec[1:]
+            c = calls[k]
+            plain = rng.integers(0, 2, (3, 49)).astype(np.uint8)
+            ks = np.zeros((3, 49), np.uint8)
+            onair = plain.copy()
+            if c["cipher"] == 1:
+                onair ^= bp[None, :]
+            elif c["cipher"] == 2:
+                sks, frg = rc4ks[k, sf]
+                for f in range(3):
+                    ks[f] = sks[3 * (vc - 1) + f]
+                    onair[f] = plain[f] ^ ks[f]
+                    onair[f, 35:39] = _bits_of(int(frg[vc][f]), 4)
+            f72 = np.stack([encode_ambe_ecc(x) for x in onair])
+            center = None
+            if vc > 1:
+                emb = qr.codebook[(cc << 3) | ((c["cipher"] > 0) << 2)
+                                  | {2: 1, 3: 3, 4: 3, 5: 2, 6: 0}[vc]]
+                mid = (frag if frag is not None
+                       else rng.integers(0, 2, 32).astype(np.uint8))
+                center = np.concatenate([emb[:8], mid, emb[8:]])
+            frames[b] = (onair, ks, f72)
+            burst = _dmr_voice_burst(f72, center)
+        else:
+            if kind == "idle":
+                bits96 = rng.integers(0, 2, 96).astype(np.uint8)
+            elif kind == "csbk" and spec[1] is None:
+                bits96 = _dmr_csbk(rng, b % 2)
+            elif kind in ("vlc", "tlc"):
+                bits96 = _dmr_full_lc96(spec[1])
+            elif kind == "pi":
+                bits96 = np.zeros(96, np.uint8)
+                bits96[0:8] = _bits_of(spec[1], 8)
+                bits96[16:24] = _bits_of(spec[2], 8)
+                bits96[24:56] = _bits_of(spec[3], 32)
+                bits96[80:96] = _bits_of(
+                    crc.crc16_bits(bits96[:80], init=0, xorout=0xFFFF)
+                    ^ 0x6969, 16)
+            else:
+                bits96 = spec[1]
+            if kind == "r34":
+                d98 = encode_r34(spec[1])
+                on = np.zeros(196, np.uint8)
+                on[0::2], on[1::2] = (d98 >> 1) & 1, d98 & 1
+            else:
+                on = bptc_196_96_encode(bits96)
+            payload[b] = (bits96, on)
+            burst = _dmr_data_burst(on, cc, dtypes[kind])
+        dib[base + 12:base + 144] = burst
+
+    def random_part(b: int) -> bool:
+        s = specs[b]
+        return (s[0] in ("voice", "idle") or not synced[b]
+                or (s[0] == "csbk" and s[1] is None))
+
+    def violations() -> set:
+        """The bursts to draw again."""
+        redo = set()
+        keep = np.ones(total - 23, bool)
+        for p in pos[synced]:
+            keep[p - 8:p + 24] = False
+        worst = np.zeros(total - 23)
+        for d in SYNC_DEFS:
+            if d.protocol == "dmr":
+                worst = np.maximum(worst, np.abs(_sync_corr(dib, d.levels)))
+        for t in np.flatnonzero(keep & (worst >= SERIAL_DMR_FALSE_SYNC_MAX)):
+            hit = [b for b in range(max((t - lead) // 144, 0),
+                                    min((t + 23 - lead) // 144 + 1, n_b))
+                   if random_part(b)]
+            if t < lead or t + 24 > end:
+                hit.append(-1)         # the lead or the tail
+            if not hit:
+                raise RuntimeError(f"a false sync {worst[t]:.3f} at {t} in "
+                                   "fixed bursts")
+            redo.update(hit)
+        for b in np.flatnonzero(voice & synced):
+            # the data hypothesis must reject a voice sync
+            st = np.concatenate([dib[pos[b] - 5:pos[b]],
+                                 dib[pos[b] + 24:pos[b] + 29]]) ^ 2
+            msg, errs = gol20.decode(
+                np.stack([(st >> 1) & 1, st & 1], 1).reshape(-1))
+            if errs <= 2 and (msg & 0xF) <= 11:
+                redo.add(int(b))
+        for b in np.flatnonzero(voice):
+            k, sf, vc = specs[b][1:4]
+            if vc != 6 or calls[k]["cipher"] == 2:
+                continue
+            le = np.zeros((7, 3), np.uint8)
+            for v in range(1, 7):
+                for f in range(3):
+                    le[v][f] = _bti(frames[b - 2 * (6 - v)][0][f][35:39])
+            _mi, crc_ok, golay_ok = late_entry_decode(le)
+            if crc_ok and golay_ok:
+                redo.add(int(b))
+        return redo
+
+    for b in range(n_b):
+        draw(b)
+    for _round in range(100):
+        redo = violations()
+        if not redo:
+            break
+        for b in redo:
+            if b < 0:
+                dib[:lead] = rng.integers(0, 4, lead)
+                dib[end:] = rng.integers(0, 4, total - end)
+            else:
+                draw(b)
+    else:
+        raise RuntimeError("no clean DMR stream")
+
+    # the JAX decoder's detail of each data burst, in stream order
+    jd, jctx = DmrBsDecoder(), DecoderContext()
+    dhit = next(d for d in SYNC_DEFS if d.name == "+DMR BS data")
+    b_type, b_call, b_text, b_extra = [], [], [], []
+    f_burst, f_onair, f_ks, f_cipher, f_72 = [], [], [], [], []
+    for b in range(n_b):
+        spec, slot = specs[b], b % 2
+        kind = spec[0]
+        text = extra = ""
+        call_k = -1
+        if kind == "voice":
+            onair, ks, f72 = frames[b]
+            call_k = spec[1]
+            for f in range(3):
+                f_burst.append(b)
+                f_onair.append(onair[f])
+                f_ks.append(ks[f])
+                f_cipher.append(calls[call_k]["cipher"])
+                f_72.append(f72[f])
+            b_type.append(16 + spec[3])
+        else:
+            bits96, on = payload[b]
+            hit = SyncHit(pos=int(pos[b]), score=1.0, sync=dhit)
+            if kind == "csbk":
+                n_ev = len(jctx.events)
+                text = jd._csbk(bits96, jctx, hit, slot)
+                extra = "\n".join(e.line for e in jctx.events[n_ev:])
+            elif kind == "dhdr":
+                text = jd._data_header(bits96, slot)
+            elif kind == "r34":
+                text = jd._r34_block(on, slot)
+            elif kind == "r12":
+                text = jd._r12_block(bits96, slot)
+            elif kind == "pi":
+                text = jd._pi_header(bits96, slot)
+                call_k = specs[b + 2][1]       # the call's first VC1
+            elif kind in ("vlc", "tlc"):
+                lc = spec[1]
+                tg, src = _bti(lc[24:48]), _bti(lc[48:72])
+                text = f" | {kind.upper()} Group TGT={tg} SRC={src}"
+                call_k = next(i for i, c in enumerate(calls)
+                              if (c["slot"], c["tg"], c["src"])
+                              == (slot, tg, src))
+            b_type.append(dtypes[kind])
+        b_call.append(call_k)
+        b_text.append(text)
+        b_extra.append(extra)
+    call_arr = np.array([[c["slot"], c["tg"], c["src"], c["n_sf"],
+                          c["cipher"], c["alias"]] for c in calls], np.int64)
+    first = {}
+    for i, k in enumerate(b_call):
+        if k >= 0:
+            first.setdefault(k, i)
+    rc4 = next(k for k, c in enumerate(calls) if c["cipher"] == 2)
+    bpc = next(k for k, c in enumerate(calls) if c["cipher"] == 1)
+    return {
+        "dmr_dibits": dib,
+        "dmr_burst_pos": pos.astype(np.int64),
+        "dmr_burst_type": np.asarray(b_type, np.int64),
+        "dmr_burst_call": np.asarray(b_call, np.int64),
+        "dmr_burst_text": np.asarray(b_text),
+        "dmr_burst_extra": np.asarray(b_extra),
+        "dmr_burst_slc": np.asarray([t.strip() for t in slc_text]),
+        "dmr_calls": call_arr,
+        "dmr_frame_burst": np.asarray(f_burst, np.int64),
+        "dmr_frame_cipher": np.asarray(f_cipher, np.int64),
+        "dmr_ambe_onair": np.packbits(np.stack(f_onair), axis=-1),
+        "dmr_ambe_rc4ks": np.packbits(np.stack(f_ks), axis=-1),
+        "dmr_ambe72": np.packbits(np.stack(f_72), axis=-1),
+        "dmr_alias": np.asarray(SERIAL_DMR_ALIAS),
+        # the RC4 and BP calls' windows start 10 slot-bursts before them
+        "dmr_windows": np.array([max(int(pos[first[k]]) - 66 - 1440, 0)
+                                 for k in (rc4, bpc)], np.int64),
+        "dmr_ids": np.array([SERIAL_DMR_CC, SERIAL_DMR_KEY, SERIAL_DMR_KID,
+                             SERIAL_DMR_MI, SERIAL_DMR_BP, SERIAL_DMR_SEED],
+                            np.int64),
+    }
+
+
+def _dmr_csbk(rng, slot: int) -> np.ndarray:
+    """A random CSBK of ``_DMR_CSBK_OPS``: a TV_Grant on ``slot`` or a
+    C_ALOHA with random fields."""
+    from dsdneo_tpu.protocol.dmr import encode as E
+    op, fid = _DMR_CSBK_OPS[int(rng.integers(len(_DMR_CSBK_OPS)))]
+    if op == 49:
+        return E.tv_grant_csbk(int(rng.integers(1, 4095)), slot,
+                               int(rng.integers(1, 1 << 24)),
+                               int(rng.integers(1, 1 << 24)))
+    return _csbk(op, fid, rng.integers(0, 256, 8))
+
+
+def _bti(bits) -> int:
+    v = 0
+    for b in bits:
+        v = (v << 1) | int(b)
+    return v
+
+
+def _x2_vector() -> dict[str, np.ndarray]:
+    """A 60 s X2-TDMA stream at 6000 symbols/s: chunks of
+    ``SERIAL_X2_CHUNK`` superframes of the JAX package's
+    ``engine.x2batch.synth_x2_voice_stream`` (dense two-slot voice, each
+    chunk with its lead and tail), then random dibits to 60 s.  Each
+    chunk's seed is the next from ``SERIAL_X2_SEED`` whose chunk puts no
+    X2 sync correlation of ``SERIAL_DMR_FALSE_SYNC_MAX`` or more where
+    the serial decoder hunts: outside its superframe walks (slot 0's
+    superframe, from its VC1 sync to the end of its sixth burst, which
+    also covers slot 1's bursts) and the eight positions before a
+    sync."""
+    from dsdneo_tpu.engine.x2batch import synth_x2_voice_stream
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    n_total = int(SERIAL_SECONDS * 6000)
+    defs = [d for d in SYNC_DEFS if d.protocol == "x2tdma"]
+    rng = np.random.default_rng(SERIAL_X2_SEED)
+    parts, bits, vc1, seeds = [], [], [], []
+    n = 0
+    seed = SERIAL_X2_SEED
+
+    def clean(dib, lo, hunt):
+        worst = max(float(np.abs(_sync_corr(dib[lo:], d.levels))
+                          [hunt[lo:len(dib) - 23]].max(initial=0.0))
+                    for d in defs)
+        return worst < SERIAL_DMR_FALSE_SYNC_MAX
+
+    while True:
+        _x, dib, b49 = synth_x2_voice_stream(SERIAL_X2_CHUNK, seed=seed)
+        if n + len(dib) > n_total:
+            break
+        s0 = n + 90 + 66 + 1728 * np.arange(SERIAL_X2_CHUNK)
+        cand = np.concatenate(parts + [dib])
+        hunt = np.ones(len(cand), bool)
+        for p in np.concatenate(vc1 + [s0]):
+            hunt[p - 8:p + 5 * 288 + 78] = False
+        if clean(cand, max(n - 23, 0), hunt):
+            parts.append(dib)
+            bits.append(b49)
+            vc1.append(s0)
+            seeds.append(seed)
+            n += len(dib)
+        seed += 1
+    while True:
+        tail = rng.integers(0, 4, n_total - n).astype(np.uint8)
+        cand = np.concatenate(parts + [tail])
+        hunt = np.ones(len(cand), bool)
+        for p in np.concatenate(vc1):
+            hunt[p - 8:p + 5 * 288 + 78] = False
+        if clean(cand, n - 23, hunt):
+            break
+    return {"x2_dibits": cand.astype(np.uint8),
+            "x2_vc1_pos": np.concatenate(vc1).astype(np.int64),
+            "x2_bits49": np.packbits(np.concatenate(bits, axis=1), axis=-1),
+            "x2_seeds": np.asarray(seeds, np.int64)}
+
+
 def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
-    """The serial decode path's two 60 s streams, each held to the JAX
+    """The serial decode path's four 60 s streams, each held to the JAX
     package's ``decode_samples`` over its whole length when ``check``
     (the port's ``engine.serialvec`` judges: every LDU, LC, ESS and
-    keyed frame, every EDACS frame and ProVoice superframe)."""
-    t = {**_p25_call_vector(), **_pv_vector()}
+    keyed frame, every EDACS frame and ProVoice superframe, every DMR
+    burst's lines and AMBE frame, keyed ones decrypted, upright and on
+    an inverted channel, every X2-TDMA superframe's frames)."""
+    t = {**_p25_call_vector(), **_pv_vector(), **_dmr_call_vector(),
+         **_x2_vector()}
     if check:
         _check_serial(t)
     return t
@@ -1790,6 +2398,20 @@ def _check_serial(t: dict[str, np.ndarray]) -> None:
     SV.judge_p25(t, ctx, sink)
     ctx = decode_samples(SV.pv_iq(t), "provoice")
     SV.judge_pv(t, ctx)
+    import dsdneo_tpu.vocoder.mbe as jmbe
+    kr = KeyRing()
+    kr.scalar[SERIAL_DMR_KID] = SERIAL_DMR_KEY
+    for invert in (False, True):
+        sink = SV.ImbeSink()
+        attrs = {"dmr_bp_key_id": SERIAL_DMR_BP}
+        if invert:
+            attrs["force_polarity"] = {"dmr": True}
+        ctx = decode_samples(SV.dmr_iq(t, invert=invert), "dmr", keyring=kr,
+                             mbe_sink=sink, state_attrs=attrs)
+        SV.judge_dmr(t, ctx, sink, invert=invert, rc4=True, bp=True)
+    with SV.AmbeSpy(jmbe) as spy:
+        ctx = decode_samples(SV.x2_iq(t), "x2tdma")
+    SV.judge_x2(t, ctx, spy)
 
 
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
