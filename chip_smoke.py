@@ -40,7 +40,7 @@ The paths, each at 320 channels through the entry points a user calls:
     the JAX bench's P25 Phase 2 TDMA control channel (``bench.py:604``:
     6 superframes of scrambled SACCH MAC PDUs, 2.1767 s blocks); K1.
   - serial: ``engine.decoder.decode_samples`` (one channel, the CLI's
-    offline decode entry) on five 60 s streams at 48 kHz: a P25 Phase 1
+    offline decode entry) on ten 60 s streams at 48 kHz: a P25 Phase 1
     voice call as C4FM and as CQPSK (part of it ADP-keyed, the key in a
     ``KeyRing``), an EDACS control channel with ProVoice voice
     superframes (the ``provoice`` mode), a DMR BS stream with traffic on
@@ -48,9 +48,11 @@ The paths, each at 320 channels through the entry points a user calls:
     calls with the embedded LC and a talker alias, one call under Basic
     Privacy and one under RC4 with late entry; the ``dmr`` mode with
     both keys), also on an inverted channel under ``force_polarity``,
-    and an X2-TDMA voice stream (the ``x2tdma`` mode); no kernel of the
-    table: the serial front end is plain PyTorch on the card and the
-    protocol walk runs on the host, as in the JAX package.
+    an X2-TDMA voice stream (the ``x2tdma`` mode), an NXDN traffic
+    channel (``nxdn48`` and ``nxdn96`` from the same dibits), a dPMR
+    channel, a YSF channel and a D-STAR channel; no kernel of the table:
+    the serial front end is plain PyTorch on the card and the protocol
+    walk runs on the host, as in the JAX package.
 
 Phases, in order; any failure exits non-zero:
 
@@ -221,8 +223,14 @@ Phases, in order; any failure exits non-zero:
      the RC4 MI refreshes) and every AMBE frame's bits, the RC4 and Basic
      Privacy calls decrypted to their clear bits, upright and on an
      inverted channel under ``force_polarity``; every X2-TDMA superframe
-     the decoder walks with its 18 AMBE frames; the PCM finite and not
-     silent; the first 10 s of each decoded on the card and on the CPU
+     the decoder walks with its 18 AMBE frames; every NXDN frame's line
+     (RAN, SACCH part, the VCALL of each superframe, FACCH1 VCALL and
+     TX_REL) and AMBE frame at both rates; every dPMR header, end and
+     part with its talkgroup, source, channel code and 8 AMBE frames;
+     every YSF frame's FICH fields, DCH2 text and AMBE or IMBE frames;
+     every D-STAR header's octets and superframe's slow data and AMBE
+     bits; nothing else emitted; the PCM finite and not silent (D-STAR
+     and ProVoice synthesize none); the first 10 s of each decoded on the card and on the CPU
      with equal events and voice bits and each slot's PCM within 2e-3 of
      the peak.  Each
      stream's x-realtime and its split (front end, host walk, synthesis),
@@ -615,9 +623,11 @@ def cc_expected(kind: str, ct, tv, lead: int, n_sym: int):
 
 def serial_phase(ident: str, dev, block, counted) -> dict:
     """Phase 8: the serial front end at the C4FM cell's block, then
-    ``decode_samples`` on the card over the three 60 s streams of
-    ``data/serial_tables.npz``, each judged whole and its first 10 s held
-    to the CPU path; returns the kernels' launches during the phase."""
+    ``decode_samples`` on the card over the 60 s streams of
+    ``data/serial_tables.npz`` (P25p1 C4FM and CQPSK, EDACS + ProVoice,
+    DMR upright and inverted, X2-TDMA, NXDN48, NXDN96, dPMR, YSF,
+    D-STAR), each judged whole and its first 10 s held to the CPU path;
+    returns the kernels' launches during the phase."""
     import numpy as np
     import torch
     from dsdneo_tpu_torch.crypto.keyring import KeyRing
@@ -688,6 +698,9 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
     _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
     dmr_attrs = {"dmr_bp_key_id": int(tv["dmr_ids"][4])}
     import dsdneo_tpu_torch.vocoder.mbe as mbe
+    # the modes whose voice bits are spied on at decode_ambe_2450 (and
+    # YSF's full rate at decode_imbe_4400)
+    ambe_modes = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "dstar")
 
     def keyring():
         kr = KeyRing()
@@ -702,9 +715,11 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
             spent[k] = 0.0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if mode == "x2tdma":
-            with SV.AmbeSpy(mbe) as sink:
+        if mode in ambe_modes:
+            with SV.AmbeSpy(mbe) as sink, \
+                    SV.AmbeSpy(mbe, "decode_imbe_4400") as imbe:
                 ctx = sdec.decode_samples(xs, mode, device=where)
+            sink.imbe = imbe
         else:
             sink = SV.ImbeSink()
             ctx = sdec.decode_samples(xs, mode, cqpsk=cq, keyring=keyring(),
@@ -722,7 +737,17 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
         ("DMR BS call", "dmr", False, lambda: SV.dmr_iq(tv),
          4800 * SV.DMR_SPS, dmr_attrs),
         ("X2-TDMA", "x2tdma", False, lambda: SV.x2_iq(tv),
-         6000 * SV.X2_SPS, None))
+         6000 * SV.X2_SPS, None),
+        ("NXDN48", "nxdn48", False, lambda: SV.nxdn_iq(tv, mode="nxdn48"),
+         2400 * SV.NXDN_SPS["nxdn48"], None),
+        ("NXDN96", "nxdn96", False, lambda: SV.nxdn_iq(tv, mode="nxdn96"),
+         4800 * SV.NXDN_SPS["nxdn96"], None),
+        ("dPMR", "dpmr", False, lambda: SV.dpmr_iq(tv),
+         2400 * SV.DPMR_SPS, None),
+        ("YSF", "ysf", False, lambda: SV.ysf_iq(tv), 4800 * SV.YSF_SPS,
+         None),
+        ("D-STAR", "dstar", False, lambda: SV.dstar_iq(tv),
+         4800 * SV.DSTAR_SPS, None))
     try:
         for name, mode, cq, make, per_s, attrs in streams:
             x = make()
@@ -741,11 +766,21 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 got = SV.judge_dmr(tv, ctx, sink, rc4=True, bp=True)
             elif mode == "x2tdma":
                 got = SV.judge_x2(tv, ctx, sink)
+            elif mode in ("nxdn48", "nxdn96"):
+                got = SV.judge_nxdn(tv, ctx, sink, mode)
+            elif mode == "dpmr":
+                got = SV.judge_dpmr(tv, ctx, sink)
+            elif mode == "ysf":
+                got = SV.judge_ysf(tv, ctx, sink, sink.imbe)
+            elif mode == "dstar":
+                got = SV.judge_dstar(tv, ctx)
             else:
                 got = SV.judge_p25(tv, ctx, sink)
             pcm = np.concatenate([SV.pcm(ctx, s) for s in sorted(ctx.audio)]
                                  or [np.zeros(0, np.float32)])
-            if mode != "provoice":
+            # ProVoice's IMBE-7100 frames and D-STAR's 3600x2400 ones are
+            # not synthesized
+            if mode not in ("provoice", "dstar"):
                 if not (np.isfinite(pcm).all() and np.abs(pcm).max() > 0.05):
                     raise RuntimeError(f"serial {name}: PCM not finite or "
                                        "silent")
@@ -769,13 +804,19 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                                        "path's")
                 if a.size:
                     worst = max(worst, float(np.abs(a - b).max()))
-            if len(out["cpu10"][1].bits) != len(out["card10"][1].bits) or (
-                    out["cpu10"][1].bits and not np.array_equal(
-                        np.stack(out["cpu10"][1].bits),
-                        np.stack(out["card10"][1].bits))):
-                raise RuntimeError(f"serial {name}: the card's first 10 s "
-                                   "voice bits differ from the CPU path's")
+            pairs = [(out["cpu10"][1], out["card10"][1])]
+            if mode in ambe_modes:
+                pairs.append((out["cpu10"][1].imbe, out["card10"][1].imbe))
+            for a, b in pairs:
+                if len(a.bits) != len(b.bits) or (
+                        a.bits and not np.array_equal(np.stack(a.bits),
+                                                      np.stack(b.bits))):
+                    raise RuntimeError(f"serial {name}: the card's first 10 "
+                                       "s voice bits differ from the CPU "
+                                       "path's")
             n10_pcm = sum(len(SV.pcm(g10, s)) for s in g10.audio)
+            n_voice = len(sink.bits) + (len(sink.imbe.bits)
+                                        if mode in ambe_modes else 0)
             walk = wall - sp["front"] - sp["synth"]
             # device busy over the first 10 s, against its unprofiled wall
             with profile(activities=[ProfilerActivity.CPU,
@@ -800,7 +841,7 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 f"{wall:.3f} s = {secs / wall:.2f}x realtime; split: front "
                 f"end {sp['front'] * 1e3:.1f} ms, host walk "
                 f"{walk * 1e3:.1f} ms, synthesis {sp['synth'] * 1e3:.1f} ms "
-                f"({len(sink.bits)} voice frames); {len(ctx.events)} events;"
+                f"({n_voice} voice frames); {len(ctx.events)} events;"
                 f" judged: {got}; PCM {pcm.size} samples, peak "
                 f"{float(np.abs(pcm).max()) if pcm.size else 0.0:.3f}; the "
                 f"first 10 s equal to the CPU path ({n10_pcm} PCM samples "

@@ -12,12 +12,15 @@ PCM on the same device.
 
 The port's serial decoders are those of P25 Phase 1 (``p25p1``), DMR
 (``dmr``: the BS/MS/DM bursts with their data, CSBK, SLC, UDT, late-entry
-and voice-cipher modules), X2-TDMA (``x2tdma``), EDACS (``edacs``) and
-ProVoice (``provoice``), registered when this module is imported.  A
-mode that hunts a family the port has no serial decoder for (NXDN,
-D-STAR, YSF, dPMR, M17, P25 Phase 2) raises ``NotImplementedError``
-naming the family, and so does ``mode="auto"`` (``detect_mode`` tries
-every family).
+and voice-cipher modules), X2-TDMA (``x2tdma``), EDACS (``edacs``),
+ProVoice (``provoice``), NXDN (``nxdn48``, ``nxdn96``: LICH, SACCH
+superframes, FACCH1, CAC and AMBE voice), dPMR (``dpmr``), YSF (``ysf``:
+FICH, DCH2 and the V/D1, V/D2 and full-rate voice modes) and D-STAR
+(``dstar``: the RF header, slow data and the AMBE 3600x2400 ECC),
+registered when this module is imported.  A mode that hunts a family
+the port has no serial decoder for (M17, P25 Phase 2) raises
+``NotImplementedError`` naming the family, and so does ``mode="auto"``
+(``detect_mode`` tries every family).
 """
 
 from __future__ import annotations
@@ -32,10 +35,14 @@ from dsdneo_tpu_torch.engine.modes import MODES, ModeConfig
 from dsdneo_tpu_torch.protocol import base as proto_base
 # importing the decoders registers them
 import dsdneo_tpu_torch.protocol.dmr  # noqa: F401
+import dsdneo_tpu_torch.protocol.dpmr.decoder  # noqa: F401
+import dsdneo_tpu_torch.protocol.dstar.decoder  # noqa: F401
 import dsdneo_tpu_torch.protocol.edacs.decoder  # noqa: F401
+import dsdneo_tpu_torch.protocol.nxdn.decoder  # noqa: F401
 import dsdneo_tpu_torch.protocol.p25.phase1  # noqa: F401
 import dsdneo_tpu_torch.protocol.provoice.decoder  # noqa: F401
 import dsdneo_tpu_torch.protocol.x2tdma  # noqa: F401
+import dsdneo_tpu_torch.protocol.ysf.decoder  # noqa: F401
 from dsdneo_tpu_torch.symbols import framesync
 
 

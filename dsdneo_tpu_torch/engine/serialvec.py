@@ -1,7 +1,8 @@
 """The serial decode path's test streams: modulators and judges.
 
-``tools/export_torch_tables.py`` builds four 60 s streams with the JAX
-package's own encoders and stores them in ``data/serial_tables.npz``:
+``tools/export_torch_tables.py`` builds nine 60 s streams with the JAX
+package's own encoders (or, where it has none, by inverting its
+decoders' tables) and stores them in ``data/serial_tables.npz``:
 
   - ``p25_*``: a P25 Phase 1 voice call at 4800 symbols/s (HDU,
     LDU1/LDU2 superframes with the Group Voice Channel User LC and the
@@ -15,20 +16,35 @@ package's own encoders and stores them in ``data/serial_tables.npz``:
     them with a talker alias, one under Basic Privacy and one under RC4
     with a PI header and the late-entry MI;
   - ``x2_*``: an X2-TDMA stream at 6000 symbols/s of dense two-slot
-    voice superframes.
+    voice superframes;
+  - ``nxdn_*``: an NXDN traffic channel, calls of SACCH superframes
+    (PF 1/4-4/4 carrying a VCALL) opening with a FACCH1 data frame and
+    closing with a TX_REL, sent at 4800 symbols/s as NXDN96 and at 2400
+    as NXDN48;
+  - ``dpmr_*``: a dPMR channel at 2400 symbols/s: transmissions of an
+    FS1 header, superframes of an FS2 part (the talkgroup, the channel
+    code) and a part found by its FS3 (the source), an FS4 end;
+  - ``ysf_*``: a YSF channel at 4800 symbols/s: full-rate, V/D2 (with
+    DCH2 text) and V/D1 calls between header and terminator frames;
+  - ``dstar_*``: a D-STAR channel at 4800 symbols/s, 2-level: RF headers
+    and voice superframes whose slow data carries the header's copy,
+    radio text and a DPRS position.
 
 Here are their modulators (the P25 call as C4FM or as CQPSK with a
-carrier offset, the EDACS/ProVoice stream as 2-level FSK, the DMR and
-X2-TDMA streams as 4-level FSK, each with white noise at 30 dB, 48 kHz)
-and the judges that hold a decode context to them: :func:`judge_p25`
-(every LDU accepted with the vector's voice bits, every LC, encryption
-sync and keyed frame right), :func:`judge_pv` (every EDACS frame with
-its message, every ProVoice superframe with its LID, BF and frames),
-:func:`judge_dmr` (every burst's lines, every AMBE frame's bits, keyed
-ones decrypted, nothing else emitted) and :func:`judge_x2` (every
-superframe the decoder walks, its AMBE frames' bits, nothing else).  A
-judge raises ``AssertionError`` on the first wrong bit and returns its
-counts.
+carrier offset, the EDACS/ProVoice stream as 2-level FSK, D-STAR as
+GMSK, the others as 4-level FSK, each with white noise at 30 dB, 48
+kHz) and the judges that hold a decode context to them:
+:func:`judge_p25` (every LDU accepted with the vector's voice bits,
+every LC, encryption sync and keyed frame right), :func:`judge_pv`
+(every EDACS frame with its message, every ProVoice superframe with its
+LID, BF and frames), :func:`judge_dmr` (every burst's lines, every AMBE
+frame's bits, keyed ones decrypted, nothing else emitted),
+:func:`judge_x2` (every superframe the decoder walks, its AMBE frames'
+bits, nothing else), and :func:`judge_nxdn`, :func:`judge_dpmr`,
+:func:`judge_ysf` and :func:`judge_dstar` (every frame's line with the
+vector's fields, every voice frame's bits through :class:`AmbeSpy`,
+nothing else emitted).  A judge raises ``AssertionError`` on the first
+wrong bit and returns its counts.
 """
 
 from __future__ import annotations
@@ -41,8 +57,16 @@ from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.crypto.keystream import dmr_basic_keystream
 from dsdneo_tpu_torch.protocol.dmr.bs import DATA_TYPES
 from dsdneo_tpu_torch.protocol.dmr.late_entry import mi_advance32
+from dsdneo_tpu_torch.protocol.base import DecoderContext
+from dsdneo_tpu_torch.protocol.dpmr import encode as dpmr_encode
+from dsdneo_tpu_torch.protocol.dpmr.decoder import air_interface_id
+from dsdneo_tpu_torch.protocol.dstar import decoder as dstar_decoder
+from dsdneo_tpu_torch.protocol.dstar import encode as dstar_encode
 from dsdneo_tpu_torch.protocol.edacs import encode as edacs_encode
+from dsdneo_tpu_torch.protocol.nxdn import encode as nxdn_encode
 from dsdneo_tpu_torch.protocol.p25 import encode as p25_encode
+from dsdneo_tpu_torch.protocol.ysf import decoder as ysf_decoder
+from dsdneo_tpu_torch.protocol.ysf import encode as ysf_encode
 
 FS = 48000.0
 P25_SPS = 10              # 4800 symbols/s
@@ -430,26 +454,29 @@ def judge_dmr(tv: dict[str, np.ndarray], ctx, sink: ImbeSink,
 
 # -- X2-TDMA -----------------------------------------------------------------
 class AmbeSpy:
-    """Records the 49 parameter bits of every AMBE frame handed to
-    ``module.decode_ambe_2450`` (the port's ``vocoder.mbe`` or the JAX
-    package's), as a context manager."""
+    """Records the parameter bits of every voice frame handed to
+    ``module.<name>`` (by default the 49 bits of each AMBE frame through
+    ``decode_ambe_2450``; ``"decode_imbe_4400"`` takes the 88 of each
+    IMBE frame), in the port's ``vocoder.mbe`` or the JAX package's, as a
+    context manager."""
 
-    def __init__(self, module):
+    def __init__(self, module, name: str = "decode_ambe_2450"):
         self.module = module
+        self.name = name
         self.bits: list[np.ndarray] = []
 
     def __enter__(self):
-        real = self.real = self.module.decode_ambe_2450
+        real = self.real = getattr(self.module, self.name)
 
-        def spy(bits49, *a, **k):
-            self.bits.append(np.asarray(bits49, np.uint8).copy())
-            return real(bits49, *a, **k)
+        def spy(bits, *a, **k):
+            self.bits.append(np.asarray(bits, np.uint8).copy())
+            return real(bits, *a, **k)
 
-        self.module.decode_ambe_2450 = spy
+        setattr(self.module, self.name, spy)
         return self
 
     def __exit__(self, *exc):
-        self.module.decode_ambe_2450 = self.real
+        setattr(self.module, self.name, self.real)
 
 
 def judge_x2(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
@@ -488,3 +515,380 @@ def judge_x2(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
                                   bits[order], err_msg="X2 AMBE bits")
     _require(len(pcm(ctx)) == 160 * len(spy.bits), len(pcm(ctx)))
     return {"superframes": n_whole, "frames": len(order)}
+
+
+# -- NXDN --------------------------------------------------------------------
+NXDN_SPS = {"nxdn48": 20, "nxdn96": 10}      # 2400 and 4800 symbols/s
+NXDN_FRAME_DIBITS = 192
+_NXDN_KIND = {0x36: "Voice ", 0x32: "V2+F1 ", 0x20: "Data  "}
+
+
+def nxdn_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+            mode: str = "nxdn48", invert: bool = False,
+            seed: int = 0) -> np.ndarray:
+    """The first ``n_sym`` symbols of the NXDN stream (60 s at ``mode``'s
+    rate by default) as complex64 4-level FSK baseband at ``mode``'s rate
+    and deviation (``protocol.nxdn.encode.nxdn_fm_iq``) with white noise;
+    ``invert`` conjugates it."""
+    sps = NXDN_SPS[mode]
+    n_sym = int(60 * FS / sps) if n_sym is None else n_sym
+    dev = (nxdn_encode.NXDN48_DEV_HZ if mode == "nxdn48"
+           else nxdn_encode.NXDN96_DEV_HZ)
+    return _noisy(nxdn_encode.nxdn_fm_iq(tv["nxdn_dibits"][:n_sym], sps,
+                                         dev_hz=dev), invert, seed)
+
+
+def _nxdn_vcall_text(mtype: int, src: int, dst: int) -> str:
+    """The catalog's line of a VCALL (0x01) or TX_REL (0x08) with CC
+    option 0, a group call and voice option 0 (4800 bps EHR)."""
+    if mtype == 0x01:
+        return (f" VCALL\n Group Call - Half Duplex 4800bps/EHR (00) - "
+                f"Src={src} - Dst/TG={dst} ")
+    return (f" TX_REL\n Group Call -   Transmission Release  - "
+            f"Src={src} - Dst/TG={dst} ")
+
+
+def judge_nxdn(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
+               mode: str = "nxdn48",
+               n_sym: int | None = None) -> dict[str, int]:
+    """Hold a decode of the NXDN stream's first ``n_sym`` symbols to the
+    vector: every event at a frame of the vector, and every frame the
+    span holds whole with exactly its line — the variant, RTCH, the
+    LICH's kind, the SACCH's RAN and part, at each superframe's fourth
+    part the VCALL of the call's source and destination (where the
+    span holds the superframe's four parts), and the FACCH1 VCALL or
+    TX_REL; through ``spy`` every AMBE frame's 49 bits in decode order;
+    the RAN in the decoder's state; PCM 160 samples a frame."""
+    n_sym = int(60 * FS / NXDN_SPS[mode]) if n_sym is None else n_sym
+    pos = tv["nxdn_frame_pos"]
+    lich, pf = tv["nxdn_frame_lich"], tv["nxdn_frame_pf"]
+    facch, calls = tv["nxdn_frame_facch"], tv["nxdn_calls"]
+    ran = int(tv["nxdn_ids"][0])
+    variant = mode.upper()
+    bits = np.unpackbits(tv["nxdn_bits49"], axis=-1)[:, :49]
+    n_ambe = np.where(lich == 0x36, 4, np.where(lich == 0x32, 2, 0))
+    first = np.concatenate([[0], np.cumsum(n_ambe)[:-1]])
+    whole = pos + NXDN_FRAME_DIBITS + POS_TOL <= n_sym
+    ev = [e for e in ctx.events if e.protocol == "nxdn"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    got = {"frames": 0, "vcalls": 0, "facch": 0}
+    order = []
+    seen = set()
+    for e in ev:
+        f = int(np.searchsorted(pos, e.pos - POS_TOL))
+        _require(f < len(pos) and abs(int(pos[f]) - e.pos) <= POS_TOL
+                 and f not in seen,
+                 f"an event off the vector's frames: {e.line!r}@{e.pos}")
+        seen.add(f)
+        src, dst = (int(v) for v in calls[tv["nxdn_frame_call"][f]])
+        want = (f"Sync: {variant}  RTCH {_NXDN_KIND[int(lich[f])]}"
+                f" RAN {ran:02d} PF {int(pf[f]) + 1}/4")
+        if pf[f] == 3 and f >= 3 and whole[f - 3] and \
+                tv["nxdn_frame_call"][f - 3] == tv["nxdn_frame_call"][f]:
+            want += _nxdn_vcall_text(0x01, src, dst)
+            got["vcalls"] += 1
+        for m in facch[f]:
+            if m >= 0:
+                want += " FACCH1" + _nxdn_vcall_text(int(m), src, dst)
+                got["facch"] += 1
+        _require(e.line == want, (e.line, want))
+        _require(e.fields.get("lich") == int(lich[f]), e.line)
+        order.extend(range(first[f], first[f] + n_ambe[f]))
+        got["frames"] += 1
+    missing = sorted(set(np.flatnonzero(whole)) - seen)
+    _require(not missing, f"frames not decoded: {missing[:8]}")
+    _require(getattr(ctx.state, "nxdn_ran", None) == ran or not ev,
+             "the RAN")
+    _require(len(spy.bits) == len(order), (len(spy.bits), len(order)))
+    if order:
+        np.testing.assert_array_equal(np.stack(spy.bits), bits[order],
+                                      err_msg="NXDN AMBE bits")
+    _require(len(pcm(ctx)) == 160 * len(order), len(pcm(ctx)))
+    got["ambe_frames"] = len(order)
+    return got
+
+
+# -- dPMR --------------------------------------------------------------------
+DPMR_SPS = 20                 # 2400 symbols/s
+DPMR_PART_DIBITS = 384
+
+
+def dpmr_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+            start: int = 0, invert: bool = False,
+            seed: int = 0) -> np.ndarray:
+    """Symbols ``[start, start + n_sym)`` of the dPMR stream (to its end
+    by default) as complex64 4-level FSK baseband
+    (``protocol.dpmr.encode.fm_iq``: ±1050 Hz, 2400 symbols/s) with white
+    noise; ``invert`` conjugates it."""
+    dib = tv["dpmr_dibits"][start:None if n_sym is None else start + n_sym]
+    return _noisy(dpmr_encode.fm_iq(dib, DPMR_SPS), invert, seed)
+
+
+def judge_dpmr(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
+               start: int = 0, n_sym: int | None = None,
+               invert: bool = False) -> dict[str, int]:
+    """Hold a decode of symbols ``[start, start + n_sym)`` of the dPMR
+    stream to the vector: every event at a sync of the vector, and every
+    frame the span holds whole with exactly its line (and any frame it
+    holds in part with its line, if decoded) — the FS1 header and FS4
+    end (FS4 is FS1 negated, so on an inverted channel the header reads
+    as an end and the end as a header), part A at its FS2 and part B at
+    its FS3, each with the talkgroup, source and channel code the
+    decoder holds after it (part A brings the talkgroup and the channel
+    code, part B the source; each starts unknown) and its CCHs' FN;
+    through ``spy`` the 8 AMBE frames of every part, in decode order;
+    PCM 160 samples a frame of each whole group of four."""
+    n_sym = len(tv["dpmr_dibits"]) - start if n_sym is None else n_sym
+    pol = "-" if invert else "+"
+    spos, skind = tv["dpmr_sync_pos"] - start, tv["dpmr_sync_kind"]
+    ppos, pkind = tv["dpmr_part_pos"] - start, tv["dpmr_part_kind"]
+    ptx, txs = tv["dpmr_part_tx"], tv["dpmr_tx"]
+    bits = np.unpackbits(tv["dpmr_bits49"], axis=-1)[..., :49]
+    span = (spos >= 0) & (spos < n_sym)
+    at_sync, whole = {}, set()
+    for i in np.flatnonzero(span):
+        k = int(skind[i])
+        lo = int(spos[i]) - (192 if k == 3 else 0)
+        ln = {1: 24, 2: DPMR_PART_DIBITS, 3: DPMR_PART_DIBITS, 4: 24}[k]
+        if lo >= 0:
+            at_sync[int(spos[i])] = k
+            if lo + ln + POS_TOL <= n_sym:
+                whole.add(int(spos[i]))
+    ev = [e for e in ctx.events if e.protocol == "dpmr"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    tg = src = cc = None
+    part_at = {int(p) + (192 if k == 3 else 0): j
+               for j, (p, k) in enumerate(zip(ppos, pkind))}
+    order, seen = [], set()
+    got = {"parts": 0, "fs3_parts": 0, "headers": 0, "ends": 0}
+    for e in ev:
+        at = [p for p in range(e.pos - POS_TOL, e.pos + POS_TOL + 1)
+              if p in at_sync]
+        _require(len(at) == 1 and at[0] not in seen,
+                 f"an event off the vector's syncs: {e.line!r}@{e.pos}")
+        p = at[0]
+        seen.add(p)
+        k = at_sync[p]
+        if k in (1, 4):
+            # FS4 is FS1 negated: inverted, a header reads as an end
+            seen_as = (5 - k) if invert else k
+            _require(e.line == {1: "Sync: +dPMR FS1  dPMR Frame Sync 1 "
+                                   "(header)",
+                                4: "Sync: +dPMR FS4  dPMR Frame Sync 4 "
+                                   "(end)"}[seen_as], e.line)
+            got["headers" if k == 1 else "ends"] += 1
+            continue
+        j = part_at[p]
+        t_g, t_s, t_c = (int(v) for v in txs[ptx[j]])
+        if k == 2:
+            tg, cc = air_interface_id(t_g), t_c
+        else:
+            src = air_interface_id(t_s)
+        want = (f"Sync: {pol}dPMR FS{k}  dPMR Frame Sync 2 \n"
+                + (f" TG={tg}" if tg else " TG=(CRC ERR)"))
+        if src:
+            want += f" Src={src}" + (f" Channel Code={cc:02d}"
+                                      if cc is not None else "")
+        else:
+            want += " Src=(CRC ERR) Channel Code =(CRC ERR)"
+        _require(e.line == want, (e.line, want))
+        _require(tuple(e.fields.get("fn", ())) == ((0, 1) if k == 2
+                                                    else (2, 3)), e.line)
+        order.append(j)
+        got["parts"] += 1
+        got["fs3_parts"] += k == 3
+    missing = sorted(set(whole) - seen)
+    _require(not missing, f"syncs not decoded: {missing[:8]}")
+    # a part that runs past the span decodes the frames the span holds
+    n_whole = sum(int(ppos[j]) + DPMR_PART_DIBITS + POS_TOL <= n_sym
+                  for j in order)
+    _require(8 * n_whole <= len(spy.bits) <= 8 * len(order),
+             (len(spy.bits), len(order)))
+    if order:
+        np.testing.assert_array_equal(
+            np.stack(spy.bits),
+            bits[order].reshape(-1, 49)[:len(spy.bits)],
+            err_msg="dPMR AMBE bits")
+    # a TCH group cut by the span is read but not synthesized
+    _require(len(pcm(ctx)) == 160 * 4 * (len(spy.bits) // 4), len(pcm(ctx)))
+    got["ambe_frames"] = len(spy.bits)
+    return got
+
+
+# -- YSF ---------------------------------------------------------------------
+YSF_SPS = 10                  # 4800 symbols/s
+YSF_FRAME_DIBITS = 480
+
+
+def ysf_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+           invert: bool = False, seed: int = 0) -> np.ndarray:
+    """The first ``n_sym`` symbols of the YSF stream (all of it by
+    default) as complex64 4-level FSK baseband
+    (``protocol.ysf.encode.fm_iq``: ±2.4 kHz, 4800 symbols/s) with white
+    noise; ``invert`` conjugates it."""
+    return _noisy(ysf_encode.fm_iq(tv["ysf_dibits"][:n_sym], YSF_SPS),
+                  invert, seed)
+
+
+def _ysf_dch2_text(fn: int, cm: int, txt: str) -> str:
+    """``YsfDecoder._dch2``'s rendering of the text of FN ``fn``."""
+    return {0: (f"DST: {txt} " if cm != 1
+                else f"DST RID: {txt[:5]} SRC RID: {txt[5:]} "),
+            1: f"SRC: {txt}", 2: f"U/L: {txt}", 3: f"D/L: {txt}",
+            4: f"RM1: {txt[:5]} RM2: {txt[5:]} ",
+            5: f"RM3: {txt[:5]} RM4: {txt[5:]} "}.get(fn, "")
+
+
+def judge_ysf(tv: dict[str, np.ndarray], ctx, ambe: AmbeSpy,
+              imbe: AmbeSpy, n_sym: int | None = None) -> dict[str, int]:
+    """Hold a decode of the YSF stream's first ``n_sym`` symbols to the
+    vector: every event at a frame, and every frame the span holds whole
+    with exactly its line — the FICH's data type, call mode, path, frame
+    type and FN/FT, and on a V/D2 communication frame the DCH2 text of
+    its FN — and its ``dt``, ``fn`` and ``cm`` fields; through ``ambe``
+    the AMBE frames of every V/D1 (four) and V/D2 (five) communication
+    frame, through ``imbe`` the IMBE frames of every full-rate one (five,
+    or two on the CSD3 frame), in decode order, and none from a header
+    or terminator; PCM 160 samples a frame."""
+    n_sym = len(tv["ysf_dibits"]) if n_sym is None else n_sym
+    pos, fich, text = tv["ysf_frame_pos"], tv["ysf_fich"], \
+        tv["ysf_frame_text"]
+    fi, cm, fn, ft, _mr, vp, dt, _sc = (fich[:, i] for i in range(8))
+    b49 = np.unpackbits(tv["ysf_bits49"], axis=-1)[:, :49]
+    b88 = np.unpackbits(tv["ysf_bits88"], axis=-1)[:, :88]
+    comm = fi == 1
+    n_a = np.where(comm & (dt == 0), 4, np.where(comm & (dt == 2), 5, 0))
+    n_i = np.where(comm & (dt == 3), np.where((ft == 1) & (fn == 0), 2, 5),
+                   0)
+    fa = np.concatenate([[0], np.cumsum(n_a)[:-1]])
+    fimb = np.concatenate([[0], np.cumsum(n_i)[:-1]])
+    whole = pos + YSF_FRAME_DIBITS + POS_TOL <= n_sym
+    ev = [e for e in ctx.events if e.protocol == "ysf"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    oa, oi, seen = [], [], set()
+    got = {"frames": 0, "vd1": 0, "vd2": 0, "vwfr": 0, "csd3": 0,
+           "hc_tc": 0}
+    for e in ev:
+        f = int(np.searchsorted(pos, e.pos - POS_TOL))
+        _require(f < len(pos) and abs(int(pos[f]) - e.pos) <= POS_TOL
+                 and f not in seen,
+                 f"an event off the vector's frames: {e.line!r}@{e.pos}")
+        seen.add(f)
+        want = ("Sync: +YSF  " + ysf_decoder.DT_NAMES[int(dt[f])]
+                + ysf_decoder.CM_NAMES[int(cm[f])]
+                + ("Repeater " if vp[f] else "-Simplex ")
+                + ysf_decoder.FI_NAMES[int(fi[f])]
+                + f"FN: {int(fn[f]) + 1}/{int(ft[f]) + 1} ")
+        # a frame cut by the span's end gives its FICH alone
+        payload = e.pos + YSF_FRAME_DIBITS <= len(ctx.dibits)
+        if comm[f] and dt[f] == 2 and payload:
+            want += _ysf_dch2_text(int(fn[f]), int(cm[f]), str(text[f]))
+        _require(e.line == want, (e.line, want))
+        _require((e.fields.get("dt"), e.fields.get("fn"), e.fields.get("cm"))
+                 == (int(dt[f]), int(fn[f]), int(cm[f])), e.line)
+        if payload:
+            oa.extend(range(fa[f], fa[f] + n_a[f]))
+            oi.extend(range(fimb[f], fimb[f] + n_i[f]))
+        got["frames"] += 1
+        if comm[f]:
+            got[{0: "vd1", 2: "vd2", 3: "vwfr"}[int(dt[f])]] += 1
+            got["csd3"] += int(n_i[f] == 2)
+        else:
+            got["hc_tc"] += 1
+    missing = sorted(set(np.flatnonzero(whole)) - seen)
+    _require(not missing, f"frames not decoded: {missing[:8]}")
+    for spy, order, ref, what in ((ambe, oa, b49, "AMBE"),
+                                  (imbe, oi, b88, "IMBE")):
+        _require(len(spy.bits) == len(order), (what, len(spy.bits),
+                                               len(order)))
+        if order:
+            np.testing.assert_array_equal(np.stack(spy.bits), ref[order],
+                                          err_msg=f"YSF {what} bits")
+    _require(len(pcm(ctx)) == 160 * (len(oa) + len(oi)), len(pcm(ctx)))
+    got["ambe_frames"], got["imbe_frames"] = len(oa), len(oi)
+    return got
+
+
+# -- D-STAR ------------------------------------------------------------------
+DSTAR_SPS = 10                # 4800 symbols/s
+DSTAR_HEADER_DIBITS = 684     # the header sync and 660 coded bits
+DSTAR_SUPERFRAME_DIBITS = 2016
+
+
+def dstar_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+             invert: bool = False, seed: int = 0) -> np.ndarray:
+    """The first ``n_sym`` symbols of the D-STAR stream (all of it by
+    default) as complex64 GMSK baseband (``protocol.dstar.encode.fm_iq``)
+    with white noise; ``invert`` conjugates it."""
+    return _noisy(dstar_encode.fm_iq(tv["dstar_dibits"][:n_sym],
+                                     DSTAR_SPS), invert, seed)
+
+
+def judge_dstar(tv: dict[str, np.ndarray], ctx,
+                n_sym: int | None = None) -> dict[str, int]:
+    """Hold a decode of the D-STAR stream's first ``n_sym`` symbols to the
+    vector: every event at a header or a superframe, and each the span
+    holds whole with exactly its line and fields (a header cut by the
+    span's end with its sync's line) — a header's octets
+    (MYCALL, URCALL, RPT1, RPT2, the CRC right), a superframe's slow
+    data (the header's copy with the call's MYCALL, its radio text, or
+    the DPRS position), its 21 frames' on-air bits and their 49 AMBE
+    parameter bits with no ECC error; no PCM (the 3600x2400 parameters
+    are not synthesized)."""
+    n_sym = len(tv["dstar_dibits"]) if n_sym is None else n_sym
+    hd, sf = tv["dstar_hd_pos"], tv["dstar_sf_pos"]
+    voice = np.unpackbits(tv["dstar_sf_voice"], axis=-1)[..., :72]
+    bits = np.unpackbits(tv["dstar_sf_bits49"], axis=-1)[..., :49]
+    frames = {int(p): ("hd", i) for i, p in enumerate(hd)}
+    frames.update({int(p): ("sf", i) for i, p in enumerate(sf)})
+    ext = {"hd": DSTAR_HEADER_DIBITS, "sf": DSTAR_SUPERFRAME_DIBITS}
+    whole = {p for p, (k, _i) in frames.items()
+             if p + ext[k] + POS_TOL <= n_sym}
+    ev = [e for e in ctx.events if e.protocol == "dstar"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    got = {"headers": 0, "superframes": 0, "text": 0, "dprs": 0,
+           "header_copies": 0}
+    seen = set()
+    for e in ev:
+        at = [p for p in range(e.pos - POS_TOL, e.pos + POS_TOL + 1)
+              if p in frames]
+        _require(len(at) == 1 and at[0] not in seen,
+                 f"an event off the vector's frames: {e.line!r}@{e.pos}")
+        seen.add(at[0])
+        kind, i = frames[at[0]]
+        scratch = DecoderContext()
+        if kind == "hd" and e.pos + DSTAR_HEADER_DIBITS > len(ctx.dibits):
+            # a header cut by the span's end: its sync alone
+            _require(e.line == "Sync: +D-STAR HD HEADER", e.line)
+            continue
+        if kind == "hd":
+            oct41 = tv["dstar_hd_octets"][i]
+            line, crc_ok, fields = dstar_decoder.header_line(oct41, scratch)
+            _require(crc_ok, "the vector's header CRC")
+            _require(e.line == "Sync: +D-STAR HD HEADER  " + line,
+                     (e.line, line))
+            _require(all(e.fields.get(k) == v for k, v in fields.items()),
+                     e.line)
+            got["headers"] += 1
+            continue
+        if at[0] not in whole:
+            continue
+        sd = tv["dstar_sf_sd"][i]
+        line = dstar_decoder.slow_data_line(sd, scratch)
+        k = int(tv["dstar_sf_kind"][i])
+        call = str(scratch.state.last_src) if k == 0 else ""
+        _require({0: call != "" and f"SRC: {call}" in line,
+                  1: line.startswith("SLOW DATA TEXT: "),
+                  2: "APRS - Lat: 49d 03m 50s N" in line}[k], line)
+        _require(e.line == "Sync: +D-STAR VOICE  " + line, (e.line, line))
+        np.testing.assert_array_equal(e.fields["voice"], voice[i],
+                                      err_msg=f"superframe {i} voice bits")
+        np.testing.assert_array_equal(e.fields["ambe49"], bits[i],
+                                      err_msg=f"superframe {i} AMBE bits")
+        _require(not np.any(e.fields["ambe_errs"]), "AMBE ECC errors")
+        got["superframes"] += 1
+        got[("header_copies", "text", "dprs")[k]] += 1
+    missing = sorted(whole - seen)
+    _require(not missing, f"frames not decoded: {missing[:8]}")
+    _require(not ctx.audio, "D-STAR PCM")
+    return got

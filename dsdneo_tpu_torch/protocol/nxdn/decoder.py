@@ -1,19 +1,76 @@
-"""The NXDN message catalog (host, numpy only).
+"""NXDN (4800/9600 bps 4-level FSK) RDCH/RCCH decoder.
 
-The port's own copy of what the batched RCCH monitor
-(``engine.ccbatch.BatchedNxdnControlPipeline``) parses with, from
-``dsdneo_tpu/protocol/nxdn/decoder.py``: ``NxdnDecoder._message`` and
-what it calls (``_dcall_data``, ``_alias``, ``_nxdn_crc32``,
-``_nxdn_gps_report``), with the label tables and the CAC CRC.  The
-frame walk (``handle``), the SACCH/FACCH readers and the voice path are
-not here.
+Frame model (NXDN CAI / OP25 lineage; reference parity
+src/protocol/nxdn/nxdn_frame.c): after the 10-symbol FSW the frame is
+182 dibits — LICH (8 dibits, sign bits), then 348 payload bits laid out
+as SACCH(60) + 2×FACCH/VCH(144).  The whole frame is descrambled by the
+PN9 sequence (seed 0xE4: dibit sign flips at fixed positions).
+
+SACCH: 60 bits → 12×5 de-interleave → depuncture (2 of each 12) →
+rate-1/2 K=5 Viterbi → 26 data bits (structure 2 + RAN 6 + message 18)
++ CRC6.  Four superframe parts reassemble the 72-bit message (VCALL
+etc.; reference src/protocol/nxdn/nxdn_deperm.c / nxdn_element.c).
+
+The port's own copy of ``dsdneo_tpu/protocol/nxdn/decoder.py`` (numpy
+only), unchanged in its logic, so both packages give the same results
+bit for bit; the voice frames synthesize on ``ctx.device``. The batched
+RCCH monitor (``engine.ccbatch.BatchedNxdnControlPipeline``) parses with
+the same ``NxdnDecoder._message``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dsdneo_tpu_torch.protocol.base import DecoderContext
+from dsdneo_tpu_torch.fec import conv
+from dsdneo_tpu_torch.protocol.base import (DecoderContext, DibitReader,
+                                      ProtocolDecoder, register)
+from dsdneo_tpu_torch.symbols.framesync import SyncHit
+
+
+def _pn9_scramble_positions(seed: int = 0xE4, n: int = 182) -> np.ndarray:
+    """PN9 LFSR (x⁹+x⁵+1 form used by NXDN): positions whose dibit sign
+    is inverted (reference src/protocol/nxdn/nxdn_descramble.c)."""
+    lfsr = seed
+    pos = []
+    for i in range(n):
+        if lfsr & 1:
+            pos.append(i)
+        bit = ((lfsr >> 4) ^ lfsr) & 1
+        lfsr = (lfsr >> 1) | (bit << 8)
+    return np.array(pos, dtype=np.int64)
+
+
+_SCRAMBLE_POS = _pn9_scramble_positions()
+
+# 12×5 block interleave for the 60-bit SACCH (OP25 PERM_12_5:
+# received bit i lands at deinterleaved position (i%5)*12 + i//5)
+_PERM_12_5 = np.array([(i % 5) * 12 + i // 5 for i in range(60)], dtype=np.int64)
+# FACCH1 / CAC permutations (same family; reference nxdn_const.h
+# PERM_16_9 / PERM_12_25)
+_PERM_16_9 = np.array([(i % 9) * 16 + i // 9 for i in range(144)], dtype=np.int64)
+_PERM_12_25 = np.array([(i % 25) * 12 + i // 25 for i in range(300)], dtype=np.int64)
+
+# LICH option → (voice_frames_mask, facch_mask, sacch, cac) profiles
+# (reference nxdn_frame.c k_nxdn_lich_profiles; voice/facch values are
+# bitmasks over the two payload halves)
+_LICH_PROFILES: dict[int, tuple[int, int, bool, bool]] = {}
+for lich in (0x01, 0x05):
+    _LICH_PROFILES[lich] = (0, 0, False, True)
+for lich in (0x28, 0x29, 0x49):
+    _LICH_PROFILES[lich] = (0, 0, False, False)       # udch
+for lich in (0x2E, 0x2F, 0x4E, 0x4F):
+    _LICH_PROFILES[lich] = (0, 0, False, False)
+for lich in (0x32, 0x33, 0x52, 0x53):
+    _LICH_PROFILES[lich] = (2, 1, True, False)
+for lich in (0x34, 0x35, 0x54, 0x55):
+    _LICH_PROFILES[lich] = (1, 2, True, False)
+for lich in (0x36, 0x37, 0x56, 0x57):
+    _LICH_PROFILES[lich] = (3, 0, True, False)
+for lich in (0x20, 0x21, 0x30, 0x31, 0x40, 0x41, 0x50, 0x51):
+    _LICH_PROFILES[lich] = (0, 3, True, False)
+for lich in (0x38, 0x39):
+    _LICH_PROFILES[lich] = (0, 0, True, False)
 
 MESSAGE_LABELS = {
     0x00: " CALL_RESP", 0x01: " VCALL", 0x02: " VCALL_REC_REQ",
@@ -33,6 +90,41 @@ CALL_TYPES = {0: "Broadcast Call", 1: "Group Call", 2: "Idle", 3: "Session Call"
 
 VOICE_MODES = {0: "4800bps/EHR", 2: "9600bps/EHR", 3: "9600bps/EFR",
                8: "4800bps/EHR S:1", 10: "9600bps/EHR S:1", 11: "9600bps/EFR S:1"}
+
+
+def crc6_nxdn(bits: np.ndarray) -> int:
+    """NXDN CRC6 shift-register form (reference nxdn_deperm.c crc6)."""
+    s = [1] * 6
+    for b in bits:
+        a = int(b) ^ s[0]
+        s[0] = a ^ s[1]
+        s[1] = s[2]
+        s[2] = s[3]
+        s[3] = a ^ s[4]
+        s[4] = a ^ s[5]
+        s[5] = a
+    v = 0
+    for bit in s:
+        v = (v << 1) | bit
+    return v
+
+
+def crc12_nxdn(bits: np.ndarray) -> int:
+    """NXDN FACCH CRC12 shift-register form (reference nxdn_dcr_utils.c
+    crc12f)."""
+    s = [1] * 12
+    for b in bits:
+        a = int(b) ^ s[0]
+        s[0] = a ^ s[1]
+        s[1:8] = s[2:9]
+        s[8] = a ^ s[9]
+        s[9] = a ^ s[10]
+        s[10] = a ^ s[11]
+        s[11] = a
+    v = 0
+    for bit in s:
+        v = (v << 1) | bit
+    return v
 
 
 def crc16_cac(bits: np.ndarray) -> int:
@@ -55,7 +147,8 @@ def _bti(bits) -> int:
     return v
 
 
-class NxdnDecoder:
+@register("nxdn")
+class NxdnDecoder(ProtocolDecoder):
     protocol = "nxdn"
 
     def __init__(self):
@@ -66,6 +159,192 @@ class NxdnDecoder:
         self.variant = None  # "NXDN48"/"NXDN96" (set from symbol rate)
         self.alias_blocks = [""] * 4
         self.dcall = None    # data-call assembly state (header → blocks)
+
+    def handle(self, reader: DibitReader, hit: SyncHit, ctx: DecoderContext) -> int:
+        pos = hit.pos + 10                      # LICH starts after the FSW
+        if pos + 182 > len(reader.dibits):
+            return len(reader.dibits)
+        dd = reader.dibits[pos:pos + 182].astype(np.uint8)
+        soft = reader.soft[pos:pos + 182].astype(np.float32)
+        if reader.invert:
+            dd = dd ^ 2
+            soft = -soft
+        # descramble: invert dibit sign at PN positions (-_ overrides
+        # the PN95 seed, reference state->nxdn_pn95_seed default 228)
+        seed = getattr(ctx.state, "nxdn_pn95_seed", None)
+        spos = (_SCRAMBLE_POS if seed in (None, 0xE4)
+                else _pn9_scramble_positions(int(seed)))
+        dd = dd.copy()
+        dd[spos] ^= 2
+        soft = soft.copy()
+        soft[spos] *= -1.0
+
+        lich_full = _bti((dd[:8] >> 1) & 1)
+        parity_rx = lich_full & 1
+        lich = lich_full >> 1
+        nbits = 7 if lich in (0x08, 0x4A, 0x48, 0x46) else 4
+        parity = 0
+        for k in range(7, 8 - nbits, -1):
+            parity ^= (lich_full >> k) & 1
+        if parity != parity_rx:
+            return pos + 182
+
+        profile = _LICH_PROFILES.get(lich)
+        variant = self.variant or getattr(ctx, "mode_name", "") or "NXDN48"
+        if variant == "nxdn96":
+            variant = "NXDN96"
+        elif variant == "nxdn48":
+            variant = "NXDN48"
+        rf = (lich >> 5) & 0x3
+        rf_name = {0: "RCCH", 1: "RTCH", 2: "RDCH"}.get(rf, "RTCH_C")
+
+        bits = np.zeros(364, dtype=np.uint8)
+        bits[0::2] = (dd >> 1) & 1
+        bits[1::2] = dd & 1
+        rel = np.repeat(np.clip(np.abs(soft) / 3.0, 0.05, 1.0), 2).astype(np.float32)
+
+        if profile is None:
+            ctx.emit(f"Sync: {variant}  {rf_name} LICH {lich:02X}", "nxdn", hit.pos)
+            return pos + 182
+
+        voice, facch, sacch, cac = profile
+        kind = ("Voice " if voice and not facch else
+                ("Data  " if not voice else f"V{3 - facch}+F{facch} "))
+        if not voice and not facch and not sacch and not cac:
+            kind = "Data  "
+
+        line = f"Sync: {variant}  {rf_name} {kind}"
+        if sacch:
+            line += self._sacch(bits[16:76], rel[16:76], ctx, hit)
+        if cac:
+            line += self._cac(bits[16:316], rel[16:316], ctx)
+        if facch:
+            # mixed V+F frames (LICH 0x32-0x35/0x52-0x55) carry voice
+            # in one half and FACCH1 in the other — decode the FACCH
+            # half even when voice is present (TX_REL / VCALL_IV
+            # signalling rides in-band during voice)
+            for half in (0, 1):
+                if facch & (1 << half) and not (voice & (1 << half)):
+                    lo = 76 + 144 * half
+                    line += self._facch1(bits[lo:lo + 144],
+                                         rel[lo:lo + 144], ctx)
+        ctx.emit(line, "nxdn", hit.pos, lich=lich)
+        if voice:
+            ctx.events[-1].fields["voice_bits"] = bits[76:364]
+            self._voice(dd, voice, ctx)
+        return pos + 182
+
+    # -- FACCH1 / CAC -------------------------------------------------------
+    def _facch1(self, bits144, rel144, ctx: DecoderContext) -> str:
+        """FACCH1: PERM_16_9 depermute → 3:4 depuncture → K=5 Viterbi →
+        80 element bits + CRC12 (reference nxdn_deperm.c
+        nxdn_deperm_facch_soft, nxdn_dcr_utils.c crc12f)."""
+        deperm = np.zeros(144, dtype=np.float32)
+        deperm_rel = np.zeros(144, dtype=np.float32)
+        deperm[_PERM_16_9] = bits144
+        deperm_rel[_PERM_16_9] = rel144
+        sym = np.zeros(192, dtype=np.float32)
+        wt = np.zeros(192, dtype=np.float32)
+        for k in range(48):
+            sym[4 * k] = deperm[3 * k]
+            wt[4 * k] = deperm_rel[3 * k]
+            sym[4 * k + 2] = deperm[3 * k + 1]
+            wt[4 * k + 2] = deperm_rel[3 * k + 1]
+            sym[4 * k + 3] = deperm[3 * k + 2]
+            wt[4 * k + 3] = deperm_rel[3 * k + 2]
+        dec = conv.decode_soft(sym, wt, nbits=92)
+        if crc12_nxdn(dec[:80]) != _bti(dec[80:92]):
+            return " FACCH1 CRC ERR"
+        return " FACCH1" + self._message(dec[:80], ctx)
+
+    def _cac(self, bits300, rel300, ctx: DecoderContext) -> str:
+        """RCCH CAC: PERM_12_25 depermute → 12:14 depuncture → Viterbi →
+        171 bits incl. CRC16 (reference nxdn_deperm_cac_soft)."""
+        deperm = np.zeros(300, dtype=np.float32)
+        deperm_rel = np.zeros(300, dtype=np.float32)
+        deperm[_PERM_12_25] = bits300
+        deperm_rel[_PERM_12_25] = rel300
+        sym = np.zeros(350, dtype=np.float32)
+        wt = np.zeros(350, dtype=np.float32)
+        src = 0
+        mapping = [0, 1, 2, None, 3, 4, 5, 6, 7, 8, 9, None, 10, 11]
+        for grp in range(25):
+            for i, m in enumerate(mapping):
+                if m is not None:
+                    sym[grp * 14 + i] = deperm[grp * 12 + m]
+                    wt[grp * 14 + i] = deperm_rel[grp * 12 + m]
+        dec = conv.decode_soft(sym, wt, nbits=171)
+        if crc16_cac(dec[:171]) != 0:
+            return " CAC CRC ERR"
+        ran = _bti(dec[2:8])
+        self.last_ran = ran
+        ctx.state.nxdn_ran = ran
+        return f" CAC RAN {ran:02d}" + self._message(dec[8:155], ctx)
+
+    def _voice(self, dd: np.ndarray, voice: int, ctx: DecoderContext) -> None:
+        """AMBE frames at dibits 38+36k of the descrambled frame
+        (reference src/protocol/nxdn/nxdn_voice.c); voice mask 1=first
+        half, 2=second, 3=both."""
+        from dsdneo_tpu_torch.protocol.dmr.ambe_frame import decode_ambe_ecc
+        from dsdneo_tpu_torch.vocoder.mbe import decode_ambe_2450
+        from dsdneo_tpu_torch.vocoder.synth import synthesize_frames
+        start = 0 if voice in (1, 3) else 2
+        stop = 2 if voice == 1 else 4
+        params = []
+        for k in range(start, stop):
+            seg = dd[38 + 36 * k: 38 + 36 * (k + 1)]
+            bits72 = np.empty(72, dtype=np.uint8)
+            bits72[0::2] = (seg >> 1) & 1
+            bits72[1::2] = seg & 1
+            bits49, _errs = decode_ambe_ecc(bits72)
+            params.append(decode_ambe_2450(bits49))
+        pcm = synthesize_frames(params, ctx.device)
+        if pcm.size:
+            ctx.emit_audio(pcm, slot=0)
+
+    # -- SACCH ------------------------------------------------------------
+    def _sacch(self, bits60, rel60, ctx: DecoderContext, hit: SyncHit) -> str:
+        deperm = np.zeros(60, dtype=np.float32)
+        deperm_rel = np.zeros(60, dtype=np.float32)
+        deperm[_PERM_12_5] = bits60
+        deperm_rel[_PERM_12_5] = rel60
+        # depuncture: each 10 deperm bits → 12 symbols, zeros at 5 and 11
+        sym = np.zeros(72, dtype=np.float32)
+        wt = np.zeros(72, dtype=np.float32)
+        src = 0
+        for blk in range(6):
+            for i in range(12):
+                if i in (5, 11):
+                    continue
+                sym[blk * 12 + i] = deperm[src]
+                wt[blk * 12 + i] = deperm_rel[src]
+                src += 1
+        dec = conv.decode_soft(sym, wt, nbits=32)
+        crc = crc6_nxdn(dec[:26])
+        check = _bti(dec[26:32])
+        sf = _bti(dec[0:2])
+        part = {2: 1, 1: 2, 0: 3}.get(sf, 0)
+        valid_seq = (crc == check)
+        out = ""
+        if crc == check:
+            ran = _bti(dec[2:8])
+            self.last_ran = ran
+            ctx.state.nxdn_ran = ran
+            self.seg_ok[part] = True
+            self.segments[part] = dec[8:26]
+            out += f" RAN {ran:02d} PF {part + 1}/4"
+        else:
+            out += f" RAN {self.last_ran:02d}" if self.last_ran >= 0 else "       "
+            out += " PF X/4"
+            self.seg_ok = [False] * 4
+        if part == 3:
+            if all(self.seg_ok):
+                out += self._full_sacch(ctx, hit)
+            self.seg_ok = [False] * 4
+        return out
+
+    def _full_sacch(self, ctx: DecoderContext, hit: SyncHit) -> str:
+        return self._message(self.segments.reshape(-1), ctx)
 
     def _message(self, msg: np.ndarray, ctx: DecoderContext) -> str:
         mtype = _bti(msg[2:8])

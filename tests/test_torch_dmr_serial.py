@@ -521,3 +521,79 @@ def test_dmr_basic_privacy_call():
     jc, tc, ts = _both(x, state_attrs=attrs)
     got = SV.judge_dmr(tv, tc, ts, start, DMR_SYM, rc4=True, bp=True)
     assert got["bp_frames"] >= 72
+
+
+# -- a slot's cipher after its call ends -------------------------------------
+def _cipher_then_clear_vector(monkeypatch):
+    """A short DMR BS stream from the exporter's ``_dmr_call_vector``: on
+    slot 1 an RC4 call (PI header, two superframes, TLC) and after it a
+    clear group call (two superframes, TLC); on slot 2 a Basic Privacy
+    call."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import export_torch_tables as X
+
+    def programs(_rng):
+        calls = []
+
+        def call(slot, tg, src, cipher=0):
+            k = len(calls)
+            calls.append({"slot": slot, "tg": tg, "src": src, "n_sf": 2,
+                          "cipher": cipher, "alias": False})
+            lc = X._dmr_lc(0, 0, 0x40 if cipher else 0, tg, src)
+            frags = X._dmr_emb_lc128(lc)
+            out = [("vlc", lc), ("vlc", lc)]
+            if cipher == 2:
+                out.append(("pi", 0x21, X.SERIAL_DMR_KID, X.SERIAL_DMR_MI))
+            for sf in range(2):
+                out += [("voice", k, sf, vc, frags[32 * (vc - 2):
+                                                   32 * (vc - 1)]
+                         if 2 <= vc <= 5 else None) for vc in range(1, 7)]
+            return out + [("tlc", lc)]
+
+        csbk = [("csbk", None)] * 2
+        s0 = csbk + call(0, 303, 3003, cipher=2) + csbk \
+            + call(0, 404, 4004) + csbk
+        s1 = csbk + call(1, 505, 5005, cipher=1)
+        return [s0, s1 + [("csbk", None)] * (len(s0) - len(s1))], calls
+
+    n = len(programs(None)[0][0])
+    monkeypatch.setattr(X, "_dmr_programs", programs)
+    monkeypatch.setattr(X, "SERIAL_DMR_TOTAL",
+                        X.SERIAL_DMR_LEAD + 2 * 144 * n + 200)
+    return X._dmr_call_vector()
+
+
+@pytest.mark.parametrize("key", ["keyring", "none"])
+def test_slot_cipher_outlives_its_call_in_both(monkeypatch, key):
+    """Pins what both packages do with a clear call that follows an RC4
+    call on the same slot: ``DmrBsDecoder.crypto[slot]`` is set by the
+    PI header and nothing clears it, so the clear call's superframes
+    still refresh the RC4 MI, its frames are RC4-"decrypted" where the
+    key is held and muted where it is not.  Both packages give the same
+    events, voice bits and PCM."""
+    tv = _cipher_then_clear_vector(monkeypatch)
+    x = SV.dmr_iq(tv)
+    jc, tc, ts = _both(x, keyring=key == "keyring")
+    lines = [e.line for e in tc.events]
+    clear_vlc = next(i for i, s in enumerate(lines)
+                     if s.startswith(" Slot 1 - VLC Group TGT=404"))
+    clear_tlc = next(i for i, s in enumerate(lines)
+                     if s.startswith(" Slot 1 - TLC Group TGT=404"))
+    refresh = [s for s in lines[clear_vlc:clear_tlc]
+               if s.startswith(" Slot 1 DMR PI C- ALG ID: 21;")]
+    assert len(refresh) == 2                   # one a superframe
+    cipher = tv["dmr_frame_cipher"]
+    onair = np.unpackbits(tv["dmr_ambe_onair"], axis=-1)[:, :49]
+    clear = np.flatnonzero(cipher == 0)
+    assert len(clear) == 36 and len(ts.bits) == len(cipher)
+    got = np.stack(ts.bits)[clear]
+    if key == "keyring":
+        # the clear frames go through the RC4 keystream
+        assert not np.any(np.all(got == onair[clear], axis=1))
+        assert len(SV.pcm(tc, 0)) == 160 * 72
+    else:
+        np.testing.assert_array_equal(got, onair[clear])
+        assert not tc.audio.get(0)

@@ -252,7 +252,7 @@ def test_mode_table():
     assert tmodes.FLAG_TO_MODE == jmodes.FLAG_TO_MODE
 
 
-@pytest.mark.parametrize("mode", ["ysf", "nxdn48", "p25p2", "m17", "auto"])
+@pytest.mark.parametrize("mode", ["p25p2", "m17", "auto"])
 def test_modes_without_a_port_decoder_raise(mode):
     x = np.zeros(4800, np.complex64)
     with pytest.raises(NotImplementedError) as e:

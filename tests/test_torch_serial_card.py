@@ -4,7 +4,8 @@
 (the P25 Phase 1 call as C4FM and as CQPSK with its keyed superframes,
 the EDACS/ProVoice stream in the ``provoice`` mode, the DMR stream
 upright and on an inverted channel with ``force_polarity``, the X2-TDMA
-stream) on the card and on the CPU: the same event lines, positions and
+stream, the NXDN stream as NXDN48 and NXDN96, the dPMR, YSF and D-STAR
+streams) on the card and on the CPU: the same event lines, positions and
 fields (IMBE, IMBE-7100 and AMBE bits bit for bit), the same voice
 parameter bits, the card's decode holding the vector
 (``engine.serialvec`` judges), and each slot's PCM within 2e-3 of the
@@ -37,6 +38,8 @@ from dsdneo_tpu_torch.runtime import config as rtcfg
 PCM_REL = 2e-3
 SOFT_TOL = 5e-3
 EDGE = 0.05
+# the modes whose voice bits the test spies on (AMBE, and YSF's IMBE)
+AMBE_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "dstar")
 
 
 def _card():
@@ -52,10 +55,12 @@ def _decode(x, mode, device, **kw):
     kr.scalar[kid] = key
     kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
     sink = SV.ImbeSink()
-    if mode == "x2tdma":
+    if mode in AMBE_MODES:
         import dsdneo_tpu_torch.vocoder.mbe as mbe
-        with SV.AmbeSpy(mbe) as sink:
+        with SV.AmbeSpy(mbe) as sink, \
+                SV.AmbeSpy(mbe, "decode_imbe_4400") as imbe:
             ctx = decode_samples(x, mode, device=device, **kw)
+        sink.imbe = imbe
         return ctx, sink
     ctx = decode_samples(x, mode, keyring=kr, mbe_sink=sink, device=device,
                          **kw)
@@ -64,7 +69,8 @@ def _decode(x, mode, device, **kw):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("stream", ["c4fm", "cqpsk", "provoice", "dmr",
-                                    "dmr_inverted", "x2tdma"])
+                                    "dmr_inverted", "x2tdma", "nxdn48",
+                                    "nxdn96", "dpmr", "ysf", "dstar"])
 def test_decode_samples_card_against_cpu(stream):
     dev = _card()
     tv = SV.vector()
@@ -81,6 +87,18 @@ def test_decode_samples_card_against_cpu(stream):
     elif stream == "x2tdma":
         n = 4 * 6000
         x, mode, kw = SV.x2_iq(tv, n), "x2tdma", {}
+    elif stream.startswith("nxdn"):
+        n = 4 * 48000 // SV.NXDN_SPS[stream]
+        x, mode, kw = SV.nxdn_iq(tv, n, stream), stream, {}
+    elif stream == "dpmr":
+        n = 4 * 2400
+        x, mode, kw = SV.dpmr_iq(tv, n), "dpmr", {}
+    elif stream == "ysf":
+        n = 4 * 4800
+        x, mode, kw = SV.ysf_iq(tv, n), "ysf", {}
+    elif stream == "dstar":
+        n = 4 * 4800
+        x, mode, kw = SV.dstar_iq(tv, n), "dstar", {}
     else:
         n = 4 * 4800
         x = SV.p25_iq(tv, n, cqpsk=stream == "cqpsk")
@@ -92,6 +110,11 @@ def test_decode_samples_card_against_cpu(stream):
     assert len(gs.bits) == len(cs.bits)
     if cs.bits:
         np.testing.assert_array_equal(np.stack(gs.bits), np.stack(cs.bits))
+    if mode in AMBE_MODES:
+        assert len(gs.imbe.bits) == len(cs.imbe.bits)
+        if cs.imbe.bits:
+            np.testing.assert_array_equal(np.stack(gs.imbe.bits),
+                                          np.stack(cs.imbe.bits))
     if stream == "provoice":
         assert SV.judge_pv(tv, gc, n)["provoice_superframes"] >= 15
     elif stream.startswith("dmr"):
@@ -99,6 +122,14 @@ def test_decode_samples_card_against_cpu(stream):
                             bp=True)["bp_frames"] >= 72
     elif stream == "x2tdma":
         assert SV.judge_x2(tv, gc, gs, n)["superframes"] >= 12
+    elif stream.startswith("nxdn"):
+        assert SV.judge_nxdn(tv, gc, gs, mode, n)["vcalls"] >= 10
+    elif stream == "dpmr":
+        assert SV.judge_dpmr(tv, gc, gs, 0, n)["fs3_parts"] >= 11
+    elif stream == "ysf":
+        assert SV.judge_ysf(tv, gc, gs, gs.imbe, n)["imbe_frames"] >= 30
+    elif stream == "dstar":
+        assert SV.judge_dstar(tv, gc, n)["superframes"] >= 7
     else:
         assert SV.judge_p25(tv, gc, gs, n)["keyed_ldus"] >= 8
     assert sorted(cc.audio) == sorted(gc.audio)

@@ -59,6 +59,9 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.edacs.encode",
     "dsdneo_tpu_torch.protocol.ysf.encode",
     "dsdneo_tpu_torch.protocol.dpmr.encode",
+    "dsdneo_tpu_torch.protocol.dpmr.decoder",
+    "dsdneo_tpu_torch.protocol.ysf.decoder",
+    "dsdneo_tpu_torch.protocol.dstar.ambe2400",
     "dsdneo_tpu_torch.runtime.config", "dsdneo_tpu_torch.fec.gf",
     "dsdneo_tpu_torch.fec.blockcodes",
     "dsdneo_tpu_torch.protocol.p25.imbe_frame",
@@ -411,7 +414,8 @@ def serial_exported():
     return build_serial_tables(check=False)
 
 
-@pytest.mark.parametrize("kind", ["p25", "pv", "dmr", "x2"])
+@pytest.mark.parametrize("kind", ["p25", "pv", "dmr", "x2", "nxdn", "dpmr",
+                                  "ysf", "dstar"])
 def test_serial_npz_equals_exporter(serial_exported, kind):
     """The checked-in ``serial_tables.npz`` is what the exporter builds
     from the JAX package's encoders now (the exporter also holds each
@@ -434,9 +438,11 @@ def test_serial_decode_runs_without_the_jax_package():
     3 s of the DMR stream with every DMR voice cipher set (Basic Privacy,
     CSI72, TYT16, TYT-EP, Retevis RC2, PC4, PC5, the Hytera, Kenwood and
     Anytone keystreams, a static keystream and, through the Vertex map,
-    its key-ID lookup) and the RC4 call with its key, and 2 s of the
-    X2-TDMA stream on the CPU, the clear ones held to their vectors: no
-    module of the JAX package, and no jax, is ever loaded."""
+    its key-ID lookup) and the RC4 call with its key, 2 s of the X2-TDMA
+    stream, 1 s of the NXDN stream as NXDN48 and 2 s as NXDN96, 1.5 s of
+    the dPMR stream, 2 s each of the YSF and D-STAR streams on the CPU,
+    the clear ones held to their vectors: no module of the JAX package,
+    and no jax, is ever loaded."""
     code = (
         "import sys\n"
         "from dsdneo_tpu_torch.engine.decoder import decode_samples\n"
@@ -481,6 +487,21 @@ def test_serial_decode_runs_without_the_jax_package():
         "    ctx = decode_samples(SV.x2_iq(tv, 12000), 'x2tdma', "
         "device='cpu')\n"
         "assert SV.judge_x2(tv, ctx, spy, 12000)['superframes'] >= 5\n"
+        "for mode, n in (('nxdn48', 2400), ('nxdn96', 9600)):\n"
+        "    with SV.AmbeSpy(mbe) as spy:\n"
+        "        ctx = decode_samples(SV.nxdn_iq(tv, n, mode), mode, "
+        "device='cpu')\n"
+        "    assert SV.judge_nxdn(tv, ctx, spy, mode, n)['vcalls'] >= 2\n"
+        "with SV.AmbeSpy(mbe) as spy:\n"
+        "    ctx = decode_samples(SV.dpmr_iq(tv, 3600), 'dpmr', "
+        "device='cpu')\n"
+        "assert SV.judge_dpmr(tv, ctx, spy, 0, 3600)['fs3_parts'] >= 3\n"
+        "with SV.AmbeSpy(mbe) as a, SV.AmbeSpy(mbe, 'decode_imbe_4400') "
+        "as i:\n"
+        "    ctx = decode_samples(SV.ysf_iq(tv, 9600), 'ysf', device='cpu')\n"
+        "assert SV.judge_ysf(tv, ctx, a, i, 9600)['imbe_frames'] >= 10\n"
+        "ctx = decode_samples(SV.dstar_iq(tv, 9600), 'dstar', device='cpu')\n"
+        "assert SV.judge_dstar(tv, ctx, 9600)['superframes'] >= 3\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

@@ -119,6 +119,16 @@ generator for, built by inverting its own tables:
     channel, EDACS read in the three modes), its accepted frames kept as
     ``<kind>_tv_jax_frames``.
 
+``serial_tables.npz`` holds the serial decode path's nine 60 s
+streams (``build_serial_tables``): a P25 Phase 1 call, EDACS with
+ProVoice, a DMR BS stream, X2-TDMA, an NXDN traffic channel (NXDN96,
+and NXDN48 from the same dibits), a dPMR, a YSF and a D-STAR channel,
+each held to the JAX ``decode_samples`` over its whole length through
+its judge in ``engine.serialvec``.  Every stretch the serial hunt reads
+outside a frame is drawn clean of false syncs (``_hunted_fill``), and a
+frame whose end could shadow the next sync is drawn again
+(``_frame_ok``).
+
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
 parameter bits of its 144 voice frames, the LDU start positions, and
@@ -133,12 +143,13 @@ Run from the repository root, where JAX is installed:
 A file whose arrays already equal the rebuilt ones is left untouched.
 ``tests/test_torch_tables.py`` rebuilds the arrays with ``build_tables``,
 ``build_dmr_tables``, ``build_tdma_tables``, ``build_cc_tables``,
-``build_event_tables`` and ``build_burst_tables`` and checks them against
-the checked-in files.
+``build_event_tables``, ``build_burst_tables`` and
+``build_serial_tables`` and checks them against the checked-in files.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 import sys
 
@@ -2373,15 +2384,777 @@ def _x2_vector() -> dict[str, np.ndarray]:
             "x2_seeds": np.asarray(seeds, np.int64)}
 
 
+# -- the NXDN, dPMR, YSF and D-STAR serial streams -------------------------
+SERIAL_NXDN_SEED = 21
+SERIAL_NXDN_RAN = 13
+SERIAL_NXDN_TOTAL = int(SERIAL_SECONDS * 4800)   # 60 s at NXDN96's rate
+SERIAL_NXDN_SF = (2, 7)   # SACCH superframes a call (4 frames each)
+SERIAL_DPMR_SEED = 22
+SERIAL_DPMR_TOTAL = int(SERIAL_SECONDS * 2400)
+SERIAL_DPMR_SF = (14, 21)  # superframes a transmission (two parts each)
+SERIAL_DPMR_GAP = (200, 401)  # idle dibits after a transmission's end
+SERIAL_YSF_SEED = 23
+SERIAL_YSF_TOTAL = int(SERIAL_SECONDS * 4800)
+SERIAL_DSTAR_SEED = 24
+SERIAL_DSTAR_TOTAL = int(SERIAL_SECONDS * 4800)
+SERIAL_DSTAR_GAP = (150, 401)  # idle symbols before each transmission
+SERIAL_LEAD4 = 240        # random dibits before the first frame
+SERIAL_FAMILY_FALSE_SYNC_MAX = 0.55  # where a false hit would count
+# D-STAR's syncs open with the alternating bits its preamble and end
+# pattern repeat: the end pattern correlates 0.583 with the header sync
+SERIAL_DSTAR_FALSE_SYNC_MAX = 0.6
+# (source, destination) of the NXDN calls, dPMR (talkgroup, source)
+_SERIAL_NXDN_CALLS = ((1001, 40001), (2345, 40002), (777, 301),
+                      (65000, 12345))
+_SERIAL_DPMR_IDS = ((1234567, 7654321), (3000001, 5000002),
+                    (1111111, 2222222))
+_SERIAL_DPMR_CC = (5, 48, 14, 9, 57, 17, 42, 60)
+NXDN_LICH_VOICE, NXDN_LICH_MIXED, NXDN_LICH_DATA = 0x36, 0x32, 0x20
+NXDN_TX_REL, NXDN_VCALL = 0x08, 0x01
+
+
+@functools.lru_cache(maxsize=None)
+def _family_defs(names: tuple[str, ...]) -> list:
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    return [d.levels.astype(np.float64) for d in SYNC_DEFS
+            if d.name in names]
+
+
+def _hunted_fill(rng, segs, names, margin, after=None, patience=300):
+    """Segments for a stretch the serial hunt reads (no frame takes it),
+    each ``draw(rng)`` → (dibits, record) drawn again until no clean
+    correlation with ``names`` reaches ``margin`` at a window that starts
+    in the stretch (7 positions short of a sync in ``after``, the
+    dibits that follow it, if any); windows are judged as soon as the
+    segments they cover are drawn, and a segment that finds no clean
+    draw sends its predecessor (every tenth time, all of them) back to be
+    drawn again, ``patience`` times at most.  Returns (the stretch's
+    dibits, the segments' records)."""
+    defs = _family_defs(names)
+    lmax = max(len(lv) for lv in defs)
+    tail = np.zeros(0, np.uint8) if after is None else \
+        np.asarray(after[:48], np.uint8)
+    lvl = np.array([1.0, 3.0, -1.0, -3.0])
+
+    def clean(out: np.ndarray, d: np.ndarray, last: bool) -> bool:
+        cand = np.concatenate([out, d] + ([tail] if last else []))
+        end = len(out) + len(d)
+        qhi = end - 7 if (last and after is not None) else end
+        qlo = max(len(out) - lmax + 1, 0)
+        lv = lvl[cand]
+        for levels in defs:
+            n = len(levels)
+            top = min(qhi, len(cand) - n + 1)
+            if top > qlo and (np.abs(np.lib.stride_tricks.sliding_window_view(
+                    lv[qlo:top + n - 1], n) @ levels).max()
+                    >= margin * 9.0 * n):
+                return False
+        return True
+
+    done: list = []                   # (dibits, record) drawn so far
+    tries = 0
+    while len(done) < len(segs):
+        k = len(done)
+        out = (np.concatenate([d for d, _ in done]) if done
+               else np.zeros(0, np.uint8))
+        for _ in range(100):
+            d, rec = segs[k](rng)
+            if clean(out, d, k == len(segs) - 1):
+                done.append((d, rec))
+                break
+        else:
+            tries += 1
+            if tries > patience:
+                raise RuntimeError("no draw keeps the hunted stretch clean")
+            # back one segment; every tenth time, from the start
+            del done[-1 if tries % 10 else 0:]
+    out = np.concatenate([d for d, _ in done]).astype(np.uint8)
+    return out, [r for _, r in done]
+
+
+def _clean_tail(rng, n: int, names, margin: float) -> np.ndarray:
+    """``n`` random dibits after the last frame, drawn clean."""
+    return _hunted_fill(rng, _random_chunks(n), names, margin)[0]
+
+
+def _sync_names(protocol: str) -> tuple[str, ...]:
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    return tuple(d.name for d in SYNC_DEFS if d.protocol == protocol)
+
+
+def _random_chunks(n: int, alphabet=(0, 1, 2, 3), chunk: int = 12):
+    """Draw functions for ``n`` random dibits of ``alphabet``, ``chunk``
+    at a time."""
+    a = np.asarray(alphabet, np.uint8)
+    sizes = [chunk] * (n // chunk) + ([n % chunk] if n % chunk else [])
+    return [lambda rng, k=k: (a[rng.integers(0, len(a), k)], None)
+            for k in sizes]
+
+
+def _ambe_dibits(bits49: np.ndarray) -> np.ndarray:
+    from dsdneo_tpu.protocol.dmr.ambe_frame import encode_ambe_ecc
+    return _dibits_of_bits(encode_ambe_ecc(bits49))
+
+
+# -- NXDN
+def _nxdn_lich_dibits(lich: int) -> np.ndarray:
+    """The LICH's 8 dibits: its bits in the high bit, the parity bit
+    closed as ``NxdnDecoder.handle`` checks it."""
+    nbits = 7 if lich in (0x08, 0x4A, 0x48, 0x46) else 4
+    full = lich << 1
+    for k in range(7, 8 - nbits, -1):
+        full ^= (full >> k) & 1
+    return np.array([((full >> (7 - i)) & 1) << 1 for i in range(8)],
+                    np.uint8)
+
+
+def _nxdn_message(mtype: int, src: int, dst: int, n: int,
+                  fill: np.ndarray | None = None) -> np.ndarray:
+    """An ``n``-bit NXDN message of the VCALL family: type, CC option 0,
+    group call, voice option 0 (4800 bps EHR), source and destination;
+    the bits after them ``fill`` (zeros by default)."""
+    msg = np.zeros(n, np.uint8)
+    msg[2:8] = _bits_of(mtype, 6)
+    msg[16:19] = _bits_of(1, 3)
+    msg[24:40] = _bits_of(src, 16)
+    msg[40:56] = _bits_of(dst, 16)
+    if fill is not None:
+        msg[56:] = fill
+    return msg
+
+
+def _nxdn_sacch_dibits(part: int, seg18: np.ndarray) -> np.ndarray:
+    """SACCH part ``part`` (0-3 of the superframe) with the RAN and 18
+    message bits: CRC6, the K=5 code, 2 of each 12 punctured, PERM_12_5
+    (the inverse of ``NxdnDecoder._sacch``)."""
+    from dsdneo_tpu.fec import conv
+    from dsdneo_tpu.protocol.nxdn.decoder import _PERM_12_5, crc6_nxdn
+    d = np.concatenate([_bits_of(3 - part, 2),
+                        _bits_of(SERIAL_NXDN_RAN, 6), seg18])
+    d = np.concatenate([d, _bits_of(crc6_nxdn(d), 6)])
+    enc = conv.encode(d)
+    kept = enc[[i for i in range(72) if i % 12 not in (5, 11)]]
+    return _dibits_of_bits(kept[_PERM_12_5])
+
+
+def _nxdn_facch_dibits(msg80: np.ndarray) -> np.ndarray:
+    """FACCH1: CRC12, the K=5 code, 1 of each 4 punctured, PERM_16_9
+    (the inverse of ``NxdnDecoder._facch1``)."""
+    from dsdneo_tpu.fec import conv
+    from dsdneo_tpu.protocol.nxdn.decoder import _PERM_16_9, crc12_nxdn
+    d = np.concatenate([msg80, _bits_of(crc12_nxdn(msg80), 12)])
+    enc = conv.encode(d)
+    kept = enc[[i for i in range(192) if i % 4 != 1]]
+    return _dibits_of_bits(kept[_PERM_16_9])
+
+
+def _nxdn_frame(lich: int, sacch: np.ndarray, halves) -> np.ndarray:
+    """One 192-dibit frame: the ``+NXDN FSW``, the LICH, the SACCH
+    dibits and two 72-dibit halves, PN9-scrambled."""
+    from dsdneo_tpu.protocol.nxdn.decoder import _SCRAMBLE_POS
+    payload = np.concatenate([_nxdn_lich_dibits(lich), sacch] + halves)
+    payload[_SCRAMBLE_POS] ^= 2
+    return np.concatenate([_sync_of("+NXDN FSW"), payload])
+
+
+def _nxdn_serial_vector() -> dict[str, np.ndarray]:
+    """An NXDN traffic channel, 60 s at NXDN96's 4800 symbols/s (and
+    120 s at NXDN48's 2400, of which ``serialvec`` sends the first 60 s):
+    a lead, then calls
+    back to back, each ``SERIAL_NXDN_SF`` SACCH superframes of four
+    frames whose SACCH parts (PF 1/4 to 4/4) carry a VCALL with the
+    call's source and destination and the RAN: a data frame (LICH 0x20:
+    FACCH1 VCALL in both halves), voice frames (LICH 0x36: four AMBE
+    frames), and a mixed frame to close (LICH 0x32: FACCH1 TX_REL, then
+    two AMBE frames); random dibits to the end.  A frame whose end would
+    put a clean false sync where it could shadow the next frame's sync
+    takes new voice bits (or FACCH fill bits), and the lead and the tail
+    are drawn clean."""
+    names = _sync_names("nxdn")
+    margin = SERIAL_FAMILY_FALSE_SYNC_MAX
+    rng = np.random.default_rng(SERIAL_NXDN_SEED)
+    frames, lich, pf, call, facch, ambe, n_ambe = [], [], [], [], [], [], []
+    n_frames = (SERIAL_NXDN_TOTAL - SERIAL_LEAD4) // 192 - 1
+    k = 0
+
+    def draw_tail(f):
+        """The frame's random part: its last half's voice bits, or the
+        fill of its last FACCH1."""
+        if f["lich"] == NXDN_LICH_DATA:
+            fill = rng.integers(0, 2, 24).astype(np.uint8)
+            f["halves"][1] = _nxdn_facch_dibits(_nxdn_message(
+                NXDN_VCALL, f["src"], f["dst"], 80, fill))
+        else:
+            b = rng.integers(0, 2, (2, 49)).astype(np.uint8)
+            f["bits"][-2:] = list(b)
+            f["halves"][1] = np.concatenate([_ambe_dibits(x) for x in b])
+        f["dib"] = _nxdn_frame(f["lich"], f["sacch"], f["halves"])
+
+    while len(frames) < n_frames:
+        src, dst = _SERIAL_NXDN_CALLS[k % len(_SERIAL_NXDN_CALLS)]
+        n_sf = int(rng.integers(*SERIAL_NXDN_SF))
+        vcall = _nxdn_message(NXDN_VCALL, src, dst, 72)
+        for i in range(4 * n_sf):
+            if len(frames) == n_frames:
+                break
+            kind = (NXDN_LICH_DATA if i == 0 else NXDN_LICH_MIXED
+                    if i == 4 * n_sf - 1 else NXDN_LICH_VOICE)
+            f = {"lich": kind, "src": src, "dst": dst, "bits": [],
+                 "sacch": _nxdn_sacch_dibits(i % 4,
+                                             vcall[18 * (i % 4):
+                                                   18 * (i % 4) + 18])}
+            if kind == NXDN_LICH_DATA:
+                h0 = _nxdn_facch_dibits(_nxdn_message(NXDN_VCALL, src, dst,
+                                                      80))
+                f["halves"] = [h0, None]
+                f["facch"] = (NXDN_VCALL, NXDN_VCALL)
+            else:
+                if kind == NXDN_LICH_MIXED:
+                    h0 = _nxdn_facch_dibits(_nxdn_message(NXDN_TX_REL, src,
+                                                          dst, 80))
+                    f["facch"] = (NXDN_TX_REL, -1)
+                else:
+                    b = rng.integers(0, 2, (2, 49)).astype(np.uint8)
+                    f["bits"] = list(b)
+                    h0 = np.concatenate([_ambe_dibits(x) for x in b])
+                    f["facch"] = (-1, -1)
+                f["bits"] += [None, None]
+                f["halves"] = [h0, None]
+            draw_tail(f)
+            f["pf"], f["call"] = i % 4, k
+            frames.append(f)
+        k += 1
+    # a frame's tail against the next frame's head
+    for a, b in zip(frames, frames[1:]):
+        for _ in range(5000):
+            if _frame_ok(a["dib"], b["dib"], names, margin):
+                break
+            draw_tail(a)
+        else:
+            raise RuntimeError("no NXDN frame tail keeps the sync clear")
+    first = frames[0]["dib"]
+    lead = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names, margin,
+                        after=first)[0]
+    body = np.concatenate([lead] + [f["dib"] for f in frames])
+    tail = _clean_tail(rng, SERIAL_NXDN_TOTAL - len(body), names, margin)
+    dib = np.concatenate([body, tail]).astype(np.uint8)
+    pos = SERIAL_LEAD4 + 192 * np.arange(len(frames), dtype=np.int64)
+    bits = np.stack([b for f in frames for b in f["bits"] if b is not None])
+    return {"nxdn_dibits": dib,
+            "nxdn_frame_pos": pos,
+            "nxdn_frame_lich": np.array([f["lich"] for f in frames],
+                                        np.int64),
+            "nxdn_frame_pf": np.array([f["pf"] for f in frames], np.int64),
+            "nxdn_frame_call": np.array([f["call"] for f in frames],
+                                        np.int64),
+            "nxdn_frame_facch": np.array([f["facch"] for f in frames],
+                                         np.int64),
+            "nxdn_calls": np.array([_SERIAL_NXDN_CALLS[c % len(
+                _SERIAL_NXDN_CALLS)] for c in range(k)], np.int64),
+            "nxdn_bits49": np.packbits(bits, axis=-1),
+            "nxdn_ids": np.array([SERIAL_NXDN_RAN, SERIAL_NXDN_SEED],
+                                 np.int64)}
+
+
+# -- dPMR
+def _dpmr_cch_dibits(fn: int, id12: int, fill: np.ndarray) -> np.ndarray:
+    """One 36-dibit CCH: FN, the 12-bit half of an AI ID, ``fill`` (27
+    bits: mode, version, format and the rest), CRC7; six Hamming(12,8)
+    words, the 6×12 interleave and the scramble (the inverse of
+    ``DpmrDecoder._cch``)."""
+    from dsdneo_tpu.fec import blockcodes
+    from dsdneo_tpu.protocol.dpmr.decoder import (_DEINT_6x12, _SCRAMBLE_72,
+                                                  crc7_dpmr)
+    d = np.concatenate([_bits_of(fn, 2), _bits_of(id12, 12), fill])
+    d = np.concatenate([d, _bits_of(crc7_dpmr(d), 7)])
+    ham = blockcodes.hamming_12_8()
+    cw = np.concatenate([ham.encode(_bti(d[8 * j:8 * j + 8]))
+                         for j in range(6)])
+    if not np.array_equal(cw.reshape(6, 12)[:, :8], d.reshape(6, 8)):
+        raise RuntimeError("Hamming(12,8) is not data-first")
+    out = np.zeros(72, np.uint8)
+    out[_DEINT_6x12] = cw
+    return _dibits_of_bits(out ^ _SCRAMBLE_72)
+
+
+def _dpmr_cc_dibits(cc: int) -> np.ndarray:
+    """The 12 dibits of colour code ``cc``'s channel code."""
+    from dsdneo_tpu.protocol.dpmr.decoder import _CC_MAP
+    code = next(k for k, v in _CC_MAP.items() if v == cc)
+    return np.array([(code >> (22 - 2 * i)) & 3 for i in range(12)],
+                    np.uint8)
+
+
+def _dpmr_colour(rng, t: int, src: int, names, margin: float) -> int:
+    """Transmission ``t``'s colour code: the first of ``_SERIAL_DPMR_CC``
+    from its turn on whose channel code can open a part B of ``src``
+    (its CCH1 opening follows the code; some pairs force a false FS2)."""
+    for i in range(len(_SERIAL_DPMR_CC)):
+        cc = _SERIAL_DPMR_CC[(t + i) % len(_SERIAL_DPMR_CC)]
+        try:
+            _hunted_fill(rng, [lambda r: (_dpmr_cc_dibits(cc), None),
+                               lambda r: (_dpmr_cch_dibits(
+                                   2, src >> 12, r.integers(0, 2, 27).astype(
+                                       np.uint8)), None)], names, margin,
+                         patience=3)
+            return cc
+        except RuntimeError:
+            continue
+    raise RuntimeError(f"no colour code opens a part B of {src}")
+
+
+def _dpmr_serial_vector() -> dict[str, np.ndarray]:
+    """A 60 s dPMR channel at 2400 symbols/s: a lead, then transmissions,
+    each a header frame (``+dPMR FS1`` and 168 dibits), ``SERIAL_DPMR_SF``
+    voice superframes of two 384-dibit parts, an end frame (``+dPMR
+    FS4``) and idle dibits.  Part A opens with ``+dPMR FS2``: CCH1 (FN 0,
+    the talkgroup's high 12 bits), four AMBE frames, the colour code's
+    channel code, CCH2 (FN 1, the low 12 bits), four AMBE frames.  Part B
+    opens with the channel code and carries ``+dPMR FS3`` where part A
+    has it, its CCHs the source (FN 2, 3); the hunt finds part B by its
+    FS3 (``DpmrDecoder.handle`` steps back one frame).  Every stretch no
+    frame takes (the lead, the header, part B's first frame, the end and
+    the idle dibits) is drawn clean of false syncs, and a part B whose
+    end would shadow the next sync takes new voice bits.  FS4 is FS1
+    negated, so an inverted channel takes the same frames (a header as
+    an end, an end as a header)."""
+    names = _sync_names("dpmr")
+    margin = SERIAL_FAMILY_FALSE_SYNC_MAX
+    rng = np.random.default_rng(SERIAL_DPMR_SEED)
+
+    def ambe(r):
+        b = r.integers(0, 2, 49).astype(np.uint8)
+        return _ambe_dibits(b), b
+
+    def cch(fn, id12):
+        return lambda r: (_dpmr_cch_dibits(
+            fn, id12, r.integers(0, 2, 27).astype(np.uint8)), None)
+
+    segs = []       # dibits, or ("end", length) for an idle stretch
+    sync_pos, sync_kind = [], []
+    part_pos, part_kind, part_tx, part_bits = [], [], [], []
+    tx_ids = []
+    pos = 0
+    lead = None
+    t = 0
+    while True:
+        tg, src = _SERIAL_DPMR_IDS[t % len(_SERIAL_DPMR_IDS)]
+        cc = _dpmr_colour(rng, t, src, names, margin)
+        n_sf = int(rng.integers(*SERIAL_DPMR_SF))
+        fs1 = _sync_of("+dPMR FS1")
+        need = 192 + 768 * n_sf + 192 + SERIAL_DPMR_GAP[1]
+        if pos + (SERIAL_LEAD4 if lead is None else 0) + need > \
+                SERIAL_DPMR_TOTAL:
+            break
+        if lead is None:
+            lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names,
+                                   margin, after=fs1)
+            segs.append(lead)
+            pos = len(lead)
+        sync_pos.append(pos)
+        sync_kind.append(1)
+        parts = []
+        # part A, then part B's opening frame (hunted), then its FS3 frame
+        a_head = np.concatenate([_sync_of("+dPMR FS2"),
+                                 cch(0, tg >> 12)(rng)[0]])
+        header, _ = _hunted_fill(rng, _random_chunks(168), names, margin,
+                                 after=a_head)
+        seg_tx = [fs1, header]
+        p = pos + 192
+        for k in range(n_sf):
+            head = a_head if k == 0 else np.concatenate(
+                [_sync_of("+dPMR FS2"), cch(0, tg >> 12)(rng)[0]])
+            ga = [ambe(rng) for _ in range(4)]
+            gb = [ambe(rng) for _ in range(4)]
+            part_a = np.concatenate(
+                [head] + [d for d, _ in ga] + [_dpmr_cc_dibits(cc),
+                                               cch(1, tg & 0xFFF)(rng)[0]]
+                + [d for d, _ in gb])
+            fs3_head = np.concatenate([_sync_of("+dPMR FS3"),
+                                       cch(3, src & 0xFFF)(rng)[0]])
+            b1, recs = _hunted_fill(
+                rng, [lambda r: (_dpmr_cc_dibits(cc), None),
+                      cch(2, src >> 12)] + [ambe] * 4, names, margin,
+                after=fs3_head)
+            gd = [ambe(rng) for _ in range(4)]
+            part_b = [b1, fs3_head] + [d for d, _ in gd]
+            parts.append([part_a, part_b, [b for _, b in ga + gb],
+                          recs[2:], gd])
+            sync_pos += [p, p + 384 + 192]
+            sync_kind += [2, 3]
+            part_pos += [p, p + 384]
+            part_kind += [2, 3]
+            part_tx += [t, t]
+            p += 768
+        # each part B's end against the next sync (FS2 or FS4)
+        fs4 = _sync_of("+dPMR FS4")
+        for k, (pa, pb, _ba, _bb, gd) in enumerate(parts):
+            nxt = (parts[k + 1][0][:48] if k + 1 < n_sf else fs4)
+            for _ in range(5000):
+                tail = np.concatenate(pb[:2] + [d for d, _ in gd])
+                if _frame_ok(tail, nxt, names, margin):
+                    break
+                gd[2:] = [ambe(rng), ambe(rng)]
+            else:
+                raise RuntimeError("no dPMR part B end keeps the sync clear")
+            pb[2:] = [d for d, _ in gd]
+            part_bits.append(np.stack(_ba))
+            part_bits.append(np.stack([b for b in _bb]
+                                      + [b for _, b in gd]))
+            seg_tx += [pa] + pb
+        sync_pos.append(p)
+        sync_kind.append(4)
+        gap = int(rng.integers(*SERIAL_DPMR_GAP))
+        seg_tx.append(fs4)
+        segs += seg_tx
+        tx_ids.append((tg, src, cc))
+        pos = p + 24
+        # the end frame's 168 dibits and the idle ones: hunted
+        end_len = 168 + gap
+        segs.append(("end", end_len))
+        pos += end_len
+        t += 1
+    # fill each end stretch now that what follows it is known: the next
+    # transmission's FS1, or for the last, the rest of the 60 s
+    fixed = sum(len(g) for g in segs if not isinstance(g, tuple))
+    ends = [i for i, g in enumerate(segs) if isinstance(g, tuple)]
+    segs[ends[-1]] = ("end", SERIAL_DPMR_TOTAL - fixed - sum(
+        segs[i][1] for i in ends[:-1]))
+    out = []
+    for i, sgm in enumerate(segs):
+        if isinstance(sgm, tuple):
+            nxt = _sync_of("+dPMR FS1") if i + 1 < len(segs) else None
+            sgm, _ = _hunted_fill(rng, _random_chunks(sgm[1]), names,
+                                  margin, after=nxt)
+        out.append(sgm)
+    dib = np.concatenate(out).astype(np.uint8)
+    sync_pos = np.asarray(sync_pos, np.int64)
+    sync_kind = np.asarray(sync_kind, np.int64)
+    return {"dpmr_dibits": dib,
+            "dpmr_sync_pos": sync_pos, "dpmr_sync_kind": sync_kind,
+            "dpmr_part_pos": np.asarray(part_pos, np.int64),
+            "dpmr_part_kind": np.asarray(part_kind, np.int64),
+            "dpmr_part_tx": np.asarray(part_tx, np.int64),
+            "dpmr_bits49": np.packbits(np.stack(part_bits), axis=-1),
+            "dpmr_tx": np.asarray(tx_ids, np.int64),
+            "dpmr_ids": np.array([SERIAL_DPMR_SEED], np.int64)}
+
+
+# -- YSF
+# (data type, call mode, frame total, cycles of FN 0..FT) of the calls in
+# turn: full rate with its CSD3 frames, V/D2 to all, V/D1, V/D2 in RID
+# mode (short enough that a stream's first 4 s hold the first three)
+_SERIAL_YSF_CALLS = ((3, 0, 1, (3, 7)), (2, 0, 5, (2, 4)),
+                     (0, 0, 3, (2, 5)), (2, 1, 5, (2, 4)))
+# the DCH2 text of each FN (FN 1, SRC, carries the call's callsign)
+_SERIAL_YSF_TEXT = ("ALL", None, "UPLINK-A", "DOWNLINK-B", "RADIOID123",
+                    "1234567890")
+_SERIAL_YSF_CALLSIGNS = ("JA1YOE", "W1AW", "DL9YAB", "G4KLX")
+
+
+def _close_crc(bits: np.ndarray, lo: int, crc_fn) -> np.ndarray:
+    """``bits`` with its 16 bits from ``lo`` set so that ``crc_fn``, an
+    affine function of the bits, gives 0."""
+    base = bits.copy()
+    base[lo:lo + 16] = 0
+    r0 = crc_fn(base)
+    A = np.zeros((16, 17), np.uint8)
+    for i in range(16):
+        e = base.copy()
+        e[lo + i] = 1
+        A[:, i] = _bits_of(crc_fn(e) ^ r0, 16)
+    A[:, 16] = _bits_of(r0, 16)
+    for col in range(16):
+        piv = next(r for r in range(col, 16) if A[r, col])
+        A[[col, piv]] = A[[piv, col]]
+        for r in range(16):
+            if r != col and A[r, col]:
+                A[r] ^= A[col]
+    base[lo:lo + 16] = A[:, 16]
+    if crc_fn(base) != 0:
+        raise RuntimeError("the CRC did not close")
+    return base
+
+
+def _ysf_k5_dibits(bits96: np.ndarray) -> np.ndarray:
+    """96 bits through the K=5 code into 100 dibits in the 5×20 order
+    ``YsfDecoder._fich`` and ``_dch2`` read back."""
+    from dsdneo_tpu.fec import conv
+    buf = _dibits_of_bits(conv.encode(bits96))
+    out = np.zeros(100, np.uint8)
+    for i in range(20):
+        for j in range(5):
+            out[i + j * 20] = buf[j + i * 5]
+    return out
+
+
+def _ysf_fich_dibits(fi, cm, fn, ft, mr, vp, dt, sc) -> np.ndarray:
+    """The FICH (block number and total 0): 32 bits and CRC16, four
+    Golay(24,12) words, the K=5 code."""
+    from dsdneo_tpu.fec import blockcodes
+    from dsdneo_tpu.protocol.ysf.decoder import ysf_crc16
+    f = np.zeros(48, np.uint8)
+    for lo, n, v in ((0, 2, fi), (4, 2, cm), (10, 3, fn), (13, 3, ft),
+                     (18, 3, mr), (21, 1, vp), (22, 2, dt), (25, 7, sc)):
+        f[lo:lo + n] = _bits_of(v, n)
+    f = _close_crc(f, 32, ysf_crc16)
+    gol = blockcodes.golay_24_12()
+    return _ysf_k5_dibits(np.concatenate(
+        [gol.encode(_bti(f[12 * i:12 * i + 12])) for i in range(4)]))
+
+
+def _ysf_dch2_dibits(text: str) -> np.ndarray:
+    """DCH2: 10 characters whitened by PN95 and CRC16, the K=5 code, as
+    the 5 blocks' 20-dibit pieces in order."""
+    from dsdneo_tpu.protocol.ysf.decoder import _PN95_512, ysf_crc16
+    b = np.unpackbits(np.frombuffer(f"{text:<10}"[:10].encode(), np.uint8))
+    d = np.concatenate([b ^ _PN95_512[:80], np.zeros(16, np.uint8)])
+    return _ysf_k5_dibits(_close_crc(d, 80, ysf_crc16))
+
+
+def _ysf_fr_slot(bits88: np.ndarray) -> np.ndarray:
+    """88 IMBE bits → the 72 dibits of a full-rate voice slot
+    (``encode_imbe_ecc``'s frame matrix, its rows top bit first, the FR
+    interleave: the inverse of ``_fr_slot_to_matrix``)."""
+    from dsdneo_tpu.protocol.p25.imbe_frame import (IMBE_W, IMBE_X, IMBE_Y,
+                                                    IMBE_Z, encode_imbe_ecc)
+    from dsdneo_tpu.protocol.ysf.decoder import _FR_INTERLEAVE, _FR_ROW_LENS
+    b144 = encode_imbe_ecc(bits88)
+    fr = np.zeros((8, 23), np.uint8)
+    for j in range(72):
+        fr[IMBE_W[j]][IMBE_X[j]] = b144[2 * j]
+        fr[IMBE_Y[j]][IMBE_Z[j]] = b144[2 * j + 1]
+    vch = np.concatenate([fr[n][mlen - 1::-1]
+                          for n, mlen in enumerate(_FR_ROW_LENS)])
+    raw = np.zeros(144, np.uint8)
+    raw[_FR_INTERLEAVE] = vch
+    return _dibits_of_bits(raw)
+
+
+def _ysf_serial_vector() -> dict[str, np.ndarray]:
+    """A 60 s YSF channel at 4800 symbols/s: a lead, then calls back to
+    back (``_SERIAL_YSF_CALLS`` in turn): a header frame (FI 0), rounds
+    of communication frames FN 0 to FT (FI 1), a terminator (FI 2), each
+    frame the ``+YSF`` sync, the FICH (its fields through Golay(24,12),
+    the K=5 code and CRC16) and five payload blocks.  V/D2 blocks carry
+    the DCH2 text of the frame's FN (DST, SRC, U/L, D/L, RM1-4) and one
+    AMBE frame (the tripled-bit form); V/D1 blocks 36 random DCH dibits
+    and an AMBE frame (the 2450 ECC; the fifth block's is random); full
+    rate five IMBE frames (the P25 ECC through the FR interleave), or on
+    the CSD3 frame (FT 1, FN 0) 216 random CSD dibits and two.  Header
+    and terminator payloads are random.  A frame whose end would put a
+    clean false sync where it could shadow the next sync takes a new
+    last block, and the lead and the tail are drawn clean."""
+    names = _sync_names("ysf")
+    margin = SERIAL_FAMILY_FALSE_SYNC_MAX
+    rng = np.random.default_rng(SERIAL_YSF_SEED)
+    sync = _sync_of("+YSF")
+    frames = []
+    n_frames = (SERIAL_YSF_TOTAL - SERIAL_LEAD4) // 480 - 1
+    c = 0
+
+    def blocks(f):
+        """(payload dibits, AMBE bits, IMBE bits) of frame ``f``; the
+        last block is drawn anew each call."""
+        dt, fi, fn, ft = f["dt"], f["fi"], f["fn"], f["ft"]
+        if fi != 1:
+            return rng.integers(0, 4, 360).astype(np.uint8), [], []
+        if dt == 3:
+            n = 2 if (ft == 1 and fn == 0) else 5
+            b88 = (f["imbe"] or [rng.integers(0, 2, 88).astype(np.uint8)
+                                 for _ in range(n)])[:n - 1]
+            b88 = b88 + [rng.integers(0, 2, 88).astype(np.uint8)]
+            head = (rng.integers(0, 4, 216).astype(np.uint8) if n == 2
+                    else np.zeros(0, np.uint8))
+            return (np.concatenate([head] + [_ysf_fr_slot(b)
+                                             for b in b88]), [], b88)
+        b49 = (f["ambe"] or [rng.integers(0, 2, 49).astype(np.uint8)
+                             for _ in range(4)])[:4]
+        b49 = b49 + [rng.integers(0, 2, 49).astype(np.uint8)]
+        if dt == 0:
+            vch = [_ambe_dibits(b) for b in b49[:4]] + [
+                rng.integers(0, 4, 36).astype(np.uint8)]
+            return (np.concatenate([np.concatenate(
+                [rng.integers(0, 4, 36).astype(np.uint8), v])
+                for v in vch]), b49[:4], [])
+        dch = f["dch"]
+        return (np.concatenate([np.concatenate(
+            [dch[20 * i:20 * i + 20],
+             _ysf_vd2_dibits(b49[i], int(rng.integers(0, 2)))])
+            for i in range(5)]), b49, [])
+
+    while len(frames) < n_frames:
+        dt, cm, ft, rounds = _SERIAL_YSF_CALLS[c % len(_SERIAL_YSF_CALLS)]
+        call = _SERIAL_YSF_CALLSIGNS[c % len(_SERIAL_YSF_CALLSIGNS)]
+        mr, vp = int(rng.integers(0, 8)), int(rng.integers(0, 2))
+        sc = int(rng.integers(0, 128))
+        n_comm = (ft + 1) * int(rng.integers(*rounds))
+        plan = ([(0, 0)] + [(1, i % (ft + 1)) for i in range(n_comm)]
+                + [(2, 0)])
+        for fi, fn in plan:
+            if len(frames) == n_frames:
+                break
+            f = {"dt": dt, "cm": cm, "ft": ft, "fi": fi, "fn": fn, "mr": mr,
+                 "vp": vp, "sc": sc, "call": c, "ambe": [], "imbe": [],
+                 "text": ""}
+            if fi == 1 and dt == 2:
+                text = (_SERIAL_YSF_TEXT[fn] if fn != 1 else call)
+                if cm == 1 and fn == 0:
+                    text = f"{c * 11 % 100000:05d}{c * 7 % 100000:05d}"
+                f["text"] = f"{text:<10}"[:10]
+                f["dch"] = _ysf_dch2_dibits(f["text"])
+            f["fich"] = _ysf_fich_dibits(fi, cm, fn, ft, mr, vp, dt, sc)
+            f["payload"], f["ambe"], f["imbe"] = blocks(f)
+            frames.append(f)
+        c += 1
+
+    def dib(f):
+        return np.concatenate([sync, f["fich"], f["payload"]])
+
+    for a, b in zip(frames, frames[1:]):
+        head = dib(b)[:48]
+        for _ in range(5000):
+            if _frame_ok(dib(a), head, names, margin):
+                break
+            a["payload"], a["ambe"], a["imbe"] = blocks(a)
+        else:
+            raise RuntimeError("no YSF frame end keeps the sync clear")
+    lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names, margin,
+                           after=dib(frames[0]))
+    body = np.concatenate([lead] + [dib(f) for f in frames])
+    tail = _clean_tail(rng, SERIAL_YSF_TOTAL - len(body), names, margin)
+    out = np.concatenate([body, tail]).astype(np.uint8)
+    pos = SERIAL_LEAD4 + 480 * np.arange(len(frames), dtype=np.int64)
+    fich = np.array([[f[k] for k in ("fi", "cm", "fn", "ft", "mr", "vp",
+                                      "dt", "sc")] for f in frames],
+                    np.int64)
+    ambe = [b for f in frames for b in f["ambe"]]
+    imbe = [b for f in frames for b in f["imbe"]]
+    return {"ysf_dibits": out, "ysf_frame_pos": pos, "ysf_fich": fich,
+            "ysf_frame_text": np.array([f["text"] for f in frames]),
+            "ysf_bits49": np.packbits(np.stack(ambe), axis=-1),
+            "ysf_bits88": np.packbits(np.stack(imbe), axis=-1),
+            "ysf_ids": np.array([SERIAL_YSF_SEED], np.int64)}
+
+
+# -- D-STAR
+# a DPRS sentence whose '!' lands at payload index 30 and whose position
+# ends inside the 50 payload bytes, as the decoder's reader needs
+_SERIAL_DSTAR_DPRS = "$$CRCABCD,{:<6}>API51,DSTAR*:!4903.50N/07201.75W>"
+_SERIAL_DSTAR_SUFFIX = ("ID51", "ID31", "IC92", "DR2X", "FT1 ", "TH9 ",
+                        "5100", "705 ")
+
+
+def _dstar_serial_vector() -> dict[str, np.ndarray]:
+    """A 60 s D-STAR channel at 4800 symbols/s, 2-level: transmissions,
+    each after idle symbols (random, drawn clean): the ``+D-STAR HD``
+    sync and the RF header (MYCALL of ``_DSTAR_CALLS`` in turn, URCALL
+    CQCQCQ, RPT1 and RPT2, a suffix, the CRC-16/X25; the K=3 code, the
+    interleave and the scramble), 3-6 voice superframes whose slow data
+    carries the header's copy, radio text and a DPRS position, each
+    with 21 AMBE frames through the 3600x2400 ECC; idle symbols to the
+    end.  No end pattern: its 32 alternating symbols and 000100110101000
+    correlate 0.75 with ``-D-STAR HD`` and 0.67 with ``+D-STAR HD``, so
+    the serial hunt takes a false header at each.  A superframe whose last frame would put a clean false sync
+    where it could shadow the next sync takes new bits, and a header
+    that would do so another suffix."""
+    names = _sync_names("dstar")
+    margin = SERIAL_DSTAR_FALSE_SYNC_MAX
+    rng = np.random.default_rng(SERIAL_DSTAR_SEED)
+    vsync = _pattern_dibits("+D-STAR")
+    two = (1, 3)
+    parts, hd_pos, hd_oct, sf_pos, sf_sd, sf_voice, sf_bits = \
+        [], [], [], [], [], [], []
+    sf_kind, sf_tx = [], []
+    pos, tx = 0, 0
+    while True:
+        n_sf = int(rng.integers(3, 7))
+        gap = int(rng.integers(*SERIAL_DSTAR_GAP))
+        if pos + gap + 684 + 2016 * n_sf + 400 > \
+                SERIAL_DSTAR_TOTAL:
+            break
+        call = _DSTAR_CALLS[tx % len(_DSTAR_CALLS)]
+        sfs = []
+        for k in range(n_sf):
+            if k == 0:
+                sd, kind = _sd_blocks(0x55, b""), 0
+            elif k == 2:
+                sd, kind = _sd_blocks(0x35, _SERIAL_DSTAR_DPRS.format(
+                    call).encode()), 2
+            else:
+                text = _DSTAR_TEXT[(tx + k) % len(_DSTAR_TEXT)].format(call)
+                sd, kind = _sd_blocks(0x40, f"{text:<20}"[:20].encode()), 1
+            sfs.append({"sd": sd, "kind": kind,
+                        "bits": rng.integers(0, 2, (21, 49)).astype(
+                            np.uint8)})
+        # the header: the first suffix whose end keeps SF 1's sync clear
+        for suffix in _SERIAL_DSTAR_SUFFIX[tx % 8:] + \
+                _SERIAL_DSTAR_SUFFIX[:tx % 8]:
+            hdr = _dstar_header(call, "CQCQCQ", "W1AW   B", "W1AW   G",
+                                suffix)
+            hd = np.concatenate([_pattern_dibits("+D-STAR HD"),
+                                 _dstar_header_dibits(hdr)])
+            if _frame_ok(hd, vsync, names, margin):
+                break
+        else:
+            raise RuntimeError("no D-STAR header keeps the voice sync clear")
+        sfs[0]["sd"] = _sd_blocks(0x55, hdr.tobytes())
+        dib_sf = []
+        for k, sf in enumerate(sfs):
+            for _ in range(5000):
+                d, voice = _dstar_superframe(sf["sd"], sf["bits"])
+                if k + 1 == n_sf or _frame_ok(d, vsync, names, margin):
+                    break
+                sf["bits"][20] = rng.integers(0, 2, 49)
+            else:
+                raise RuntimeError("no D-STAR superframe end keeps the "
+                                   "sync clear")
+            sf["voice"] = voice
+            dib_sf.append(d)
+        idle, _ = _hunted_fill(rng, _random_chunks(gap, two), names,
+                               margin, after=hd)
+        parts += [idle, hd] + dib_sf
+        pos += len(idle)
+        hd_pos.append(pos)
+        hd_oct.append(hdr)
+        pos += 684
+        for sf in sfs:
+            sf_pos.append(pos)
+            sf_sd.append(sf["sd"])
+            sf_voice.append(sf["voice"])
+            sf_bits.append(sf["bits"])
+            sf_kind.append(sf["kind"])
+            sf_tx.append(tx)
+            pos += 2016
+        tx += 1
+    rest = SERIAL_DSTAR_TOTAL - pos
+    tail, _ = _hunted_fill(rng, _random_chunks(rest, two), names, margin)
+    dib = np.concatenate(parts + [tail]).astype(np.uint8)
+    return {"dstar_dibits": dib,
+            "dstar_hd_pos": np.asarray(hd_pos, np.int64),
+            "dstar_hd_octets": np.stack(hd_oct),
+            "dstar_sf_pos": np.asarray(sf_pos, np.int64),
+            "dstar_sf_sd": np.stack(sf_sd),
+            "dstar_sf_kind": np.asarray(sf_kind, np.int64),
+            "dstar_sf_tx": np.asarray(sf_tx, np.int64),
+            "dstar_sf_voice": np.packbits(np.stack(sf_voice), axis=-1),
+            "dstar_sf_bits49": np.packbits(np.stack(sf_bits), axis=-1),
+            "dstar_ids": np.array([SERIAL_DSTAR_SEED], np.int64)}
+
+
 def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
-    """The serial decode path's four 60 s streams, each held to the JAX
+    """The serial decode path's nine 60 s streams, each held to the JAX
     package's ``decode_samples`` over its whole length when ``check``
     (the port's ``engine.serialvec`` judges: every LDU, LC, ESS and
     keyed frame, every EDACS frame and ProVoice superframe, every DMR
     burst's lines and AMBE frame, keyed ones decrypted, upright and on
-    an inverted channel, every X2-TDMA superframe's frames)."""
+    an inverted channel, every X2-TDMA superframe's frames, every NXDN
+    frame's line and AMBE frame at both rates, every dPMR part's IDs,
+    channel code and AMBE frames, every YSF frame's FICH, DCH2 text and
+    AMBE or IMBE frames, every D-STAR header and superframe)."""
     t = {**_p25_call_vector(), **_pv_vector(), **_dmr_call_vector(),
-         **_x2_vector()}
+         **_x2_vector(), **_nxdn_serial_vector(), **_dpmr_serial_vector(),
+         **_ysf_serial_vector(), **_dstar_serial_vector()}
     if check:
         _check_serial(t)
     return t
@@ -2412,6 +3185,19 @@ def _check_serial(t: dict[str, np.ndarray]) -> None:
     with SV.AmbeSpy(jmbe) as spy:
         ctx = decode_samples(SV.x2_iq(t), "x2tdma")
     SV.judge_x2(t, ctx, spy)
+    for mode in ("nxdn48", "nxdn96"):
+        with SV.AmbeSpy(jmbe) as spy:
+            ctx = decode_samples(SV.nxdn_iq(t, mode=mode), mode)
+        SV.judge_nxdn(t, ctx, spy, mode)
+    with SV.AmbeSpy(jmbe) as spy:
+        ctx = decode_samples(SV.dpmr_iq(t), "dpmr")
+    SV.judge_dpmr(t, ctx, spy)
+    with SV.AmbeSpy(jmbe) as ambe, \
+            SV.AmbeSpy(jmbe, "decode_imbe_4400") as imbe:
+        ctx = decode_samples(SV.ysf_iq(t), "ysf")
+    SV.judge_ysf(t, ctx, ambe, imbe)
+    ctx = decode_samples(SV.dstar_iq(t), "dstar")
+    SV.judge_dstar(t, ctx)
 
 
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
