@@ -630,7 +630,6 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
     returns the kernels' launches during the phase."""
     import numpy as np
     import torch
-    from dsdneo_tpu_torch.crypto.keyring import KeyRing
     from dsdneo_tpu_torch.engine import decoder as sdec
     from dsdneo_tpu_torch.engine import demod as sdemod
     from dsdneo_tpu_torch.engine import serialvec as SV
@@ -695,37 +694,19 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
     sdec.demod_cqpsk_path = timed("front", real[1])
     synth.synthesize_frames = timed("synth", real[2])
     tv = SV.vector()
-    _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
     dmr_attrs = {"dmr_bp_key_id": int(tv["dmr_ids"][4])}
-    import dsdneo_tpu_torch.vocoder.mbe as mbe
-    # the modes whose voice bits are spied on at decode_ambe_2450 (and
-    # YSF's full rate at decode_imbe_4400)
-    ambe_modes = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "dstar")
-
-    def keyring():
-        kr = KeyRing()
-        kr.scalar[kid] = key
-        kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
-        return kr
 
     def decode(xs, mode, cq, where, attrs=None):
-        """One decode_samples call: (ctx, its AMBE/IMBE sink, wall s,
+        """One decode_samples call: (ctx, its voice-bit sinks, wall s,
         the split)."""
         for k in spent:
             spent[k] = 0.0
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        if mode in ambe_modes:
-            with SV.AmbeSpy(mbe) as sink, \
-                    SV.AmbeSpy(mbe, "decode_imbe_4400") as imbe:
-                ctx = sdec.decode_samples(xs, mode, device=where)
-            sink.imbe = imbe
-        else:
-            sink = SV.ImbeSink()
-            ctx = sdec.decode_samples(xs, mode, cqpsk=cq, keyring=keyring(),
-                                      mbe_sink=sink, state_attrs=attrs,
-                                      device=where)
-        return ctx, sink, time.perf_counter() - t1, dict(spent)
+        ctx, sinks = SV.decode_spied(xs, mode, cqpsk=cq,
+                                     keyring=SV.keyring(tv),
+                                     state_attrs=attrs, device=where)
+        return ctx, sinks, time.perf_counter() - t1, dict(spent)
 
     streams = (
         ("P25p1 C4FM call", "p25p1", False, lambda: SV.p25_iq(tv),
@@ -759,23 +740,8 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 out[where] = decode(xs, mode, cq,
                                     "cpu" if where == "cpu10" else dev,
                                     attrs)
-            ctx, sink, wall, sp = out["card"]
-            if mode == "provoice":
-                got = SV.judge_pv(tv, ctx)
-            elif mode == "dmr":
-                got = SV.judge_dmr(tv, ctx, sink, rc4=True, bp=True)
-            elif mode == "x2tdma":
-                got = SV.judge_x2(tv, ctx, sink)
-            elif mode in ("nxdn48", "nxdn96"):
-                got = SV.judge_nxdn(tv, ctx, sink, mode)
-            elif mode == "dpmr":
-                got = SV.judge_dpmr(tv, ctx, sink)
-            elif mode == "ysf":
-                got = SV.judge_ysf(tv, ctx, sink, sink.imbe)
-            elif mode == "dstar":
-                got = SV.judge_dstar(tv, ctx)
-            else:
-                got = SV.judge_p25(tv, ctx, sink)
+            ctx, sinks, wall, sp = out["card"]
+            got = SV.judge(mode, tv, ctx, sinks)
             pcm = np.concatenate([SV.pcm(ctx, s) for s in sorted(ctx.audio)]
                                  or [np.zeros(0, np.float32)])
             # ProVoice's IMBE-7100 frames and D-STAR's 3600x2400 ones are
@@ -804,10 +770,7 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                                        "path's")
                 if a.size:
                     worst = max(worst, float(np.abs(a - b).max()))
-            pairs = [(out["cpu10"][1], out["card10"][1])]
-            if mode in ambe_modes:
-                pairs.append((out["cpu10"][1].imbe, out["card10"][1].imbe))
-            for a, b in pairs:
+            for a, b in zip(out["cpu10"][1], out["card10"][1]):
                 if len(a.bits) != len(b.bits) or (
                         a.bits and not np.array_equal(np.stack(a.bits),
                                                       np.stack(b.bits))):
@@ -815,8 +778,7 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                                        "s voice bits differ from the CPU "
                                        "path's")
             n10_pcm = sum(len(SV.pcm(g10, s)) for s in g10.audio)
-            n_voice = len(sink.bits) + (len(sink.imbe.bits)
-                                        if mode in ambe_modes else 0)
+            n_voice = sum(len(s.bits) for s in sinks)
             walk = wall - sp["front"] - sp["synth"]
             # device busy over the first 10 s, against its unprofiled wall
             with profile(activities=[ProfilerActivity.CPU,
@@ -852,10 +814,9 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 # inverted expectation: DMR's inverted syncs are the other
                 # burst type's, so every hit is reinterpreted as its twin
                 inv = {**attrs, "force_polarity": {"dmr": True}}
-                ctx, sink, wall, sp = decode(SV.dmr_iq(tv, invert=True),
-                                             mode, cq, dev, inv)
-                got = SV.judge_dmr(tv, ctx, sink, invert=True, rc4=True,
-                                   bp=True)
+                ctx, sinks, wall, sp = decode(SV.dmr_iq(tv, invert=True),
+                                              mode, cq, dev, inv)
+                got = SV.judge(mode, tv, ctx, sinks, invert=True)
                 log(f"serial {name}, inverted channel with force_polarity: "
                     f"{secs:.1f} s decoded on the card in {wall:.3f} s = "
                     f"{secs / wall:.2f}x realtime; judged: {got} "

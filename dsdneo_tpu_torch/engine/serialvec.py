@@ -42,9 +42,11 @@ frame's bits, keyed ones decrypted, nothing else emitted),
 :func:`judge_x2` (every superframe the decoder walks, its AMBE frames'
 bits, nothing else), and :func:`judge_nxdn`, :func:`judge_dpmr`,
 :func:`judge_ysf` and :func:`judge_dstar` (every frame's line with the
-vector's fields, every voice frame's bits through :class:`AmbeSpy`,
-nothing else emitted).  A judge raises ``AssertionError`` on the first
-wrong bit and returns its counts.
+vector's fields, every voice frame's bits through :class:`AmbeSpy`
+or, for D-STAR, in its events' fields, nothing else emitted).  A judge
+raises ``AssertionError`` on the first wrong bit and returns its counts;
+:func:`decode_spied` and :func:`judge` decode and judge any stream by
+its mode.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import functools
 import numpy as np
 
 from dsdneo_tpu_torch import params
+from dsdneo_tpu_torch.crypto.keyring import KeyRing
 from dsdneo_tpu_torch.crypto.keystream import dmr_basic_keystream
 from dsdneo_tpu_torch.protocol.dmr.bs import DATA_TYPES
 from dsdneo_tpu_torch.protocol.dmr.late_entry import mi_advance32
@@ -524,8 +527,7 @@ _NXDN_KIND = {0x36: "Voice ", 0x32: "V2+F1 ", 0x20: "Data  "}
 
 
 def nxdn_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
-            mode: str = "nxdn48", invert: bool = False,
-            seed: int = 0) -> np.ndarray:
+            mode: str = "nxdn48", invert: bool = False) -> np.ndarray:
     """The first ``n_sym`` symbols of the NXDN stream (60 s at ``mode``'s
     rate by default) as complex64 4-level FSK baseband at ``mode``'s rate
     and deviation (``protocol.nxdn.encode.nxdn_fm_iq``) with white noise;
@@ -535,7 +537,7 @@ def nxdn_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
     dev = (nxdn_encode.NXDN48_DEV_HZ if mode == "nxdn48"
            else nxdn_encode.NXDN96_DEV_HZ)
     return _noisy(nxdn_encode.nxdn_fm_iq(tv["nxdn_dibits"][:n_sym], sps,
-                                         dev_hz=dev), invert, seed)
+                                         dev_hz=dev), invert, 0)
 
 
 def _nxdn_vcall_text(mtype: int, src: int, dst: int) -> str:
@@ -614,21 +616,20 @@ DPMR_PART_DIBITS = 384
 
 
 def dpmr_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
-            start: int = 0, invert: bool = False,
-            seed: int = 0) -> np.ndarray:
-    """Symbols ``[start, start + n_sym)`` of the dPMR stream (to its end
-    by default) as complex64 4-level FSK baseband
+            invert: bool = False) -> np.ndarray:
+    """The first ``n_sym`` symbols of the dPMR stream (all of it by
+    default) as complex64 4-level FSK baseband
     (``protocol.dpmr.encode.fm_iq``: ±1050 Hz, 2400 symbols/s) with white
     noise; ``invert`` conjugates it."""
-    dib = tv["dpmr_dibits"][start:None if n_sym is None else start + n_sym]
-    return _noisy(dpmr_encode.fm_iq(dib, DPMR_SPS), invert, seed)
+    return _noisy(dpmr_encode.fm_iq(tv["dpmr_dibits"][:n_sym], DPMR_SPS),
+                  invert, 0)
 
 
 def judge_dpmr(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
-               start: int = 0, n_sym: int | None = None,
+               n_sym: int | None = None,
                invert: bool = False) -> dict[str, int]:
-    """Hold a decode of symbols ``[start, start + n_sym)`` of the dPMR
-    stream to the vector: every event at a sync of the vector, and every
+    """Hold a decode of the dPMR stream's first ``n_sym`` symbols to the
+    vector: every event at a sync of the vector, and every
     frame the span holds whole with exactly its line (and any frame it
     holds in part with its line, if decoded) — the FS1 header and FS4
     end (FS4 is FS1 negated, so on an inverted channel the header reads
@@ -637,23 +638,24 @@ def judge_dpmr(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
     decoder holds after it (part A brings the talkgroup and the channel
     code, part B the source; each starts unknown) and its CCHs' FN;
     through ``spy`` the 8 AMBE frames of every part, in decode order;
-    PCM 160 samples a frame of each whole group of four."""
-    n_sym = len(tv["dpmr_dibits"]) - start if n_sym is None else n_sym
+    PCM 160 samples a frame of each whole group of four.  The IDs are
+    rendered with the port's ``air_interface_id``, held to the JAX
+    package's by ``tests/test_torch_dpmr_serial.py``
+    (``test_crc_tables_and_ids``)."""
+    n_sym = len(tv["dpmr_dibits"]) if n_sym is None else n_sym
     pol = "-" if invert else "+"
-    spos, skind = tv["dpmr_sync_pos"] - start, tv["dpmr_sync_kind"]
-    ppos, pkind = tv["dpmr_part_pos"] - start, tv["dpmr_part_kind"]
+    spos, skind = tv["dpmr_sync_pos"], tv["dpmr_sync_kind"]
+    ppos, pkind = tv["dpmr_part_pos"], tv["dpmr_part_kind"]
     ptx, txs = tv["dpmr_part_tx"], tv["dpmr_tx"]
     bits = np.unpackbits(tv["dpmr_bits49"], axis=-1)[..., :49]
-    span = (spos >= 0) & (spos < n_sym)
     at_sync, whole = {}, set()
-    for i in np.flatnonzero(span):
+    for i in np.flatnonzero(spos < n_sym):
         k = int(skind[i])
         lo = int(spos[i]) - (192 if k == 3 else 0)
         ln = {1: 24, 2: DPMR_PART_DIBITS, 3: DPMR_PART_DIBITS, 4: 24}[k]
-        if lo >= 0:
-            at_sync[int(spos[i])] = k
-            if lo + ln + POS_TOL <= n_sym:
-                whole.add(int(spos[i]))
+        at_sync[int(spos[i])] = k
+        if lo + ln + POS_TOL <= n_sym:
+            whole.add(int(spos[i]))
     ev = [e for e in ctx.events if e.protocol == "dpmr"]
     _require(len(ev) == len(ctx.events), "events of another protocol")
     tg = src = cc = None
@@ -721,13 +723,13 @@ YSF_FRAME_DIBITS = 480
 
 
 def ysf_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
-           invert: bool = False, seed: int = 0) -> np.ndarray:
+           invert: bool = False) -> np.ndarray:
     """The first ``n_sym`` symbols of the YSF stream (all of it by
     default) as complex64 4-level FSK baseband
     (``protocol.ysf.encode.fm_iq``: ±2.4 kHz, 4800 symbols/s) with white
     noise; ``invert`` conjugates it."""
     return _noisy(ysf_encode.fm_iq(tv["ysf_dibits"][:n_sym], YSF_SPS),
-                  invert, seed)
+                  invert, 0)
 
 
 def _ysf_dch2_text(fn: int, cm: int, txt: str) -> str:
@@ -749,7 +751,10 @@ def judge_ysf(tv: dict[str, np.ndarray], ctx, ambe: AmbeSpy,
     the AMBE frames of every V/D1 (four) and V/D2 (five) communication
     frame, through ``imbe`` the IMBE frames of every full-rate one (five,
     or two on the CSD3 frame), in decode order, and none from a header
-    or terminator; PCM 160 samples a frame."""
+    or terminator; PCM 160 samples a frame.  The FICH's names come from
+    the port's ``DT_NAMES``, ``CM_NAMES`` and ``FI_NAMES``, held to the
+    JAX package's by ``tests/test_torch_ysf_serial.py``
+    (``test_crc_and_tables``)."""
     n_sym = len(tv["ysf_dibits"]) if n_sym is None else n_sym
     pos, fich, text = tv["ysf_frame_pos"], tv["ysf_fich"], \
         tv["ysf_frame_text"]
@@ -816,12 +821,12 @@ DSTAR_SUPERFRAME_DIBITS = 2016
 
 
 def dstar_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
-             invert: bool = False, seed: int = 0) -> np.ndarray:
+             invert: bool = False) -> np.ndarray:
     """The first ``n_sym`` symbols of the D-STAR stream (all of it by
     default) as complex64 GMSK baseband (``protocol.dstar.encode.fm_iq``)
     with white noise; ``invert`` conjugates it."""
     return _noisy(dstar_encode.fm_iq(tv["dstar_dibits"][:n_sym],
-                                     DSTAR_SPS), invert, seed)
+                                     DSTAR_SPS), invert, 0)
 
 
 def judge_dstar(tv: dict[str, np.ndarray], ctx,
@@ -834,7 +839,10 @@ def judge_dstar(tv: dict[str, np.ndarray], ctx,
     data (the header's copy with the call's MYCALL, its radio text, or
     the DPRS position), its 21 frames' on-air bits and their 49 AMBE
     parameter bits with no ECC error; no PCM (the 3600x2400 parameters
-    are not synthesized)."""
+    are not synthesized).  The header and slow-data lines are rendered
+    with the port's ``header_line`` and ``slow_data_line``, held to the
+    JAX package's by ``tests/test_torch_dstar_serial.py``
+    (``test_slow_data``, and ``test_dstar_stream`` for the headers)."""
     n_sym = len(tv["dstar_dibits"]) if n_sym is None else n_sym
     hd, sf = tv["dstar_hd_pos"], tv["dstar_sf_pos"]
     voice = np.unpackbits(tv["dstar_sf_voice"], axis=-1)[..., :72]
@@ -892,3 +900,64 @@ def judge_dstar(tv: dict[str, np.ndarray], ctx,
     _require(not missing, f"frames not decoded: {missing[:8]}")
     _require(not ctx.audio, "D-STAR PCM")
     return got
+
+
+# -- one decode, one judge, for any stream ----------------------------------
+# the modes whose voice bits are read where they enter the vocoder (each
+# AMBE frame's 49 at ``decode_ambe_2450``, YSF's full-rate IMBE 88 at
+# ``decode_imbe_4400``) rather than through an ``mbe_sink``; D-STAR's
+# frames reach neither and ride in its events' fields
+SPIED_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf")
+
+
+def keyring(tv: dict[str, np.ndarray]) -> KeyRing:
+    """The keys of the vector's keyed calls: the P25 ADP key and the DMR
+    RC4 key."""
+    _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
+    kr = KeyRing()
+    kr.scalar[kid] = key
+    kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
+    return kr
+
+
+def decode_spied(x: np.ndarray, mode: str, **kw):
+    """The port's ``decode_samples(x, mode, **kw)`` with the voice bits
+    it handed the vocoder kept: (ctx, sinks), the sinks an
+    :class:`ImbeSink` for P25, ProVoice and DMR, two :class:`AmbeSpy`
+    (AMBE, IMBE) for :data:`SPIED_MODES`, none for D-STAR."""
+    from dsdneo_tpu_torch.engine import decoder
+    from dsdneo_tpu_torch.vocoder import mbe
+    if mode in SPIED_MODES:
+        with AmbeSpy(mbe) as ambe, AmbeSpy(mbe, "decode_imbe_4400") as imbe:
+            ctx = decoder.decode_samples(x, mode, **kw)
+        return ctx, (ambe, imbe)
+    if mode == "dstar":
+        return decoder.decode_samples(x, mode, **kw), ()
+    sink = ImbeSink()
+    return decoder.decode_samples(x, mode, mbe_sink=sink, **kw), (sink,)
+
+
+def judge(mode: str, tv: dict[str, np.ndarray], ctx, sinks,
+          n_sym: int | None = None, invert: bool = False) -> dict[str, int]:
+    """Hold a decode of ``mode``'s stream (its first ``n_sym`` symbols)
+    to the vector through that mode's judge, with the sinks
+    :func:`decode_spied` gave; ``invert`` for an inverted DMR or dPMR
+    channel (the DMR one read under ``force_polarity``)."""
+    if mode == "p25p1":
+        return judge_p25(tv, ctx, sinks[0], n_sym)
+    if mode == "provoice":
+        return judge_pv(tv, ctx, n_sym)
+    if mode == "dmr":
+        return judge_dmr(tv, ctx, sinks[0], 0, n_sym, invert=invert,
+                         rc4=True, bp=True)
+    if mode == "x2tdma":
+        return judge_x2(tv, ctx, sinks[0], n_sym)
+    if mode in NXDN_SPS:
+        return judge_nxdn(tv, ctx, sinks[0], mode, n_sym)
+    if mode == "dpmr":
+        return judge_dpmr(tv, ctx, sinks[0], n_sym, invert)
+    if mode == "ysf":
+        return judge_ysf(tv, ctx, *sinks, n_sym)
+    if mode == "dstar":
+        return judge_dstar(tv, ctx, n_sym)
+    raise ValueError(f"no stream of mode {mode!r}")

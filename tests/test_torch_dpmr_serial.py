@@ -69,7 +69,7 @@ def test_dpmr_stream(channel):
     tv = SV.vector()
     invert = channel == "inverted"
     tc, ts = _both(SV.dpmr_iq(tv, DPMR_SYM, invert=invert))
-    got = SV.judge_dpmr(tv, tc, ts, 0, DPMR_SYM, invert=invert)
+    got = SV.judge_dpmr(tv, tc, ts, DPMR_SYM, invert=invert)
     assert got["parts"] >= 23 and got["fs3_parts"] >= 11
     assert got["ambe_frames"] >= 180 and got["headers"] == 1
     assert any(e.line.endswith("(end)") for e in tc.events) == invert

@@ -29,42 +29,19 @@ import numpy as np
 import pytest
 import torch
 
-from dsdneo_tpu_torch.crypto.keyring import KeyRing
 from dsdneo_tpu_torch.engine import demod
-from dsdneo_tpu_torch.engine.decoder import decode_samples
 from dsdneo_tpu_torch.engine import serialvec as SV
 from dsdneo_tpu_torch.runtime import config as rtcfg
 
 PCM_REL = 2e-3
 SOFT_TOL = 5e-3
 EDGE = 0.05
-# the modes whose voice bits the test spies on (AMBE, and YSF's IMBE)
-AMBE_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "dstar")
 
 
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda", 0)
-
-
-def _decode(x, mode, device, **kw):
-    tv = SV.vector()
-    _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
-    kr = KeyRing()
-    kr.scalar[kid] = key
-    kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
-    sink = SV.ImbeSink()
-    if mode in AMBE_MODES:
-        import dsdneo_tpu_torch.vocoder.mbe as mbe
-        with SV.AmbeSpy(mbe) as sink, \
-                SV.AmbeSpy(mbe, "decode_imbe_4400") as imbe:
-            ctx = decode_samples(x, mode, device=device, **kw)
-        sink.imbe = imbe
-        return ctx, sink
-    ctx = decode_samples(x, mode, keyring=kr, mbe_sink=sink, device=device,
-                         **kw)
-    return ctx, sink
 
 
 @pytest.mark.cuda
@@ -103,35 +80,24 @@ def test_decode_samples_card_against_cpu(stream):
         n = 4 * 4800
         x = SV.p25_iq(tv, n, cqpsk=stream == "cqpsk")
         mode, kw = "p25p1", {"cqpsk": stream == "cqpsk"}
-    gc, gs = _decode(x, mode, dev, **kw)
-    cc, cs = _decode(x, mode, "cpu", **kw)
+    gc, gs = SV.decode_spied(x, mode, keyring=SV.keyring(tv), device=dev,
+                             **kw)
+    cc, cs = SV.decode_spied(x, mode, keyring=SV.keyring(tv),
+                             device="cpu", **kw)
     assert SV.events_equal(cc.events, gc.events) is None, \
         SV.events_equal(cc.events, gc.events)
-    assert len(gs.bits) == len(cs.bits)
-    if cs.bits:
-        np.testing.assert_array_equal(np.stack(gs.bits), np.stack(cs.bits))
-    if mode in AMBE_MODES:
-        assert len(gs.imbe.bits) == len(cs.imbe.bits)
-        if cs.imbe.bits:
-            np.testing.assert_array_equal(np.stack(gs.imbe.bits),
-                                          np.stack(cs.imbe.bits))
-    if stream == "provoice":
-        assert SV.judge_pv(tv, gc, n)["provoice_superframes"] >= 15
-    elif stream.startswith("dmr"):
-        assert SV.judge_dmr(tv, gc, gs, 0, n, invert=inv, rc4=True,
-                            bp=True)["bp_frames"] >= 72
-    elif stream == "x2tdma":
-        assert SV.judge_x2(tv, gc, gs, n)["superframes"] >= 12
-    elif stream.startswith("nxdn"):
-        assert SV.judge_nxdn(tv, gc, gs, mode, n)["vcalls"] >= 10
-    elif stream == "dpmr":
-        assert SV.judge_dpmr(tv, gc, gs, 0, n)["fs3_parts"] >= 11
-    elif stream == "ysf":
-        assert SV.judge_ysf(tv, gc, gs, gs.imbe, n)["imbe_frames"] >= 30
-    elif stream == "dstar":
-        assert SV.judge_dstar(tv, gc, n)["superframes"] >= 7
-    else:
-        assert SV.judge_p25(tv, gc, gs, n)["keyed_ldus"] >= 8
+    for a, b in zip(cs, gs):
+        assert len(b.bits) == len(a.bits)
+        if a.bits:
+            np.testing.assert_array_equal(np.stack(b.bits), np.stack(a.bits))
+    got = SV.judge(mode, tv, gc, gs, n, invert=stream == "dmr_inverted")
+    key, least = {"provoice": ("provoice_superframes", 15),
+                  "dmr": ("bp_frames", 72), "x2tdma": ("superframes", 12),
+                  "nxdn48": ("vcalls", 10), "nxdn96": ("vcalls", 10),
+                  "dpmr": ("fs3_parts", 11), "ysf": ("imbe_frames", 30),
+                  "dstar": ("superframes", 7),
+                  "p25p1": ("keyed_ldus", 8)}[mode]
+    assert got[key] >= least
     assert sorted(cc.audio) == sorted(gc.audio)
     for slot in cc.audio:
         a, b = SV.pcm(cc, slot), SV.pcm(gc, slot)

@@ -482,26 +482,17 @@ def test_serial_decode_runs_without_the_jax_package():
         "keyring=kr, mbe_sink=sink, device='cpu')\n"
         "assert SV.judge_dmr(tv, ctx, sink, start, 19200, "
         "rc4=True)['rc4_frames'] >= 72\n"
-        "import dsdneo_tpu_torch.vocoder.mbe as mbe\n"
-        "with SV.AmbeSpy(mbe) as spy:\n"
-        "    ctx = decode_samples(SV.x2_iq(tv, 12000), 'x2tdma', "
-        "device='cpu')\n"
-        "assert SV.judge_x2(tv, ctx, spy, 12000)['superframes'] >= 5\n"
-        "for mode, n in (('nxdn48', 2400), ('nxdn96', 9600)):\n"
-        "    with SV.AmbeSpy(mbe) as spy:\n"
-        "        ctx = decode_samples(SV.nxdn_iq(tv, n, mode), mode, "
-        "device='cpu')\n"
-        "    assert SV.judge_nxdn(tv, ctx, spy, mode, n)['vcalls'] >= 2\n"
-        "with SV.AmbeSpy(mbe) as spy:\n"
-        "    ctx = decode_samples(SV.dpmr_iq(tv, 3600), 'dpmr', "
-        "device='cpu')\n"
-        "assert SV.judge_dpmr(tv, ctx, spy, 0, 3600)['fs3_parts'] >= 3\n"
-        "with SV.AmbeSpy(mbe) as a, SV.AmbeSpy(mbe, 'decode_imbe_4400') "
-        "as i:\n"
-        "    ctx = decode_samples(SV.ysf_iq(tv, 9600), 'ysf', device='cpu')\n"
-        "assert SV.judge_ysf(tv, ctx, a, i, 9600)['imbe_frames'] >= 10\n"
-        "ctx = decode_samples(SV.dstar_iq(tv, 9600), 'dstar', device='cpu')\n"
-        "assert SV.judge_dstar(tv, ctx, 9600)['superframes'] >= 3\n"
+        "for mode, n, iq, key, least in (\n"
+        "        ('x2tdma', 12000, SV.x2_iq, 'superframes', 5),\n"
+        "        ('nxdn48', 2400, SV.nxdn_iq, 'vcalls', 2),\n"
+        "        ('nxdn96', 9600, SV.nxdn_iq, 'vcalls', 2),\n"
+        "        ('dpmr', 3600, SV.dpmr_iq, 'fs3_parts', 3),\n"
+        "        ('ysf', 9600, SV.ysf_iq, 'imbe_frames', 10),\n"
+        "        ('dstar', 9600, SV.dstar_iq, 'superframes', 3)):\n"
+        "    x = iq(tv, n, mode) if iq is SV.nxdn_iq else iq(tv, n)\n"
+        "    ctx, sinks = SV.decode_spied(x, mode, device='cpu')\n"
+        "    got = SV.judge(mode, tv, ctx, sinks, n)\n"
+        "    assert got[key] >= least, (mode, got)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

@@ -2413,41 +2413,32 @@ NXDN_LICH_VOICE, NXDN_LICH_MIXED, NXDN_LICH_DATA = 0x36, 0x32, 0x20
 NXDN_TX_REL, NXDN_VCALL = 0x08, 0x01
 
 
-@functools.lru_cache(maxsize=None)
-def _family_defs(names: tuple[str, ...]) -> list:
-    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
-    return [d.levels.astype(np.float64) for d in SYNC_DEFS
-            if d.name in names]
-
-
-def _hunted_fill(rng, segs, names, margin, after=None, patience=300):
+def _hunted_fill(rng, segs, protocol: str, margin, after=None,
+                 patience=300):
     """Segments for a stretch the serial hunt reads (no frame takes it),
     each ``draw(rng)`` → (dibits, record) drawn again until no clean
-    correlation with ``names`` reaches ``margin`` at a window that starts
-    in the stretch (7 positions short of a sync in ``after``, the
-    dibits that follow it, if any); windows are judged as soon as the
-    segments they cover are drawn, and a segment that finds no clean
-    draw sends its predecessor (every tenth time, all of them) back to be
-    drawn again, ``patience`` times at most.  Returns (the stretch's
-    dibits, the segments' records)."""
-    defs = _family_defs(names)
-    lmax = max(len(lv) for lv in defs)
+    correlation with ``protocol``'s syncs reaches ``margin`` at a window
+    that starts in the stretch (7 positions short of a sync in
+    ``after``, the dibits that follow it, if any); windows are judged as
+    soon as the segments they cover are drawn, and a segment that finds
+    no clean draw sends its predecessor (every tenth time, all of them)
+    back to be drawn again, ``patience`` times at most.  Returns (the
+    stretch's dibits, the segments' records)."""
+    defs = _sync_defs(protocol)
+    lmax = max(len(d.levels) for d in defs)
     tail = np.zeros(0, np.uint8) if after is None else \
         np.asarray(after[:48], np.uint8)
-    lvl = np.array([1.0, 3.0, -1.0, -3.0])
 
     def clean(out: np.ndarray, d: np.ndarray, last: bool) -> bool:
         cand = np.concatenate([out, d] + ([tail] if last else []))
         end = len(out) + len(d)
         qhi = end - 7 if (last and after is not None) else end
         qlo = max(len(out) - lmax + 1, 0)
-        lv = lvl[cand]
-        for levels in defs:
-            n = len(levels)
+        for sd in defs:
+            n = len(sd.levels)
             top = min(qhi, len(cand) - n + 1)
-            if top > qlo and (np.abs(np.lib.stride_tricks.sliding_window_view(
-                    lv[qlo:top + n - 1], n) @ levels).max()
-                    >= margin * 9.0 * n):
+            if top > qlo and np.abs(_sync_corr(cand[qlo:top + n - 1],
+                                               sd.levels)).max() >= margin:
                 return False
         return True
 
@@ -2472,14 +2463,20 @@ def _hunted_fill(rng, segs, names, margin, after=None, patience=300):
     return out, [r for _, r in done]
 
 
-def _clean_tail(rng, n: int, names, margin: float) -> np.ndarray:
+def _clean_tail(rng, n: int, protocol: str, margin: float) -> np.ndarray:
     """``n`` random dibits after the last frame, drawn clean."""
-    return _hunted_fill(rng, _random_chunks(n), names, margin)[0]
+    return _hunted_fill(rng, _random_chunks(n), protocol, margin)[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _sync_defs(protocol: str) -> tuple:
+    """The sync patterns of ``protocol``'s family, both polarities."""
+    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
+    return tuple(d for d in SYNC_DEFS if d.protocol == protocol)
 
 
 def _sync_names(protocol: str) -> tuple[str, ...]:
-    from dsdneo_tpu.symbols.framesync import SYNC_DEFS
-    return tuple(d.name for d in SYNC_DEFS if d.protocol == protocol)
+    return tuple(d.name for d in _sync_defs(protocol))
 
 
 def _random_chunks(n: int, alphabet=(0, 1, 2, 3), chunk: int = 12):
@@ -2633,10 +2630,10 @@ def _nxdn_serial_vector() -> dict[str, np.ndarray]:
         else:
             raise RuntimeError("no NXDN frame tail keeps the sync clear")
     first = frames[0]["dib"]
-    lead = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names, margin,
+    lead = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), "nxdn", margin,
                         after=first)[0]
     body = np.concatenate([lead] + [f["dib"] for f in frames])
-    tail = _clean_tail(rng, SERIAL_NXDN_TOTAL - len(body), names, margin)
+    tail = _clean_tail(rng, SERIAL_NXDN_TOTAL - len(body), "nxdn", margin)
     dib = np.concatenate([body, tail]).astype(np.uint8)
     pos = SERIAL_LEAD4 + 192 * np.arange(len(frames), dtype=np.int64)
     bits = np.stack([b for f in frames for b in f["bits"] if b is not None])
@@ -2685,7 +2682,7 @@ def _dpmr_cc_dibits(cc: int) -> np.ndarray:
                     np.uint8)
 
 
-def _dpmr_colour(rng, t: int, src: int, names, margin: float) -> int:
+def _dpmr_colour(rng, t: int, src: int, margin: float) -> int:
     """Transmission ``t``'s colour code: the first of ``_SERIAL_DPMR_CC``
     from its turn on whose channel code can open a part B of ``src``
     (its CCH1 opening follows the code; some pairs force a false FS2)."""
@@ -2695,7 +2692,7 @@ def _dpmr_colour(rng, t: int, src: int, names, margin: float) -> int:
             _hunted_fill(rng, [lambda r: (_dpmr_cc_dibits(cc), None),
                                lambda r: (_dpmr_cch_dibits(
                                    2, src >> 12, r.integers(0, 2, 27).astype(
-                                       np.uint8)), None)], names, margin,
+                                       np.uint8)), None)], "dpmr", margin,
                          patience=3)
             return cc
         except RuntimeError:
@@ -2739,7 +2736,7 @@ def _dpmr_serial_vector() -> dict[str, np.ndarray]:
     t = 0
     while True:
         tg, src = _SERIAL_DPMR_IDS[t % len(_SERIAL_DPMR_IDS)]
-        cc = _dpmr_colour(rng, t, src, names, margin)
+        cc = _dpmr_colour(rng, t, src, margin)
         n_sf = int(rng.integers(*SERIAL_DPMR_SF))
         fs1 = _sync_of("+dPMR FS1")
         need = 192 + 768 * n_sf + 192 + SERIAL_DPMR_GAP[1]
@@ -2747,8 +2744,8 @@ def _dpmr_serial_vector() -> dict[str, np.ndarray]:
                 SERIAL_DPMR_TOTAL:
             break
         if lead is None:
-            lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names,
-                                   margin, after=fs1)
+            lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4),
+                                   "dpmr", margin, after=fs1)
             segs.append(lead)
             pos = len(lead)
         sync_pos.append(pos)
@@ -2757,7 +2754,7 @@ def _dpmr_serial_vector() -> dict[str, np.ndarray]:
         # part A, then part B's opening frame (hunted), then its FS3 frame
         a_head = np.concatenate([_sync_of("+dPMR FS2"),
                                  cch(0, tg >> 12)(rng)[0]])
-        header, _ = _hunted_fill(rng, _random_chunks(168), names, margin,
+        header, _ = _hunted_fill(rng, _random_chunks(168), "dpmr", margin,
                                  after=a_head)
         seg_tx = [fs1, header]
         p = pos + 192
@@ -2774,7 +2771,7 @@ def _dpmr_serial_vector() -> dict[str, np.ndarray]:
                                        cch(3, src & 0xFFF)(rng)[0]])
             b1, recs = _hunted_fill(
                 rng, [lambda r: (_dpmr_cc_dibits(cc), None),
-                      cch(2, src >> 12)] + [ambe] * 4, names, margin,
+                      cch(2, src >> 12)] + [ambe] * 4, "dpmr", margin,
                 after=fs3_head)
             gd = [ambe(rng) for _ in range(4)]
             part_b = [b1, fs3_head] + [d for d, _ in gd]
@@ -2824,7 +2821,7 @@ def _dpmr_serial_vector() -> dict[str, np.ndarray]:
     for i, sgm in enumerate(segs):
         if isinstance(sgm, tuple):
             nxt = _sync_of("+dPMR FS1") if i + 1 < len(segs) else None
-            sgm, _ = _hunted_fill(rng, _random_chunks(sgm[1]), names,
+            sgm, _ = _hunted_fill(rng, _random_chunks(sgm[1]), "dpmr",
                                   margin, after=nxt)
         out.append(sgm)
     dib = np.concatenate(out).astype(np.uint8)
@@ -3019,10 +3016,10 @@ def _ysf_serial_vector() -> dict[str, np.ndarray]:
             a["payload"], a["ambe"], a["imbe"] = blocks(a)
         else:
             raise RuntimeError("no YSF frame end keeps the sync clear")
-    lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), names, margin,
+    lead, _ = _hunted_fill(rng, _random_chunks(SERIAL_LEAD4), "ysf", margin,
                            after=dib(frames[0]))
     body = np.concatenate([lead] + [dib(f) for f in frames])
-    tail = _clean_tail(rng, SERIAL_YSF_TOTAL - len(body), names, margin)
+    tail = _clean_tail(rng, SERIAL_YSF_TOTAL - len(body), "ysf", margin)
     out = np.concatenate([body, tail]).astype(np.uint8)
     pos = SERIAL_LEAD4 + 480 * np.arange(len(frames), dtype=np.int64)
     fich = np.array([[f[k] for k in ("fi", "cm", "fn", "ft", "mr", "vp",
@@ -3111,7 +3108,7 @@ def _dstar_serial_vector() -> dict[str, np.ndarray]:
                                    "sync clear")
             sf["voice"] = voice
             dib_sf.append(d)
-        idle, _ = _hunted_fill(rng, _random_chunks(gap, two), names,
+        idle, _ = _hunted_fill(rng, _random_chunks(gap, two), "dstar",
                                margin, after=hd)
         parts += [idle, hd] + dib_sf
         pos += len(idle)
@@ -3128,7 +3125,7 @@ def _dstar_serial_vector() -> dict[str, np.ndarray]:
             pos += 2016
         tx += 1
     rest = SERIAL_DSTAR_TOTAL - pos
-    tail, _ = _hunted_fill(rng, _random_chunks(rest, two), names, margin)
+    tail, _ = _hunted_fill(rng, _random_chunks(rest, two), "dstar", margin)
     dib = np.concatenate(parts + [tail]).astype(np.uint8)
     return {"dstar_dibits": dib,
             "dstar_hd_pos": np.asarray(hd_pos, np.int64),
