@@ -50,9 +50,15 @@ The paths, each at 320 channels through the entry points a user calls:
     both keys), also on an inverted channel under ``force_polarity``,
     an X2-TDMA voice stream (the ``x2tdma`` mode), an NXDN traffic
     channel (``nxdn48`` and ``nxdn96`` from the same dibits), a dPMR
-    channel, a YSF channel and a D-STAR channel; no kernel of the table:
-    the serial front end is plain PyTorch on the card and the protocol
-    walk runs on the host, as in the JAX package.
+    channel, a YSF channel, a D-STAR channel, an M17 channel (clear,
+    scrambled, AES-CTR and signed calls with Codec2 voice, an SMS
+    packet, a BERT run; the keys as ``state_attrs``) and a P25 Phase 2
+    channel (a clear then an ADP-keyed half; with ``p2_params`` and
+    blind); ``decode_samples(..., "auto")`` on a probe of each family's
+    stream; ``decode_capture`` of the P25 call written as a 96 kHz cs16
+    capture; no kernel of the table: the serial front end and the
+    resampler are plain PyTorch on the card and the protocol walk runs
+    on the host, as in the JAX package.
 
 Phases, in order; any failure exits non-zero:
 
@@ -229,13 +235,28 @@ Phases, in order; any failure exits non-zero:
      part with its talkgroup, source, channel code and 8 AMBE frames;
      every YSF frame's FICH fields, DCH2 text and AMBE or IMBE frames;
      every D-STAR header's octets and superframe's slow data and AMBE
-     bits; nothing else emitted; the PCM finite and not silent (D-STAR
-     and ProVoice synthesize none); the first 10 s of each decoded on the card and on the CPU
+     bits; every M17 frame's line (LSFs with their META, the LICH's
+     LSFs, FN, A_DATA, the signature frames, VERIFIED, the SMS, the BERT
+     counts) and every voice payload handed to Codec2 and sent as an IP
+     frame; every P25p2 frame's timeslots (DUID, superframe position,
+     ESS, MAC_PTT) and AMBE frame, the keyed half decrypted from its
+     second superframe, with ``p2_params`` (and blind over its first 20
+     s); nothing else
+     emitted; the PCM finite and not silent (D-STAR and ProVoice
+     synthesize none, nor M17 where libcodec2 does not load: the script
+     says whether it loads); the first 10 s of M17 and P25p2 and the
+     first 5 s of each older stream decoded on the card and on the CPU
      with equal events and voice bits and each slot's PCM within 2e-3 of
-     the peak.  Each
-     stream's x-realtime and its split (front end, host walk, synthesis),
-     the peak device memory and the launches of K1-K8 during the phase
-     (all 0) are printed.
+     the peak; the inverted DMR channel over its first 20 s.  Each stream's x-realtime and its split
+     (front end, host walk, synthesis; M17's Codec2 host calls as its
+     synthesis) are printed.  Then ``decode_samples(..., "auto")`` on
+     the card on a 4 s probe of each family's stream, its pick equal to
+     ``detect_mode``'s on the CPU; and the P25 call resampled from 48 to
+     96 kHz on the card (``dsp.resampler``), written as a cs16 capture
+     (``io.write_iq_capture``) and decoded by ``decode_capture`` on the
+     card (back to 48 kHz on the card), judged whole, its first 5 s
+     equal to the CPU path's.  Each phase's start time is printed.  The peak device memory and the launches
+     of K1-K8 during the phase (all 0) are printed.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -626,14 +647,21 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
     ``decode_samples`` on the card over the 60 s streams of
     ``data/serial_tables.npz`` (P25p1 C4FM and CQPSK, EDACS + ProVoice,
     DMR upright and inverted, X2-TDMA, NXDN48, NXDN96, dPMR, YSF,
-    D-STAR), each judged whole and its first 10 s held to the CPU path;
-    returns the kernels' launches during the phase."""
+    D-STAR, M17, P25p2 with its parameters and blind), each judged whole
+    and its first 10 s (5 s for the streams before M17 and P25p2) held
+    to the CPU path; ``"auto"`` on each family's
+    probe against the CPU's pick; ``decode_capture`` of a 96 kHz
+    capture; returns the kernels' launches during the phase."""
+    import tempfile
+
     import numpy as np
     import torch
+    from dsdneo_tpu_torch.dsp.resampler import resample
     from dsdneo_tpu_torch.engine import decoder as sdec
     from dsdneo_tpu_torch.engine import demod as sdemod
     from dsdneo_tpu_torch.engine import serialvec as SV
-    from dsdneo_tpu_torch.vocoder import synth
+    from dsdneo_tpu_torch.io import IqMetadata, write_iq_capture
+    from dsdneo_tpu_torch.vocoder import codec2, synth
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -677,8 +705,12 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
 
     # the split of decode_samples: the front end (the demod call, on the
     # card), the synthesis (the voice frames' synthesize_frames, on the
-    # card) and the host walk (the rest)
+    # card; M17's Codec2 decode, on the host) and the host walk (the rest)
     spent = {"front": 0.0, "synth": 0.0}
+    c2_ok = codec2.available()
+    log(f"serial: libcodec2 {'loads' if c2_ok else 'does not load'} here"
+        + ("" if c2_ok else ": M17 is judged on its Codec2 payload bits and "
+           "emits no PCM") + f" [{ident}]")
 
     def timed(key, fn):
         def wrap(*a, **kw):
@@ -689,14 +721,16 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 spent[key] += time.perf_counter() - t
         return wrap
 
-    real = (sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames)
+    real = (sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames,
+            codec2.Codec2.decode)
     sdec.demod_fm = timed("front", real[0])
     sdec.demod_cqpsk_path = timed("front", real[1])
     synth.synthesize_frames = timed("synth", real[2])
+    codec2.Codec2.decode = timed("synth", real[3])
     tv = SV.vector()
-    dmr_attrs = {"dmr_bp_key_id": int(tv["dmr_ids"][4])}
+    dmr_kw = {"state_attrs": {"dmr_bp_key_id": int(tv["dmr_ids"][4])}}
 
-    def decode(xs, mode, cq, where, attrs=None):
+    def decode(xs, mode, cq, where, kw=None):
         """One decode_samples call: (ctx, its voice-bit sinks, wall s,
         the split)."""
         for k in spent:
@@ -704,9 +738,10 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         ctx, sinks = SV.decode_spied(xs, mode, cqpsk=cq,
-                                     keyring=SV.keyring(tv),
-                                     state_attrs=attrs, device=where)
+                                     keyring=SV.keyring(tv), device=where,
+                                     **(kw or {}))
         return ctx, sinks, time.perf_counter() - t1, dict(spent)
+
 
     streams = (
         ("P25p1 C4FM call", "p25p1", False, lambda: SV.p25_iq(tv),
@@ -716,7 +751,7 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
         ("EDACS + ProVoice", "provoice", False, lambda: SV.pv_iq(tv),
          9600 * SV.PV_SPS, None),
         ("DMR BS call", "dmr", False, lambda: SV.dmr_iq(tv),
-         4800 * SV.DMR_SPS, dmr_attrs),
+         4800 * SV.DMR_SPS, dmr_kw),
         ("X2-TDMA", "x2tdma", False, lambda: SV.x2_iq(tv),
          6000 * SV.X2_SPS, None),
         ("NXDN48", "nxdn48", False, lambda: SV.nxdn_iq(tv, mode="nxdn48"),
@@ -728,11 +763,18 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
         ("YSF", "ysf", False, lambda: SV.ysf_iq(tv), 4800 * SV.YSF_SPS,
          None),
         ("D-STAR", "dstar", False, lambda: SV.dstar_iq(tv),
-         4800 * SV.DSTAR_SPS, None))
+         4800 * SV.DSTAR_SPS, None),
+        ("M17", "m17", False, lambda: SV.m17_iq(tv), 4800 * SV.M17_SPS,
+         {"state_attrs": SV.m17_attrs(tv)}),
+        ("P25p2 clear + ADP", "p25p2", False, lambda: SV.p2_iq(tv),
+         6000 * SV.P2_SPS, {"p2_params": SV.p2_params(tv)}))
     try:
         for name, mode, cq, make, per_s, attrs in streams:
             x = make()
-            n10 = 10 * per_s
+            # the card against the CPU over the first 10 s of the streams
+            # this slice added, 5 s of the older ones (the script's time)
+            win_s = 10 if mode in ("m17", "p25p2") else 5
+            n10 = win_s * per_s
             secs = len(x) / FS
             out = {}
             for where, xs in (("card", x), ("cpu10", x[:n10]),
@@ -745,42 +787,55 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
             pcm = np.concatenate([SV.pcm(ctx, s) for s in sorted(ctx.audio)]
                                  or [np.zeros(0, np.float32)])
             # ProVoice's IMBE-7100 frames and D-STAR's 3600x2400 ones are
-            # not synthesized
-            if mode not in ("provoice", "dstar"):
+            # not synthesized, nor M17's Codec2 without libcodec2
+            if mode not in ("provoice", "dstar") and (mode != "m17"
+                                                      or c2_ok):
                 if not (np.isfinite(pcm).all() and np.abs(pcm).max() > 0.05):
                     raise RuntimeError(f"serial {name}: PCM not finite or "
                                        "silent")
             diff = SV.events_equal(out["cpu10"][0].events,
                                    out["card10"][0].events)
             if diff is not None:
-                raise RuntimeError(f"serial {name}: the card's first 10 s "
-                                   f"differ from the CPU path: {diff}")
+                raise RuntimeError(f"serial {name}: the card's first "
+                                   f"{win_s} s differ from the CPU path: "
+                                   f"{diff}")
             c10, g10 = out["cpu10"][0], out["card10"][0]
             if sorted(c10.audio) != sorted(g10.audio):
-                raise RuntimeError(f"serial {name}: the card's first 10 s "
-                                   "carry PCM on other slots")
+                raise RuntimeError(f"serial {name}: the card's first "
+                                   f"{win_s} s carry PCM on other slots")
             worst = 0.0
             for slot in c10.audio:
                 a, b = SV.pcm(c10, slot), SV.pcm(g10, slot)
+                if mode == "m17" and a.shape == b.shape:
+                    # libcodec2's noise generator is one for the process:
+                    # M17's PCM compares in fresh processes, below
+                    continue
                 if a.shape != b.shape or (a.size and np.abs(a - b).max()
                                           > 2e-3 * np.abs(a).max()):
                     raise RuntimeError(f"serial {name}: the card's first "
-                                       f"10 s PCM of slot {slot} is not "
+                                       f"{win_s} s PCM of slot {slot} is not "
                                        "within 2e-3 of the peak of the CPU "
                                        "path's")
                 if a.size:
                     worst = max(worst, float(np.abs(a - b).max()))
-            for a, b in zip(out["cpu10"][1], out["card10"][1]):
-                if len(a.bits) != len(b.bits) or (
-                        a.bits and not np.array_equal(np.stack(a.bits),
-                                                      np.stack(b.bits))):
+            if not SV.sinks_equal(out["cpu10"][1], out["card10"][1]):
+                raise RuntimeError(f"serial {name}: the card's first "
+                                   f"{win_s} s voice bits differ from the "
+                                   "CPU path's")
+            if mode == "m17" and c2_ok:
+                a = SV.m17_pcm_fresh(10 * 4800, "cpu")
+                b = SV.m17_pcm_fresh(10 * 4800, "cuda")
+                if a.shape != b.shape or not a.size or (
+                        np.abs(a - b).max() > 2e-3 * np.abs(a).max()):
                     raise RuntimeError(f"serial {name}: the card's first 10 "
-                                       "s voice bits differ from the CPU "
-                                       "path's")
+                                       "s PCM, decoded in a fresh process, "
+                                       "is not within 2e-3 of the peak of "
+                                       "the CPU path's")
+                worst = float(np.abs(a - b).max())
             n10_pcm = sum(len(SV.pcm(g10, s)) for s in g10.audio)
-            n_voice = sum(len(s.bits) for s in sinks)
+            n_voice = sum(len(getattr(s, "bits", ())) for s in sinks)
             walk = wall - sp["front"] - sp["synth"]
-            # device busy over the first 10 s, against its unprofiled wall
+            # device busy over the window, against its unprofiled wall
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 decode(x[:n10], mode, cq, dev, attrs)
@@ -794,7 +849,7 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
             busy = sum(dev_us.values()) / 1e3
             top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
             w10 = out["card10"][2] * 1e3
-            log(f"serial {name} profile, first 10 s: device busy "
+            log(f"serial {name} profile, first {win_s} s: device busy "
                 f"{busy:.1f} ms = {100 * busy / w10:.1f}% of the unprofiled "
                 f"decode ({w10:.1f} ms), idle {100 - 100 * busy / w10:.1f}"
                 f"%; top: " + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
@@ -806,23 +861,122 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                 f"({n_voice} voice frames); {len(ctx.events)} events;"
                 f" judged: {got}; PCM {pcm.size} samples, peak "
                 f"{float(np.abs(pcm).max()) if pcm.size else 0.0:.3f}; the "
-                f"first 10 s equal to the CPU path ({n10_pcm} PCM samples "
+                f"first {win_s} s equal to the CPU path ({n10_pcm} PCM "
+                f"samples "
                 f"within {worst:.2e}); the CPU path took "
-                f"{out['cpu10'][2]:.3f} s for 10 s [{ident}]")
+                f"{out['cpu10'][2]:.3f} s for {win_s} s [{ident}]")
             if mode == "dmr":
                 # the same stream on an inverted channel, read under the
                 # inverted expectation: DMR's inverted syncs are the other
                 # burst type's, so every hit is reinterpreted as its twin
-                inv = {**attrs, "force_polarity": {"dmr": True}}
-                ctx, sinks, wall, sp = decode(SV.dmr_iq(tv, invert=True),
-                                              mode, cq, dev, inv)
-                got = SV.judge(mode, tv, ctx, sinks, invert=True)
+                # (its first 20 s: the script's time)
+                inv = {"state_attrs": {**attrs["state_attrs"],
+                                       "force_polarity": {"dmr": True}}}
+                n20 = 20 * 4800
+                ctx, sinks, wall, sp = decode(
+                    SV.dmr_iq(tv, n20, invert=True), mode, cq, dev, inv)
+                got = SV.judge(mode, tv, ctx, sinks, n20, invert=True)
                 log(f"serial {name}, inverted channel with force_polarity: "
-                    f"{secs:.1f} s decoded on the card in {wall:.3f} s = "
-                    f"{secs / wall:.2f}x realtime; judged: {got} "
+                    f"20.0 s decoded on the card in {wall:.3f} s = "
+                    f"{20 / wall:.2f}x realtime; judged: {got} "
                     f"[{ident}]")
+            if mode == "p25p2":
+                # blind, the first 20 s: the scramble parameters recovered
+                # from the RS parity of the first scrambled SACCH burst
+                n20 = 20 * per_s
+                ctx, sinks, wall, sp = decode(x[:n20], mode, cq, dev)
+                got = SV.judge(mode, tv, ctx, sinks, n20 // SV.P2_SPS,
+                               blind=True)
+                secs = n20 / FS
+                log(f"serial {name}, blind (no p2_params): {secs:.1f} s "
+                    f"decoded on the card in {wall:.3f} s = "
+                    f"{secs / wall:.2f}x realtime; split: front end "
+                    f"{sp['front'] * 1e3:.1f} ms, host walk "
+                    f"{(wall - sp['front'] - sp['synth']) * 1e3:.1f} ms, "
+                    f"synthesis {sp['synth'] * 1e3:.1f} ms; judged: {got} "
+                    f"[{ident}]")
+
+        # decode_samples(..., "auto") on the card on a 4 s probe of each
+        # family's stream: its pick equal to detect_mode's on the CPU
+        probes = (("P25p1", lambda: SV.p25_iq(tv, 4 * 4800)),
+                  ("EDACS + ProVoice", lambda: SV.pv_iq(tv, 4 * 9600)),
+                  ("DMR", lambda: SV.dmr_iq(tv, 4 * 4800)),
+                  ("X2-TDMA", lambda: SV.x2_iq(tv, 4 * 6000)),
+                  ("NXDN48", lambda: SV.nxdn_iq(tv, 4 * 2400, "nxdn48")),
+                  ("NXDN96", lambda: SV.nxdn_iq(tv, 4 * 4800, "nxdn96")),
+                  ("dPMR", lambda: SV.dpmr_iq(tv, 4 * 2400)),
+                  ("YSF", lambda: SV.ysf_iq(tv, 4 * 4800)),
+                  ("D-STAR", lambda: SV.dstar_iq(tv, 4 * 4800)),
+                  ("M17", lambda: SV.m17_iq(tv, 4 * 4800)),
+                  ("P25p2", lambda: SV.p2_iq(tv, 4 * 6000)))
+        picks, t_card, t_cpu = {}, 0.0, 0.0
+        for fam, make in probes:
+            x = make()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            ctx = sdec.decode_samples(x, "auto", device=dev,
+                                      keyring=SV.keyring(tv),
+                                      state_attrs=SV.m17_attrs(tv))
+            t2 = time.perf_counter()
+            cpu = sdec.detect_mode(x, device="cpu")
+            t_card += t2 - t1
+            t_cpu += time.perf_counter() - t2
+            if ctx.mode_name != cpu.name:
+                raise RuntimeError(
+                    f"serial auto, {fam} probe: the card picks "
+                    f"{ctx.mode_name!r}, the CPU path {cpu.name!r}")
+            picks[fam] = (ctx.mode_name, len(ctx.events))
+        log(f"serial auto: decode_samples(..., 'auto') on the card on a 4 s "
+            f"probe of each family's stream picks the CPU path's mode: "
+            f"{picks}; {t_card:.3f} s on the card for the 11 (the detection's "
+            f"10 demod configurations each, then the decode), "
+            f"{t_cpu:.3f} s for the CPU path's detect_mode [{ident}]")
+
+        # decode_capture: the P25 call raised to 96 kHz by the resampler on
+        # the card, written as a cs16 capture, decoded back at 48 kHz
+        x = SV.p25_iq(tv)
+        secs = len(x) / FS
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        x96 = resample(torch.from_numpy(x).to(dev), int(FS), 96000)
+        torch.cuda.synchronize()
+        t_rs = time.perf_counter() - t1
+        x96 = 0.5 * x96.cpu().numpy()
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "p25_c4fm_96k.iq")
+            path10 = os.path.join(tmp, "p25_c4fm_96k_5s.iq")
+            for p, xs in ((path, x96), (path10, x96[:480000])):
+                write_iq_capture(p, xs, IqMetadata(sample_format="cs16",
+                                                   sample_rate_hz=96000))
+            cap = {}
+            for key, p, where in (("card", path, dev),
+                                  ("card10", path10, dev),
+                                  ("cpu10", path10, "cpu")):
+                sink = SV.ImbeSink()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                ctx = sdec.decode_capture(p, "p25p1", keyring=SV.keyring(tv),
+                                          mbe_sink=sink, device=where)
+                cap[key] = (ctx, sink, time.perf_counter() - t1)
+        ctx, sink, wall = cap["card"]
+        got = SV.judge_p25(tv, ctx, sink)
+        c10, g10 = cap["cpu10"][0], cap["card10"][0]
+        diff = SV.events_equal(c10.events, g10.events)
+        a, b = SV.pcm(c10), SV.pcm(g10)
+        if diff is not None or a.shape != b.shape or (
+                np.abs(a - b).max() > 2e-3 * np.abs(a).max()):
+            raise RuntimeError("serial decode_capture: the card's first 5 s "
+                               f"differ from the CPU path: {diff}")
+        log(f"serial decode_capture: the P25 call ({secs:.1f} s) resampled "
+            f"48 -> 96 kHz on the card in {t_rs * 1e3:.1f} ms, written as a "
+            f"cs16 capture and decoded on the card (resampled back to 48 kHz "
+            f"there) in {wall:.3f} s = {secs / wall:.2f}x realtime; judged: "
+            f"{got}; its first 5 s equal to the CPU path's (events, PCM "
+            f"within {np.abs(a - b).max():.2e}; the CPU path "
+            f"{cap['cpu10'][2]:.3f} s) [{ident}]")
     finally:
-        sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames = real
+        (sdec.demod_fm, sdec.demod_cqpsk_path, synth.synthesize_frames,
+         codec2.Codec2.decode) = real
     peak = torch.cuda.max_memory_allocated()
     launches = {fn.__name__: fn.launches for fn in counted}
     log(f"serial phase: peak device memory {peak / 1e9:.3f} GB "
@@ -1089,6 +1243,7 @@ def main() -> int:
         f"{len(burst['edacs'][1]['starts'])} frames")
 
     # -- 2. kernels against their plain versions ---------------------------
+    log(f"phase 2 starts at {time.perf_counter() - t_start:.1f} s")
     report = {}
     clk = sm_clock_mhz()
 
@@ -1411,6 +1566,7 @@ def main() -> int:
             log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 3. the paths at C=320 ----------------------------------------------
+    log(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
                audio_wire.adpcm_compress, fdev.rs_syndromes_batch,
                fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch,
@@ -1932,6 +2088,7 @@ def main() -> int:
     del n_blocks
 
     # -- 4. ADP: the encrypted P2 stream with its key, at C channels ------
+    log(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
     n_sf, _seed, _alg, kid, key, _mi = (int(v) for v in adp["params"])
     keys = KeyRing()
     keys.scalar[kid] = key
@@ -2162,6 +2319,7 @@ def main() -> int:
             log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 5. the control-channel monitors at C=320 ------------------------
+    log(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
     from dsdneo_tpu_torch.engine import ccbatch
     from dsdneo_tpu_torch.fec import conv, trellis
 
@@ -2662,6 +2820,7 @@ def main() -> int:
     del pipe, mon
 
     # -- 5b. the P25 Phase 2 TDMA control channel at C=320 -----------------
+    log(f"phase 5b starts at {time.perf_counter() - t_start:.1f} s")
     # the JAX bench's stream (bench.py:604): 6 superframes of scrambled
     # SACCH MAC PDUs (IDEN_UP TDMA, the TG 101 grant, NET_STS), 2.1767 s;
     # own lead of 0-96 dibits of filler and own noise per channel, from a
@@ -2833,6 +2992,7 @@ def main() -> int:
     del pipe, cpu_pipe, pc_blocks
 
     # -- 6. the event pipelines at C=320 -----------------------------------
+    log(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
     from dsdneo_tpu_torch.engine import demod
     from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
     from dsdneo_tpu_torch.engine.m17batch import (GOLAY_ERR_MAX,
@@ -3144,6 +3304,7 @@ def main() -> int:
     del pipe, ev
 
     # -- 7. YSF, dPMR and the EDACS monitor at C=320 -----------------------
+    log(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s")
     from dsdneo_tpu_torch.engine.ccbatch import BatchedEdacsControlPipeline
     from dsdneo_tpu_torch.engine.dpmrbatch import BatchedDpmrVoicePipeline
     from dsdneo_tpu_torch.engine.ysfbatch import (VOTE_ERR_MAX,
@@ -3289,6 +3450,7 @@ def main() -> int:
     del pipe, ev, burst
 
     # -- 8. the serial decode path (decode_samples) -------------------------
+    log(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     launches["serial"] = serial_phase(ident, dev, blocks[0], counted)
     del blocks
 

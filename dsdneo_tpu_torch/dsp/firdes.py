@@ -1,9 +1,11 @@
 """FIR designs the port computes itself (host side, numpy).
 
-Counterpart of ``rrc``, ``lowpass_taps`` and ``channel_lpf`` in
+Counterpart of ``rrc``, ``lowpass_taps`` (its Hamming and
+Blackman-Harris windows) and ``channel_lpf`` in
 ``dsdneo_tpu/dsp/firdes.py``: the root-raised-cosine matched filter of
-CQPSK and the channel low-pass of the gated front end (the other paths'
-channel low-pass taps come with their tables files).
+CQPSK, the channel low-pass of the gated front end (the other paths'
+channel low-pass taps come with their tables files) and the polyphase
+bank of ``dsp.resampler``.
 """
 
 from __future__ import annotations
@@ -27,15 +29,28 @@ CH_LPF_CUTOFF_HZ = {
 CH_LPF_TAPS = 144
 
 
-def lowpass_taps(ntaps: int, fs: float, cutoff: float) -> np.ndarray:
-    """Exactly ``ntaps`` (odd; an even count is raised by one) Hamming-
-    windowed sinc low-pass taps of unit DC gain, float32."""
+def _window(kind: str, n: int) -> np.ndarray:
+    m = np.arange(n)
+    if kind == "hamming":
+        return 0.54 - 0.46 * np.cos(2 * np.pi * m / (n - 1))
+    if kind == "blackman-harris":
+        return (0.35875 - 0.48829 * np.cos(2 * np.pi * m / (n - 1))
+                + 0.14128 * np.cos(4 * np.pi * m / (n - 1))
+                - 0.01168 * np.cos(6 * np.pi * m / (n - 1)))
+    raise ValueError(f"unknown window {kind!r}")
+
+
+def lowpass_taps(ntaps: int, fs: float, cutoff: float,
+                 window: str = "hamming") -> np.ndarray:
+    """Exactly ``ntaps`` (odd; an even count is raised by one) windowed
+    sinc low-pass taps of unit DC gain, float32: Hamming-windowed (the
+    channel filters) or Blackman-Harris (the resampler's bank)."""
     if ntaps % 2 == 0:
         ntaps += 1
     m = np.arange(ntaps) - (ntaps - 1) / 2
     fc = cutoff / fs
     h = np.sinc(2 * fc * m) * 2 * fc
-    h *= 0.54 - 0.46 * np.cos(2 * np.pi * np.arange(ntaps) / (ntaps - 1))
+    h *= _window(window, ntaps)
     h /= np.sum(h)
     return h.astype(np.float32)
 

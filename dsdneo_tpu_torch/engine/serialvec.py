@@ -66,6 +66,8 @@ from dsdneo_tpu_torch.protocol.dpmr.decoder import air_interface_id
 from dsdneo_tpu_torch.protocol.dstar import decoder as dstar_decoder
 from dsdneo_tpu_torch.protocol.dstar import encode as dstar_encode
 from dsdneo_tpu_torch.protocol.edacs import encode as edacs_encode
+from dsdneo_tpu_torch.protocol.m17 import decoder as m17_decoder
+from dsdneo_tpu_torch.protocol.m17 import encode as m17_encode
 from dsdneo_tpu_torch.protocol.nxdn import encode as nxdn_encode
 from dsdneo_tpu_torch.protocol.p25 import encode as p25_encode
 from dsdneo_tpu_torch.protocol.ysf import decoder as ysf_decoder
@@ -273,6 +275,23 @@ def events_equal(a, b) -> str | None:
                 _field_equal(x.fields[k], y.fields[k]) for k in x.fields):
             return f"event {i} ({x.line!r}): fields differ"
     return None
+
+
+def sinks_equal(a, b) -> bool:
+    """Two decodes' voice sinks (:func:`decode_spied`'s) equal: every
+    frame's bits each kept (None where an M17 payload was not
+    decrypted), the M17 IP frames."""
+    for p, q in zip(a, b):
+        if hasattr(p, "frames"):
+            if p.frames != q.frames:
+                return False
+            continue
+        if len(p.bits) != len(q.bits) or any(
+                (u is None) != (v is None)
+                or (u is not None and not np.array_equal(u, v))
+                for u, v in zip(p.bits, q.bits)):
+            return False
+    return True
 
 
 def pcm(ctx, slot: int = 0) -> np.ndarray:
@@ -902,21 +921,407 @@ def judge_dstar(tv: dict[str, np.ndarray], ctx,
     return got
 
 
+# -- M17 ---------------------------------------------------------------------
+M17_SPS = 10                  # 4800 symbols/s
+M17_FRAME_DIBITS = 192        # an 8-symbol sync and 184 symbols
+M17_LSF, M17_STR, M17_SIG, M17_PKT, M17_BRT, M17_PRE = range(6)
+
+
+def m17_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+           invert: bool = False) -> np.ndarray:
+    """The first ``n_sym`` symbols of the M17 stream (all of it by
+    default) as complex64 4-level FSK baseband at M17's 2.4 kHz outer
+    deviation (``protocol.m17.encode.fm_iq``) with white noise;
+    ``invert`` conjugates it."""
+    return _noisy(m17_encode.fm_iq(tv["m17_dibits"][:n_sym], M17_SPS),
+                  invert, 0)
+
+
+def m17_attrs(tv: dict[str, np.ndarray]) -> dict:
+    """The M17 keys as ``state_attrs``: the scrambler seed, the AES key
+    and the signed streams' public key."""
+    return {"m17_scrambler_key": int(tv["m17_ids"][1]),
+            "m17_aes_key": tv["m17_aes_key"].tobytes(),
+            "m17_pubkey": tv["m17_pubkey"].tobytes()}
+
+
+class M17Spy:
+    """Records, in decode order, the 128-bit payload each M17 voice frame
+    hands Codec2 (the return of ``cls._decrypt``: decrypted, or None
+    where it cannot be), for the port's ``M17Decoder`` or the JAX
+    package's, as a context manager."""
+
+    def __init__(self, cls):
+        self.cls = cls
+        self.bits: list[np.ndarray | None] = []
+
+    def __enter__(self):
+        real = self.real = self.cls._decrypt
+
+        def spy(dec, v128, fn, ctx):
+            out = real(dec, v128, fn, ctx)
+            self.bits.append(None if out is None
+                             else np.asarray(out, np.uint8).copy())
+            return out
+
+        self.cls._decrypt = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._decrypt = self.real
+
+
+def m17_pcm_fresh(n_sym: int | None = None, device: str = "cpu",
+                  invert: bool = False) -> np.ndarray:
+    """The PCM of the port's decode of the M17 stream's first ``n_sym``
+    symbols on ``device``, decoded in a fresh Python process: libcodec2
+    draws its unvoiced excitation from one noise generator for the whole
+    process, so two decodes of one stream in one process differ, and
+    only decodes that each start a process compare."""
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "pcm.npy")
+        code = ("import numpy as np\n"
+                "from dsdneo_tpu_torch.engine import decoder\n"
+                "from dsdneo_tpu_torch.engine import serialvec as SV\n"
+                "tv = SV.vector()\n"
+                f"ctx = decoder.decode_samples(SV.m17_iq(tv, {n_sym}, "
+                f"{invert}), 'm17', device={device!r}, "
+                "state_attrs=SV.m17_attrs(tv))\n"
+                f"np.save({out!r}, SV.pcm(ctx))\n")
+        env = dict(os.environ, PYTHONPATH=root)
+        subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                       check=True, timeout=600)
+        return np.load(out)
+
+
+class UdpSink:
+    """An ``m17_udp`` that keeps the M17 IP frames the decoder sends."""
+
+    def __init__(self):
+        self.frames: list[bytes] = []
+
+    def send(self, frame: bytes) -> None:
+        self.frames.append(bytes(frame))
+
+
+def _prbs9_lock(bits: np.ndarray, st: dict) -> None:
+    """The M17 BERT receiver over ``bits`` (PRBS9 x⁹ + x⁵ + 1): unlocked,
+    it counts consecutive predicted bits, shifting in what it hears, and
+    locks at 18; locked, it counts bits and errors."""
+    for b in bits:
+        s = st["lfsr"]
+        exp = ((s >> 8) ^ (s >> 4)) & 1
+        if st["locked"]:
+            st["lfsr"] = ((s << 1) | exp) & 0x1FF
+            st["bits"] += 1
+            st["errors"] += exp != int(b)
+        else:
+            st["lock"] = st["lock"] + 1 if exp == int(b) else 0
+            st["lfsr"] = ((s << 1) | int(b)) & 0x1FF
+            st["locked"] = st["lock"] >= 18
+
+
+def _sig_bytes(line: str) -> bytes:
+    """The 16 bytes a signature frame's line shows as ``[AB][CD]…``."""
+    return bytes.fromhex(line.split(" SIG: ", 1)[1][:64]
+                         .replace("[", "").replace("]", ""))
+
+
+def _prbs9(n: int, state: int) -> np.ndarray:
+    out = np.zeros(n, np.uint8)
+    for i in range(n):
+        bit = ((state >> 8) ^ (state >> 4)) & 1
+        state = ((state << 1) | bit) & 0x1FF
+        out[i] = bit
+    return out
+
+
+def _m17_lsf_text(can: int, dst: int, src: int) -> str:
+    return (f"\n CAN: {can} DST: {m17_decoder.decode_callsign(dst)}"
+            f" SRC: {m17_decoder.decode_callsign(src)}")
+
+
+def judge_m17(tv: dict[str, np.ndarray], ctx, spy: M17Spy, udp: UdpSink,
+              n_sym: int | None = None) -> dict[str, int]:
+    """Hold a decode of the M17 stream's first ``n_sym`` symbols (with
+    :func:`m17_attrs`' keys) to the vector: every event at a frame of
+    the vector, and every frame the span holds whole with exactly its
+    line and fields — an LSF's CAN, callsigns, data type, cipher and
+    META (text, GNSS, extended callsign), a stream frame's LICH counter,
+    FN, EOT, the LSF the LICH completes, A_DATA text and the signature
+    frames' bytes (the last "COMPLETE; VERIFIED;", the signature checked
+    here against the digest of the stream's on-air payloads), an SMS
+    packet's blocks and text, a BERT frame's lock and counts (the first
+    frame of the run shadowed by the preamble's LSF hit); every voice
+    payload handed to Codec2 through ``spy`` (clear, the scrambler's
+    and AES-CTR's decrypted) and sent to ``udp`` (on air) bit for bit;
+    320 PCM samples a voice frame where libcodec2 loads, none where
+    not."""
+    from dsdneo_tpu_torch.crypto.ecdsa import p256_verify_digest
+    from dsdneo_tpu_torch.protocol.m17.ip import parse_ip_frame
+    from dsdneo_tpu_torch.vocoder import codec2
+    n_sym = len(tv["m17_dibits"]) if n_sym is None else n_sym
+    fr = tv["m17_frames"]
+    ext = {M17_LSF: 200, M17_PRE: 200}
+    whole = [int(p) + ext.get(int(k), M17_FRAME_DIBITS) + POS_TOL <= n_sym
+             for p, k in fr[:, :2]]
+    ev = [e for e in ctx.events if e.protocol == "m17"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    at = {}
+    for e in ev:
+        i = int(np.searchsorted(fr[:, 0], e.pos - POS_TOL))
+        _require(i < len(fr) and abs(int(fr[i, 0]) - e.pos) <= POS_TOL
+                 and i not in at,
+                 f"an event off the vector's frames: {e.line!r}@{e.pos}")
+        at[i] = e
+    missing = [i for i in range(len(fr)) if whole[i] and i not in at]
+    _require(not missing, f"frames not decoded: {fr[missing[:4], 0]}")
+    onair = np.unpackbits(tv["m17_onair"], axis=-1)
+    handed = np.unpackbits(tv["m17_handed"], axis=-1)
+    bert = {"lfsr": 1, "lock": 0, "locked": False, "bits": 0, "errors": 0}
+    got = {"lsfs": 0, "voice_frames": 0, "decrypted": 0, "verified": 0,
+           "sms": 0, "bert_frames": 0, "lsf_from_lich": 0}
+    order = []
+    for i, (_p, kind, t, fn, cnt, row) in enumerate(fr.tolist()):
+        if i not in at:
+            continue
+        e = at[i]
+        _kind, can, tw, *_frames, state = tv["m17_tx"][t].tolist()
+        dst, src = tv["m17_tx_calls"][t].tolist()
+        dt, enc = (tw >> 1) & 3, (tw >> 3) & 3
+        if kind == M17_PRE:
+            _require(e.line == "Sync: +M17 LSF  CRC ERR", e.line)
+            continue
+        if kind == M17_LSF:
+            want = ("Sync: +M17 LSF " + _m17_lsf_text(can, dst, src)
+                    + (m17_decoder.DT_NAMES.get(dt, "") if tw & 1
+                       else " Packet")
+                    + (m17_decoder.ENC_NAMES.get(enc, "")
+                       if tw & 1 and enc else "")
+                    + str(tv["m17_tx_note"][t]))
+            _require(e.line == want, (e.line, want))
+            _require(e.fields == {"dst": dst, "src": src, "type": tw},
+                     e.fields)
+            got["lsfs"] += 1
+            continue
+        if kind == M17_PKT:
+            npk = int(np.sum((fr[:, 1] == M17_PKT) & (fr[:, 2] == t)))
+            if cnt < npk - 1:
+                _require(e.line == f"Sync: +M17 PKT BLK: {cnt:02d}", e.line)
+                continue
+            text = str(tv["m17_sms"][row])
+            app = np.frombuffer(b"\x05" + text.encode() + b"\0", np.uint8)
+            _require(e.line == f"Sync: +M17 PKT EOF ({len(app)} bytes)"
+                     f"\n SMS: {text}", e.line)
+            np.testing.assert_array_equal(e.fields["payload"], app)
+            got["sms"] += 1
+            continue
+        if kind == M17_BRT:
+            _prbs9_lock(_prbs9(197 * (cnt + 1), state)[197 * cnt:], bert)
+            tag = "LOCK" if bert["locked"] else "SYNCING"
+            _require(e.line == f"Sync: +M17 BRT BERT: {tag} bits:"
+                     f"{bert['bits']} errors:{bert['errors']}", e.line)
+            _require(bert["locked"] and not bert["errors"], e.line)
+            got["bert_frames"] += 1
+            continue
+        line = f"Sync: +M17 STR LC: {cnt + 1}/6 FN: {fn & 0x7FFF:04X} "
+        if fn & 0x8000:
+            line += "EOT "
+        _require(e.fields == {"lich_cnt": cnt, "fn": fn & 0x7FFF},
+                 (e.line, e.fields))
+        if kind == M17_SIG:
+            _require(e.line.startswith(line + " SIG: ")
+                     and len(_sig_bytes(e.line)) == 16, e.line)
+            if fn == 0xFFFF:
+                _require(e.line.endswith(" COMPLETE; VERIFIED;"), e.line)
+                got["verified"] += 1
+            continue
+        # the LICH completes an LSF at a counter-5 frame after five
+        # frames of counters 0-4 of this transmission
+        prev = fr[max(i - 5, 0):i]
+        if (cnt == 5 and i >= 5 and np.all(prev[:, 2] == t)
+                and np.array_equal(prev[:, 4], np.arange(5))
+                and np.all(np.isin(prev[:, 1], (M17_STR, M17_SIG)))):
+            line += (_m17_lsf_text(can, dst, src)
+                     + m17_decoder.DT_NAMES.get(dt, "")
+                     + (m17_decoder.ENC_NAMES.get(enc, "") if enc else ""))
+            got["lsf_from_lich"] += 1
+        if dt == 3:
+            v2 = np.packbits(handed[row, 64:]).tobytes()
+            text = v2.split(b"\0")[0].decode("utf-8", "replace")
+            if text and all(31 < ord(c) < 127 for c in text):
+                line += f"\n A_DATA: {text}"
+        _require(e.line == line, (e.line, line))
+        order.append(row)
+        got["voice_frames"] += 1
+        got["decrypted"] += bool(enc) and not np.array_equal(handed[row],
+                                                             onair[row])
+    _require(len(spy.bits) >= len(order), (len(spy.bits), len(order)))
+    for k, row in enumerate(order):
+        _require(spy.bits[k] is not None, f"voice frame {row} not decrypted")
+        np.testing.assert_array_equal(spy.bits[k], handed[row],
+                                      err_msg=f"M17 voice frame {row}")
+    ip = [parse_ip_frame(f) for f in udp.frames]
+    _require(len(ip) >= len(order), (len(ip), len(order)))
+    for k, row in enumerate(order):
+        _require(ip[k].kind == "stream" and ip[k].crc_ok, ip[k])
+        np.testing.assert_array_equal(ip[k].voice, onair[row],
+                                      err_msg=f"M17 IP frame {row}")
+    # each signed stream's signature over its on-air payloads' digest
+    for t in np.flatnonzero((tv["m17_tx"][:, 2] >> 11) & 1):
+        rows = fr[(fr[:, 2] == t) & (fr[:, 1] == M17_STR), 5]
+        digest = bytearray(16)
+        for r in rows:
+            d = bytes(a ^ b for a, b in zip(digest, tv["m17_onair"][r]))
+            digest = bytearray(d[1:] + d[:1])
+        sig = b"".join(_sig_bytes(at[i].line)
+                       for i in np.flatnonzero((fr[:, 2] == t)
+                                               & (fr[:, 1] == M17_SIG))
+                       if i in at)
+        if len(sig) == 64:
+            _require(p256_verify_digest(bytes(digest),
+                                        tv["m17_pubkey"].tobytes(), sig),
+                     f"the signature of transmission {t}")
+    n_pcm = len(pcm(ctx))
+    _require(n_pcm == (320 * len(spy.bits) if codec2.available() else 0),
+             (n_pcm, len(spy.bits)))
+    return got
+
+
+# -- P25 Phase 2 -------------------------------------------------------------
+P2_SPS = 8                    # 6000 symbols/s
+P2_FRAME_DIBITS = 720
+
+
+def p2_iq(tv: dict[str, np.ndarray], n_sym: int | None = None,
+          invert: bool = False) -> np.ndarray:
+    """The first ``n_sym`` symbols of the P25p2 stream (all of it by
+    default) as complex64 4-level FSK baseband (the JAX package's P25p2
+    modulator, ``protocol.p25.encode.tdma_fm_iq``) with white noise;
+    ``invert`` conjugates it."""
+    return _noisy(p25_encode.tdma_fm_iq(tv["p2_dibits"][:n_sym], P2_SPS),
+                  invert, 0)
+
+
+def p2_params(tv: dict[str, np.ndarray]) -> tuple[int, int, int]:
+    """The stream's (WACN, SYSID, NAC), the -X flag's ``p2_params``."""
+    return tuple(int(v) for v in tv["p2_ids"][:3])
+
+
+def judge_p2(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
+             n_sym: int | None = None, keyed: bool = True,
+             blind: bool = False) -> dict[str, int]:
+    """Hold a decode of the P25p2 stream's first ``n_sym`` symbols to the
+    vector: every frame the span holds whole with exactly its events —
+    the sync line ("P2 Missing Parameters" until the scramble parameters
+    are known), each timeslot's DUID, superframe position and line: the
+    4V/2V voice (each 2V with the ESS it completes), each SACCH's
+    MAC_PTT with the slot's talkgroup, source, ALG, KID and MI; decoded
+    ``blind`` (no ``p2_params``), the two "recovered" lines at the first
+    superframe's SACCH bursts and no voice before the second superframe
+    — and nothing else; every AMBE frame's 49 bits through ``spy`` (the
+    keyed half decrypted from its second superframe when ``keyed``, the
+    ADP key in the keyring; on-air bits otherwise) and 160 PCM samples a
+    frame on its slot."""
+    n_sym = len(tv["p2_dibits"]) if n_sym is None else n_sym
+    wacn, sysid, nac, _key, kid, mi, *ids = (int(v) for v in tv["p2_ids"])
+    tg, src = ids[0:2], ids[2:4]
+    n_clear = int(tv["p2_halves"][0])
+    fpos = tv["p2_frame_pos"]
+    whole = fpos + P2_FRAME_DIBITS + POS_TOL <= n_sym
+    ev = [e for e in ctx.events if e.protocol == "p25p2"]
+    _require(len(ev) == len(ctx.events), "events of another protocol")
+    at: dict[int, list] = {}
+    for e in ev:
+        f = int(np.searchsorted(fpos, e.pos - POS_TOL))
+        _require(f < len(fpos) and abs(int(fpos[f]) - e.pos) <= POS_TOL,
+                 f"an event off the vector's frames: {e.line!r}@{e.pos}")
+        at.setdefault(f, []).append(e)
+    recovered = ("       P25p2 scramble parameters recovered from RS "
+                 f"parity: WACN [{wacn:05X}] SYSID [{sysid:03X}] "
+                 f"NAC [{nac:03X}]")
+    got = {"frames": 0, "voice_frames": 0, "decrypted": 0, "ess": 0,
+           "ptt": 0, "recovered": 0}
+    for f in np.flatnonzero(whole):
+        sf, fr = divmod(int(f), 3)
+        half = int(sf >= n_clear)
+        params = not blind or sf > 0
+        want = [("Sync: +P25p2 " + ("" if params else " P2 Missing "
+                                    "Parameters            "), {})]
+        for k in range(4):
+            slot, duid = k % 2, int(tv["p2_frame_duid"][f, k])
+            if duid == 3:
+                alg = 0xAA if half else 0x80
+                if blind and sf == 0:
+                    want.append((recovered, {}))
+                detail = (f" MAC_PTT\n VCH {slot + 1} - TG {tg[slot]} SRC "
+                          f"{src[slot]} ALG {alg:02X} KEY "
+                          f"{kid if half else 0:04X}")
+                if half:
+                    detail += f" MI: 0x{mi:016X}"
+                want.append(("       P25p2 SACCH " + detail, {}))
+                got["ptt"] += 1
+            else:
+                detail = ""
+                if duid == 6 and params:
+                    word = (((0xAA << 16 | kid) << 8 | mi >> 56) << 64
+                            | (mi & (1 << 56) - 1) << 8) if half else 0
+                    detail = (f"\n ESS_B {word >> 64:08X}"
+                              f"{word & (1 << 64) - 1:016X} ERR = 00")
+                    got["ess"] += 1
+                want.append((f"       P25p2 LCH {slot} "
+                             f"{'4V' if duid == 0 else '2V'}{detail}", {}))
+            want[-1] = (want[-1][0], {"ts": k, "duid": duid,
+                                      "sf_pos": 4 * fr + k})
+        have = [(e.line, e.fields) for e in at.get(int(f), [])]
+        _require(have == want, (int(f), have, want))
+        got["frames"] += 1
+        got["recovered"] += sum(w[0] == recovered for w in want)
+    v = tv["p2_voice"]
+    dec = whole[v[:, 0]] & ((v[:, 3] > 0) | (not blind))
+    crypt = keyed & (v[:, 3] > n_clear)
+    want = np.where(crypt[:, None],
+                    np.unpackbits(tv["p2_voice_clear"], axis=-1)[:, :49],
+                    np.unpackbits(tv["p2_voice_onair"], axis=-1)[:, :49])
+    n = int(dec.sum())
+    _require(len(spy.bits) >= n, (len(spy.bits), n))
+    if n:
+        np.testing.assert_array_equal(np.stack(spy.bits[:n]), want[dec],
+                                      err_msg="P25p2 AMBE bits")
+    _require(sum(len(pcm(ctx, s)) for s in (0, 1)) == 160 * len(spy.bits),
+             "P25p2 PCM")
+    if len(spy.bits) == n:
+        for slot in (0, 1):
+            _require(len(pcm(ctx, slot))
+                     == 160 * int(np.sum(dec & (v[:, 2] == slot))), slot)
+    got["voice_frames"] = n
+    got["decrypted"] = int(np.sum(crypt & dec))
+    return got
+
+
 # -- one decode, one judge, for any stream ----------------------------------
 # the modes whose voice bits are read where they enter the vocoder (each
 # AMBE frame's 49 at ``decode_ambe_2450``, YSF's full-rate IMBE 88 at
 # ``decode_imbe_4400``) rather than through an ``mbe_sink``; D-STAR's
 # frames reach neither and ride in its events' fields
-SPIED_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf")
+SPIED_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "p25p2")
 
 
 def keyring(tv: dict[str, np.ndarray]) -> KeyRing:
-    """The keys of the vector's keyed calls: the P25 ADP key and the DMR
-    RC4 key."""
+    """The keys of the vector's keyed calls: the P25 ADP key, the DMR
+    RC4 key and the P25p2 ADP key (the M17 keys are
+    :func:`m17_attrs`)."""
     _n, _tg, _src, key, kid, _seed = (int(v) for v in tv["p25_ids"])
     kr = KeyRing()
     kr.scalar[kid] = key
     kr.scalar[int(tv["dmr_ids"][2])] = int(tv["dmr_ids"][1])
+    kr.scalar[int(tv["p2_ids"][4])] = int(tv["p2_ids"][3])
     return kr
 
 
@@ -933,16 +1338,24 @@ def decode_spied(x: np.ndarray, mode: str, **kw):
         return ctx, (ambe, imbe)
     if mode == "dstar":
         return decoder.decode_samples(x, mode, **kw), ()
+    if mode == "m17":
+        udp = UdpSink()
+        with M17Spy(m17_decoder.M17Decoder) as spy:
+            ctx = decoder.decode_samples(x, mode, m17_udp=udp, **kw)
+        return ctx, (spy, udp)
     sink = ImbeSink()
     return decoder.decode_samples(x, mode, mbe_sink=sink, **kw), (sink,)
 
 
 def judge(mode: str, tv: dict[str, np.ndarray], ctx, sinks,
-          n_sym: int | None = None, invert: bool = False) -> dict[str, int]:
+          n_sym: int | None = None, invert: bool = False,
+          keyed: bool = True, blind: bool = False) -> dict[str, int]:
     """Hold a decode of ``mode``'s stream (its first ``n_sym`` symbols)
     to the vector through that mode's judge, with the sinks
     :func:`decode_spied` gave; ``invert`` for an inverted DMR or dPMR
-    channel (the DMR one read under ``force_polarity``)."""
+    channel (the DMR one read under ``force_polarity``); ``keyed`` and
+    ``blind`` for P25p2 (decoded with the ADP key, without
+    ``p2_params``)."""
     if mode == "p25p1":
         return judge_p25(tv, ctx, sinks[0], n_sym)
     if mode == "provoice":
@@ -960,4 +1373,8 @@ def judge(mode: str, tv: dict[str, np.ndarray], ctx, sinks,
         return judge_ysf(tv, ctx, *sinks, n_sym)
     if mode == "dstar":
         return judge_dstar(tv, ctx, n_sym)
+    if mode == "m17":
+        return judge_m17(tv, ctx, *sinks, n_sym)
+    if mode == "p25p2":
+        return judge_p2(tv, ctx, sinks[0], n_sym, keyed, blind)
     raise ValueError(f"no stream of mode {mode!r}")

@@ -57,12 +57,23 @@ def isch_codeword(value: int) -> int:
     return w
 
 
-def isch_lookup(word40: int, keys: np.ndarray, vals: np.ndarray,
-                max_dist: int = 6) -> int:
+@lru_cache(maxsize=1)
+def isch_table() -> tuple[np.ndarray, np.ndarray]:
+    """The 128 ISCH codewords (sorted) and their 7-bit values."""
+    cw = np.array([isch_codeword(v) for v in range(128)], dtype=np.int64)
+    order = np.argsort(cw)
+    return cw[order], np.arange(128, dtype=np.int64)[order]
+
+
+def isch_lookup(word40: int, keys: np.ndarray | None = None,
+                vals: np.ndarray | None = None, max_dist: int = 6) -> int:
     """40-bit ISCH → 7-bit value (chan_num<<5 | isch_loc<<3 | free<<2 |
     uf_count), or -1: the exact codeword, else the nearest within
     ``max_dist`` bits, the first of the table's order among equals.
-    ``keys`` / ``vals`` are the table's codewords (sorted) and values."""
+    ``keys`` / ``vals`` are the table's codewords (sorted) and values
+    (by default :func:`isch_table`)."""
+    if keys is None:
+        keys, vals = isch_table()
     j = int(np.searchsorted(keys, word40))
     if j < len(keys) and int(keys[j]) == word40:
         return int(vals[j])

@@ -24,9 +24,10 @@ complex64 samples go to both packages):
     host sync hunt (``correlate_syncs``, ``find_syncs``,
     ``polarity_twin``) equal, ``demod_disc`` on dibits off the
     thresholds, the mode table equal;
-  - ``NotImplementedError`` for a mode whose families have no serial
-    decoder in the port and for ``auto``; the entry point takes the card
-    when no device is given.
+  - the entry point takes the card when no device is given (every
+    mode has its serial decoder; M17, P25p2 and ``auto`` are held to
+    the JAX package by ``test_torch_m17_serial.py``,
+    ``test_torch_p25p2_serial.py`` and ``test_torch_detect_capture.py``).
 """
 
 import numpy as np
@@ -250,15 +251,6 @@ def test_mode_table():
                                         j.symbol_rate, j.four_level,
                                         j.protocols, j.sps)
     assert tmodes.FLAG_TO_MODE == jmodes.FLAG_TO_MODE
-
-
-@pytest.mark.parametrize("mode", ["p25p2", "m17", "auto"])
-def test_modes_without_a_port_decoder_raise(mode):
-    x = np.zeros(4800, np.complex64)
-    with pytest.raises(NotImplementedError) as e:
-        tdec.decode_samples(x, mode, device="cpu")
-    fam = "auto" if mode == "auto" else sorted(tmodes.MODES[mode].protocols)[0]
-    assert fam in str(e.value)
 
 
 def test_entry_point_defaults_to_the_card():

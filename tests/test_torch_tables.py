@@ -82,7 +82,11 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.protocol.dmr.data", "dsdneo_tpu_torch.protocol.x2tdma",
     "dsdneo_tpu_torch.protocol.x2tdma.decoder",
     "dsdneo_tpu_torch.crypto.retevis_rc2", "dsdneo_tpu_torch.crypto.pc4",
-    "dsdneo_tpu_torch.crypto.pc5", "dsdneo_tpu_torch.crypto.vendor")
+    "dsdneo_tpu_torch.crypto.pc5", "dsdneo_tpu_torch.crypto.vendor",
+    "dsdneo_tpu_torch.crypto.ecdsa", "dsdneo_tpu_torch.io",
+    "dsdneo_tpu_torch.io.iq", "dsdneo_tpu_torch.runtime.jitter",
+    "dsdneo_tpu_torch.dsp.resampler", "dsdneo_tpu_torch.protocol.m17",
+    "dsdneo_tpu_torch.protocol.m17.ip")
 
 
 @pytest.fixture(scope="module")
@@ -415,7 +419,7 @@ def serial_exported():
 
 
 @pytest.mark.parametrize("kind", ["p25", "pv", "dmr", "x2", "nxdn", "dpmr",
-                                  "ysf", "dstar"])
+                                  "ysf", "dstar", "m17", "p2"])
 def test_serial_npz_equals_exporter(serial_exported, kind):
     """The checked-in ``serial_tables.npz`` is what the exporter builds
     from the JAX package's encoders now (the exporter also holds each
@@ -440,16 +444,20 @@ def test_serial_decode_runs_without_the_jax_package():
     Anytone keystreams, a static keystream and, through the Vertex map,
     its key-ID lookup) and the RC4 call with its key, 2 s of the X2-TDMA
     stream, 1 s of the NXDN stream as NXDN48 and 2 s as NXDN96, 1.5 s of
-    the dPMR stream, 2 s each of the YSF and D-STAR streams on the CPU,
-    the clear ones held to their vectors: no module of the JAX package,
-    and no jax, is ever loaded."""
+    the dPMR stream, 2 s each of the YSF and D-STAR streams, 3 s of the
+    M17 stream with its keys and 2 s of the P25p2 stream with its
+    parameters and key on the CPU, the clear ones held to their vectors;
+    ``detect_mode`` on the P25p2 probe and ``decode_capture`` of a
+    96 kHz capture of the P25 call (``io.write_iq_capture`` after
+    ``dsp.resampler``): no module of the JAX package, and no jax, is
+    ever loaded."""
     code = (
         "import sys\n"
         "from dsdneo_tpu_torch.engine.decoder import decode_samples\n"
         "from dsdneo_tpu_torch.engine import serialvec as SV\n"
         "from dsdneo_tpu_torch.crypto.keyring import KeyRing\n"
         "tv = SV.vector()\n"
-        "kr = KeyRing()\n"
+        "kr = kr0 = KeyRing()\n"
         "kr.scalar[int(tv['p25_ids'][4])] = int(tv['p25_ids'][3])\n"
         "sink = SV.ImbeSink()\n"
         "ctx = decode_samples(SV.p25_iq(tv, 7200), 'p25p1', keyring=kr, "
@@ -488,11 +496,32 @@ def test_serial_decode_runs_without_the_jax_package():
         "        ('nxdn96', 9600, SV.nxdn_iq, 'vcalls', 2),\n"
         "        ('dpmr', 3600, SV.dpmr_iq, 'fs3_parts', 3),\n"
         "        ('ysf', 9600, SV.ysf_iq, 'imbe_frames', 10),\n"
-        "        ('dstar', 9600, SV.dstar_iq, 'superframes', 3)):\n"
+        "        ('dstar', 9600, SV.dstar_iq, 'superframes', 3),\n"
+        "        ('m17', 14400, SV.m17_iq, 'voice_frames', 60),\n"
+        "        ('p25p2', 12000, SV.p2_iq, 'voice_frames', 150)):\n"
         "    x = iq(tv, n, mode) if iq is SV.nxdn_iq else iq(tv, n)\n"
-        "    ctx, sinks = SV.decode_spied(x, mode, device='cpu')\n"
+        "    kw = {'m17': {'state_attrs': SV.m17_attrs(tv)},\n"
+        "          'p25p2': {'p2_params': SV.p2_params(tv),\n"
+        "                    'keyring': SV.keyring(tv)}}.get(mode, {})\n"
+        "    ctx, sinks = SV.decode_spied(x, mode, device='cpu', **kw)\n"
         "    got = SV.judge(mode, tv, ctx, sinks, n)\n"
         "    assert got[key] >= least, (mode, got)\n"
+        "from dsdneo_tpu_torch.engine.decoder import detect_mode, "
+        "decode_capture\n"
+        "assert detect_mode(SV.p2_iq(tv, 24000), device='cpu').name == "
+        "'p25p2'\n"
+        "import os, tempfile, torch\n"
+        "from dsdneo_tpu_torch.dsp.resampler import resample\n"
+        "from dsdneo_tpu_torch.io import IqMetadata, write_iq_capture\n"
+        "x = resample(torch.from_numpy(SV.p25_iq(tv, 7200)), 48000, "
+        "96000).numpy()\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'p25.iq')\n"
+        "write_iq_capture(path, 0.5 * x, IqMetadata(sample_format='cs16', "
+        "sample_rate_hz=96000))\n"
+        "sink = SV.ImbeSink()\n"
+        "ctx = decode_capture(path, 'p25p1', keyring=kr0, mbe_sink=sink, "
+        "device='cpu')\n"
+        "assert SV.judge_p25(tv, ctx, sink, 7200)['ldus'] >= 4\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
         "assert not bad, bad\n"

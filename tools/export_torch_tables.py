@@ -119,15 +119,16 @@ generator for, built by inverting its own tables:
     channel, EDACS read in the three modes), its accepted frames kept as
     ``<kind>_tv_jax_frames``.
 
-``serial_tables.npz`` holds the serial decode path's nine 60 s
+``serial_tables.npz`` holds the serial decode path's eleven 60 s
 streams (``build_serial_tables``): a P25 Phase 1 call, EDACS with
 ProVoice, a DMR BS stream, X2-TDMA, an NXDN traffic channel (NXDN96,
-and NXDN48 from the same dibits), a dPMR, a YSF and a D-STAR channel,
-each held to the JAX ``decode_samples`` over its whole length through
-its judge in ``engine.serialvec``.  Every stretch the serial hunt reads
-outside a frame is drawn clean of false syncs (``_hunted_fill``), and a
-frame whose end could shadow the next sync is drawn again
-(``_frame_ok``).
+and NXDN48 from the same dibits), a dPMR, a YSF, a D-STAR and an M17
+channel, and a P25 Phase 2 channel, each held to the JAX
+``decode_samples`` over its whole length through its judge in
+``engine.serialvec``.  Every stretch the serial hunt reads outside a
+frame is drawn clean of false syncs (``_hunted_fill``), and a frame
+whose end could shadow the next sync is drawn again (``_frame_ok``,
+M17's ``_m17_shadowed``).
 
 The P25 file also holds one test vector: a synthesized P25p1 dibit stream of 16
 LDUs (~3 s at 4800 baud) built with protocol.p25.encode, the 88 IMBE
@@ -3139,8 +3140,480 @@ def _dstar_serial_vector() -> dict[str, np.ndarray]:
             "dstar_ids": np.array([SERIAL_DSTAR_SEED], np.int64)}
 
 
+# -- M17
+SERIAL_M17_SEED = 25
+SERIAL_M17_TOTAL = int(SERIAL_SECONDS * 4800)
+SERIAL_M17_SCR = 0xA5C3E1          # the scrambler seed, masked per subtype
+SERIAL_M17_AES = bytes(range(0x40, 0x60))     # the AES-256 key
+SERIAL_M17_SIGN = 0x5EC12E7A11CE0BADC0DE1234567890ABCDEF0011223344556677
+SERIAL_M17_GAP = (60, 241)         # random symbols before a transmission
+# the frame kinds of ``m17_frames``; M17_PRE is the LSF hit the serial
+# hunt takes in a BERT transmission's preamble
+M17_LSF, M17_STR, M17_SIG, M17_PKT, M17_BRT, M17_PRE = range(6)
+_SERIAL_M17_CALLS = (("N0CALL", "W1AW"), ("ALL", "DL1ABC"),
+                     ("M17-M17", "G4KLX"), ("BROADCAST", "VK2XYZ"),
+                     ("K6DSS", "JA1YKX"))
+# GNSS v2 METAs: (validity, bearing, latitude, longitude, altitude + 1500
+# m, speed in quarter km/h), latitude and longitude signed 24-bit
+_SERIAL_M17_GNSS = ((0x6, 0x12E, 0x1E3A47, 0xCD8F21, 1812, 0x4B2),
+             (0x0, 0x05A, 0x2A0B1C, 0x0B7F03, 0, 0))
+
+
+def _m17_text_meta(text: str) -> tuple[bytes, str]:
+    """A one-block META text (13 characters) and the line it reads as."""
+    raw = f"{text:<13}"[:13].encode()
+    return bytes([0x11]) + raw, "\n Meta Text Data: " + raw.decode().rstrip()
+
+
+def _m17_gnss_meta(k: int) -> tuple[bytes, str]:
+    """A GNSS v2 META (0x81; latitude and longitude over 2²³−1 of ±90°
+    and ±180°) and the line it reads as."""
+    v, brg, lat, lon, alt, spd = _SERIAL_M17_GNSS[k % 2]
+    meta = bytes([0x81, 0, (v << 4) | (brg >> 8), brg & 0xFF,
+                  lat >> 16, (lat >> 8) & 0xFF, lat & 0xFF,
+                  lon >> 16, (lon >> 8) & 0xFF, lon & 0xFF,
+                  alt >> 8, alt & 0xFF, spd >> 4, (spd & 0xF) << 4])
+
+    def s24(x):
+        return x - (1 << 24) if x & 0x800000 else x
+    line = ("\n Meta GNSS Position Data"
+            f" Lat: {s24(lat) * 90.0 / 8388607.0:.5f}"
+            f" Lon: {s24(lon) * 180.0 / 8388607.0:.5f}")
+    if v & 0x2:
+        line += f" Alt: {alt - 1500} m"
+    if v & 0x4:
+        line += f" Speed: {spd / 4.0:.1f} km/h Bearing: {brg}"
+    return meta, line
+
+
+def _m17_program(c: int) -> list[dict]:
+    """Cycle ``c`` of the M17 stream's transmissions (the BERT run in
+    the first only: the receiver's PRBS9 lock is kept across runs)."""
+    dst, src = _SERIAL_M17_CALLS[c % len(_SERIAL_M17_CALLS)]
+    text, tline = _m17_text_meta(f"CQ M17 RUN {c}")
+    gnss, gline = _m17_gnss_meta(c)
+    ext = f"{src}/P".encode()
+    prog = [
+        dict(kind="stream", dst=dst, src=src, dt=2, n=40, meta=text,
+             note=tline),
+        dict(kind="stream", dst=src, src=dst, dt=3, n=30, adata=True),
+        dict(kind="stream", dst=dst, src=src, dt=2, n=36, enc=1, est=0),
+        dict(kind="packet", dst=dst, src=src,
+             text=f"M17 SMS {c}: THE SERIAL PATH READS THIS"),
+        dict(kind="stream", dst=dst, src=src, dt=2, n=60, enc=1, est=1,
+             drop=(20, 23)),
+        dict(kind="stream", dst=src, src=dst, dt=2, n=24, est=1, meta=gnss,
+             note=gline),
+        dict(kind="stream", dst=dst, src=src, dt=2, n=36, enc=1, est=2,
+             late=12),
+        dict(kind="stream", dst=dst, src=src, dt=2, n=36, enc=2),
+        dict(kind="stream", dst=src, src=dst, dt=2, n=30, sign=True),
+        dict(kind="stream", dst=dst, src=src, dt=2, n=12, est=2,
+             meta=bytes([0x82]) + ext,
+             note="\n Meta Extended Callsign Data: " + ext.decode())]
+    return prog + ([dict(kind="bert", n=12)] if c == 0 else [])
+
+
+def _m17_shadowed(dib: np.ndarray, s: int) -> tuple[bool, bool]:
+    """Whether a clean false M17 sync could take the place of the frame
+    sync at ``s`` in the greedy pick: (one starting 15 to 8 symbols
+    before it — a 16-symbol LSF sync ends in the STR sync, which alone
+    scores 0.5 — or a near-perfect one 7 to 1 before it, both set by
+    the previous frame's tail; a near-perfect one 1 to 7 symbols after
+    it, in the pick's refinement window: the BRT sync ends in 1111, so a
+    payload opening 3313 reads as −STR there)."""
+    lv = np.array([1.0, 3.0, -1.0, -3.0])[dib[s - 15:s + 23]]
+    before = inside = False
+    for d in _sync_defs("m17"):
+        n = len(d.levels)
+        c = np.abs(np.correlate(lv[:22 + n], d.levels, "valid")) / (9.0 * n)
+        before |= bool(c[:8].max() >= (SERIAL_FAMILY_FALSE_SYNC_MAX
+                                        if n == 16 else 0.8)
+                       or c[8:15].max() >= 0.8)
+        inside |= bool(c[16:].max() >= 0.8)
+    return before, inside
+
+
+def _m17_onair(voice: np.ndarray, spec: dict, meta: bytes) -> np.ndarray:
+    """The transmitted 128-bit payloads of a stream's voice frames: the
+    encoder's scrambler (one keystream from the seed) or AES-CTR
+    applied."""
+    from dsdneo_tpu.crypto.keystream import aes_ctr_keystream
+    from dsdneo_tpu.protocol.m17.decoder import (aes_ctr_counter,
+                                                 scrambler_keystream)
+    out = voice.copy()
+    if spec.get("enc") == 1:
+        ks, _ = scrambler_keystream(spec.get("est", 0), SERIAL_M17_SCR,
+                                    128 * len(voice))
+        out ^= ks.reshape(len(voice), 128)
+    elif spec.get("enc") == 2:
+        for i in range(len(voice)):
+            ks = aes_ctr_keystream(SERIAL_M17_AES, aes_ctr_counter(meta, i),
+                                   16)
+            out[i] ^= np.unpackbits(ks)
+    return out
+
+
+def _m17_stream_draw(rng, spec: dict):
+    """A stream transmission no false sync can shadow a heard frame of:
+    voice bits drawn again for the frame before a shadowed one and for
+    one whose payload opens like a sync, the CAN for the first frame
+    (the LSF's tail depends mostly on the callsigns and the META: after
+    16 CANs, random six-character DST and SRC), the signing nonce for a
+    signature frame; then the dropped frames cut out and, for a late
+    entry, the frames before it.  The frames are assembled here from the
+    JAX encoder's parts (``encode_lsf_frame``, ``encode_stream_frame``,
+    the signature of ``p256_sign_digest``), only those that changed
+    encoded again, and the drawn transmission is checked against
+    ``encode_stream_transmission``.  Returns (dibits, the heard frames'
+    indices, their sync starts, voice bits, DST, SRC, CAN, META, LSF)."""
+    from dsdneo_tpu.crypto.ecdsa import p256_sign_digest
+    from dsdneo_tpu.protocol.m17 import encoder as ME
+    n = spec["n"]
+    sign = bool(spec.get("sign"))
+    n_all = n + (4 if sign else 0)
+    lo, hi = spec.get("drop", (0, 0))
+    first = spec.get("late", 0)
+    heard = [k for k in range(first, n_all) if not lo <= k < hi]
+    enc, est = spec.get("enc", 0), spec.get("est", 0)
+    meta = spec.get("meta", b"")
+    if enc == 2:                        # the AES-CTR nonce
+        meta = rng.integers(0, 256, 14).astype(np.uint8).tobytes()
+    meta = (meta + bytes(14))[:14]
+    voice = rng.integers(0, 2, (n, 128)).astype(np.uint8)
+    w = 128
+    if spec.get("adata"):
+        w = 64
+        for i in range(n):
+            voice[i, 64:] = np.unpackbits(np.frombuffer(
+                (f"AD {i:03d}".encode() + bytes(8))[:8], np.uint8))
+    can = int(rng.integers(0, 16))
+    dst, src, tweak = spec["dst"], spec["src"], 0
+    sign_k = int(rng.integers(1, 1 << 62))
+    sync_str = np.array(ME.SYNC_STR, np.uint8)
+    frames: dict[int, np.ndarray] = {}
+    head = lsf = None
+    for _ in range(2000):
+        if head is None:
+            lsf = ME.build_lsf(dst, src, can=can, stream=True,
+                               dt=spec["dt"], meta=meta, enc=enc,
+                               enc_st=est, signed_stream=sign)
+            head = np.concatenate([np.array([3, 1] * 24, np.uint8),
+                                   np.array(ME.SYNC_LSF, np.uint8),
+                                   ME.encode_lsf_frame(lsf)])
+            frames = {}
+        ota = _m17_onair(voice, spec, meta)
+        for k in range(n):
+            if k not in frames:
+                frames[k] = np.concatenate([sync_str, ME.encode_stream_frame(
+                    lsf, k % 6, k, ota[k], eot=not sign and k == n - 1)])
+        if sign:
+            digest = bytearray(16)
+            for k in range(n):
+                d = bytes(a ^ b for a, b in zip(digest,
+                                                np.packbits(ota[k])))
+                digest = bytearray(d[1:] + d[:1])
+            sig = p256_sign_digest(bytes(digest), SERIAL_M17_SIGN, sign_k)
+            for j, fn in enumerate((0x7FFC, 0x7FFD, 0x7FFE, 0x7FFF)):
+                chunk = np.unpackbits(np.frombuffer(
+                    sig[16 * j:16 * (j + 1)], np.uint8))
+                frames[n + j] = np.concatenate([sync_str,
+                                                ME.encode_stream_frame(
+                    lsf, (n + j) % 6, fn, chunk, eot=j == 3)])
+        kept = [k for k in range(n_all) if not lo <= k < hi]
+        dib = np.concatenate([head] + [frames[k] for k in kept])
+        starts = np.zeros(n_all, np.int64)
+        starts[kept] = len(head) + 192 * np.arange(len(kept))
+        sh = {k: _m17_shadowed(dib, int(starts[k])) for k in heard}
+        bad = [k for k in heard if (k > first or k == 0) and sh[k][0]]
+        inside = [k for k in heard if sh[k][1]]
+        if not bad and not inside:
+            break
+        if bad and bad[0] == 0:
+            tweak += 1
+            can = (can + 1) % 16
+            if tweak % 16 == 0:
+                dst, src = ("".join(ME.BASE40[1 + int(i)] for i in
+                                    rng.integers(0, 36, 6))
+                            for _ in range(2))
+            head = None
+        if any(k > n for k in bad) or any(k >= n for k in inside):
+            sign_k += 1
+        redraw = {heard[heard.index(k) - 1] for k in bad if k} | set(inside)
+        for k in redraw:
+            if k < n:
+                voice[k, :w] = rng.integers(0, 2, w)
+                frames.pop(k, None)
+    else:
+        raise RuntimeError("no M17 draw keeps every frame sync clear")
+    kw = dict(can=can, dt=spec["dt"], enc=enc, enc_st=est, meta=meta)
+    if enc == 1:
+        kw["scrambler_seed"] = SERIAL_M17_SCR
+    if enc == 2:
+        kw["aes_key"] = SERIAL_M17_AES
+    if sign:
+        kw["sign_key"], kw["sign_k"] = SERIAL_M17_SIGN, sign_k
+    full = ME.encode_stream_transmission(dst, src, voice, **kw)
+    tail = full[len(head) + 192 * n_all:]
+    if not np.array_equal(full[:len(head) + 192 * n_all], np.concatenate(
+            [head] + [frames[k] for k in range(n_all)])):
+        raise RuntimeError("the assembled M17 transmission is not the "
+                           "encoder's")
+    dib = np.concatenate([dib, tail])
+    if first:
+        dib = dib[starts[first]:]
+        starts = starts - starts[first]
+    return dib, heard, starts, voice, dst, src, can, meta, lsf
+
+
+def _m17_serial_vector() -> dict[str, np.ndarray]:
+    """A 60 s M17 channel at 4800 symbols/s: cycles of transmissions of
+    the JAX package's encoders (``protocol.m17.encoder``), each after
+    random idle symbols drawn clean: a clear 3200 call whose LSF carries
+    META text, a 1600 call with A_DATA text, scrambler calls of the
+    three subtypes (one with three frames dropped, so the decoder
+    advances the LFSR over the gap; one heard from its 12th frame, a
+    late entry read as clear until the LICH gives its LSF), an SMS
+    packet, a clear call with a GNSS META, an AES-CTR call, a signed
+    stream, a call with an extended-callsign META; in the first cycle a
+    BERT run.  The BERT transmission's preamble and first BRT sync
+    correlate 0.75 with the LSF sync 8 symbols early: the serial hunt
+    takes an LSF there (CRC ERR), which shadows the first BRT frame, as
+    in the JAX package (``M17_PRE``).  Returns the dibits, every frame
+    the decoder must take (``m17_frames``: sync start, kind,
+    transmission, FN with its EOT bit, LICH counter or packet block,
+    voice row), the transmissions (``m17_tx``: kind, CAN, type word,
+    frames, late entry, dropped frames, BERT state; their callsigns,
+    notes, META and LSFs), every voice frame's on-air payload and the
+    payload the decoder hands Codec2 (clear, or on-air where it cannot
+    decrypt yet), the SMS texts and the keys."""
+    from dsdneo_tpu.crypto.ecdsa import p256_public_key
+    from dsdneo_tpu.protocol.m17 import encoder as ME
+    rng = np.random.default_rng(SERIAL_M17_SEED)
+    margin = SERIAL_FAMILY_FALSE_SYNC_MAX
+    parts, frames, txs, calls, notes, metas, lsfs = [], [], [], [], [], [], []
+    onair, handed, sms = [], [], []
+    pos, c = 0, 0
+    while True:
+        for spec in _m17_program(c):
+            gap = int(rng.integers(*SERIAL_M17_GAP))
+            kind = spec["kind"]
+            t = len(txs)
+            row = [0, 0, 0, spec.get("n", 0), spec.get("late", 0),
+                   *spec.get("drop", (0, 0)), 0]
+            new, new_onair, new_handed, new_sms = [], [], [], []
+            if kind == "stream":
+                dib, heard, starts, voice, dst, src, can, meta, lsf = \
+                    _m17_stream_draw(rng, spec)
+                spec = {**spec, "dst": dst, "src": src}
+                n = spec["n"]
+                ota = _m17_onair(voice, spec, meta)
+                first = spec.get("late", 0)
+                if not first:
+                    new.append((48, M17_LSF, t, -1, -1, -1))
+                for k in heard:
+                    s = int(starts[k])
+                    if k >= n:
+                        new.append((s, M17_SIG, t,
+                                    (0x7FFC, 0x7FFD, 0x7FFE, 0xFFFF)[k - n],
+                                    k % 6, -1))
+                        continue
+                    eot = k == n - 1 and not spec.get("sign")
+                    new.append((s, M17_STR, t, k | (0x8000 if eot else 0),
+                                k % 6, len(onair) + len(new_onair)))
+                    new_onair.append(ota[k])
+                    # a late entry's frames before the LICH gives the LSF
+                    # (its sixth) are read with the last LSF's setting:
+                    # clear
+                    new_handed.append(ota[k] if first and k < first + 5
+                                      else voice[k])
+                row[:3] = 0, can, _bti(lsf[96:112])
+            elif kind == "packet":
+                for can in range(16):
+                    dib = ME.encode_packet_transmission(
+                        spec["dst"], spec["src"], spec["text"], can=can)
+                    nf = (len(dib) - 248 - 144) // 192
+                    starts = 248 + 192 * np.arange(nf)
+                    if not any(any(_m17_shadowed(dib, int(s)))
+                               for s in starts):
+                        break
+                else:
+                    raise RuntimeError("no CAN keeps the packet clear")
+                lsf = ME.build_lsf(spec["dst"], spec["src"], can=can,
+                                   stream=False, dt=1)
+                meta = bytes(14)
+                new.append((48, M17_LSF, t, -1, -1, -1))
+                new += [(int(s), M17_PKT, t, -1, i, len(sms))
+                        for i, s in enumerate(starts)]
+                new_sms.append(spec["text"])
+                row[:3] = 1, can, _bti(lsf[96:112])
+            else:
+                for state in range(1, 512):
+                    dib = ME.encode_bert_transmission(spec["n"], state)
+                    starts = 48 + 192 * np.arange(spec["n"])
+                    if not any(any(_m17_shadowed(dib, int(s)))
+                               for s in starts[1:]):
+                        break
+                else:
+                    raise RuntimeError("no BERT state keeps the run clear")
+                meta, lsf = bytes(14), np.zeros(240, np.uint8)
+                new.append((40, M17_PRE, t, -1, -1, -1))
+                new += [(int(s), M17_BRT, t, -1, i, -1)
+                        for i, s in enumerate(starts) if i]
+                row[0], row[7] = 2, state
+            if pos + gap + len(dib) > SERIAL_M17_TOTAL - 400:
+                break
+            idle, _ = _hunted_fill(rng, _random_chunks(gap), "m17", margin,
+                                   after=dib)
+            pos += len(idle)
+            frames += [(pos + s, *rest) for s, *rest in new]
+            parts += [idle, dib]
+            pos += len(dib)
+            onair += new_onair
+            handed += new_handed
+            sms += new_sms
+            txs.append(row)
+            calls.append((ME.encode_callsign(spec.get("dst", "")),
+                          ME.encode_callsign(spec.get("src", ""))))
+            notes.append(spec.get("note", ""))
+            metas.append(np.frombuffer(meta, np.uint8))
+            lsfs.append(lsf)
+        else:
+            c += 1
+            continue
+        break
+    tail = _clean_tail(rng, SERIAL_M17_TOTAL - pos, "m17", margin)
+    dib = np.concatenate(parts + [tail]).astype(np.uint8)
+    return {"m17_dibits": dib,
+            "m17_frames": np.asarray(sorted(frames), np.int64),
+            "m17_tx": np.asarray(txs, np.int64),
+            "m17_tx_calls": np.asarray(calls, np.int64),
+            "m17_tx_note": np.asarray(notes),
+            "m17_tx_meta": np.stack(metas),
+            "m17_tx_lsf": np.packbits(np.stack(lsfs), axis=-1),
+            "m17_onair": np.packbits(np.stack(onair), axis=-1),
+            "m17_handed": np.packbits(np.stack(handed), axis=-1),
+            "m17_sms": np.asarray(sms),
+            "m17_aes_key": np.frombuffer(SERIAL_M17_AES, np.uint8),
+            "m17_pubkey": np.frombuffer(p256_public_key(SERIAL_M17_SIGN),
+                                        np.uint8),
+            "m17_ids": np.array([SERIAL_M17_SEED, SERIAL_M17_SCR], np.int64)}
+
+
+# -- P25 Phase 2
+SERIAL_P2_SEED = 26            # synth_p2_voice_stream's first seed
+SERIAL_P2_SF = (83, 83)        # superframes: clear, then ADP-keyed
+SERIAL_P2_PARAMS = (0xBEE00, 0x14C, 0x140)   # WACN, SYSID, NAC
+SERIAL_P2_KEY = 0x1A2B3C4D5E   # the ADP key, in the KeyRing under
+SERIAL_P2_KID = 0x0077         # SERIAL_P2_KID
+SERIAL_P2_MI = 0x1122334455667788
+SERIAL_P2_TG = (1801, 1802)    # each slot's talkgroup and source
+SERIAL_P2_SRC = (700001, 700002)
+P2_SF_DIBITS = 2160            # 3 frames of a 20-dibit sync and 700 dibits
+P2_SYNTH_LEAD = 40             # synth_p2_voice_stream's lead
+P2_LEAD = 48                   # the stream's lead (zeros)
+
+
+def _p2_ptt(slot: int, alg: int, kid: int, mi: int) -> list[int]:
+    """A MAC_PTT message: MI, ALG, KID, source, talkgroup
+    (``P25P2Decoder._mac_pdu``'s octets 1-17)."""
+    src, tg = SERIAL_P2_SRC[slot], SERIAL_P2_TG[slot]
+    return ([(mi >> (56 - 8 * i)) & 0xFF for i in range(8)]
+            + [alg, kid >> 8, kid & 0xFF, 0, src >> 16, (src >> 8) & 0xFF,
+               src & 0xFF, tg >> 8, tg & 0xFF])
+
+
+def _p2_serial_vector() -> dict[str, np.ndarray]:
+    """A 60 s P25 Phase 2 channel at 6000 symbols/s: superframes of the
+    JAX package's ``engine.p2batch.synth_p2_voice_stream`` (both slots
+    running 4V×4 + 2V with their ESS, the ISCH, the DUIDs and the
+    WACN/SYS/NAC scramble), a clear half then an ADP-keyed half (ALG
+    0xAA, the key's RC4 keystream from drop 256 each superframe), each
+    superframe's two LCCH timeslots (global 10 and 11) replaced by
+    scrambled SACCH bursts carrying each slot's MAC_PTT (ALG 0x80 in the
+    clear half; 0xAA, the KID and the MI in the keyed half), so the
+    serial decoder can also recover the scramble parameters blind.  One
+    superframe a call, from the next seed whose superframe puts no clean
+    false sync where it could shadow a frame sync (random voice bits
+    sometimes correlate 0.64 with −P25p2 eleven symbols early); a
+    48-symbol lead, random symbols drawn clean to the end.  Returns the
+    dibits, the frames' sync starts and timeslot DUIDs, every AMBE
+    frame's frame, timeslot, slot, superframe, half and place with its
+    clear and on-air parameter bits, and the IDs and key."""
+    from dsdneo_tpu.crypto.keystream import rc4_keystream
+    from dsdneo_tpu.engine.p2batch import synth_p2_voice_stream
+    from dsdneo_tpu.protocol.p25 import encode as PE
+    from dsdneo_tpu.protocol.p25 import p2_xcch
+    rng = np.random.default_rng(SERIAL_P2_SEED)
+    names = _sync_names("p25p2")
+    margin = SERIAL_FAMILY_FALSE_SYNC_MAX
+    wacn, sysid, nac = SERIAL_P2_PARAMS
+    scr = p2_xcch.generate_scramble_bits(wacn, sysid, nac, 12 * 360 + 380)
+    parts = [np.zeros(P2_LEAD, np.uint8)]
+    fpos, fduid, vrow, vplain, vonair = [], [], [], [], []
+    seed, sf = SERIAL_P2_SEED, 0
+    for half, n_sf in enumerate(SERIAL_P2_SF):
+        alg, kid, key, mi = ((0xAA, SERIAL_P2_KID, SERIAL_P2_KEY,
+                              SERIAL_P2_MI) if half else (0, 0, 0, 0))
+        ks = (rc4_keystream((key & 0xFFFFFFFFFF).to_bytes(5, "big")
+                            + mi.to_bytes(8, "big"), 18 * 7, drop=256)
+              if half else np.zeros(18 * 7, np.uint8))
+        for _ in range(n_sf):
+            while True:
+                _x, d, b49 = synth_p2_voice_stream(
+                    1, seed=seed, wacn=wacn, sysid=sysid, nac=nac, alg=alg,
+                    kid=kid, key=key, mi=mi)
+                seed += 1
+                d = d[P2_SYNTH_LEAD:P2_SYNTH_LEAD + P2_SF_DIBITS].copy()
+                for g in (10, 11):
+                    payload = PE.p2_mac_payload(
+                        1, [_p2_ptt(g % 2, alg or 0x80, kid, mi)])
+                    ts = PE.p2_xcch_ts(payload, 3, g, scramble=scr)[
+                        :320 if g == 11 else 360]
+                    off = 720 * (g // 4) + 20 + 180 * (g % 4)
+                    d[off:off + len(ts) // 2] = (ts[0::2] << 1) | ts[1::2]
+                lead = parts[-1][-48:]
+                seg = np.concatenate([lead, d])
+                cut = len(lead) + 720 * np.arange(3)
+                if all(_frame_ok(seg[:c], seg[c:], names, margin)
+                       for c in cut):
+                    break
+            base = sum(len(q) for q in parts)
+            parts.append(d)
+            nfr = {0: 0, 1: 0}
+            for fr in range(3):
+                fpos.append(base + 720 * fr)
+                duids = []
+                for k in range(4):
+                    g = 4 * fr + k
+                    slot, j = g % 2, g // 2
+                    duids.append(0 if j < 4 else (6 if j == 4 else 3))
+                    for f in range(4 if j < 4 else (2 if j == 4 else 0)):
+                        i = nfr[slot]
+                        c = np.packbits(b49[slot, i]) ^ ks[7 * i:7 * i + 7]
+                        vrow.append((len(fpos) - 1, k, slot, sf, half, f))
+                        vplain.append(b49[slot, i])
+                        vonair.append(np.unpackbits(c)[:49])
+                        nfr[slot] += 1
+                fduid.append(duids)
+            sf += 1
+    dib = np.concatenate(parts)
+    tail = _hunted_fill(rng, _random_chunks(int(SERIAL_SECONDS * 6000)
+                                            - len(dib)), "p25p2", margin)[0]
+    return {"p2_dibits": np.concatenate([dib, tail]).astype(np.uint8),
+            "p2_frame_pos": np.asarray(fpos, np.int64),
+            "p2_frame_duid": np.asarray(fduid, np.int64),
+            "p2_voice": np.asarray(vrow, np.int64),
+            "p2_voice_clear": np.packbits(np.stack(vplain), axis=-1),
+            "p2_voice_onair": np.packbits(np.stack(vonair), axis=-1),
+            "p2_ids": np.array([*SERIAL_P2_PARAMS, SERIAL_P2_KEY,
+                                SERIAL_P2_KID, SERIAL_P2_MI,
+                                *SERIAL_P2_TG, *SERIAL_P2_SRC,
+                                SERIAL_P2_SEED], np.int64),
+            "p2_halves": np.asarray(SERIAL_P2_SF, np.int64)}
+
 def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
-    """The serial decode path's nine 60 s streams, each held to the JAX
+    """The serial decode path's eleven 60 s streams, each held to the JAX
     package's ``decode_samples`` over its whole length when ``check``
     (the port's ``engine.serialvec`` judges: every LDU, LC, ESS and
     keyed frame, every EDACS frame and ProVoice superframe, every DMR
@@ -3148,10 +3621,14 @@ def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
     an inverted channel, every X2-TDMA superframe's frames, every NXDN
     frame's line and AMBE frame at both rates, every dPMR part's IDs,
     channel code and AMBE frames, every YSF frame's FICH, DCH2 text and
-    AMBE or IMBE frames, every D-STAR header and superframe)."""
+    AMBE or IMBE frames, every D-STAR header and superframe, every M17
+    frame with its voice payloads, signature, SMS and BERT counts, every
+    P25p2 frame and AMBE frame with and without the scramble parameters
+    and the ADP key)."""
     t = {**_p25_call_vector(), **_pv_vector(), **_dmr_call_vector(),
          **_x2_vector(), **_nxdn_serial_vector(), **_dpmr_serial_vector(),
-         **_ysf_serial_vector(), **_dstar_serial_vector()}
+         **_ysf_serial_vector(), **_dstar_serial_vector(),
+         **_m17_serial_vector(), **_p2_serial_vector()}
     if check:
         _check_serial(t)
     return t
@@ -3195,6 +3672,21 @@ def _check_serial(t: dict[str, np.ndarray]) -> None:
     SV.judge_ysf(t, ctx, ambe, imbe)
     ctx = decode_samples(SV.dstar_iq(t), "dstar")
     SV.judge_dstar(t, ctx)
+    from dsdneo_tpu.protocol.m17.decoder import M17Decoder
+    udp = SV.UdpSink()
+    with SV.M17Spy(M17Decoder) as spy:
+        ctx = decode_samples(SV.m17_iq(t), "m17", m17_udp=udp,
+                             state_attrs=SV.m17_attrs(t))
+    SV.judge_m17(t, ctx, spy, udp)
+    kr = KeyRing()
+    kr.scalar[SERIAL_P2_KID] = SERIAL_P2_KEY
+    for keyed, blind in ((True, False), (True, True), (False, False)):
+        with SV.AmbeSpy(jmbe) as spy:
+            ctx = decode_samples(SV.p2_iq(t), "p25p2",
+                                 keyring=kr if keyed else None,
+                                 p2_params=None if blind
+                                 else SERIAL_P2_PARAMS)
+        SV.judge_p2(t, ctx, spy, keyed=keyed, blind=blind)
 
 
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
