@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
-five control-channel monitors, two event pipelines and the serial decode
-path.
+five control-channel monitors, two event pipelines, the serial decode
+path, the wideband band and the closed-loop trunked fleet.
 
     python3 chip_smoke.py
 
@@ -59,6 +59,16 @@ The paths, each at 320 channels through the entry points a user calls:
     capture; no kernel of the table: the serial front end and the
     resampler are plain PyTorch on the card and the protocol walk runs
     on the host, as in the JAX package.
+  - wideband: ``engine.wideband.decode_wideband_voice_batched`` on a
+    12.288 MHz band, 256 channels of 48 kHz (the polyphase bank and the
+    halfband decimator on the card, every channel through
+    ``BatchedP25VoicePipeline(256)``), 3 s blocks; K1, K2, K3;
+  - the trunked fleet: ``engine.fleettrunk.TrunkedFleet`` (the row
+    extractor, the control rows' pipeline, grants retargeting the voice
+    rows): the JAX bench's 768 kHz CU8 cell with the device TSDU pick
+    (``parallel.mesh._p25_cc_body``: K1, K4), a 2.4 MHz band of four
+    P25 systems and 16 voice rows, and the DMR, NXDN48 (K5 on its CC),
+    EDACS (analog rows) and P25 Phase 2 row fleets.
 
 Phases, in order; any failure exits non-zero:
 
@@ -94,7 +104,10 @@ Phases, in order; any failure exits non-zero:
      inverted, and the share of frames whose 49 bits equal the vector's
      is printed (the synthetic FM leaves ~0.5% symbol errors and 25 of
      49 bits are unprotected) and must not be lower on the card than on
-     the port's CPU path for channels 0-1.  Every path: PCM finite and
+     the port's CPU path for channels 0-1; then the same dibits with the
+     serial DMR stream's pulse shape (``serialvec.dmr_iq``), two blocks:
+     every channel accepts every superframe, every frame's 49 bits equal
+     the vector's, 0 ECC errors.  Every path: PCM finite and
      non-silent, and channels 0-1 within 2e-3 of the peak of the port's
      plain CPU path on the same input; every kernel of the path
      launched, the others not.  Timed (adpcm): the pipelined loop
@@ -255,8 +268,42 @@ Phases, in order; any failure exits non-zero:
      96 kHz on the card (``dsp.resampler``), written as a cs16 capture
      (``io.write_iq_capture``) and decoded by ``decode_capture`` on the
      card (back to 48 kHz on the card), judged whole, its first 5 s
-     equal to the CPU path's.  Each phase's start time is printed.  The peak device memory and the launches
-     of K1-K8 during the phase (all 0) are printed.
+     equal to the CPU path's.  The first 5 or 10 s of three streams
+     (C4FM, DMR, P25p2) are also profiled.  ``"auto"`` is held to the
+     JAX ``detect_mode``'s picks stored in ``serial_tables.npz`` (a CPU
+     test holds the port's CPU picks to them).  Each phase's start time
+     is printed.  The peak device memory and the launches of K1-K8
+     during the phase (all 0) are printed.
+  9. the wideband band and the trunked fleet (``data/fleet_tables.npz``,
+     ``engine.fleetvec``; every carrier modulated at 48 kHz and placed
+     in its bins of one FFT on the card).  Wideband: 254 of 256 bins of
+     a 12.288 MHz band loaded with the P25 vector (own lead and noise,
+     30 dB; bins 37 and 128, the Nyquist bin, empty), two 3 s blocks,
+     adpcm then f16: every loaded channel accepts every LDU its block
+     holds whole, consecutive, with the vector's IMBE bits but for at
+     most 0.1% of the frames (the bank folds a carrier two bins away in
+     at -31.8 dB, ROADMAP queue 3), the empty bins accept none; channels
+     0-1 (f16) against the CPU path, the band channelized whole on the
+     CPU; timed (6 blocks), the channelizer by CUDA events, device busy,
+     peak memory; K1, K2 and K3 at its shapes.  The JAX bench's fleet
+     cell (768 kHz CU8, CC at -96 kHz, 4 voice rows, hangtime 5 s,
+     grace 0.5 s, the device pick): one grant, row 0 retargeted to +150
+     kHz, its LDUs with the vector's IMBE bits, the parked rows silent;
+     the host pick's grants, log and PCM equal (bit for bit), the CPU
+     path's within 2e-3 * peak; ``step_pipelined`` on blocks 0, 0, 1
+     gives the plain step's block-1 PCM at the flush; timed in the
+     bench's double-buffered loop (``step(None, prefetch=...)``); K1 at
+     the [1, 47999] and [4, 47999] rows, K4 at the pick's 48 words.  The
+     2.4 MHz fleet (4 CCs, 16 voice rows, 6 blocks of 1 s, CU8, default
+     hangtime and grace, the device pick, prefetched): 12 grants, 6
+     releases (the calls that fall silent), their rows parked on CC 0,
+     no busy or unresolved drops, the parked rows silent; each call's
+     LDUs and exact frames reported beside the row extractor's gain over
+     its carrier (the JAX bank's dip 9-19 kHz off a bin's centre, queue
+     3); timed.  DMR, NXDN48, EDACS (analog row) and P25p1 with 2
+     Phase 2 rows at 768 kHz, two blocks: the grant(s), the retargeted
+     row, voice on it, stats, log, offsets and PCM equal to the CPU
+     path's; K5 at the NXDN CC's words.  Each cell's kernel launches.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -360,6 +407,13 @@ P2CC_CENTER_HZ = 851_000_000.0
 P2CC_GRANT_CH = (1 << 12) | 24
 P2CC_TG = 101
 K3_CHECK_ROWS = 32           # K3's new lengths: rows held to the plain loop
+# phase 8's streams whose first seconds are also profiled
+SERIAL_PROFILED = ("P25p1 C4FM call", "DMR BS call", "P25p2 clear + ADP")
+WB_CH = 256                  # the wideband cell: 256 PFB channels of 48 kHz
+WB_EMPTY = (37, 128)         # its empty bins: one, and the Nyquist bin
+# the wideband bank (12 taps a branch, the JAX package's) folds a carrier
+# two bins away in at -31.8 dB: at most this share of frames may differ
+WB_BAD_SHARE = 1e-3
 # kernel names in a profile
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
         "conv_k5", "conv_k3", "one_pole")
@@ -835,25 +889,28 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
             n10_pcm = sum(len(SV.pcm(g10, s)) for s in g10.audio)
             n_voice = sum(len(getattr(s, "bits", ())) for s in sinks)
             walk = wall - sp["front"] - sp["synth"]
-            # device busy over the window, against its unprofiled wall
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                decode(x[:n10], mode, cq, dev, attrs)
-                torch.cuda.synchronize()
-            dev_us = {}
-            for e in prof.key_averages():
-                if (e.device_type == DeviceType.CUDA
-                        and e.self_device_time_total > 0):
-                    dev_us[e.key] = (dev_us.get(e.key, 0.0)
-                                     + e.self_device_time_total)
-            busy = sum(dev_us.values()) / 1e3
-            top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
-            w10 = out["card10"][2] * 1e3
-            log(f"serial {name} profile, first {win_s} s: device busy "
-                f"{busy:.1f} ms = {100 * busy / w10:.1f}% of the unprofiled "
-                f"decode ({w10:.1f} ms), idle {100 - 100 * busy / w10:.1f}"
-                f"%; top: " + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
-                                        for k, v in top) + f" [{ident}]")
+            # device busy over the window, against its unprofiled wall (on
+            # three streams: the script's time)
+            if name in SERIAL_PROFILED:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    decode(x[:n10], mode, cq, dev, attrs)
+                    torch.cuda.synchronize()
+                dev_us = {}
+                for e in prof.key_averages():
+                    if (e.device_type == DeviceType.CUDA
+                            and e.self_device_time_total > 0):
+                        dev_us[e.key] = (dev_us.get(e.key, 0.0)
+                                         + e.self_device_time_total)
+                busy = sum(dev_us.values()) / 1e3
+                top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:5]
+                w10 = out["card10"][2] * 1e3
+                log(f"serial {name} profile, first {win_s} s: device busy "
+                    f"{busy:.1f} ms = {100 * busy / w10:.1f}% of the "
+                    f"unprofiled decode ({w10:.1f} ms), idle "
+                    f"{100 - 100 * busy / w10:.1f}%; top: "
+                    + ", ".join(f"{k[:40]} {v / 1e3:.2f} ms"
+                                for k, v in top) + f" [{ident}]")
             log(f"serial {name}: {secs:.1f} s decoded on the card in "
                 f"{wall:.3f} s = {secs / wall:.2f}x realtime; split: front "
                 f"end {sp['front'] * 1e3:.1f} ms, host walk "
@@ -897,40 +954,28 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
                     f"[{ident}]")
 
         # decode_samples(..., "auto") on the card on a 4 s probe of each
-        # family's stream: its pick equal to detect_mode's on the CPU
-        probes = (("P25p1", lambda: SV.p25_iq(tv, 4 * 4800)),
-                  ("EDACS + ProVoice", lambda: SV.pv_iq(tv, 4 * 9600)),
-                  ("DMR", lambda: SV.dmr_iq(tv, 4 * 4800)),
-                  ("X2-TDMA", lambda: SV.x2_iq(tv, 4 * 6000)),
-                  ("NXDN48", lambda: SV.nxdn_iq(tv, 4 * 2400, "nxdn48")),
-                  ("NXDN96", lambda: SV.nxdn_iq(tv, 4 * 4800, "nxdn96")),
-                  ("dPMR", lambda: SV.dpmr_iq(tv, 4 * 2400)),
-                  ("YSF", lambda: SV.ysf_iq(tv, 4 * 4800)),
-                  ("D-STAR", lambda: SV.dstar_iq(tv, 4 * 4800)),
-                  ("M17", lambda: SV.m17_iq(tv, 4 * 4800)),
-                  ("P25p2", lambda: SV.p2_iq(tv, 4 * 6000)))
-        picks, t_card, t_cpu = {}, 0.0, 0.0
-        for fam, make in probes:
-            x = make()
+        # family's stream: its pick equal to the JAX detect_mode's, stored
+        # beside the streams (a CPU test holds the port's CPU picks to it)
+        picks, t_card = {}, 0.0
+        for fam in SV.AUTO_FAMILIES:
+            x = SV.auto_probe(tv, fam)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             ctx = sdec.decode_samples(x, "auto", device=dev,
                                       keyring=SV.keyring(tv),
                                       state_attrs=SV.m17_attrs(tv))
-            t2 = time.perf_counter()
-            cpu = sdec.detect_mode(x, device="cpu")
-            t_card += t2 - t1
-            t_cpu += time.perf_counter() - t2
-            if ctx.mode_name != cpu.name:
+            t_card += time.perf_counter() - t1
+            if ctx.mode_name != SV.auto_pick(tv, fam):
                 raise RuntimeError(
                     f"serial auto, {fam} probe: the card picks "
-                    f"{ctx.mode_name!r}, the CPU path {cpu.name!r}")
+                    f"{ctx.mode_name!r}, the stored pick is "
+                    f"{SV.auto_pick(tv, fam)!r}")
             picks[fam] = (ctx.mode_name, len(ctx.events))
         log(f"serial auto: decode_samples(..., 'auto') on the card on a 4 s "
-            f"probe of each family's stream picks the CPU path's mode: "
-            f"{picks}; {t_card:.3f} s on the card for the 11 (the detection's "
-            f"10 demod configurations each, then the decode), "
-            f"{t_cpu:.3f} s for the CPU path's detect_mode [{ident}]")
+            f"probe of each family's stream picks the stored JAX pick: "
+            f"{picks}; {t_card:.3f} s on the card for the 11 (the "
+            f"detection's 10 demod configurations each, then the decode) "
+            f"[{ident}]")
 
         # decode_capture: the P25 call raised to 96 kHz by the resampler on
         # the card, written as a cs16 capture, decoded back at 48 kHz
@@ -984,6 +1029,571 @@ def serial_phase(ident: str, dev, block, counted) -> dict:
         f"K1-K8 during the phase: {launches} (all 0: the serial path "
         f"reaches no kernel of the table, as in the JAX package) [{ident}]")
     return launches
+
+
+def device_busy(fn, n: int) -> tuple[float, dict]:
+    """Device time per call of ``fn`` over ``n`` calls under
+    torch.profiler (ms), and the largest device operations (ms a call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
+            key = next((k for k in OURS if f"{k}_kernel" in e.key), e.key)
+            dev_us[key] = dev_us.get(key, 0.0) + e.self_device_time_total
+    top = dict(sorted(((k, v / n / 1e3) for k, v in dev_us.items()),
+                      key=lambda kv: -kv[1])[:6])
+    return sum(dev_us.values()) / n / 1e3, top
+
+
+def fleet_split(fleet, block) -> str:
+    """One step of a P25 fleet with the device pick taken apart, each
+    stage synchronized: the rows (bank, NCO, halfband), the device pick
+    and its blob to the host, the host parse, the voice rows' front end
+    and candidates to the host, the pick and voice decode, the PCM to
+    the host.  The fleet's control plane does not advance."""
+    import torch
+    t, out = time.perf_counter(), {}
+
+    def lap(name):
+        nonlocal t
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out[name] = (now - t) * 1e3
+        t = now
+
+    cc_rows, vc_rows, _v2, _s = fleet._rows(block)
+    lap("rows")
+    fetched = [a.cpu().numpy() for a in
+               fleet._cc_body(int(cc_rows.shape[1]))(cc_rows)]
+    lap("device pick + blob to host")
+    n = fleet._cc_events_from_blob(*fetched)
+    lap(f"host parse ({n} TSBKs)")
+    fe = fleet.vc_pipe.frontend_finish(fleet.vc_pipe.frontend_dispatch(
+        vc_rows))
+    lap("voice front end + candidates to host")
+    h = fleet.vc_pipe.decode_from_frontend(fe)
+    lap("pick + voice decode")
+    fleet.vc_pipe.fetch_pcm(h)
+    lap("PCM to host")
+    return ", ".join(f"{k} {v:.1f}" for k, v in out.items())
+
+
+def fleet_phase(ident: str, dev, counted, show, check_k1, check_k3,
+                three_tones, tables) -> dict:
+    """Phase 9: the wideband band and the closed-loop trunked fleet
+    (``engine.wideband``, ``engine.fleettrunk``); returns the kernels'
+    launches by path."""
+    import numpy as np
+    import torch
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.dsp.channelizer import channel_frequencies
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    from dsdneo_tpu_torch.engine.fleettrunk import TrunkedFleet
+    from dsdneo_tpu_torch.engine.trunk import ChannelMap
+    from dsdneo_tpu_torch.engine.voicebatch import BatchedP25VoicePipeline
+    from dsdneo_tpu_torch.engine.wideband import (
+        channelize_band_device, decode_wideband_voice_batched)
+    from dsdneo_tpu_torch.fec import device as fdev
+    from dsdneo_tpu_torch.protocol.p25 import encode
+    from dsdneo_tpu_torch.vocoder import device as vdev
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn, k8fn = counted
+    launches = {}
+    rng = np.random.default_rng(SEED + 9)
+
+    def reset():
+        for fn in counted:
+            fn.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    # -- the wideband cell: 256 channels of a 12.288 MHz band --------------
+    fs_w = WB_CH * FS
+    n_w = int(fs_w * BLOCK_S)
+    tv = tables.test_vector()
+    freqs = channel_frequencies(WB_CH, fs_w)
+    loaded = [k for k in range(WB_CH) if k not in WB_EMPTY]
+    leads = dict(zip(loaded, rng.integers(30, len(tv["lead"]) + 1,
+                                          len(loaded)).tolist()))
+    n_sym = int(BLOCK_S * 4800) - 2
+    t1 = time.perf_counter()
+    wb_blocks = []
+    for blk in range(2):
+        seeds = rng.permutation(1 << 20)[:len(loaded)]
+        parts = [(encode.c4fm_iq(encode.vector_stream(tv, leads[k],
+                                                       n_sym + 2),
+                                 seed=int(s)), int(freqs[k]))
+                 for k, s in zip(loaded, seeds)]
+        wb_blocks.append(FV.place(parts, fs_w, n_w, device=dev))
+    torch.cuda.synchronize()
+    log(f"wideband: {WB_CH} channels of a {fs_w / 1e6:.3f} MHz band, "
+        f"{len(loaded)} loaded with P25 C4FM voice (own lead and noise, "
+        f"30 dB), bins {sorted(WB_EMPTY)} empty; two {BLOCK_S:g} s blocks "
+        f"of {n_w} samples built on the card in "
+        f"{time.perf_counter() - t1:.1f} s [{ident}]")
+
+    def judge_wb(pipe, label):
+        """Every loaded channel accepts every LDU its block holds whole,
+        consecutive, with the vector's IMBE bits but for at most
+        ``WB_BAD_SHARE`` of the frames (the bank's fold two bins away,
+        ROADMAP queue 3); the empty bins accept none.  Returns (LDUs,
+        frames whose bits differ)."""
+        bits, _errs, fch, forder = pipe.last_frames
+        bits = bits.cpu().numpy()
+        n_ldu = n_bad = 0
+        for k in range(WB_CH):
+            sel = np.flatnonzero(fch == k)
+            fb = bits[sel[np.argsort(forder[sel], kind="stable")]]
+            if k in WB_EMPTY:
+                if fb.size:
+                    raise RuntimeError(f"{label}: empty bin {k} accepted "
+                                       f"{fb.shape[0] // 9} LDUs")
+                continue
+            n, bad = FV.judge_ldus(fb, tv["bits88"],
+                                   leads[k] + tv["ldu_starts"], 0, n_sym,
+                                   pipe._ldu_need, max_bad=9)
+            n_ldu += n
+            n_bad += bad
+        if n_bad > WB_BAD_SHARE * 9 * n_ldu:
+            raise RuntimeError(f"{label}: {n_bad} of {9 * n_ldu} frames' "
+                               "IMBE bits differ from the vector")
+        return n_ldu, n_bad
+
+    wb_pcm = {}
+    reset()
+    for fmt in ("adpcm", "f16"):
+        pipe = None
+        for blk in range(2):
+            if pipe is None:
+                pipe = BatchedP25VoicePipeline(WB_CH, FS, pcm_fmt=fmt,
+                                               device=dev, tables=tables)
+            pcm, _f = decode_wideband_voice_batched(wb_blocks[blk], fs_w,
+                                                    WB_CH, pcm_fmt=fmt,
+                                                    pipe=pipe, device=dev)
+            n_ldu, n_bad = judge_wb(pipe, f"wideband {fmt} block {blk}")
+            if not np.isfinite(pcm).all():
+                raise RuntimeError("wideband: non-finite PCM")
+            quiet = np.abs(pcm[sorted(WB_EMPTY)]).max(initial=0.0)
+            log(f"wideband {fmt} block {blk}: {len(loaded)} loaded channels "
+                f"accept every LDU their block holds whole ({n_ldu} LDUs); "
+                f"{9 * n_ldu - n_bad} of {9 * n_ldu} frames' IMBE bits equal "
+                f"the vector's, {n_bad} differ (the fold two bins away); "
+                f"the empty bins accept none (|pcm| {quiet:.2e}); PCM "
+                f"{pcm.shape}")
+            wb_pcm[fmt, blk] = pcm[:2]
+            if fmt == "f16" and blk == 0:
+                carry = [None if st is None else tuple(t[:2].cpu()
+                                                       for t in st)
+                         for st in pipe.voice_state()]
+    launches["wideband"] = check_launches(
+        "wideband", counted, (k1fn, k2fn, k3fn),
+        (k7fn, k4fn, k5fn, k6fn, k8fn))
+    peak = torch.cuda.max_memory_allocated()
+    # channels 0-1 against the CPU path: the whole band channelized on
+    # the CPU, those two rows through the CPU pipeline
+    cpu_pipe = BatchedP25VoicePipeline(2, FS, pcm_fmt="f16", device="cpu",
+                                       tables=params.load("cpu"))
+    worst = 0.0
+    t1 = time.perf_counter()
+    for blk in range(2):
+        if blk == 1:
+            cpu_pipe.set_voice_state(*carry)
+        ch, _f = channelize_band_device(wb_blocks[blk].cpu(), fs_w, WB_CH,
+                                        device="cpu")
+        want = cpu_pipe.decode_block(torch.view_as_real(ch[:2]))
+        got = wb_pcm["f16", blk]
+        if want.shape != got.shape or not (
+                np.abs(got - want).max() <= 2e-3 * np.abs(want).max()):
+            raise RuntimeError(f"wideband block {blk}: channels 0-1 differ "
+                               "from the CPU path")
+        worst = max(worst, float(np.abs(got - want).max()))
+    log(f"wideband channels 0-1 card vs CPU path (the band channelized "
+        f"whole on the CPU, f16, two blocks): max abs err {worst:.3e} "
+        f"(tol 2e-3 * peak); the CPU path took "
+        f"{time.perf_counter() - t1:.1f} s")
+    del cpu_pipe, ch
+    # timed: the headline (adpcm), a fresh pipeline, the blocks in turn
+    pipe = BatchedP25VoicePipeline(WB_CH, FS, pcm_fmt="adpcm", device=dev,
+                                   tables=tables)
+
+    def wb_step(i):
+        return decode_wideband_voice_batched(wb_blocks[i % 2], fs_w, WB_CH,
+                                             pcm_fmt="adpcm", pipe=pipe,
+                                             device=dev)
+
+    wb_step(0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(N_TIMED):
+        wb_step(i)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / N_TIMED
+    ch_ms = cuda_ms(lambda: channelize_band_device(
+        wb_blocks[0], fs_w, WB_CH, device=dev), 3)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ch = torch.view_as_real(channelize_band_device(wb_blocks[1], fs_w, WB_CH,
+                                                   device=dev)[0])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    wb_fe = pipe.frontend_finish(pipe.frontend_dispatch(ch))
+    t3 = time.perf_counter()
+    wb_h = pipe.decode_from_frontend(wb_fe)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    pipe.fetch_pcm(wb_h)
+    t5 = time.perf_counter()
+    log(f"wideband stages (ms, one block): channelizer {1e3 * (t2 - t1):.1f}, "
+        f"front end + sync + candidates to host {1e3 * (t3 - t2):.1f}, pick "
+        f"+ voice decode {1e3 * (t4 - t3):.1f}, PCM to host + expand "
+        f"{1e3 * (t5 - t4):.1f}")
+    del ch, wb_fe, wb_h
+    busy_ms, top = device_busy(lambda: wb_step(0), 2)
+    log(f"wideband step ({ident}): {step_s * 1e3:.1f} ms per {BLOCK_S:g} s "
+        f"block of {WB_CH} channels = {WB_CH * BLOCK_S / step_s:.1f}x "
+        f"realtime (adpcm); the channelizer {ch_ms:.2f} ms (CUDA events); "
+        f"device busy {busy_ms:.1f} ms per block = "
+        f"{100 * busy_ms / (step_s * 1e3):.1f}% of the step; top: "
+        + ", ".join(f"{k[:40]} {v:.2f} ms" for k, v in top.items())
+        + f"; peak device memory {peak / 1e9:.3f} GB; launches "
+        f"{launches['wideband']}")
+    # the kernels at the wideband's shapes
+    x = torch.view_as_real(channelize_band_device(
+        wb_blocks[0], fs_w, WB_CH, device=dev)[0]).contiguous()
+    check_k1(x, tables.taps, shape=list(x.shape[:2]))
+    Tn = pipe.last_steps
+    hold_k2(dev, tables, show, WB_CH, Tn)
+    check_k3(three_tones(WB_CH, Tn * 160), shape=[WB_CH, Tn * 160],
+             rows=K3_CHECK_ROWS)
+    del x, pipe, wb_blocks, wb_pcm
+    torch.cuda.empty_cache()
+
+    # -- the trunked fleet, the JAX bench's cell ---------------------------
+    ftv = FV.vector()
+    u8 = FV.cu8_planes(FV.bench_band(ftv, device=dev)).cpu().numpy()
+    nb = int(FV.BENCH_FS)
+    blocks = [u8[:nb], u8[nb:2 * nb]]
+    bkw = dict(n_voice_rows=4, center_hz=FV.BENCH_CENTER, hangtime_s=5.0,
+               grant_grace_s=0.5)
+
+    def bench_fleet(where=dev, pick=True):
+        return TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], device=where,
+                            cc_device_pick=pick, **bkw)
+
+    reset()
+    fleet = bench_fleet()
+    pcm0 = fleet.step(blocks[0])
+    if not (fleet.stats.grants == 1 and fleet.offs[1] == FV.BENCH_VC_OFF
+            and pcm0.shape[1] == 0):
+        raise RuntimeError(f"fleet bench cell: block 0 {fleet.stats} "
+                           f"{fleet.offs}")
+    pcm1 = fleet.step(blocks[1])
+    need = fleet.vc_pipe._ldu_need
+    n_ldu, _bad = FV.judge_ldus(FV.row_frames(fleet.vc_pipe, 0),
+                          ftv["bench_vc_bits88"], ftv["bench_vc_starts"],
+                          4800, 4800 - 2, need)
+    if np.abs(pcm1[1:]).max() != 0 or not np.abs(pcm1[0]).mean() > 1e-3:
+        raise RuntimeError("fleet bench cell: parked rows not silent or the "
+                           "granted row silent")
+    launches["fleet_bench"] = check_launches(
+        "fleet bench cell", counted, (k1fn, k2fn, k4fn),
+        (k3fn, k7fn, k5fn, k6fn, k8fn))
+    # the host pick, and the CPU path, on the same blocks
+    host = bench_fleet(pick=False)
+    cpu = bench_fleet("cpu")
+    for f in (host, cpu):
+        out = [f.step(b) for b in blocks]
+        # the refreshes count the TSDUs each pick takes: the host pick
+        # also takes those whose later trellis blocks the block end cuts
+        same = (f.stats == fleet.stats if f is cpu else
+                (f.stats.grants, f.stats.releases, f.stats.unresolved)
+                == (fleet.stats.grants, fleet.stats.releases,
+                    fleet.stats.unresolved))
+        if not (same and f.log == fleet.log
+                and f.offs.tolist() == fleet.offs.tolist()):
+            raise RuntimeError(f"fleet bench cell: {f.cc_pipe.device} "
+                               f"{'device' if f.cc_device_pick else 'host'} "
+                               "pick differs")
+        a = out[1]
+        if f is host and not np.array_equal(a, pcm1):
+            raise RuntimeError("fleet bench cell: the host pick's PCM "
+                               "differs from the device pick's")
+        if f is cpu and not (np.abs(a - pcm1).max()
+                             <= 2e-3 * np.abs(a).max()):
+            raise RuntimeError("fleet bench cell: PCM differs from the CPU "
+                               "path")
+    # step_pipelined retargets a block later: on blocks 0, 0, 1 its last
+    # block (returned by the flush) is the plain step's block 1
+    piped = bench_fleet(pick=False)
+    outs = [piped.step_pipelined(blocks[i]) for i in (0, 0, 1)]
+    outs.append(piped.flush_pipelined())
+    if any(o.shape[1] for o in outs[:3]) or not np.array_equal(outs[3],
+                                                               pcm1):
+        raise RuntimeError("fleet bench cell: step_pipelined's PCM differs "
+                           "from the plain step's a block later")
+    log(f"fleet bench cell (768 kHz CU8, CC at -96 kHz, 4 voice rows, "
+        f"device pick): 1 grant, row 0 retargeted to +150 kHz, {n_ldu} LDUs "
+        f"on it with the vector's IMBE bits, parked rows silent; the host "
+        f"pick gives the same grants, log and PCM (bit for bit; grant "
+        f"refreshes {host.stats.grant_refreshes} against the device pick's "
+        f"{fleet.stats.grant_refreshes}), the CPU "
+        f"path the same within 2e-3 * peak; step_pipelined's first voiced "
+        f"PCM equals the plain step's one block later")
+
+    def bench_loop(k):
+        fleet.step(blocks[0], prefetch=blocks[1])       # prime, uncounted
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for i in range(k):
+            fleet.step(None, prefetch=blocks[i % 2])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t) / k
+        fleet.step(None)
+        return dt
+
+    step_s = min(bench_loop(6) for _ in range(3))
+    busy_ms, top = device_busy(lambda: fleet.step(blocks[1]), 2)
+    log(f"fleet bench cell step ({ident}): {step_s * 1e3:.2f} ms per 1 s "
+        f"block (the bench's double-buffered loop, best of 3 x 6) = "
+        f"{1 / step_s:.1f}x band realtime, {16 / step_s:.1f}x in 48 kHz "
+        f"channels; device busy {busy_ms:.2f} ms per step = "
+        f"{100 * busy_ms / (step_s * 1e3):.1f}%; top: "
+        + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top.items()))
+    log(f"fleet bench cell stages (ms, one step): "
+        f"{fleet_split(fleet, blocks[1])}")
+    rows = fleet._rows(blocks[0])
+    check_k1(rows[0].contiguous(), fleet.cc_pipe.cc.front.taps,
+             shape=list(rows[0].shape[:2]))
+    check_k1(rows[1].contiguous(), fleet.cc_pipe.cc.front.taps,
+             shape=list(rows[1].shape[:2]))
+    hold_k4(dev, show, 3 * fleet._cc_k, "the device pick's TSDUs")
+    del fleet, host, cpu, piped, rows
+
+    # -- the trunked fleet at a size users run: 2.4 MHz, 16 voice rows ----
+    band = FV.wide_band(ftv, device=dev)
+    nb = int(FV.WIDE_FS)
+    u8 = FV.cu8_planes(band).cpu().numpy()
+    wblocks = [u8[i * nb:(i + 1) * nb] for i in range(FV.WIDE_SECONDS)]
+    del band
+    tg_of = {int(t): j for j, t in enumerate(ftv["wide_vc_tgs"])}
+    # the row extractor's gain dips from 9 to 19 kHz off a bank bin's
+    # centre (-29 dB at 14 kHz; the JAX package's bank, queue 3), and on a
+    # 125 kHz raster most carriers meet it: each call's LDUs are counted
+    # and their frames held to the vector, and reported with the gain
+    offs_v = ftv["wide_vc_offs"]
+    gain = np.min([FV.extractor_gain(FV.WIDE_FS, offs_v + d, dev)
+                   for d in (-5000, 0, 5000)], axis=0)
+    got_ldu = {j: [0, 0, 0] for j in range(len(offs_v))}
+    reset()
+    fleet = TrunkedFleet(FV.WIDE_FS, ftv["wide_cc_offs"].tolist(), 16,
+                         center_hz=FV.WIDE_CENTER, cc_device_pick=True,
+                         device=dev)
+    t1 = time.perf_counter()
+    for b, blk in enumerate(wblocks):
+        calls = dict(fleet.calls)
+        pcm = fleet.step(blk if b == 0 else None,
+                         prefetch=wblocks[b + 1] if b + 1 < len(wblocks)
+                         else None)
+        for row, call in calls.items():
+            j = tg_of[call.tg]
+            frames = FV.row_frames(fleet.vc_pipe, row)
+            want = ftv["wide_vc_bits88"][j]
+            st = ftv["wide_vc_starts"][j]
+            rel = st[st < FV.wide_silence(ftv, j)] - 4800 * b
+            got_ldu[j][0] += frames.shape[0] // 9
+            got_ldu[j][1] += int(sum((want == f).all(-1).any()
+                                     for f in frames))
+            got_ldu[j][2] += int(((rel >= 16) & (rel + need + 16
+                                                 < 4800 - 2)).sum())
+        idle = [r for r in range(16) if r not in fleet.calls]
+        if pcm.shape[1] and np.abs(pcm[idle]).max(initial=0.0) != 0:
+            raise RuntimeError(f"2.4 MHz fleet block {b}: a parked row "
+                               "is not silent")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    st = fleet.stats
+    kept = sorted(c.tg for c in fleet.calls.values())
+    parked = all(fleet.offs[fleet.n_cc + r] == fleet.offs[0]
+                 for r in range(16) if r not in fleet.calls)
+    if not (st.grants == 12 and st.releases == 6 and st.busy_drops == 0
+            and st.unresolved == 0 and parked
+            and kept == sorted(ftv["wide_vc_tgs"][0::2].tolist())):
+        raise RuntimeError(f"2.4 MHz fleet: {st}, calls {kept}")
+    launches["fleet_wide"] = check_launches(
+        "2.4 MHz fleet", counted, (k1fn, k2fn, k4fn),
+        (k3fn, k7fn, k5fn, k6fn, k8fn))
+    peak = torch.cuda.max_memory_allocated()
+    rel = [line for line in fleet.log if "RELEASE" in line]
+    log(f"2.4 MHz fleet (4 CCs, 16 voice rows, 6 blocks of 1 s, CU8, "
+        f"device pick, prefetch): {st.grants} grants; per call (its "
+        f"offset, the extractor's least gain over its carrier, LDUs "
+        f"accepted of those its rows' blocks hold whole, frames equal to "
+        f"the vector's of those decoded): "
+        + ", ".join(f"{int(offs_v[j]):+d} Hz {gain[j]:.1f} dB "
+                    f"{got_ldu[j][0]}/{got_ldu[j][2]} "
+                    f"{got_ldu[j][1]}/{9 * got_ldu[j][0]}"
+                    for j in range(len(offs_v)))        + f"; {st.releases} releases "
+        f"({rel[0]} ... {rel[-1]}), the silent calls' rows parked on CC 0, "
+        f"no busy or unresolved drops; {wall * 1e3 / 6:.1f} ms per block "
+        f"with the judges; peak device memory {peak / 1e9:.3f} GB")
+    fleet2 = TrunkedFleet(FV.WIDE_FS, ftv["wide_cc_offs"].tolist(), 16,
+                          center_hz=FV.WIDE_CENTER, cc_device_pick=True,
+                          device=dev)
+    fleet2.step(wblocks[0], prefetch=wblocks[1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for b in range(1, 6):
+        fleet2.step(None, prefetch=wblocks[b + 1] if b < 5 else None)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t1) / 5
+    busy_ms, top = device_busy(lambda: fleet2.step(wblocks[2]), 2)
+    log(f"2.4 MHz fleet step ({ident}): {step_s * 1e3:.1f} ms per 1 s block "
+        f"(blocks 1-5, prefetched) = {1 / step_s:.1f}x band realtime, "
+        f"{50 / step_s:.1f}x in 48 kHz channels; device busy "
+        f"{busy_ms:.2f} ms per step = {100 * busy_ms / (step_s * 1e3):.1f}%; "
+        f"top: " + ", ".join(f"{k[:40]} {v:.3f} ms" for k, v in top.items()))
+    log(f"2.4 MHz fleet stages (ms, one step): "
+        f"{fleet_split(fleet2, wblocks[2])}")
+    rows = fleet2._rows(wblocks[1])
+    check_k1(rows[1].contiguous(), fleet2.cc_pipe.cc.front.taps,
+             shape=list(rows[1].shape[:2]))
+    del fleet, fleet2, rows, wblocks
+
+    # -- the other modes at 768 kHz, two blocks, against the CPU path -----
+    specs = {"dmr": (460e6, 24), "nxdn48": (451e6, 0x0A5),
+             "edacs": (860e6, 7), "p2": (851e6, None)}
+    runs = {"dmr": (k1fn,), "nxdn48": (k1fn, k5fn), "edacs": (),
+            "p2": (k1fn, k4fn)}
+    for mode, (center, ch) in specs.items():
+        key = {"nxdn48": "nxdn"}.get(mode, mode)
+        cc_off, vc_off = (int(v) for v in ftv[f"{key}_offs"])
+        band = FV.BANDS[mode](ftv, device=dev).cpu().numpy()
+        mblocks = [band[:768000], band[768000:1536000]]
+        kw = dict(center_hz=center)
+        if mode == "p2":
+            kw.update(n_voice_rows=1, p2_rows=2)
+        else:
+            cm = ChannelMap()
+            cm.entries[ch] = center + vc_off
+            kw.update(n_voice_rows=2, mode=mode, chan_map=cm)
+        reset()
+        res = {}
+        for where in (dev, "cpu"):
+            f = TrunkedFleet(FV.MODE_FS, [cc_off], device=where, **kw)
+            out = [(f.step(b), f.p2_pcm) for b in mblocks]
+            res[where] = (f, out)
+            if where is dev:
+                launches[f"fleet_{mode}"] = check_launches(
+                    f"{mode} fleet", counted, runs[mode],
+                    tuple(fn for fn in counted if fn not in runs[mode]))
+        (g, gout), (c, cout) = res[dev], res["cpu"]
+        if not (g.stats == c.stats and g.log == c.log
+                and g.offs.tolist() == c.offs.tolist()):
+            raise RuntimeError(f"{mode} fleet: card and CPU control planes "
+                               f"differ: {g.stats} / {c.stats}")
+        worst = 0.0
+        for (gp, gp2), (cp, cp2) in zip(gout, cout):
+            for a, b in ((cp, gp), (cp2, gp2)):
+                if a.shape != b.shape:
+                    raise RuntimeError(f"{mode} fleet: PCM shapes differ")
+                if a.size and np.abs(a).max() > 0:
+                    err = float(np.abs(a - b).max())
+                    if err > 2e-3 * np.abs(a).max():
+                        raise RuntimeError(f"{mode} fleet: PCM differs from "
+                                           "the CPU path")
+                    worst = max(worst, err)
+        voice = gout[1][1][:2] if mode == "p2" else gout[1][0][:1]
+        want_g = 2 if mode == "p2" else 1
+        row_off = g.offs[g.n_cc + g.n_vc] if mode == "p2" else g.offs[1]
+        if not (g.stats.grants == want_g and row_off == vc_off
+                and (np.abs(voice).mean(axis=1) > 1e-3).all()):
+            raise RuntimeError(f"{mode} fleet: {g.stats}, offs {g.offs}")
+        log(f"{mode} fleet (768 kHz, two 1 s blocks): {g.stats.grants} "
+            f"grant(s), the row retargeted to {vc_off:+d} Hz, voice on it; "
+            f"stats, log and offsets equal to the CPU path's, PCM within "
+            f"{worst:.2e} (tol 2e-3 * peak); launches "
+            f"{launches[f'fleet_{mode}']}")
+        if mode == "nxdn48":
+            n5 = -(-len(g.cc_pipe.last_cacs[0]) // 32) * 32
+            hold_k5(dev, show, g.cc_pipe.cc, n5)
+    return launches
+
+
+def hold_k2(dev, tables, show, Cx: int, Tn: int) -> None:
+    """K2 against its plain version on random grids of ``[Cx, Tn]``."""
+    import torch
+    from dsdneo_tpu_torch.vocoder import device as vdev
+    g = torch.Generator(device="cpu").manual_seed(SEED + 2)
+    L = torch.randint(9, 57, (Cx, Tn), generator=g, dtype=torch.int32)
+    args = (torch.rand((Cx, Tn, 56), generator=g) * 10.0 - 2.0,
+            0.08 + 0.2 * torch.rand((Cx, Tn), generator=g), L,
+            torch.clamp((L + 2) // 3, max=12),
+            (torch.rand((Cx, Tn, 12), generator=g) > 0.3).float(),
+            (torch.rand((Cx, Tn), generator=g) > 0.1).float(),
+            torch.rand((Cx, 56), generator=g) * 6.0,
+            torch.randint(0, 57, (Cx,), generator=g, dtype=torch.int32))
+    args = tuple(a.contiguous().to(dev) for a in args)
+    consts = (tables.pred_decay, tables.imbe_amp_scale)
+    got = vdev.prediction_scan(*args, *consts)
+    want = vdev.prediction_scan_plain(*args, *consts)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    err = max(float((a.float() - b.float()).abs().max())
+              for a, b in zip(got, want))
+    k_ms = cuda_ms(lambda: vdev.prediction_scan(*args, *consts), 20)
+    plain_ms = cuda_ms(lambda: vdev.prediction_scan_plain(*args, *consts), 2)
+    b_ms, b_by = bound(nbytes(*args, *got),
+                       Cx * Tn * 56 * K2_FLOP_PER_HARMONIC)
+    log(f"K2 imbe_pred [{Cx},{Tn}] (the wideband path's steps): max_abs_err "
+        f"{err:.3e} (tol rtol 1e-5, atol 1e-5)")
+    show("imbe_pred", err, k_ms, plain_ms, b_ms, b_by, shape=[Cx, Tn])
+
+
+def hold_k4(dev, show, n: int, what: str) -> None:
+    """K4 against its plain version on ``n`` random words."""
+    import torch
+    from dsdneo_tpu_torch.fec import device as fdev
+    g = torch.Generator(device="cpu").manual_seed(SEED + 4)
+    bits = torch.randint(0, 2, (n, 196), generator=g,
+                         dtype=torch.uint8).to(dev)
+    gb, gc = fdev.p25_12_decode_batch(bits)
+    wb, wc = fdev.p25_12_decode_plain(bits)
+    if not (torch.equal(gb, wb) and torch.equal(gc, wc)):
+        raise RuntimeError(f"K4 disagrees with its plain version at {n}")
+    k_ms = cuda_ms(lambda: fdev.p25_12_decode_batch(bits), 20)
+    plain_ms = cuda_ms(lambda: fdev.p25_12_decode_plain(bits), 2)
+    b_ms, b_by = bound(nbytes(bits, gb, gc), 0)
+    log(f"K4 p25_trellis [{n},196] ({what}): bits and costs equal the "
+        f"plain version's (tol 0)")
+    show("p25_trellis", 0.0, k_ms, plain_ms, b_ms, b_by, shape=[n, 196],
+         form="uint8 bits")
+
+
+def hold_k5(dev, show, cc, n: int) -> None:
+    """K5 against its plain version on ``n`` random CAC words with the
+    CAC's weight row broadcast (the NXDN fleet's control channel)."""
+    import torch
+    from dsdneo_tpu_torch.fec import device as fdev
+    g = torch.Generator(device="cpu").manual_seed(SEED + 5)
+    sym = torch.randint(0, 2, (n, 350), generator=g).float().to(dev)
+    wt = cc.cac_wt.to(dev).reshape(1, -1).expand(n, -1)
+    got = fdev.conv_k5_decode_batch(sym, wt)
+    if not torch.equal(got, fdev.conv_k5_decode_plain(sym, wt)):
+        raise RuntimeError(f"K5 disagrees with its plain version at {n}")
+    k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(sym, wt), 20)
+    plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(sym, wt), 1)
+    b_ms, b_by = bound(nbytes(sym, wt[0], got), 0)
+    log(f"K5 conv_k5 [{n},350] (the NXDN fleet's CACs a block): bits equal "
+        f"the plain version's (tol 0)")
+    show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by, shape=[n, 350],
+         form="broadcast weight row")
 
 
 def main() -> int:
@@ -1849,6 +2459,32 @@ def main() -> int:
                                "exactly than the CPU path")
 
     del d_out, d_frames
+    # the second DMR check: the same dibits through the serial DMR stream's
+    # pulse shape (serialvec.dmr_iq: C4FM levels at +-1944 Hz, half-symbol
+    # averaged) instead of the Gaussian-edged FM: every frame exact
+    from dsdneo_tpu_torch.engine.serialvec import DMR_DEV_HZ
+
+    def dmr_pulse(d, sps):
+        return encode.c4fm_clean(d, sps, FS, DMR_DEV_HZ)
+
+    pipe = BatchedDmrVoicePipeline(C, FS, pcm_fmt="f16", tables=dtab)
+    for blk in range(2):
+        xb = torch.as_tensor(dmr_encode.vector_block(
+            dtv, d_leads, d_seeds[blk::2], d_B, modulate=dmr_pulse)).to(dev)
+        pipe.fetch_pcm(pipe.decode_block_async(xb))
+        frames, ac, ai, max_err = dmr_frames(pipe, C)
+        share = exact_share(frames, d_want, range(C))
+        n_sf = sum(len(w[0]) for w in d_want)
+        if share != 1.0 or max_err or ai.any() or len(ac) != n_sf:
+            raise RuntimeError(
+                f"DMR path, dmr_iq pulse shape, block {blk}: "
+                f"{100 * share:.3f}% of the expected frames exact, "
+                f"{len(ac)} superframes accepted of {n_sf}, max ECC errors "
+                f"{max_err}, {int(ai.any())} inverted")
+        log(f"DMR path, the same dibits with dmr_iq's pulse shape, block "
+            f"{blk}: {C}/{C} channels accept every superframe ({len(ac)}), "
+            f"100% of the frames' 49 bits equal the vector's, 0 ECC errors")
+    del pipe, xb
     time_path("DMR path", ident,
               BatchedDmrVoicePipeline(C, FS, pcm_fmt="adpcm", tables=dtab),
               d_blocks, d_block_s,
@@ -3453,6 +4089,12 @@ def main() -> int:
     log(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
     launches["serial"] = serial_phase(ident, dev, blocks[0], counted)
     del blocks
+
+    # -- 9. the wideband band and the closed-loop trunked fleet -------------
+    log(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    launches.update(fleet_phase(ident, dev, counted, show, check_k1,
+                                check_k3, three_tones, tables))
 
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import subprocess
 
+import numpy as np
 import torch
 
 
@@ -28,3 +29,14 @@ def card_identity() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=30)
     return out.stdout.strip()
+
+
+def to_host(x):
+    """Tensors to numpy arrays, as ``jax.device_get`` fetches: a tensor
+    (on any device) becomes an array, a tuple or list of them a tuple of
+    arrays; arrays and None pass through."""
+    if x is None or isinstance(x, np.ndarray):
+        return x
+    if isinstance(x, (tuple, list)):
+        return tuple(to_host(v) for v in x)
+    return x.cpu().numpy()

@@ -63,7 +63,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import params
-from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.device import require_cuda, to_host
 from dsdneo_tpu_torch.dsp import firdes
 from dsdneo_tpu_torch.engine.batched import frontend_step
 from dsdneo_tpu_torch.engine.demod import gated_frontend_step
@@ -240,13 +240,14 @@ class BatchedP25ControlPipeline(BatchedP25VoicePipeline):
     def events_from_frontend(self, fe6, cofetch=None):
         """Pick, device TSBK decode and host catalog parse from a finished
         front end.  ``cofetch``: a tensor (e.g. a voice pipeline's PCM
-        wire) copied to the host with the TSDU blob; then returns
-        ``(n_parsed, cofetch as numpy)``."""
+        wire), or a tuple of them, copied to the host with the TSDU blob;
+        then returns ``(n_parsed, cofetch as numpy)``, a tuple for a
+        tuple, as ``jax.device_get`` returns it."""
         dibits_dev, idx, vq, dq, msg, n_sym = fe6
         ac, at, am = self.pick_tsdus(idx, vq, dq, msg, n_sym,
                                      dibits_dev=dibits_dev)
         H = ac.shape[0]
-        co_np = None if cofetch is None else cofetch.cpu().numpy()
+        co_np = to_host(cofetch)
         if H == 0:
             self.last_tsdus = None
             return 0 if cofetch is None else (0, co_np)

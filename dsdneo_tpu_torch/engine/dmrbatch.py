@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import params
-from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.device import require_cuda, to_host
 from dsdneo_tpu_torch.engine.batched import frontend_step
 from dsdneo_tpu_torch.engine.voicebatch import correlate_syncs_device
 from dsdneo_tpu_torch.engine.voicestate import VoiceCarryMixin
@@ -181,12 +181,16 @@ class BatchedDmrVoicePipeline(VoiceCarryMixin):
             errs_tot += (t.qr_cb[m] != b16).sum(dim=-1, dtype=torch.int32)
         return torch.clamp(errs_tot, 0, 255).to(torch.uint8)
 
-    def frontend_finish(self, fe):
+    def frontend_finish(self, fe, cofetch=None):
         """Copy a dispatch's candidates to the host: (dibits_dev, idx
-        int64, vq uint8, dq uint8, eq uint8, n_sym)."""
+        int64, vq uint8, dq uint8, eq uint8, n_sym).
+        ``cofetch``: a tensor or a tuple of them (a voice wire, say),
+        copied to the host with the candidates; then returns (that tuple,
+        them as numpy), as the JAX package's ``device_get`` does."""
         dibits, idx, vq, dq, eq, n_sym = fe
-        return (dibits, idx.cpu().numpy().astype(np.int64),
-                vq.cpu().numpy(), dq.cpu().numpy(), eq.cpu().numpy(), n_sym)
+        out = (dibits, idx.cpu().numpy().astype(np.int64),
+               vq.cpu().numpy(), dq.cpu().numpy(), eq.cpu().numpy(), n_sym)
+        return out if cofetch is None else (out, to_host(cofetch))
 
     def frontend_sync_device(self, iq):
         """Front end, sync filter and EMB decode with the candidates on
@@ -294,8 +298,9 @@ class BatchedDmrVoicePipeline(VoiceCarryMixin):
         return out.pcm
 
     def fetch_pcm(self, handle) -> np.ndarray:
-        """Copy a ``decode_block_async`` result to the host and expand it
-        to ``[C, N]`` float32 PCM."""
+        """Copy a ``decode_block_async`` result (or the host copy a
+        ``cofetch`` made of it) to the host and expand it to ``[C, N]``
+        float32 PCM."""
         if handle is None:
             return np.zeros((self.C, 0), dtype=np.float32)
-        return wire_expand(handle.cpu().numpy(), self.pcm_fmt, self.C)
+        return wire_expand(to_host(handle), self.pcm_fmt, self.C)

@@ -40,7 +40,7 @@ import torch
 
 from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.crypto.keystream import rc4_keystream
-from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.device import require_cuda, to_host
 from dsdneo_tpu_torch.engine.batched import frontend_step
 from dsdneo_tpu_torch.engine.dmrbatch import _dibits_to_bits
 from dsdneo_tpu_torch.engine.voicebatch import correlate_syncs_device
@@ -147,6 +147,7 @@ class BatchedP2VoicePipeline(VoiceCarryMixin):
         self.threshold = sync_threshold
         self.keyring = keyring
         self.pcm_fmt = pcm_fmt
+        self.params = (wacn, sysid, nac)        # the scramble's identity
         self._scr = p2_xcch.generate_scramble_bits(wacn, sysid, nac,
                                                    SCRAMBLE_BITS)
         self._scr_dev = torch.as_tensor(self._scr, device=self.device)
@@ -195,13 +196,17 @@ class BatchedP2VoicePipeline(VoiceCarryMixin):
                 | (di[..., 2::4] << 2) | di[..., 3::4])     # [C, K, 4, 5]
         return dibits, idx, vq, duid, isch, n_sym
 
-    def frontend_finish(self, fe):
+    def frontend_finish(self, fe, cofetch=None):
         """Copy a dispatch's candidates to the host: (dibits_dev, idx
-        int64, vq, duid, isch uint8, n_sym)."""
+        int64, vq, duid, isch uint8, n_sym).
+        ``cofetch``: a tensor or a tuple of them (a voice wire, say),
+        copied to the host with the candidates; then returns (that tuple,
+        them as numpy), as the JAX package's ``device_get`` does."""
         dibits, idx, vq, duid, isch, n_sym = fe
-        return (dibits, idx.cpu().numpy().astype(np.int64),
-                vq.cpu().numpy(), duid.cpu().numpy(), isch.cpu().numpy(),
-                n_sym)
+        out = (dibits, idx.cpu().numpy().astype(np.int64),
+               vq.cpu().numpy(), duid.cpu().numpy(), isch.cpu().numpy(),
+               n_sym)
+        return out if cofetch is None else (out, to_host(cofetch))
 
     def frontend_sync_device(self, iq):
         """Front end, sync filter and field gathers with the candidates
@@ -475,11 +480,12 @@ class BatchedP2VoicePipeline(VoiceCarryMixin):
         return out.pcm
 
     def fetch_pcm(self, handle) -> np.ndarray:
-        """Copy a ``decode_block_async`` result to the host and expand it
-        to ``[2C, N]`` float32 PCM."""
+        """Copy a ``decode_block_async`` result (or the host copy a
+        ``cofetch`` made of it) to the host and expand it to ``[2C, N]``
+        float32 PCM."""
         if handle is None:
             return np.zeros((2 * self.C, 0), dtype=np.float32)
-        return wire_expand(handle.cpu().numpy(), self.pcm_fmt, 2 * self.C)
+        return wire_expand(to_host(handle), self.pcm_fmt, 2 * self.C)
 
     def decode_block_bits49(self, iq):
         """The chain up to the AMBE parameter bits, the keystream

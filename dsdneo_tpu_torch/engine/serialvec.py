@@ -1313,6 +1313,35 @@ def judge_p2(tv: dict[str, np.ndarray], ctx, spy: AmbeSpy,
 SPIED_MODES = ("x2tdma", "nxdn48", "nxdn96", "dpmr", "ysf", "p25p2")
 
 
+AUTO_FAMILIES = ("p25p1", "provoice", "dmr", "x2tdma", "nxdn48", "nxdn96",
+                 "dpmr", "ysf", "dstar", "m17", "p25p2")
+
+
+def auto_probe(tv: dict[str, np.ndarray], family: str) -> np.ndarray:
+    """The first 4 s of ``family``'s stream at 48 kHz: the probe that
+    ``decode_samples(..., "auto")`` is judged on; the JAX package's
+    ``detect_mode`` picks are stored beside the streams
+    (``auto_families``, ``auto_picks``)."""
+    make = {"p25p1": lambda: p25_iq(tv, 4 * 4800),
+            "provoice": lambda: pv_iq(tv, 4 * 9600),
+            "dmr": lambda: dmr_iq(tv, 4 * 4800),
+            "x2tdma": lambda: x2_iq(tv, 4 * 6000),
+            "nxdn48": lambda: nxdn_iq(tv, 4 * 2400, "nxdn48"),
+            "nxdn96": lambda: nxdn_iq(tv, 4 * 4800, "nxdn96"),
+            "dpmr": lambda: dpmr_iq(tv, 4 * 2400),
+            "ysf": lambda: ysf_iq(tv, 4 * 4800),
+            "dstar": lambda: dstar_iq(tv, 4 * 4800),
+            "m17": lambda: m17_iq(tv, 4 * 4800),
+            "p25p2": lambda: p2_iq(tv, 4 * 6000)}
+    return make[family]()
+
+
+def auto_pick(tv: dict[str, np.ndarray], family: str) -> str:
+    """The JAX ``detect_mode``'s pick on ``family``'s probe."""
+    fams = [str(f) for f in tv["auto_families"]]
+    return str(tv["auto_picks"][fams.index(family)])
+
+
 def keyring(tv: dict[str, np.ndarray]) -> KeyRing:
     """The keys of the vector's keyed calls: the P25 ADP key, the DMR
     RC4 key and the P25p2 ADP key (the M17 keys are

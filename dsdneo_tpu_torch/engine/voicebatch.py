@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import params
-from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.device import require_cuda, to_host
 from dsdneo_tpu_torch.dsp.cqpsk import demod_cqpsk
 from dsdneo_tpu_torch.engine.batched import frontend_step, slice_four_level
 from dsdneo_tpu_torch.ops.audio_wire import wire_expand
@@ -187,13 +187,17 @@ class BatchedP25VoicePipeline:
                              idx[:, :k_nid].reshape(-1)).reshape(C, k_nid)
         return dibits, idx, vq, dq, msg, n_sym
 
-    def frontend_finish(self, fe):
+    def frontend_finish(self, fe, cofetch=None):
         """Copy a dispatch's candidates to the host: (dibits_dev, idx
-        int64, vq uint8, dq uint8, msg int32, n_sym)."""
+        int64, vq uint8, dq uint8, msg int32, n_sym).
+        ``cofetch``: a tensor or a tuple of them (a voice wire, say),
+        copied to the host with the candidates; then returns (that tuple,
+        them as numpy), as the JAX package's ``device_get`` does."""
         dibits, idx, vq, dq, msg, n_sym = fe
-        return (dibits, idx.cpu().numpy().astype(np.int64),
-                vq.cpu().numpy(), dq.cpu().numpy(),
-                msg.cpu().numpy().astype(np.int32), n_sym)
+        out = (dibits, idx.cpu().numpy().astype(np.int64),
+               vq.cpu().numpy(), dq.cpu().numpy(),
+               msg.cpu().numpy().astype(np.int32), n_sym)
+        return out if cofetch is None else (out, to_host(cofetch))
 
     def frontend_sync_device(self, iq):
         """Front end, sync filter and NID decode with the candidates on
@@ -373,11 +377,13 @@ class BatchedP25VoicePipeline:
         return out.pcm
 
     def fetch_pcm(self, handle) -> np.ndarray:
-        """Copy a ``decode_block_async`` result to the host and expand it
-        to ``[C, N]`` float32 PCM."""
-        if handle is None or handle.numel() == 0:
+        """Copy a ``decode_block_async`` result (or the host copy a
+        ``cofetch`` made of it) to the host and expand it to ``[C, N]``
+        float32 PCM."""
+        wire = to_host(handle)
+        if wire is None or wire.size == 0:
             return np.zeros((self.C, 0), dtype=np.float32)
-        return wire_expand(handle.cpu().numpy(), self.pcm_fmt, self.C)
+        return wire_expand(wire, self.pcm_fmt, self.C)
 
     def voice_state(self):
         """The (prediction, synthesis, repeat) carries; None before the

@@ -41,6 +41,7 @@ CC_TABLES_NPZ = os.path.join(_DATA, "cc_tables.npz")
 EVENT_TABLES_NPZ = os.path.join(_DATA, "event_tables.npz")
 BURST_TABLES_NPZ = os.path.join(_DATA, "burst_tables.npz")
 SERIAL_TABLES_NPZ = os.path.join(_DATA, "serial_tables.npz")
+FLEET_TABLES_NPZ = os.path.join(_DATA, "fleet_tables.npz")
 
 MAX_L = 56              # harmonics per frame (vocoder.imbe.MAX_L)
 L_MIN = 9               # fewest harmonics; stacked tables index L - L_MIN

@@ -66,23 +66,10 @@ def _fresh_config(monkeypatch):
 
 def _probe(family: str) -> np.ndarray:
     """4 s of ``family``'s stream, 48 kHz."""
-    tv = SV.vector()
-    make = {"p25p1": lambda: SV.p25_iq(tv, 4 * 4800),
-            "provoice": lambda: SV.pv_iq(tv, 4 * 9600),
-            "dmr": lambda: SV.dmr_iq(tv, 4 * 4800),
-            "x2tdma": lambda: SV.x2_iq(tv, 4 * 6000),
-            "nxdn48": lambda: SV.nxdn_iq(tv, 4 * 2400, "nxdn48"),
-            "nxdn96": lambda: SV.nxdn_iq(tv, 4 * 4800, "nxdn96"),
-            "dpmr": lambda: SV.dpmr_iq(tv, 4 * 2400),
-            "ysf": lambda: SV.ysf_iq(tv, 4 * 4800),
-            "dstar": lambda: SV.dstar_iq(tv, 4 * 4800),
-            "m17": lambda: SV.m17_iq(tv, 4 * 4800),
-            "p25p2": lambda: SV.p2_iq(tv, 4 * 6000)}[family]
-    return make()
+    return SV.auto_probe(SV.vector(), family)
 
 
-FAMILIES = ["p25p1", "provoice", "dmr", "x2tdma", "nxdn48", "nxdn96",
-            "dpmr", "ysf", "dstar", "m17", "p25p2"]
+FAMILIES = list(SV.AUTO_FAMILIES)
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -91,6 +78,8 @@ def test_detect_mode_against_jax(family):
     j = jdec.detect_mode(x)
     t = tdec.detect_mode(x, device="cpu")
     assert t.name == j.name
+    # the pick stored beside the streams, which the card is judged on
+    assert t.name == SV.auto_pick(SV.vector(), family)
 
 
 @pytest.mark.parametrize("family", ["m17", "p25p1"])

@@ -262,3 +262,41 @@ def test_dmr_entry_points_default_to_the_card(tables):
             tdmr.BatchedDmrVoicePipeline(C, tables=tables)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             params.load_dmr()
+
+
+def _dmr_pulse(dibits, sps):
+    """The serial DMR stream's pulse shape (``serialvec.dmr_iq``): C4FM
+    levels at DMR's ±1944 Hz outer deviation, half-symbol averaged."""
+    from dsdneo_tpu_torch.engine import serialvec
+    from dsdneo_tpu_torch.protocol.p25.encode import c4fm_clean
+    return c4fm_clean(dibits, sps, 48000.0, serialvec.DMR_DEV_HZ)
+
+
+def test_dmr_c4fm_shaped_stream_every_frame_exact(tables):
+    """The weak check's second half: the same ``synth_voice_stream``
+    dibits through ``dmr_iq``'s pulse shape (not the Gaussian-edged FM
+    of ``dmr_fm_iq``), two blocks with the carry, into both pipelines:
+    every superframe each block holds accepted, every frame's 49 bits
+    equal to the vector's with no ECC error, and the port's frames and
+    error counts equal to the JAX pipeline's."""
+    tv = tables.test_vector()
+    jp = jdmr.BatchedDmrVoicePipeline(C)
+    tp = tdmr.BatchedDmrVoicePipeline(C, device="cpu", tables=tables)
+    for blk in range(2):
+        block = encode.vector_block(tv, LEADS[blk], SEEDS[blk], B,
+                                    modulate=_dmr_pulse)
+        jfe = jp.frontend_sync_device(block)
+        jp.decode_from_frontend(jfe)
+        jbits, jerrs = _jax_frames(jfe, jp.pick_superframes(*jfe[1:]))
+        tp.decode_block_async(block)
+        tbits, terrs, fch, _forder = (a.numpy() if torch.is_tensor(a) else a
+                                      for a in tp.last_frames)
+        np.testing.assert_array_equal(tbits, jbits)
+        np.testing.assert_array_equal(terrs, jerrs)
+        assert not terrs.any()
+        for c in range(C):
+            _pos, want = encode.expected_frames(tv, LEADS[blk][c],
+                                                B // 10 - 2)
+            got = tbits[fch == c].reshape(-1, 18, 49)
+            assert got.shape == want.shape
+            np.testing.assert_array_equal(got, want)

@@ -3612,6 +3612,15 @@ def _p2_serial_vector() -> dict[str, np.ndarray]:
                                 SERIAL_P2_SEED], np.int64),
             "p2_halves": np.asarray(SERIAL_P2_SF, np.int64)}
 
+# detect_mode's pick on each family's 4 s probe (serialvec.auto_probe), as
+# the JAX package makes it (checked when the streams are built): X2-TDMA
+# reads as p25p1 and D-STAR as p25p2, JAX behaviours the port copies
+SERIAL_AUTO_PICKS = {"p25p1": "p25p1", "provoice": "edacs", "dmr": "dmr",
+                     "x2tdma": "p25p1", "nxdn48": "nxdn48",
+                     "nxdn96": "nxdn96", "dpmr": "dpmr", "ysf": "ysf",
+                     "dstar": "p25p2", "m17": "m17", "p25p2": "p25p2"}
+
+
 def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
     """The serial decode path's eleven 60 s streams, each held to the JAX
     package's ``decode_samples`` over its whole length when ``check``
@@ -3629,6 +3638,8 @@ def build_serial_tables(check: bool = True) -> dict[str, np.ndarray]:
          **_x2_vector(), **_nxdn_serial_vector(), **_dpmr_serial_vector(),
          **_ysf_serial_vector(), **_dstar_serial_vector(),
          **_m17_serial_vector(), **_p2_serial_vector()}
+    t["auto_families"] = np.array(list(SERIAL_AUTO_PICKS))
+    t["auto_picks"] = np.array(list(SERIAL_AUTO_PICKS.values()))
     if check:
         _check_serial(t)
     return t
@@ -3687,6 +3698,253 @@ def _check_serial(t: dict[str, np.ndarray]) -> None:
                                  p2_params=None if blind
                                  else SERIAL_P2_PARAMS)
         SV.judge_p2(t, ctx, spy, keyed=keyed, blind=blind)
+    from dsdneo_tpu.engine.decoder import detect_mode
+    for fam in SV.AUTO_FAMILIES:
+        got = detect_mode(SV.auto_probe(t, fam)).name
+        if got != SV.auto_pick(t, fam):
+            raise RuntimeError(f"detect_mode picks {got!r} on the {fam} "
+                               f"probe, not {SV.auto_pick(t, fam)!r}")
+
+
+# -- the trunked fleet's bands (fleet_tables.npz) -----------------------------
+OUT_FLEET = os.path.join(DATA, "fleet_tables.npz")
+FLEET_NAC = 0x293
+# the 2.4 MHz band: four P25 systems, each granting three calls spaced
+# 125 kHz (20 channels of its 6.25 kHz raster) above its control channel
+WIDE_CC_OFFS = (-1_050_000, -450_000, 150_000, 750_000)
+WIDE_CALL_STEP = 125_000
+WIDE_LDUS = 34            # 6.1 s of LDUs a call
+DMR_FLEET = (460_000_000.0, -144_000, 192_000, 24, 101, 5555)
+NXDN_FLEET = (451_000_000.0, -96_000, 144_000, 0x0A5, 200, 31)
+EDACS_FLEET = (860_000_000.0, -96_000, 144_000, 7, 0x155, 77)
+P2_FLEET = (851_000_000.0, -96_000, 20 * 6250, 301, 302)
+
+
+def _netstat_tsbk() -> np.ndarray:
+    from dsdneo_tpu.protocol.p25 import encode as E
+    return E.tsbk_bytes(0x3B, [0, 0x92, 0x06, 0x50, 0xD5, 0, 0, 0], lb=True)
+
+
+def _ldu_stream(rng, n_ldus: int, seed: int, lead: int = 30):
+    """Random lead dibits, then ``n_ldus`` LDUs of
+    ``random_voice_ldus(n_ldus, seed)`` (LDU1/LDU2 alternating): the
+    dibits, the LDU starts and the 88 IMBE bits of every frame."""
+    from dsdneo_tpu.fec.device import imbe_ecc_batch
+    from dsdneo_tpu.protocol.p25 import encode as E
+    ldus = E.random_voice_ldus(n_ldus, seed=seed)
+    parts = [rng.integers(0, 4, lead).astype(np.uint8)]
+    starts = []
+    at = lead
+    for i in range(n_ldus):
+        f = E.ldu_frame(FLEET_NAC, ldus[i], duid=5 if i % 2 == 0 else 10,
+                        seed=i)
+        starts.append(at)
+        parts.append(f)
+        at += len(f)
+    bits88, errs = imbe_ecc_batch(ldus.reshape(-1, 144))
+    if int(np.asarray(errs).max()) != 0:
+        raise RuntimeError("clean voice frames decode with errors")
+    return (np.concatenate(parts), np.asarray(starts, np.int64),
+            np.asarray(bits88).astype(np.uint8))
+
+
+def _tsdu_stream(rng, nac: int, frame_at, need: int) -> np.ndarray:
+    """A P25 control channel of ``need`` dibits: 60 random dibits, then
+    TSDUs ``frame_at(k, dibit position)`` each followed by 24 random."""
+    parts, total, k = [rng.integers(0, 4, 60).astype(np.uint8)], 60, 0
+    while total < need:
+        f = frame_at(k, total)
+        parts.append(f)
+        parts.append(rng.integers(0, 4, 24).astype(np.uint8))
+        total += len(f) + 24
+        k += 1
+    return np.concatenate(parts)[:need]
+
+
+def _bench_fleet_vector() -> dict[str, np.ndarray]:
+    """The JAX bench's trunked cell (``bench.py:526-544``): 2 s of a P25
+    control channel that repeats IDEN_UP, the grant of TG 101 on channel
+    24 and NET_STS in every TSDU, and the granted call's LDUs."""
+    from dsdneo_tpu.protocol.p25 import encode as E
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    iden = E.iden_up_tsbk(1, FV.BENCH_CENTER, 6250.0)
+    frame = E.tsdu_frame(FLEET_NAC, [
+        iden, E.group_grant_tsbk((1 << 12) | 24, tg=FV.BENCH_TG, src=5555),
+        _netstat_tsbk()])
+    rng = np.random.default_rng(0)
+    cc = _tsdu_stream(rng, FLEET_NAC, lambda k, at: frame, 2 * 4800)
+    vc, starts, bits88 = _ldu_stream(rng, int(2.0 / 0.185) + 1, 3)
+    return {"bench_cc_dibits": cc, "bench_vc_dibits": vc,
+            "bench_vc_starts": starts, "bench_vc_bits88": bits88}
+
+
+def _wide_fleet_vector() -> dict[str, np.ndarray]:
+    """Four P25 systems in a 2.4 MHz band, 6 s: system s (NAC 0x290 + s,
+    iden 1 based at its control channel, 6.25 kHz raster) grants TG
+    1000 + 10 s + j on channel 20 (j + 1), j = 0..2, cycling; the calls
+    of odd index 3 s + j stop being granted at 3 s (their voice ends
+    there too)."""
+    from dsdneo_tpu.protocol.p25 import encode as E
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    rng = np.random.default_rng(41)
+    need = FV.WIDE_SECONDS * 4800
+    quiet = int(FV.WIDE_SILENT_AFTER * 4800) - 200
+    cc, vc, starts, bits, offs, tgs = [], [], [], [], [], []
+    for s, cc_off in enumerate(WIDE_CC_OFFS):
+        nac = 0x290 + s
+        iden = E.iden_up_tsbk(1, FV.WIDE_CENTER + cc_off, 6250.0)
+        grants = [E.group_grant_tsbk((1 << 12) | (20 * (j + 1)),
+                                     tg=1000 + 10 * s + j, src=7000 + j)
+                  for j in range(3)]
+
+        def frame_at(k, at, s=s, nac=nac, iden=iden, grants=grants):
+            live = [j for j in range(3)
+                    if (3 * s + j) % 2 == 0 or at < quiet]
+            return E.tsdu_frame(nac, [iden, grants[live[k % len(live)]],
+                                      _netstat_tsbk()])
+
+        cc.append(_tsdu_stream(rng, nac, frame_at, need))
+        for j in range(3):
+            d, st, b = _ldu_stream(rng, WIDE_LDUS, 100 + 3 * s + j)
+            vc.append(d[:need])
+            starts.append(st)
+            bits.append(b)
+            offs.append(cc_off + WIDE_CALL_STEP * (j + 1))
+            tgs.append(1000 + 10 * s + j)
+    return {"wide_cc_dibits": np.stack(cc),
+            "wide_cc_offs": np.asarray(WIDE_CC_OFFS, np.int64),
+            "wide_vc_dibits": np.stack(vc),
+            "wide_vc_starts": np.stack(starts),
+            "wide_vc_bits88": np.stack(bits),
+            "wide_vc_offs": np.asarray(offs, np.int64),
+            "wide_vc_tgs": np.asarray(tgs, np.int64)}
+
+
+def _mode_fleet_vectors() -> dict[str, np.ndarray]:
+    """2 s each: the DMR TSCC with its TV_GRANT and the DMR voice
+    (``tests/test_fleettrunk_dmr.py:19-55``), the NXDN RCCH with its
+    VCALL_ASSGN (``tests/test_fleettrunk_nxdn.py:24-101``) and the voice
+    frames of the serial NXDN stream, the EDACS CC with its analog group
+    assignment (``tests/test_fleettrunk_edacs.py:18-67``), and the P25
+    CC granting both slots of a TDMA channel with the Phase 2 voice
+    (``tests/test_fleettrunk_p2.py:25-73``)."""
+    from dsdneo_tpu.engine.dmrbatch import synth_voice_stream
+    from dsdneo_tpu.engine.p2batch import synth_p2_voice_stream
+    from dsdneo_tpu.protocol.dmr import encode as DE
+    from dsdneo_tpu.protocol.p25 import encode as E
+    from tests.test_fleettrunk_edacs import _edacs_cc_dibits
+    from tests.test_fleettrunk_nxdn import _grant_cac_dibits
+    secs = 2
+    _c, cc_off, vc_off, lpcn, tg, src = DMR_FLEET
+    grant = DE.tv_grant_csbk(lpcn=lpcn, ts=0, tg=tg, src=src)
+    idle = DE.csbk_bits(25, 0, bytes(8))
+    csbks = [grant if i * 144 < 4800 else idle
+             for i in range(int(secs * 4800 / 144) + 2)]
+    _v, dmr_vc, _b = synth_voice_stream(n_superframes=int(secs / 0.36) + 1,
+                                        seed=7)
+    t = {"dmr_cc_dibits": DE.cc_stream_dibits(csbks, cc=1),
+         "dmr_vc_dibits": np.asarray(dmr_vc, np.uint8),
+         "dmr_offs": np.array([cc_off, vc_off], np.int64)}
+    _c, cc_off, vc_off, _ch, _tg, _src = NXDN_FLEET
+    serial = _read_npz_arrays(OUT_SERIAL)
+    t.update(nxdn_cc_dibits=_grant_cac_dibits(int(secs * 2400 / 194) + 2),
+             nxdn_vc_dibits=serial["nxdn_dibits"][:secs * 2400 + 192],
+             nxdn_offs=np.array([cc_off, vc_off], np.int64))
+    _c, cc_off, vc_off, lcn, group, lid = EDACS_FLEET
+    msg1 = ((lid >> 7) << 18) | (lcn << 12) | (1 << 11) | group
+    msg2 = (lid & 0x7F) << 17
+    t.update(edacs_cc_dibits=_edacs_cc_dibits(msg1, msg2,
+                                              int(secs * 9600 / 288) + 2),
+             edacs_offs=np.array([cc_off, vc_off], np.int64))
+    center, cc_off, vc_off, tg_a, tg_b = P2_FLEET
+    wacn, sysid = 0x92065, 0x0D5
+    iden_tdma = E.iden_up_tdma_tsbk(2, center, 6250.0)
+    frames_grant = [E.tsdu_frame(FLEET_NAC, [
+        iden_tdma, E.group_grant_tsbk((2 << 12) | (40 + k), tg=tg, src=src),
+        _netstat_tsbk()]) for k, (tg, src) in enumerate(((tg_a, 7001),
+                                                          (tg_b, 7002)))]
+    frame_idle = E.tsdu_frame(FLEET_NAC, [iden_tdma, _netstat_tsbk()])
+    rng = np.random.default_rng(0)
+    p2_cc = _tsdu_stream(rng, FLEET_NAC, lambda k, at: (
+        frames_grant[k % 2] if at < 4800 else frame_idle), secs * 4800)
+    _v, p2_vc, _b = synth_p2_voice_stream(
+        n_superframes=int(secs / 0.365) + 2, seed=3, wacn=wacn, sysid=sysid,
+        nac=FLEET_NAC, sps=8)
+    t.update(p2_cc_dibits=p2_cc, p2_vc_dibits=np.asarray(p2_vc, np.uint8),
+             p2_offs=np.array([cc_off, vc_off], np.int64))
+    return t
+
+
+def _read_npz_arrays(path: str) -> dict[str, np.ndarray]:
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _check_fleet(t: dict[str, np.ndarray]) -> None:
+    """Each band through the JAX ``TrunkedFleet``: the grants, the
+    retargeted row and voice on it."""
+    from dsdneo_tpu.engine.fleettrunk import TrunkedFleet
+    from dsdneo_tpu.engine.trunk import ChannelMap
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+
+    def blocks(wide, fs):
+        x = wide.numpy()
+        return [x[i:i + int(fs)] for i in range(0, len(x), int(fs))]
+
+    def need(ok, what):
+        if not ok:
+            raise RuntimeError(f"fleet vector: {what}")
+
+    bb = blocks(FV.bench_band(t), FV.BENCH_FS)
+    f = TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
+                     center_hz=FV.BENCH_CENTER, hangtime_s=5.0,
+                     grant_grace_s=0.5, cc_device_pick=True)
+    f.step(bb[0])
+    pcm = f.step(bb[1])
+    need(f.stats.grants == 1 and f.offs[1] == FV.BENCH_VC_OFF
+         and np.abs(pcm[0]).mean() > 1e-3 and np.abs(pcm[1:]).max() == 0,
+         f"bench cell {f.stats} {f.offs}")
+    wb = blocks(FV.wide_band(t), FV.WIDE_FS)
+    f = TrunkedFleet(FV.WIDE_FS, t["wide_cc_offs"].tolist(), 16,
+                     center_hz=FV.WIDE_CENTER)
+    for b in wb:
+        f.step(b)
+    need(f.stats.grants == 12 and f.stats.releases == 6
+         and f.stats.busy_drops == 0 and f.stats.unresolved == 0
+         and sorted(c.tg for c in f.calls.values())
+         == sorted(t["wide_vc_tgs"][0::2].tolist()),
+         f"2.4 MHz cell {f.stats}")
+    for mode, spec, fs_off in (("dmr", DMR_FLEET, 3), ("nxdn48", NXDN_FLEET,
+                                                       3),
+                               ("edacs", EDACS_FLEET, 3)):
+        center, cc_off, vc_off, ch = spec[0], spec[1], spec[2], spec[fs_off]
+        cm = ChannelMap()
+        cm.entries[ch] = center + vc_off
+        mb = blocks(FV.BANDS[mode](t), FV.MODE_FS)
+        f = TrunkedFleet(FV.MODE_FS, [cc_off], 2, center_hz=center,
+                         mode=mode, chan_map=cm)
+        f.step(mb[0])
+        pcm = f.step(mb[1])
+        need(f.stats.grants == 1 and f.offs[1] == vc_off
+             and np.abs(pcm[0]).mean() > 1e-3, f"{mode} cell {f.stats}")
+    center, cc_off, vc_off = P2_FLEET[:3]
+    mb = blocks(FV.p2_band(t), FV.MODE_FS)
+    f = TrunkedFleet(FV.MODE_FS, [cc_off], 1, p2_rows=2, center_hz=center)
+    f.step(mb[0])
+    f.step(mb[1])
+    need(f.stats.grants == 2 and f.offs[2] == vc_off
+         and (np.abs(f.p2_pcm[:2]).mean(axis=1) > 1e-3).all(),
+         f"P2-row cell {f.stats}")
+
+
+def build_fleet_tables(check: bool = True) -> dict[str, np.ndarray]:
+    """The trunked fleet's dibit streams (``engine.fleetvec`` builds the
+    bands), each held to the JAX ``TrunkedFleet`` when ``check``."""
+    t = {**_bench_fleet_vector(), **_wide_fleet_vector(),
+         **_mode_fleet_vectors()}
+    if check:
+        _check_fleet(t)
+    return t
 
 
 def _write_if_changed(path: str, tables: dict[str, np.ndarray]) -> str:
@@ -3715,6 +3973,7 @@ def main() -> int:
     print(_write_if_changed(OUT_EVENT, build_event_tables()))
     print(_write_if_changed(OUT_BURST, build_burst_tables()))
     print(_write_if_changed(OUT_SERIAL, build_serial_tables()))
+    print(_write_if_changed(OUT_FLEET, build_fleet_tables()))
     return 0
 
 
