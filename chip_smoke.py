@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
 five control-channel monitors, two event pipelines, the serial decode
-path, the wideband band and the closed-loop trunked fleet.
+path, the wideband band and the closed-loop trunked fleet, the CLI and
+the live one-tuner path.
 
     python3 chip_smoke.py
 
@@ -69,6 +70,13 @@ The paths, each at 320 channels through the entry points a user calls:
     (``parallel.mesh._p25_cc_body``: K1, K4), a 2.4 MHz band of four
     P25 systems and 16 voice rows, and the DMR, NXDN48 (K5 on its CC),
     EDACS (analog rows) and P25 Phase 2 row fleets.
+  - the CLI: ``python -m dsdneo_tpu_torch`` (its default platform, the
+    card) on a P25 capture, ``--trunk-wideband`` on the bench's cell
+    with the decoded-audio conditioning (K1, K2, K4 on the fleet, K8 on
+    its PCM); the live path: ``engine.live.LiveEngine`` following a
+    grant with ``engine.trunk.TrunkFollower`` and ``TrunkSM`` (one
+    tuner), and fed by ``io.rtl_tcp.RtlTcpClient`` through the ingest
+    ring.
 
 Phases, in order; any failure exits non-zero:
 
@@ -304,6 +312,32 @@ Phases, in order; any failure exits non-zero:
      Phase 2 rows at 768 kHz, two blocks: the grant(s), the retargeted
      row, voice on it, stats, log, offsets and PCM equal to the CPU
      path's; K5 at the NXDN CC's words.  Each cell's kernel launches.
+ 10. the CLI and the live one-tuner path (``engine.livevec``): ``python
+     -m dsdneo_tpu_torch -f1 --iq-replay`` in a fresh process with no
+     ``--platform`` (the card) on 10 s of the P25 call with its ADP key
+     (``--keys-dec``): every IMBE frame of the ``.imb`` it writes
+     (``--mbe-out``) is the vector's clear voice with 0 ECC errors; its
+     frame log (JSON, with the fields), event log (``-J``) and WAV equal
+     the in-process CPU CLI's (``--platform cpu``) on the first 5 s;
+     its wall time beside the library call ``decode_capture`` on the
+     same capture.  In process, ``--trunk-wideband`` on 2.5 s of the
+     bench's fleet cell (1 s steps and a 0.5 s last block) with
+     ``DSD_NEO_DEEMPH=nfm DSD_NEO_AUDIO_LPF=3400``: its printed grant
+     and summary equal the library ``TrunkedFleet``'s log and stats on
+     the card, and its WAV the library's PCM conditioned by
+     ``dsp.audio_filters.condition_audio``, bit for bit; the launch
+     counters set to 0 just before the CLI's run and read just after
+     (the kernels line's ``"cli"``): K1, K2, K4 and K8 launched, K3,
+     K5, K6 and K7 not.  The closed loop in lockstep on the card and
+     on the CPU (one tuner on the bench's CC, the grant of TG 101
+     followed to its call through ``LiveEngine.tune``, back to the CC
+     after the hangtime): the tunes CC → voice → CC, every one of the
+     call's 99 IMBE frames exact, tunes and events equal to the CPU's.
+     The port's ``FakeRtlTcpServer`` streams 4 s of the P25 call as CU8
+     to ``RtlTcpClient``, into the ring and ``LiveEngine`` on the card
+     (threads): at least 20 LDUs' IMBE frames, all the vector's clear
+     voice.  Each run's realtime multiple and wall time, the card's
+     name and power limit beside them.
 
 The last lines of standard output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
@@ -1524,6 +1558,278 @@ def fleet_phase(ident: str, dev, counted, show, check_k1, check_k3,
             n5 = -(-len(g.cc_pipe.last_cacs[0]) // 32) * 32
             hold_k5(dev, show, g.cc_pipe.cc, n5)
     return launches
+
+
+def cli_phase(ident: str, dev, counted) -> dict:
+    """Phase 10: the CLI and the live one-tuner path on the card.
+
+    ``python -m dsdneo_tpu_torch`` in a subprocess with no ``--platform``
+    (the card) on 10 s of the P25 call with its ADP key: every IMBE frame
+    of the ``.imb`` it writes is the vector's clear voice, and its event
+    log, frame log and WAV equal the in-process CPU CLI's on the first
+    5 s; in process, ``--trunk-wideband`` on 2.5 s of the JAX bench's
+    fleet cell with the decoded-audio conditioning
+    (``DSD_NEO_DEEMPH=nfm``, ``DSD_NEO_AUDIO_LPF=3400``): its grant,
+    summary and WAV equal the library ``TrunkedFleet``'s on the card
+    conditioned by ``condition_audio``, and the CLI launches K1, K2, K4
+    and K8; the closed loop of ``engine/livevec`` on the card (every LDU
+    of the followed call exact, the tunes and events equal to the CPU's);
+    the port's ``FakeRtlTcpServer`` streaming 4 s of the P25 call through
+    ``RtlTcpClient`` into ``LiveEngine`` on the card.  Returns the
+    launches of the CLI's run."""
+    import contextlib
+    import io
+    import json as _json
+    import shutil
+    import subprocess
+    import tempfile
+    import wave
+
+    import numpy as np
+    import torch
+    from dsdneo_tpu_torch import cli
+    from dsdneo_tpu_torch.crypto.keyring import KeyRing
+    from dsdneo_tpu_torch.dsp.audio_filters import condition_audio
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    from dsdneo_tpu_torch.engine import live, trunk
+    from dsdneo_tpu_torch.engine import livevec as LV
+    from dsdneo_tpu_torch.engine import serialvec as SV
+    from dsdneo_tpu_torch.engine.decoder import decode_capture
+    from dsdneo_tpu_torch.engine.fleettrunk import TrunkedFleet
+    from dsdneo_tpu_torch.io import IqMetadata, read_iq_capture
+    from dsdneo_tpu_torch.io import write_iq_capture
+    from dsdneo_tpu_torch.io.mbe_files import read_mbe_file
+    from dsdneo_tpu_torch.io.rtl_tcp import FakeRtlTcpServer, RtlTcpClient
+    from dsdneo_tpu_torch.runtime import config as rtcfg
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="dsdneo_cli_")
+    tv, fv = SV.vector(), FV.vector()
+    kid, key = int(tv["p25_ids"][4]), int(tv["p25_ids"][3])
+    keys = os.path.join(tmp, "keys.csv")
+    with open(keys, "w") as f:
+        f.write(f"id,key\n{kid},{key}\n")
+    clear = np.unpackbits(tv["p25_clear88"], axis=-1)[..., :88]
+
+    def wav(path):
+        with wave.open(path, "rb") as w:
+            return np.frombuffer(w.readframes(w.getnframes()), "<i2") \
+                .astype(np.float32) / 32768.0
+
+    def in_process(argv, env=None):
+        """``cli.main(argv)`` in this process (its printed lines, exit
+        code, wall s), ``env`` set around it, the process-wide runtime
+        config the CLI installs put back after."""
+        saved = rtcfg._config
+        old = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        err = io.StringIO()
+        t1 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                rc = cli.main(list(argv))
+        finally:
+            wall = time.perf_counter() - t1
+            for k, v in old.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+            rtcfg._config = saved
+        if rc != 0:
+            raise RuntimeError(f"cli {argv[:6]}: exit {rc}: "
+                               f"{err.getvalue()[-400:]}")
+        return err.getvalue(), wall
+
+    # -- the serial replay in a subprocess, the card by default ----------
+    n10, n5 = 10 * 4800, 5 * 4800
+    cap10 = os.path.join(tmp, "p25_10s.iq")
+    cap5 = os.path.join(tmp, "p25_5s.iq")
+    meta = IqMetadata(sample_format="cf32", sample_rate_hz=48000)
+    write_iq_capture(cap10, SV.p25_iq(tv, n10), meta)
+    write_iq_capture(cap5, SV.p25_iq(tv, n5), meta)
+    outs = {}
+    for name in ("card", "cpu"):
+        d = os.path.join(tmp, name)
+        os.makedirs(d)
+        outs[name] = d
+    flags = ["-f1", "--keys-dec", keys, "--mbe-out", "{d}/voice.imb",
+             "-o", "wav:{d}/out.wav", "-J", "{d}/events.log",
+             "--frame-log", "{d}/frames.log"]
+    argv = [a.replace("{d}", outs["card"]) for a in flags]
+    env = {**os.environ, "PYTHONPATH": HERE, "DSD_NEO_PDU_JSON": "1"}
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-m", "dsdneo_tpu_torch",
+                        "--iq-replay", cap10] + argv, cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall_cli = time.perf_counter() - t1
+    if p.returncode != 0:
+        raise RuntimeError(f"python -m dsdneo_tpu_torch: exit "
+                           f"{p.returncode}: {p.stderr[-800:]}")
+    kind, frames = read_mbe_file(os.path.join(outs["card"], "voice.imb"))
+    n_ldu = int(np.sum(tv["p25_ldu_pos"] + SV.P25_LDU_DIBITS <= n10))
+    got = np.stack([b for _e, b in frames]) if frames else \
+        np.zeros((0, 88), np.uint8)
+    if not (kind == "imb" and got.shape[0] == 9 * n_ldu
+            and np.array_equal(got, clear.reshape(-1, 88)[:9 * n_ldu])
+            and not any(e for e, _b in frames)):
+        raise RuntimeError(f"cli .imb: {got.shape[0]} frames, want the "
+                           f"vector's {9 * n_ldu} clear frames exact")
+    t1 = time.perf_counter()
+    kr = KeyRing()
+    kr.scalar[kid] = key
+    decode_capture(cap10, "p25p1", keyring=kr, device=dev)
+    wall_lib = time.perf_counter() - t1
+    log(f"cli: python -m dsdneo_tpu_torch -f1 --iq-replay (10 s of the P25 "
+        f"call, ADP key by --keys-dec, no --platform: the card) in a fresh "
+        f"process: {wall_cli:.2f} s wall ({10.0 / wall_cli:.2f}x realtime, "
+        f"the interpreter, imports and card start included); every one of "
+        f"{got.shape[0]} IMBE frames of its .imb is the vector's clear "
+        f"voice, 0 ECC errors; the library call decode_capture on the same "
+        f"capture in this process {wall_lib:.2f} s ({10.0 / wall_lib:.2f}x): "
+        f"the CLI's own cost {wall_cli - wall_lib:.2f} s [{ident}]")
+    # the first 5 s against the CPU CLI in this process
+    argv = [a.replace("{d}", outs["cpu"]) for a in flags]
+    _err, wall_cpu = in_process(["--platform", "cpu", "--iq-replay", cap5]
+                                + argv, {"DSD_NEO_PDU_JSON": "1"})
+    logs = {}
+    for name, d in outs.items():
+        with open(os.path.join(d, "frames.log")) as f:
+            ents = [_json.loads(line) for line in f]
+        with open(os.path.join(d, "events.log")) as f:
+            logs[name] = (ents, f.read(), wav(os.path.join(d, "out.wav")))
+    limit = n5 - 2 * SV.P25_LDU_DIBITS
+    k = sum(e["pos"] < limit for e in logs["cpu"][0])
+    (ce, ctext, cw), (ge, gtext, gw) = logs["cpu"], logs["card"]
+    head = "".join(e["line"].rstrip("\n") + "\n" for e in ce[:k])
+    n_pcm = 9 * 160 * int(np.sum(tv["p25_ldu_pos"] + SV.P25_LDU_DIBITS
+                                 <= limit))
+    if not (k > 40 and ge[:k] == ce[:k] and ctext.startswith(head)
+            and gtext.startswith(head) and cw.shape[0] >= n_pcm
+            and gw.shape[0] >= n_pcm):
+        raise RuntimeError(f"cli: the card's event or frame log differs "
+                           f"from the CPU CLI's on the first 5 s ({k} "
+                           f"events)")
+    err = float(np.abs(gw[:n_pcm] - cw[:n_pcm]).max())
+    if err > 2e-3 * float(np.abs(cw[:n_pcm]).max()):
+        raise RuntimeError(f"cli: WAV differs from the CPU CLI's ({err})")
+    log(f"cli: its first {k} events (to symbol {limit}) and {n_pcm} WAV "
+        f"samples equal to the CPU CLI's on the first 5 s (frame log with "
+        f"fields and event log identical, PCM within {err:.2e}; the CPU "
+        f"CLI {wall_cpu:.2f} s)")
+
+    # -- --trunk-wideband with the conditioning, in process ---------------
+    band = FV.bench_band(fv, device=dev, seconds=2.5).cpu().numpy()
+    capb = os.path.join(tmp, "band.iq")
+    write_iq_capture(capb, band, IqMetadata(
+        sample_format="cf32", sample_rate_hz=int(FV.BENCH_FS),
+        center_frequency_hz=int(FV.BENCH_CENTER)))
+    cond = {"DSD_NEO_DEEMPH": "nfm", "DSD_NEO_AUDIO_LPF": "3400"}
+    wavb = os.path.join(tmp, "voice.wav")
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    text, wall_tw = in_process(["--iq-replay", capb, "--trunk-wideband",
+                                f" {FV.BENCH_CC_OFF}:4:p25p1",
+                                "-o", "wav:" + wavb], cond)
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn, k8fn = counted
+    launches = check_launches("cli --trunk-wideband", counted,
+                              (k1fn, k2fn, k4fn, k8fn),
+                              (k3fn, k5fn, k6fn, k7fn))
+    _m, samples = read_iq_capture(capb)
+    B = int(FV.BENCH_FS)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    f = TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
+                     center_hz=FV.BENCH_CENTER, cc_device_pick=True,
+                     device=dev)
+    rows = []
+    for i in range(0, samples.shape[0], B):
+        pcm = f.step(samples[i:i + B])
+        if pcm.shape[1]:
+            out = condition_audio(torch.from_numpy(pcm).to(dev), "nfm",
+                                  3400.0).cpu().numpy()
+            rows += [out[r] for r in f.calls
+                     if np.abs(pcm[r]).mean() > 1e-4]
+    wall_fl = time.perf_counter() - t1
+    s = f.stats
+    want = f.log + [
+        f"trunk-wideband: {s.grants} grants, {s.grant_refreshes} "
+        f"refreshes, {s.releases} releases, {s.unresolved} unresolved, "
+        f"{s.busy_drops} busy-drops over {f.blocks} blocks"]
+    q = (np.clip(np.concatenate(rows), -1.0, 1.0) * 32767.0).astype(
+        np.int16).astype(np.float32) / 32768.0
+    if not (text.splitlines() == want and s.grants == 1
+            and np.array_equal(wav(wavb), q) and q.size == 8640):
+        raise RuntimeError(f"cli --trunk-wideband: {text!r} / {want} or its "
+                           "WAV differs from the library fleet's")
+    log(f"cli --trunk-wideband ' {FV.BENCH_CC_OFF}:4:p25p1' on 2.5 s of the "
+        f"bench's 768 kHz cell (1 s steps, a 0.5 s last block), "
+        f"DSD_NEO_DEEMPH=nfm DSD_NEO_AUDIO_LPF=3400: its lines (the grant of "
+        f"TG 101 and the summary) and its WAV ({q.size} samples) equal the "
+        f"library TrunkedFleet's on the card conditioned by condition_audio, "
+        f"bit for bit; {wall_tw:.2f} s ({2.5 / wall_tw:.2f}x realtime of "
+        f"band) against the library's {wall_fl:.2f} s "
+        f"({2.5 / wall_fl:.2f}x) [{ident}]")
+
+    # -- the closed loop, the card against the CPU --------------------------
+    loops = {}
+    for where in (dev, "cpu"):
+        t1 = time.perf_counter()
+        loop = LV.ClosedLoop(live.LiveEngine, trunk.TrunkSM,
+                             trunk.TrunkFollower, SV.ImbeSink(),
+                             engine_kw={"device": where})
+        loop.run(fv)
+        got = LV.judge(loop, fv)
+        loops[str(where)] = (loop, got, time.perf_counter() - t1)
+    (g, gj, gw_s), (c, _cj, cw_s) = loops[str(dev)], loops["cpu"]
+    if not (g.tunes == c.tunes and g.events == c.events):
+        raise RuntimeError("closed loop: the card's tunes or events differ "
+                           "from the CPU's")
+    log(f"closed loop (one tuner, LiveEngine + TrunkFollower + TrunkSM in "
+        f"lockstep): tunes {[k for _f, k in g.tunes]} (TG 101 at "
+        f"{LV.VC_HZ / 1e6:.4f} MHz, back after the hangtime), {gj['ldus']} "
+        f"LDUs, all {gj['frames']} IMBE frames exact, {gj['events']} events "
+        f"equal to the CPU's; {gj['clock_s']:.2f} s of decoded blocks "
+        f"(the muted block not counted) in {gw_s:.2f} s on the card "
+        f"({gj['clock_s'] / gw_s:.2f}x), {cw_s:.2f} s on the CPU "
+        f"[{ident}]")
+
+    # -- the socket path: FakeRtlTcpServer → RtlTcpClient → LiveEngine ----
+    srv = FakeRtlTcpServer(LV.cu8(SV.p25_iq(tv, 4 * 4800)))
+    events = []
+    eng = live.LiveEngine("p25p1", block_s=0.25, on_event=events.append,
+                          device=dev)
+    sink = SV.ImbeSink()
+    eng.decoder.ctx.mbe_sink = sink
+    eng.decoder.ctx.state.keyring = kr
+    client = RtlTcpClient("127.0.0.1", srv.port, eng.ring,
+                          sample_rate=48000, freq_hz=851_000_000)
+    t1 = time.perf_counter()
+    try:
+        client.start()
+        eng.start()
+        deadline = time.time() + 60
+        while time.time() < deadline and len(sink.bits) < 9 * 20:
+            time.sleep(0.05)
+        wall_sock = time.perf_counter() - t1
+    finally:
+        eng.stop()
+        client.close()
+        srv.close()
+    got = np.asarray(sink.bits, np.uint8).reshape(-1, 88)
+    if not (got.shape[0] >= 9 * 20
+            and np.array_equal(got, clear.reshape(-1, 88)[:got.shape[0]])):
+        raise RuntimeError(f"rtl_tcp live path: {got.shape[0]} frames, or "
+                           "not the vector's")
+    log(f"rtl_tcp live path (FakeRtlTcpServer → RtlTcpClient → ring → "
+        f"LiveEngine on the card): {got.shape[0]} IMBE frames (the call's "
+        f"first {got.shape[0] // 9} LDUs, ADP ones decrypted), all exact, "
+        f"{len(events)} events, in {wall_sock:.2f} s for 4 s of signal "
+        f"({4.0 / wall_sock:.2f}x realtime, unpaced) [{ident}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 10 took {time.perf_counter() - t_phase:.1f} s")
+    return {"cli": launches}
 
 
 def hold_k2(dev, tables, show, Cx: int, Tn: int) -> None:
@@ -4095,6 +4401,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches.update(fleet_phase(ident, dev, counted, show, check_k1,
                                 check_k3, three_tones, tables))
+
+    # -- 10. the CLI and the live one-tuner path ------------------------------
+    log(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    launches.update(cli_phase(ident, dev, counted))
+    no_reference_modules()
 
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")

@@ -37,7 +37,17 @@ its module names so each function's counterpart is easy to find:
                           slow data and AMBE bits (events)
   - ``engine.m17batch``   ``BatchedM17VoicePipeline``: I/Q → M17 stream
                           events, Codec2 PCM of monitored channels
-  - ``engine.trunk``      the P25 iden table (channel → frequency)
+  - ``cli``, ``__main__`` ``python -m dsdneo_tpu_torch``: the JAX CLI's
+                          flags, the card unless ``--platform cpu``
+  - ``engine.stream``     ``StreamDecoder``: the chunked serial decode
+  - ``engine.live``       ``LiveEngine``: ring-fed blocks, retunes,
+                          squelch, trunk following (``runtime.native.
+                          IngestRing``, ``io.rtl_tcp``, ``io.net``,
+                          ``io.sdr_device``)
+  - ``engine.trunk``      the P25 iden table (channel → frequency), the
+                          channel map, ``TrunkSM``, ``TrunkFollower``,
+                          ``TrunkScanner``
+  - ``engine.livevec``    the one-tuner closed loop's test drive
   - ``engine.modes``      the modes' filter profiles and symbol rates
   - ``engine.voicestate`` the voice-carry reset the AMBE pipelines share
   - ``fec.device``        batched IMBE and AMBE+2 voice-frame ECC, the

@@ -1,0 +1,3 @@
+from dsdneo_tpu_torch.cli import main
+
+raise SystemExit(main())

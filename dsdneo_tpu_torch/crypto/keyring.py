@@ -1,8 +1,11 @@
-"""Key storage for the voice paths' decryption, and secret redaction.
+"""Key storage for the voice paths' decryption, CSV import, and secret
+redaction.
 
-The port's own copy of the lookup part of ``dsdneo_tpu/crypto/
-keyring.KeyRing`` (scalar keys by key ID, AES keys by key ID, the forced
-single key, ``describe``) and of the redaction helpers
+The port's own copy of ``dsdneo_tpu/crypto/keyring.py``: ``KeyRing``
+(scalar keys by key ID, AES keys by key ID, the forced single key, the
+CLI's CSV importers of src/core/file/dsd_import.c: multi_key.csv
+decimal, multi_key_hex.csv, the AES segment CSV of
+examples/example_aes_keys.csv, ``describe``) and the redaction helpers
 (``format_secret_dec``, ``format_secret_hex``): key material never
 reaches a line unless ``show_keys`` (reference core/secret_redaction.h).
 """
@@ -42,6 +45,42 @@ class KeyRing:
         v = self.scalar.get(kid)
         return v if v is not None else self.forced
 
+    def import_dec_csv(self, path: str) -> int:
+        """multi_key.csv: 'id(dec),value(dec)' (NXDN scrambler / BP)."""
+        n = 0
+        for kid, vals in self._rows(path):
+            try:
+                self.scalar[int(kid, 10)] = int(vals[0], 10)
+                n += 1
+            except ValueError:
+                continue
+        return n
+
+    def import_hex_csv(self, path: str) -> int:
+        """multi_key_hex.csv: 'id(hex),value(hex)' (Hytera BP / RC4)."""
+        n = 0
+        for kid, vals in self._rows(path):
+            try:
+                self.scalar[int(kid, 16)] = int(vals[0], 16)
+                n += 1
+            except ValueError:
+                continue
+        return n
+
+    def import_aes_csv(self, path: str) -> int:
+        """AES keys: 'keyid(hex),seg1,seg2[,seg3,seg4]' — 2 segments =
+        AES-128, 4 = AES-256 (64-bit hex segments)."""
+        n = 0
+        for kid, vals in self._rows(path):
+            try:
+                key = b"".join(int(v, 16).to_bytes(8, "big") for v in vals)
+            except ValueError:
+                continue
+            if len(key) in (16, 32):
+                self.aes[int(kid, 16)] = key
+                n += 1
+        return n
+
     def describe(self, show_keys: bool = False) -> str:
         lines = []
         for kid, v in sorted(self.scalar.items()):
@@ -50,3 +89,17 @@ class KeyRing:
             h = v.hex().upper() if show_keys else REDACTED
             lines.append(f"AES key {kid:04X} ({len(v) * 8}-bit): {h}")
         return "\n".join(lines)
+
+    @staticmethod
+    def _rows(path: str):
+        with open(path, "r") as f:
+            for i, line in enumerate(f):
+                line = line.strip()
+                if not line or "," not in line:
+                    continue
+                parts = [p.strip() for p in line.split(",")]
+                if i == 0 and any(c.isalpha() and c not in "abcdefABCDEF"
+                                  for c in parts[0]):
+                    continue          # header row
+                if len(parts) >= 2:
+                    yield parts[0], parts[1:]

@@ -109,11 +109,15 @@ def _noisy(x: np.ndarray, seed: int) -> np.ndarray:
 
 
 # -- the bands ----------------------------------------------------------------
-def bench_band(tv: dict[str, np.ndarray], device="cpu") -> torch.Tensor:
-    """The JAX bench's 2 s of band at 768 kHz: the CC at −96 kHz, the
-    granted voice at +150 kHz."""
-    n = int(2 * BENCH_FS)
-    return place([(c4fm48(tv["bench_cc_dibits"], 1), BENCH_CC_OFF),
+def bench_band(tv: dict[str, np.ndarray], device="cpu",
+               seconds: float = 2.0) -> torch.Tensor:
+    """The JAX bench's band at 768 kHz: the CC at −96 kHz, the granted
+    voice (1.98 s) at +150 kHz; 2 s by default, longer with the CC's
+    dibits repeated from their start (whole seconds and halves keep
+    both offsets on whole bins)."""
+    n = int(seconds * BENCH_FS)
+    cc = np.resize(tv["bench_cc_dibits"], int(seconds * 4800))
+    return place([(c4fm48(cc, 1), BENCH_CC_OFF),
                   (c4fm48(tv["bench_vc_dibits"], 2), BENCH_VC_OFF)],
                  BENCH_FS, n, device)
 

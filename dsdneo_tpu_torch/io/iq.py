@@ -1,7 +1,9 @@
-"""I/Q capture metadata, the sample reader and the writer (host, numpy).
+"""I/Q capture metadata, the sample reader and writers (host, numpy).
 
-The port's own copy of ``IqMetadata``, ``_decode_samples``,
-``read_iq_capture`` and ``write_iq_capture`` of ``dsdneo_tpu/io/iq.py``.
+The port's own copy of ``dsdneo_tpu/io/iq.py``: ``IqMetadata``,
+``read_iq_capture``, ``write_iq_capture``, and the live path's streaming
+``IqCaptureWriter`` with its retune event journal (``IqEvent``,
+``read_iq_events``, ``replay_segments``).
 The on-disk capture format is the reference's: a raw sample file
 (``cu8`` unsigned 8-bit interleaved I/Q, ``cs16`` signed 16-bit, or
 ``cf32`` float32) and a ``.iq.json`` sidecar with the rates and their
@@ -157,3 +159,137 @@ def write_iq_capture(path: str, samples: np.ndarray, meta: Optional[IqMetadata] 
     with open(path + ".json", "w") as f:
         json.dump(meta.to_json_dict(), f, indent=2)
         f.write("\n")
+
+
+@dataclass
+class IqEvent:
+    """Capture event journal entry (reference io/iq_types.h dsd_iq_event:
+    retune/mute/reset markers stamped with the byte offset where they
+    occurred, so replay can reproduce tuning history)."""
+    kind: str                       # "retune" | "mute" | "reset"
+    byte_offset: int = 0
+    duration_bytes: int = 0
+    center_frequency_hz: int = 0
+    capture_center_frequency_hz: int = 0
+    sample_rate_hz: int = 0
+    reason: str = ""
+
+
+_BYTES_PER_SAMPLE = {"cu8": 2, "cs16": 4, "cf32": 8}
+
+
+class IqCaptureWriter:
+    """Streaming capture writer with a retune/mute/reset event journal —
+    the rebuild's analog of src/io/iq/iq_capture.c dsd_iq_capture_open/
+    submit/record_event/close (checkpointable acquisition: the journal
+    lets replay re-create the tuning timeline)."""
+
+    def __init__(self, path: str, meta: Optional[IqMetadata] = None,
+                 max_bytes: int = 0):
+        self.meta = meta or IqMetadata()
+        self.path = path
+        self.max_bytes = max_bytes
+        self.events: list[IqEvent] = []
+        self.accepted_bytes = 0
+        self.drops = 0
+        self._f = open(path, "wb")
+        self._closed = False
+        self._capped = False
+
+    def submit(self, samples: np.ndarray) -> int:
+        """Append complex samples; returns bytes written (0 once the
+        max-bytes cap is reached — further samples count as drops)."""
+        fmt = self.meta.sample_format
+        s = np.asarray(samples)
+        inter = np.empty(2 * s.size, dtype=np.float32)
+        if getattr(self.meta, "iq_order", "IQ") == "QI":
+            inter[0::2] = s.imag
+            inter[1::2] = s.real
+        else:
+            inter[0::2] = s.real
+            inter[1::2] = s.imag
+        if fmt == "cu8":
+            raw = np.clip(np.round(inter * 127.5 + 127.5), 0, 255
+                          ).astype(np.uint8).tobytes()
+        elif fmt == "cs16":
+            raw = np.clip(np.round(inter * 32768.0), -32768, 32767
+                          ).astype("<i2").tobytes()
+        else:
+            raw = inter.astype("<f4").tobytes()
+        if self._capped or (self.max_bytes
+                            and self.accepted_bytes + len(raw)
+                            > self.max_bytes):
+            # latch: accepting a LATER smaller chunk after a drop
+            # would splice discontinuous samples into the capture
+            # with no journal marker
+            self._capped = True
+            self.drops += s.size
+            return 0
+        self._f.write(raw)
+        self.accepted_bytes += len(raw)
+        return len(raw)
+
+    def record_event(self, kind: str, **fields) -> IqEvent:
+        ev = IqEvent(kind=kind, byte_offset=self.accepted_bytes, **fields)
+        self.events.append(ev)
+        if kind == "retune":
+            self.meta.contains_retunes = True
+        return ev
+
+    def close(self) -> None:
+        if self._closed:
+            return
+        self._f.close()
+        self._closed = True
+        self.meta.data_file = os.path.basename(self.path)
+        self.meta.data_bytes = self.accepted_bytes
+        d = self.meta.to_json_dict()
+        d["capture_retune_count"] = sum(
+            1 for e in self.events if e.kind == "retune")
+        d["capture_drops"] = self.drops
+        if self.events:
+            d["events"] = [{
+                "kind": e.kind,
+                "byte_offset": e.byte_offset,
+                "duration_bytes": e.duration_bytes,
+                "center_frequency_hz": e.center_frequency_hz,
+                "capture_center_frequency_hz": e.capture_center_frequency_hz,
+                "sample_rate_hz": e.sample_rate_hz,
+                "reason": e.reason,
+            } for e in self.events]
+        with open(self.path + ".json", "w") as f:
+            json.dump(d, f, indent=2)
+            f.write("\n")
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_iq_events(meta: IqMetadata) -> list[IqEvent]:
+    """Event journal from a capture's sidecar (empty if none)."""
+    out = []
+    for raw in meta.extra.get("events", []):
+        known = {k: raw[k] for k in IqEvent.__dataclass_fields__ if k in raw}
+        out.append(IqEvent(**known))
+    return out
+
+
+def replay_segments(meta: IqMetadata, samples: np.ndarray):
+    """Split a capture into (center_freq_hz, samples) segments at retune
+    events — replay's tuning-timeline reconstruction (reference
+    iq_replay.c retune-event playback)."""
+    bps = _BYTES_PER_SAMPLE.get(meta.sample_format, 2)
+    events = [e for e in read_iq_events(meta) if e.kind == "retune"]
+    freq = meta.center_frequency_hz
+    start = 0
+    for e in sorted(events, key=lambda e: e.byte_offset):
+        cut = min(e.byte_offset // bps, len(samples))
+        if cut > start:
+            yield freq, samples[start:cut]
+        start = cut
+        freq = e.center_frequency_hz or freq
+    if start < len(samples):
+        yield freq, samples[start:]

@@ -7,10 +7,10 @@ pointers go as ``c_void_p``, the stream is PyTorch's current stream,
 and each C entry point returns ``cudaGetLastError()`` after its launch.
 No source includes PyTorch's headers, so a build takes seconds.
 
-``csrc/*.cpp`` is host code (the ADPCM decoder of the PCM fetch and the
+``csrc/*.cpp`` is host code (the ADPCM decoder of the PCM fetch, the
 C library's float32 trigonometry for the CPU path of the timing
-recovery), compiled by the host C++ compiler into a second library
-(:func:`load_host`).
+recovery, and the live path's ingest ring), compiled by the host C++
+compiler into a second library (:func:`load_host`).
 
 Both build at first use into ``dsdneo_tpu_torch/build/`` (gitignored),
 named by a hash of their sources and flags, so an edited source never
@@ -78,6 +78,20 @@ _HOST_SIGNATURES = {
     "dsd_sinf": ([_P, _P, _L], None),
     # y, x, out, n
     "dsd_atan2f": ([_P, _P, _P, _L], None),
+    # the live path's ingest ring (csrc/ingest_ring.cpp)
+    "dsd_ring_create": ([ctypes.c_size_t], _P),
+    "dsd_ring_destroy": ([_P], None),
+    "dsd_ring_write": ([_P, ctypes.c_char_p, ctypes.c_size_t],
+                       ctypes.c_size_t),
+    # ring, out [n, 2] f32, n, rotate (0, +1, -1), timeout ms
+    "dsd_ring_read_widen_cu8": ([_P, _P, ctypes.c_size_t, _I, _I],
+                                ctypes.c_size_t),
+    "dsd_ring_purge": ([_P], None),
+    "dsd_ring_shutdown": ([_P], None),
+    "dsd_ring_drops": ([_P], ctypes.c_uint64),
+    "dsd_ring_fill": ([_P], ctypes.c_size_t),
+    "dsd_ring_generation": ([_P], ctypes.c_uint32),
+    "dsd_set_ftz_daz": ([_I], _I),
 }
 
 

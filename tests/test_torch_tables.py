@@ -90,7 +90,20 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.crypto.ecdsa", "dsdneo_tpu_torch.io",
     "dsdneo_tpu_torch.io.iq", "dsdneo_tpu_torch.runtime.jitter",
     "dsdneo_tpu_torch.dsp.resampler", "dsdneo_tpu_torch.protocol.m17",
-    "dsdneo_tpu_torch.protocol.m17.ip")
+    "dsdneo_tpu_torch.protocol.m17.ip",
+    "dsdneo_tpu_torch.cli", "dsdneo_tpu_torch.engine.stream",
+    "dsdneo_tpu_torch.engine.live", "dsdneo_tpu_torch.engine.livevec",
+    "dsdneo_tpu_torch.engine.lcn_calc", "dsdneo_tpu_torch.runtime.log",
+    "dsdneo_tpu_torch.runtime.native",
+    "dsdneo_tpu_torch.runtime.calibration",
+    "dsdneo_tpu_torch.runtime.rt_sched", "dsdneo_tpu_torch.dsp.measure",
+    "dsdneo_tpu_torch.core.events", "dsdneo_tpu_torch.core.talkgroup",
+    "dsdneo_tpu_torch.core.calls", "dsdneo_tpu_torch.io.audio_files",
+    "dsdneo_tpu_torch.io.audio_out", "dsdneo_tpu_torch.io.mbe_files",
+    "dsdneo_tpu_torch.io.symbol_capture", "dsdneo_tpu_torch.io.net",
+    "dsdneo_tpu_torch.io.rtl_tcp", "dsdneo_tpu_torch.io.sdr_device",
+    "dsdneo_tpu_torch.app_control", "dsdneo_tpu_torch.app_control.commands",
+    "dsdneo_tpu_torch.app_control.snapshot")
 
 
 @pytest.fixture(scope="module")
@@ -571,6 +584,48 @@ def test_serial_decode_runs_without_the_jax_package():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
     assert r.stdout.strip() == "ok"
+
+
+def test_cli_runs_without_the_jax_package():
+    """``python -m dsdneo_tpu_torch --platform cpu -f1 --iq-replay`` on
+    2 s of the P25 call (a capture the port writes), run as ``-m`` runs
+    it (``runpy``) in a fresh process, then the live path's closed loop
+    (``engine/livevec``: ``LiveEngine`` with ``TrunkFollower`` and
+    ``TrunkSM``): the call decodes, every LDU of the followed call is
+    exact, and no module of the JAX package, and no jax, is ever
+    loaded."""
+    code = (
+        "import os, runpy, sys, tempfile\n"
+        "from dsdneo_tpu_torch.engine import serialvec as SV\n"
+        "from dsdneo_tpu_torch.io import IqMetadata, write_iq_capture\n"
+        "tv = SV.vector()\n"
+        "path = os.path.join(tempfile.mkdtemp(), 'p25.iq')\n"
+        "write_iq_capture(path, SV.p25_iq(tv, 9600), "
+        "IqMetadata(sample_format='cf32', sample_rate_hz=48000))\n"
+        "sys.argv = ['dsdneo_tpu_torch', '--platform', 'cpu', '-f1', "
+        "'--iq-replay', path]\n"
+        "try:\n"
+        "    runpy.run_module('dsdneo_tpu_torch', run_name='__main__', "
+        "alter_sys=True)\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
+        "from dsdneo_tpu_torch.engine import fleetvec as FV, live, trunk\n"
+        "from dsdneo_tpu_torch.engine import livevec as LV\n"
+        "loop = LV.ClosedLoop(live.LiveEngine, trunk.TrunkSM, "
+        "trunk.TrunkFollower, SV.ImbeSink(), engine_kw={'device': 'cpu'})\n"
+        "loop.run(FV.vector())\n"
+        "assert LV.judge(loop, FV.vector())['ldus'] == 11\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'dsdneo_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    assert r.stderr.count("LDU1 VOICE (9 IMBE frames)") >= 4
+    assert "Group 2501 Source 1234567" in r.stderr
 
 
 def test_port_sources_import_no_jax_module():
