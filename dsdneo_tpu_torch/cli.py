@@ -821,6 +821,10 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
             pass
         eng.stop()
         dev.close()
+        if eng.capture is not None:
+            # the JAX CLI leaves the writer open: its sidecar (rates,
+            # retune journal) is never written
+            eng.capture.close()
         if perf_live is not None:
             perf_live.flush_now()
             perf_live.close()
@@ -1263,11 +1267,6 @@ def main(argv: list[str] | None = None) -> int:
     if args.calls_dir:
         from dsdneo_tpu_torch.core.calls import CallRecorder
         recorder = CallRecorder(args.calls_dir, mode=args.mode)
-        if args.rdio_api_url:
-            from dsdneo_tpu_torch.io.rdio import RdioUploader
-            recorder.uploader = RdioUploader(
-                args.rdio_api_url, args.rdio_api_key,
-                args.rdio_system_id or "1")
 
     tg_policy = None
     if args.group_csv:

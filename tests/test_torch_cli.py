@@ -62,6 +62,10 @@ def caps(tmp_path_factory):
         f.write("tg,mode,name\n2501,A,Ops\n300-310,B,Blocked\n")
     with open(d / "chans.csv", "w") as f:
         f.write("channel,frequency\n1,851012500\n2,851037500\n")
+    with open(d / "user.ini", "w") as f:
+        f.write("[dsdneo]\ndeemph = 75\naudio_lpf_hz = 3000\n"
+                "[profile:quiet]\nsnr_sql_db = 12.5\n")
+    out["ini"] = str(d / "user.ini")
     return out
 
 
@@ -128,7 +132,7 @@ def test_p25_replay_logs_calls_and_mbe_round_trip(caps, tmp_path):
         "-J", "{out}/events.log", "--frame-log", "{out}/frames.log",
         "--calls-dir", "{out}/calls", "--mbe-out", "{out}/voice.imb",
         "-L", "{out}/lrrp.log", "-c", "{out}/sym.bin",
-        "--keys-dec", caps["keys"]])
+        "--keys-dec", caps["keys"], "--perf-csv", "{out}/perf.csv"])
     assert_same_text(jr, pr)
     assert jr[0] == 0 and "MBE out: 189 frames" in jr[2]
     assert "key 0042: [redacted]" in jr[2]
@@ -146,6 +150,10 @@ def test_p25_replay_logs_calls_and_mbe_round_trip(caps, tmp_path):
               "lrrp.log"):
         assert read(os.path.join(pd, f)) == read(os.path.join(jd, f)), f
     assert read(os.path.join(jd, "events.log"))
+    # the perf CSV holds wall-clock times: the same header and row count
+    perf = [read(os.path.join(d, "perf.csv")).decode().splitlines()
+            for d in (jd, pd)]
+    assert perf[0][0] == perf[1][0] and len(perf[0]) == len(perf[1]) == 2
     assert_wav_close(os.path.join(jd, "out.wav"), os.path.join(pd, "out.wav"))
     names = sorted(os.listdir(os.path.join(jd, "calls")))
     assert names == sorted(os.listdir(os.path.join(pd, "calls")))
@@ -210,27 +218,13 @@ def test_auto_mode_on_the_dmr_capture(caps, tmp_path):
     assert "DMR" in jr[2]
 
 
-def test_stream_equals_one_shot(caps, tmp_path):
-    """``--stream 0.25`` in both packages, and the one-shot decode: the
-    same printed lines and WAV."""
-    one_j, one_p = both(tmp_path / "one", [
-        "-f1", "--iq-replay", caps["p25"], "-o", "wav:{out}/out.wav"])
-    st_j, st_p = both(tmp_path / "stream", [
-        "-f1", "--iq-replay", caps["p25"], "-o", "wav:{out}/out.wav",
-        "--stream", "0.25"])
-    assert_same_text(st_j, st_p)
-    assert_same_text(one_j, one_p)
-    assert st_p[2] == one_p[2]
-    for r in (st_p, one_j, one_p):
-        assert_wav_close(os.path.join(st_j[3], "out.wav"),
-                         os.path.join(r[3], "out.wav"))
-
-
 def test_probe_iq_info_print_config_calc_lcn(caps, tmp_path):
     outs = []
     for argv in (["-f1", "--probe", "--iq-replay", caps["p25"]],
                  ["--iq-info", caps["dmr"]],
                  ["--print-config", "--iq-replay", caps["p25"]],
+                 ["--print-config", "--config", caps["ini"], "--profile",
+                  "quiet", "--iq-replay", caps["p25"]],
                  ["--calc-lcn", caps["freqs"]],
                  ["--calc-lcn", caps["freqs"], "--calc-cc-freq", "851.0375",
                   "--calc-cc-lcn", "7"]):
@@ -241,7 +235,8 @@ def test_probe_iq_info_print_config_calc_lcn(caps, tmp_path):
     assert outs[0].startswith("probe: mode=p25p1 snr=")
     assert "samples: 192000" in outs[1]
     assert "deemph = off" in outs[2]
-    assert outs[3] != outs[4]
+    assert "deemph = 75" in outs[3] and "snr_sql_db = 12.5" in outs[3]
+    assert outs[4] != outs[5]
 
 
 def test_iq_info_on_a_journalled_capture(tmp_path):
@@ -325,3 +320,16 @@ def test_platform_tpu_is_refused(caps, tmp_path):
     rc, _, se = run(P.main, ["--platform", "tpu", "-f1", "--iq-replay",
                              caps["p25"]], str(tmp_path))
     assert rc == 2 and "--platform tpu" in se
+
+
+@pytest.mark.parametrize("spec", ["rtlusb:0:851000000",
+                                  "soapy:driver=none:851000000"])
+def test_sdr_inputs_without_their_library_exit_1(tmp_path, monkeypatch,
+                                                 spec):
+    """``-i rtlusb…`` / ``soapy:…`` with no librtlsdr device and no
+    SoapySDR module: both CLIs print the same one line and exit 1."""
+    monkeypatch.setenv("DSDNEO_RTLSDR_LIB", str(tmp_path / "missing.so"))
+    jr, pr = both(tmp_path, ["-f1", "-i", spec])
+    assert_same_text(jr, pr)
+    assert pr[0] == 1
+    assert pr[2].startswith("dsd-neo-tpu: live source unavailable: ")

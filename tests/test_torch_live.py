@@ -4,8 +4,8 @@ the ingest ring (``runtime.native.IngestRing``, built from
 StreamDecoder``, ``engine.live.LiveEngine`` in lockstep, the closed loop
 of ``engine/livevec`` (``TrunkFollower`` + ``TrunkSM`` retuning one
 tuner between the bench's control channel and its granted call), and
-one socket test of the plumbing each way (``io.rtl_tcp`` into the ring,
-``-i udp:PORT`` through the CLI).
+the socket plumbing (``io.rtl_tcp`` into the ring and ``LiveEngine``;
+the CLI's socket inputs are in ``test_torch_cli_stream.py``).
 
 Equal means: the ring's float planes bit for bit and its counters
 equal; events equal in line, protocol, position and fields; PCM within
@@ -18,7 +18,6 @@ packages.
 import json
 import os
 import socket
-import threading
 import time
 
 import numpy as np
@@ -284,6 +283,32 @@ def test_live_engine_knobs_against_jax(knobs):
         assert any("LDU" in e.line for e in out["port"][0])
 
 
+def test_live_engine_perf_probe_against_jax(tmp_path):
+    """``--perf-csv`` on the live path: one CSV row a block (interval 0),
+    the block, channel, symbol and ring-drop columns equal (the times
+    are the host's own)."""
+    from dsdneo_tpu.runtime import log as JLOG
+    from dsdneo_tpu_torch.runtime import log as PLOG
+    call = LV.cu8(SV.p25_iq(SV.vector(), 2 * 4800))
+    rows = {}
+    for name, L, LOG in (("jax", JL, JLOG), ("port", PL, PLOG)):
+        path = str(tmp_path / f"{name}.csv")
+        probe = LOG.PerfProbe(path, interval_s=0.0)
+        kw = {"device": "cpu"} if name == "port" else {}
+        eng = L.LiveEngine("p25p1", block_s=0.25, perf=probe, **kw)
+        eng.feed_cu8(call)
+        eng.run(max_blocks=len(call) // (2 * CHUNK))
+        probe.close()
+        with open(path) as f:
+            lines = [ln.split(",") for ln in f.read().splitlines()]
+        head = lines[0]
+        keep = [head.index(k) for k in ("steps", "channels", "symbols",
+                                        "drops")]
+        rows[name] = (head, [[r[i] for i in keep] for r in lines[1:]])
+    assert rows["port"] == rows["jax"]
+    assert len(rows["port"][1]) == 8
+
+
 def test_live_engine_trunk_integration_against_jax():
     """The live-engine case of ``tests/test_trunk_follower.py``: a block
     of noise through the engine with a follower attached; no sync, so
@@ -405,66 +430,3 @@ def _disc_pcm(x: np.ndarray) -> np.ndarray:
     y = frontend.fir_complex(torch.from_numpy(x[None, :]), taps)
     d = frontend.fm_discriminate(y)[0].numpy()
     return np.clip(d * 8000.0, -32767, 32767).astype(np.int16)
-
-
-def test_cli_udp_pcm_live_input(capsys):
-    """``python -m dsdneo_tpu_torch -f1 -i udp:PORT``: 2 s of the P25
-    call's discriminator audio as PCM16LE datagrams, paced at realtime
-    so a loaded host drops none, decode through the port's CLI (the case
-    of ``tests/test_live_input.py``); the input ends the run 1 s after
-    the last datagram."""
-    from dsdneo_tpu_torch import cli
-    tv = SV.vector()
-    pcm = _disc_pcm(SV.p25_iq(tv, 2 * 4800))
-    port = _free_udp_port()
-    sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
-
-    def blast():
-        time.sleep(0.7)                   # let the receiver bind
-        for i in range(0, len(pcm), 1200):
-            sock.sendto(pcm[i:i + 1200].tobytes(), ("127.0.0.1", port))
-            time.sleep(0.025)
-
-    t = threading.Thread(target=blast, daemon=True)
-    t.start()
-    rc = cli.main(["--platform", "cpu", "-f1", "-i", f"udp:{port}",
-                   "--duration", "20"])
-    t.join(timeout=10)
-    sock.close()
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "NAC/CC: 293" in out
-    assert out.count("VOICE (9 IMBE frames)") >= 6
-
-
-def test_cli_rtltcp_fs4_capture_shift(capsys, monkeypatch):
-    """``-i rtltcp:HOST:PORT:FREQ`` through the port's CLI with the
-    default +fs/4 capture shift (the case of ``tests/test_rtl_tcp.py``):
-    the server streams the P25 call as an offset-tuned tuner sees it (the
-    channel at −fs/4, the CU8 codes rotated by (−j)^n exactly), the
-    ring's fused widen + rotate brings it back to baseband, and the tune
-    command carries the +fs/4 offset."""
-    from dsdneo_tpu_torch import cli
-    tv = SV.vector()
-    raw = np.frombuffer(LV.cu8(SV.p25_iq(tv, 2 * 4800)), np.uint8)
-    i, q = raw[0::2], raw[1::2]
-    obs = np.empty_like(raw).reshape(-1, 2)
-    k = np.arange(i.size) & 3
-    obs[k == 0] = np.stack([i[k == 0], q[k == 0]], axis=1)
-    obs[k == 1] = np.stack([q[k == 1], 255 - i[k == 1]], axis=1)
-    obs[k == 2] = np.stack([255 - i[k == 2], 255 - q[k == 2]], axis=1)
-    obs[k == 3] = np.stack([255 - q[k == 3], i[k == 3]], axis=1)
-    srv = PR.FakeRtlTcpServer(obs.tobytes())
-    monkeypatch.setenv("DSDNEO_RTLTCP_RATE", "48000")
-    try:
-        rc = cli.main(["--platform", "cpu", "-f1", "-i",
-                       f"rtltcp:127.0.0.1:{srv.port}:851000000",
-                       "--duration", "5"])
-    finally:
-        srv.close()
-    assert rc == 0
-    out = capsys.readouterr().out
-    assert "NAC/CC: 293" in out
-    assert out.count("VOICE (9 IMBE frames)") >= 6
-    tuned = [v for c, v in srv.commands if c == PR.CMD_SET_FREQ]
-    assert 851_012_000 in tuned          # the channel + fs/4
