@@ -127,6 +127,47 @@ def test_stream_decoder_disc_input_against_jax():
     assert any("NAC/CC: 293" in e.line for e in decs["port"].ctx.events)
 
 
+def test_measure_against_jax():
+    """``dsp/measure``: the eye and constellation SNRs, the power
+    squelch, the spectrum snapshot and the CFO observable on seeded
+    inputs, the port's torch against the JAX functions (float32 sums in
+    another order: within 1e-4 dB / 1e-5 relative); the bias terms
+    exactly."""
+    import jax.numpy as jnp
+    import torch
+
+    from dsdneo_tpu.dsp import measure as JM
+    from dsdneo_tpu_torch.dsp import measure as PM
+    rng = np.random.default_rng(5)
+    lv = np.array([1.0, 3.0, -1.0, -3.0], np.float32)
+    norm = (lv[rng.integers(0, 4, (3, 4000))]
+            + rng.normal(0, 0.2, (3, 4000))).astype(np.float32)
+    iq = (rng.normal(size=(3, 8192)) + 1j * rng.normal(size=(3, 8192))
+          ).astype(np.complex64) * np.float32(0.01)
+    for j, p, arg in ((JM.snr_c4fm_eye, PM.snr_c4fm_eye, norm),
+                      (JM.snr_qpsk_constellation, PM.snr_qpsk_constellation,
+                       iq * 100),
+                      (lambda x: JM.estimate_cfo_fm(x, 48000.0),
+                       lambda x: PM.estimate_cfo_fm(x, 48000.0), norm)):
+        a = np.asarray(j(jnp.asarray(arg)))
+        b = p(torch.from_numpy(arg)).numpy()
+        np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-4)
+    for thr in (-60.0, -37.0, -20.0):
+        a = np.asarray(JM.power_squelch(jnp.asarray(iq), thr))
+        b = PM.power_squelch(torch.from_numpy(iq), thr).numpy()
+        assert np.array_equal(a, b)
+    a = np.asarray(JM.spectrum_snapshot(jnp.asarray(iq), 1024))
+    b = PM.spectrum_snapshot(torch.from_numpy(iq), 1024).numpy()
+    np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-3)
+    for kind in ("c4fm", "evm", "other"):
+        for rate in (0.0, 4800.0, 2400.0):
+            for prof in ("wide", "6k25", "p25_cqpsk", "nope"):
+                assert PM.snr_bias_db(kind, rate, prof) == \
+                    JM.snr_bias_db(kind, rate, prof)
+                assert PM.snr_corrected_db(20.0, kind, rate, prof) == \
+                    JM.snr_corrected_db(20.0, kind, rate, prof)
+
+
 # -- LiveEngine in lockstep ------------------------------------------------------
 def _cu8_noise(n: int, seed: int) -> bytes:
     rng = np.random.default_rng(seed)
@@ -307,6 +348,51 @@ def test_live_engine_perf_probe_against_jax(tmp_path):
         rows[name] = (head, [[r[i] for i in keep] for r in lines[1:]])
     assert rows["port"] == rows["jax"]
     assert len(rows["port"][1]) == 8
+
+
+def test_live_engine_commands_against_jax():
+    """The app_control command queue drained between blocks (the cases
+    of ``tests/test_app_control.py`` in both packages): TUNE before
+    feeding, the metrics of four blocks, SET_MODE, TOGGLE_MUTE,
+    SET_SQUELCH, GAIN_DELTA, TG_HOLD and TG_RELEASE on the policy,
+    SET_PPM into the tuner hook, STOP halting the loop at once."""
+    from dsdneo_tpu.app_control import AppCommand as JC
+    from dsdneo_tpu.core.talkgroup import TalkgroupPolicy as JP
+    from dsdneo_tpu_torch.app_control import AppCommand as PC
+    from dsdneo_tpu_torch.core.talkgroup import TalkgroupPolicy as PP
+    raw = np.random.default_rng(0).integers(0, 256, 2 * 4800 * 3,
+                                             dtype=np.uint8).tobytes()
+    out = {}
+    for name, L, C, TP in (("jax", JL, JC, JP), ("port", PL, PC, PP)):
+        kw = {"device": "cpu"} if name == "port" else {}
+        eng = L.LiveEngine("p25p1", fs=48000.0, block_s=0.05, **kw)
+        eng.commands.put(C.TUNE, 852_000_000.0)
+        eng._drain_commands()
+        eng.feed_cu8(raw)
+        n = eng.run(max_blocks=4)
+        snap = eng.metrics.snapshot()
+        trace = [n, snap.generation, snap.freq_hz, eng.retunes,
+                 round(snap.input_level_rms, 9)]
+        eng.decoder.ctx.state.tg_policy = TP()
+        ppm = []
+        eng.on_ppm = ppm.append
+        for cmd, payload in ((C.SET_MODE, "dmr"), (C.TOGGLE_MUTE, None),
+                             (C.SET_SQUELCH, -50.0), (C.GAIN_DELTA, 1),
+                             (C.TG_HOLD, (0, 123)), (C.SET_PPM, 7)):
+            eng.commands.put(cmd, payload)
+        eng._drain_commands()
+        pol = eng.decoder.ctx.state.tg_policy
+        trace += [eng.mode, eng.decoder.mode.name, eng.muted,
+                  eng.squelch_db, eng.gain_db,
+                  eng.decoder.ctx.state.audio_gain_db, ppm,
+                  pol.allows(999, slot=0), pol.allows(123, slot=0)]
+        eng.commands.put(C.TG_RELEASE, 0)
+        eng.commands.put(C.STOP)
+        trace += [eng.run(), pol.allows(999, slot=0), eng._stop]
+        out[name] = trace
+    assert out["port"] == out["jax"]
+    assert out["port"][:4] == [4, out["port"][1], 852_000_000.0, 1]
+    assert out["port"][-3:] == [0, True, True]
 
 
 def test_live_engine_trunk_integration_against_jax():
