@@ -1571,13 +1571,19 @@ def cli_phase(ident: str, dev, counted) -> dict:
     fleet cell with the decoded-audio conditioning
     (``DSD_NEO_DEEMPH=nfm``, ``DSD_NEO_AUDIO_LPF=3400``): its grant,
     summary and WAV equal the library ``TrunkedFleet``'s on the card
-    conditioned by ``condition_audio``, and the CLI launches K1, K2, K4
-    and K8; the closed loop of ``engine/livevec`` on the card (every LDU
-    of the followed call exact, the tunes and events equal to the CPU's);
+    conditioned by the plain cascade on each row's concatenated blocks
+    (the CLI carries the filters across its blocks; K8 from a carried
+    state over those blocks equals it bit for bit), the card's fleet
+    equals the CPU's on every block, the 0.5 s last one included, and
+    the CLI launches K1, K2, K4 and K8; the closed loop of
+    ``engine/livevec`` on the card (every LDU of the followed call exact,
+    the tunes and events equal to the CPU's);
     the port's ``FakeRtlTcpServer`` streaming 4 s of the P25 call through
     ``RtlTcpClient`` into ``LiveEngine`` on the card.  Returns the
     launches of the CLI's run."""
     import contextlib
+    import csv
+    import dataclasses as _dc
     import io
     import json as _json
     import shutil
@@ -1589,7 +1595,7 @@ def cli_phase(ident: str, dev, counted) -> dict:
     import torch
     from dsdneo_tpu_torch import cli
     from dsdneo_tpu_torch.crypto.keyring import KeyRing
-    from dsdneo_tpu_torch.dsp.audio_filters import condition_audio
+    from dsdneo_tpu_torch.dsp import audio_filters as af
     from dsdneo_tpu_torch.engine import fleetvec as FV
     from dsdneo_tpu_torch.engine import live, trunk
     from dsdneo_tpu_torch.engine import livevec as LV
@@ -1655,7 +1661,7 @@ def cli_phase(ident: str, dev, counted) -> dict:
         outs[name] = d
     flags = ["-f1", "--keys-dec", keys, "--mbe-out", "{d}/voice.imb",
              "-o", "wav:{d}/out.wav", "-J", "{d}/events.log",
-             "--frame-log", "{d}/frames.log"]
+             "--frame-log", "{d}/frames.log", "--perf-csv", "{d}/perf.csv"]
     argv = [a.replace("{d}", outs["card"]) for a in flags]
     env = {**os.environ, "PYTHONPATH": HERE, "DSD_NEO_PDU_JSON": "1"}
     t1 = time.perf_counter()
@@ -1675,6 +1681,27 @@ def cli_phase(ident: str, dev, counted) -> dict:
             and not any(e for e, _b in frames)):
         raise RuntimeError(f"cli .imb: {got.shape[0]} frames, want the "
                            f"vector's {9 * n_ldu} clear frames exact")
+    # the decode inside that run: the CLI's --perf-csv row of its
+    # decode_capture call
+    with open(os.path.join(outs["card"], "perf.csv")) as f:
+        decode_s = sum(float(r["decode_ms"]) for r in csv.DictReader(f)) \
+            / 1e3
+    # a fresh process's start-up alone: the interpreter, torch's import,
+    # the card's first allocation, the port's CLI and decoder imports
+    probe = ("import json, time\nt0 = time.perf_counter()\nimport torch\n"
+             "t1 = time.perf_counter()\ntorch.zeros(1, device='cuda')\n"
+             "torch.cuda.synchronize()\nt2 = time.perf_counter()\n"
+             "import dsdneo_tpu_torch.cli, dsdneo_tpu_torch.engine.decoder\n"
+             "t3 = time.perf_counter()\n"
+             "print(json.dumps([t1 - t0, t2 - t1, t3 - t2]))\n")
+    t1 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", probe], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=300)
+    wall_start = time.perf_counter() - t1
+    if p.returncode != 0:
+        raise RuntimeError(f"start-up probe: exit {p.returncode}: "
+                           f"{p.stderr[-400:]}")
+    s_torch, s_cuda, s_port = _json.loads(p.stdout.strip().splitlines()[-1])
     t1 = time.perf_counter()
     kr = KeyRing()
     kr.scalar[kid] = key
@@ -1682,12 +1709,20 @@ def cli_phase(ident: str, dev, counted) -> dict:
     wall_lib = time.perf_counter() - t1
     log(f"cli: python -m dsdneo_tpu_torch -f1 --iq-replay (10 s of the P25 "
         f"call, ADP key by --keys-dec, no --platform: the card) in a fresh "
-        f"process: {wall_cli:.2f} s wall ({10.0 / wall_cli:.2f}x realtime, "
-        f"the interpreter, imports and card start included); every one of "
-        f"{got.shape[0]} IMBE frames of its .imb is the vector's clear "
-        f"voice, 0 ECC errors; the library call decode_capture on the same "
-        f"capture in this process {wall_lib:.2f} s ({10.0 / wall_lib:.2f}x): "
-        f"the CLI's own cost {wall_cli - wall_lib:.2f} s [{ident}]")
+        f"process: {wall_cli:.2f} s wall ({10.0 / wall_cli:.2f}x realtime); "
+        f"every one of {got.shape[0]} IMBE frames of its .imb is the "
+        f"vector's clear voice, 0 ECC errors; its decode_capture call "
+        f"(--perf-csv decode_ms) {decode_s:.2f} s ({10.0 / decode_s:.2f}x), "
+        f"the first decode in its process; a fresh process that only "
+        f"starts {wall_start:.2f} s (torch import {s_torch:.2f} s, the "
+        f"card's first allocation {s_cuda:.2f} s, the port's CLI and "
+        f"decoder imports {s_port:.2f} s, the interpreter and exit "
+        f"{wall_start - s_torch - s_cuda - s_port:.2f} s); the rest of the "
+        f"CLI's wall (parsing, reading the capture, writing its outputs, "
+        f"and whatever start-up differs) "
+        f"{wall_cli - decode_s - wall_start:.2f} s; the library call "
+        f"decode_capture on the same capture in this process, warm, "
+        f"{wall_lib:.2f} s ({10.0 / wall_lib:.2f}x) [{ident}]")
     # the first 5 s against the CPU CLI in this process
     argv = [a.replace("{d}", outs["cpu"]) for a in flags]
     _err, wall_cpu = in_process(["--platform", "cpu", "--iq-replay", cap5]
@@ -1738,39 +1773,88 @@ def cli_phase(ident: str, dev, counted) -> dict:
                               (k3fn, k5fn, k6fn, k7fn))
     _m, samples = read_iq_capture(capb)
     B = int(FV.BENCH_FS)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    f = TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
-                     center_hz=FV.BENCH_CENTER, cc_device_pick=True,
-                     device=dev)
-    rows = []
-    for i in range(0, samples.shape[0], B):
-        pcm = f.step(samples[i:i + B])
-        if pcm.shape[1]:
-            out = condition_audio(torch.from_numpy(pcm).to(dev), "nfm",
-                                  3400.0).cpu().numpy()
-            rows += [out[r] for r in f.calls
-                     if np.abs(pcm[r]).mean() > 1e-4]
-    wall_fl = time.perf_counter() - t1
+    fleets, walls = {}, {}
+    for where in (dev, "cpu"):
+        # the library fleet stepped as the CLI steps it, on the card
+        # (the CLI's kernels) and on the CPU (their plain versions)
+        if where != "cpu":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        f = TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
+                         center_hz=FV.BENCH_CENTER, cc_device_pick=True,
+                         device=where)
+        blocks = [f.step(samples[i:i + B])
+                  for i in range(0, samples.shape[0], B)]
+        written = [(k, r) for k, pcm in enumerate(blocks) if pcm.shape[1]
+                   for r in f.calls if np.abs(pcm[r]).mean() > 1e-4]
+        walls[str(where)] = time.perf_counter() - t1
+        fleets[str(where)] = (f, blocks, written)
+    (f, blocks, written), (fc, cblocks, cwritten) = (fleets[str(dev)],
+                                                     fleets["cpu"])
+    wall_fl = walls[str(dev)]
+    # every block, the 0.5 s last one included: the card's fleet (K1,
+    # K2, K4 at the CLI's shapes) against the CPU's plain versions
+    errs = []
+    for k, (a, b) in enumerate(zip(blocks, cblocks)):
+        if a.shape != b.shape:
+            raise RuntimeError(f"--trunk-wideband block {k}: the card's PCM "
+                               f"{a.shape}, the CPU's {b.shape}")
+        if a.size:
+            e = float(np.abs(a - b).max())
+            if e > 2e-3 * float(np.abs(b).max()):
+                raise RuntimeError(f"--trunk-wideband block {k}: the card's "
+                                   f"PCM differs from the CPU's ({e})")
+            errs.append(e)
+    if not (f.log == fc.log and written == cwritten
+            and _dc.asdict(f.stats) == _dc.asdict(fc.stats)):
+        raise RuntimeError("--trunk-wideband: the card's library fleet "
+                           "differs from the CPU's (log, rows or stats)")
     s = f.stats
     want = f.log + [
         f"trunk-wideband: {s.grants} grants, {s.grant_refreshes} "
         f"refreshes, {s.releases} releases, {s.unresolved} unresolved, "
         f"{s.busy_drops} busy-drops over {f.blocks} blocks"]
-    q = (np.clip(np.concatenate(rows), -1.0, 1.0) * 32767.0).astype(
+    # the conditioning's plain version (one_pole_plain twice, on the
+    # CPU) on each written row's blocks concatenated: the CLI carries the
+    # filters across its blocks, so its WAV is this bit for bit (K8 at
+    # the CLI's [4, T] blocks)
+    edges = np.cumsum([0] + [blk.shape[1] for blk in blocks])
+    y = torch.from_numpy(np.concatenate(blocks, axis=1))
+    for a in (af.deemphasis_pole(8000.0, 750.0),
+              af.lowpass_pole(8000.0, 3400.0)):
+        y = af.one_pole_plain(y, a)
+    # K8 itself at those blocks, its state carried, against the plain
+    # cascade on the concatenation (float32, tol 0)
+    st = torch.zeros((blocks[0].shape[0], 2), dtype=torch.float32,
+                     device=dev)
+    k8 = torch.cat([af.condition_audio(torch.from_numpy(blk).to(dev),
+                                       "nfm", 3400.0, state=st).cpu()
+                    for blk in blocks if blk.shape[1]], 1)
+    if not torch.equal(k8, y):
+        raise RuntimeError(f"K8 from a carried state over the CLI's blocks "
+                           f"differs from the plain cascade: "
+                           f"{float((k8 - y).abs().max())}")
+    y = y.numpy()
+    cond = np.concatenate([y[r, edges[k]:edges[k + 1]] for k, r in written])
+    q = (np.clip(cond, -1.0, 1.0) * 32767.0).astype(
         np.int16).astype(np.float32) / 32768.0
     if not (text.splitlines() == want and s.grants == 1
             and np.array_equal(wav(wavb), q) and q.size == 8640):
         raise RuntimeError(f"cli --trunk-wideband: {text!r} / {want} or its "
-                           "WAV differs from the library fleet's")
+                           "WAV differs from the library fleet's PCM under "
+                           "the plain conditioning")
     log(f"cli --trunk-wideband ' {FV.BENCH_CC_OFF}:4:p25p1' on 2.5 s of the "
         f"bench's 768 kHz cell (1 s steps, a 0.5 s last block), "
         f"DSD_NEO_DEEMPH=nfm DSD_NEO_AUDIO_LPF=3400: its lines (the grant of "
-        f"TG 101 and the summary) and its WAV ({q.size} samples) equal the "
-        f"library TrunkedFleet's on the card conditioned by condition_audio, "
-        f"bit for bit; {wall_tw:.2f} s ({2.5 / wall_tw:.2f}x realtime of "
-        f"band) against the library's {wall_fl:.2f} s "
-        f"({2.5 / wall_fl:.2f}x) [{ident}]")
+        f"TG 101 and the summary) equal the library TrunkedFleet's on the "
+        f"card, and its WAV ({q.size} samples) equals that fleet's PCM "
+        f"conditioned by the plain cascade (one_pole_plain twice) on each "
+        f"row's concatenated blocks, bit for bit; the card's fleet equals "
+        f"the CPU's on every block (log, rows, stats; PCM within "
+        f"{max(errs):.2e}, tol 2e-3 of the peak; the CPU {walls['cpu']:.2f} "
+        f"s); {wall_tw:.2f} s ({2.5 / wall_tw:.2f}x realtime of band) "
+        f"against the library's {wall_fl:.2f} s ({2.5 / wall_fl:.2f}x) "
+        f"[{ident}]")
 
     # -- the closed loop, the card against the CPU --------------------------
     loops = {}
@@ -2430,7 +2514,8 @@ def main() -> int:
             out = torch.empty_like(x)
             kernels.check(lib.dsd_one_pole(
                 x.data_ptr(), out.data_ptr(), R, T, *af._coeffs(k8_de),
-                *af._coeffs(k8_lp), mode, kernels.stream_handle(x)), name)
+                *af._coeffs(k8_lp), mode, None, kernels.stream_handle(x)),
+                name)
         return out
 
     # K8 beside its second design and at 16 and 32 rows a block (rows

@@ -1372,6 +1372,9 @@ def main(argv: list[str] | None = None) -> int:
         sink = make_sink(args.audio_out, float_audio=args.float_audio)
         B = int(fs_band)                      # 1 s device steps
         logged = 0
+        # the conditioning's filter state, carried across the blocks of
+        # the voice rows and of the Phase 2 slots
+        vc_carry, p2_carry = {}, {}
         for i in range(0, len(samples), B):
             blk = samples[i:i + B]
             if blk.shape[0] < B // 4:
@@ -1380,15 +1383,18 @@ def main(argv: list[str] | None = None) -> int:
             for line in fleet.log[logged:]:
                 print(line, file=sys.stderr)
             logged = len(fleet.log)
-            # the block's rows conditioned in one call (the JAX CLI
+            # the block's rows conditioned in one call, each row's
+            # filters carried on from its previous block (the JAX CLI
             # writes them raw; its serial branch alone conditions)
             if sink is not None and pcm.shape[1]:
-                out = _condition_audio(pcm, cfg, device=device)
+                out = _condition_audio(pcm, cfg, device=device,
+                                       carry=vc_carry)
                 for row, call in fleet.calls.items():
                     if np.abs(pcm[row]).mean() > 1e-4:
                         sink.write(row & 1, out[row])
             if sink is not None and fleet.p2_pcm.shape[1]:
-                out2 = _condition_audio(fleet.p2_pcm, cfg, device=device)
+                out2 = _condition_audio(fleet.p2_pcm, cfg, device=device,
+                                        carry=p2_carry)
                 for (row, slot) in fleet.calls2:
                     p2 = fleet.p2_pcm[2 * row + slot]
                     if np.abs(p2).mean() > 1e-4:
@@ -1642,13 +1648,17 @@ def _demod_audio(iq_path: str, device) -> tuple["np.ndarray", int]:
 
 
 def _condition_audio(pcm: "np.ndarray", cfg, gain: float = 0.0,
-                     device=None) -> "np.ndarray":
+                     device=None, carry: dict | None = None
+                     ) -> "np.ndarray":
     """Monitor-audio helpers on decoded 8 kHz PCM, ``[T]`` or
     ``[rows, T]`` (reference docs/cli.md:566-570: the -g fixed gain, the
     DSD_NEO_DEEMPH de-emphasis curve and the DSD_NEO_AUDIO_LPF one-pole
     cutoff; both filters off by default).  The filters run on a tensor
     on ``device`` through ``dsp.audio_filters.condition_audio``: on the
-    card that is the one-pole kernel (K8), one launch for both."""
+    card that is the one-pole kernel (K8), one launch for both.
+    ``carry``, a dict the caller keeps across successive blocks of the
+    same rows, holds the filters' state, so that the blocks come out as
+    one call on their concatenation would."""
     import torch
 
     from dsdneo_tpu_torch.dsp.audio_filters import (DEEMPH_TAU_US,
@@ -1662,8 +1672,15 @@ def _condition_audio(pcm: "np.ndarray", cfg, gain: float = 0.0,
         return pcm
     x = np.asarray(pcm, dtype=np.float32)
     t = torch.from_numpy(np.ascontiguousarray(x.reshape(-1, x.shape[-1])))
-    y = condition_audio(t.to(device), deemph=deemph, audio_lpf_hz=lpf,
-                        gain=gain)
+    t = t.to(device)
+    state = None
+    if carry is not None:
+        state = carry.get("state")
+        if state is None:
+            state = carry["state"] = torch.zeros(
+                (t.shape[0], 2), dtype=torch.float32, device=t.device)
+    y = condition_audio(t, deemph=deemph, audio_lpf_hz=lpf, gain=gain,
+                        state=state)
     return y.cpu().numpy().reshape(x.shape)
 
 

@@ -7,6 +7,10 @@
 //   out[n] = z[n]            (cascade: z[n] = a2 * z[n-1] + (1 - a2) * y[n],
 //                             the de-emphasis then the low-pass)
 //
+// With a state ([R, 2] float32: y, z of each row), y[-1] and z[-1] are
+// read from it and y[T-1], z[T-1] written back, so successive blocks of
+// the same rows come out as one call on their concatenation would.
+//
 // Replaces dsdneo_tpu/dsp/audio_filters.py _one_pole (a lax.scan over the
 // last axis).  XLA's CPU backend evaluates the scan body as
 // fma(f32(a), y, f32(f32(1 - a) * x[n])): one rounded product and one
@@ -253,7 +257,7 @@ __device__ __forceinline__ void run_tile(const float* in, float* o,
 template <int kMode, bool kVec>
 __global__ void __launch_bounds__(32 + kRows)
     one_pole_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    int R, int T, Coef c) {
+                    float* __restrict__ state, int R, int T, Coef c) {
   extern __shared__ __align__(128) uint8_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* done = full + kStages;
@@ -331,6 +335,10 @@ __global__ void __launch_bounds__(32 + kRows)
   const int m_in = kVec ? 0 : (int)(((uintptr_t)xr & 15) >> 2);
   const int m_out = kVec ? 0 : (int)(((uintptr_t)orow & 15) >> 2);
   float y = 0.0f, z = 0.0f;
+  if (state != nullptr) {
+    y = state[2 * (row0 + r)];
+    z = state[2 * (row0 + r) + 1];
+  }
   for (int k = 0; k < n_tiles; ++k) {
     const int s = k % kStages;
     mbar_wait(&full[s], (k / kStages) & 1);
@@ -345,11 +353,15 @@ __global__ void __launch_bounds__(32 + kRows)
     fence_async_shared();
     mbar_arrive(&done[s]);
   }
+  if (state != nullptr) {
+    state[2 * (row0 + r)] = y;
+    state[2 * (row0 + r) + 1] = z;
+  }
 }
 
 template <int kMode, bool kVec>
-cudaError_t launch(const float* x, float* out, int R, int T, Coef c,
-                   cudaStream_t stream) {
+cudaError_t launch(const float* x, float* out, float* state, int R, int T,
+                   Coef c, cudaStream_t stream) {
   // more than 48 KB of shared memory: opted in on the current device
   const cudaError_t e = cudaFuncSetAttribute(
       one_pole_kernel<kMode, kVec>,
@@ -357,24 +369,25 @@ cudaError_t launch(const float* x, float* out, int R, int T, Coef c,
   if (e != cudaSuccess) return e;
   one_pole_kernel<kMode, kVec>
       <<<(R + kRows - 1) / kRows, 32 + kRows, kSmemBytes, stream>>>(
-          x, out, R, T, c);
+          x, out, state, R, T, c);
   return cudaGetLastError();
 }
 
 template <int kMode>
-cudaError_t launch_mode(bool vec, const float* x, float* out, int R, int T,
-                        Coef c, cudaStream_t stream) {
-  return vec ? launch<kMode, true>(x, out, R, T, c, stream)
-             : launch<kMode, false>(x, out, R, T, c, stream);
+cudaError_t launch_mode(bool vec, const float* x, float* out, float* state,
+                        int R, int T, Coef c, cudaStream_t stream) {
+  return vec ? launch<kMode, true>(x, out, state, R, T, c, stream)
+             : launch<kMode, false>(x, out, state, R, T, c, stream);
 }
 
 }  // namespace
 
 // x, out: [R, T] float32, contiguous, 4-byte aligned.  mode 0: y; 1:
-// x - y; 2: the cascade (a, b) then (a2, b2)
+// x - y; 2: the cascade (a, b) then (a2, b2).  state: null (both
+// filters start from 0), or [R, 2] float32, read and written in place
 extern "C" int dsd_one_pole(const float* x, float* out, int R, int T,
                             float a, float b, float a2, float b2, int mode,
-                            cudaStream_t stream) {
+                            float* state, cudaStream_t stream) {
   if (R < 0 || T < 0 || mode < kY || mode > kCascade)
     return (int)cudaErrorInvalidValue;
   if (R == 0 || T == 0) return 0;
@@ -382,9 +395,12 @@ extern "C" int dsd_one_pole(const float* x, float* out, int R, int T,
                    (uintptr_t)out % 16 == 0;
   const Coef c{a, b, a2, b2};
   switch (mode) {
-    case kY: return (int)launch_mode<kY>(vec, x, out, R, T, c, stream);
-    case kDiff: return (int)launch_mode<kDiff>(vec, x, out, R, T, c, stream);
+    case kY:
+      return (int)launch_mode<kY>(vec, x, out, state, R, T, c, stream);
+    case kDiff:
+      return (int)launch_mode<kDiff>(vec, x, out, state, R, T, c, stream);
     default:
-      return (int)launch_mode<kCascade>(vec, x, out, R, T, c, stream);
+      return (int)launch_mode<kCascade>(vec, x, out, state, R, T, c,
+                                        stream);
   }
 }

@@ -4,9 +4,11 @@ high-pass, gain.
 Counterpart of ``dsdneo_tpu/dsp/audio_filters.py`` and of the CLI's
 monitor-audio conditioning (``cli._condition_audio``).  Every filter is
 the one-pole IIR ``y[n] = a·y[n−1] + (1−a)·x[n]`` over the last axis of a
-``[R, T]`` float32 tensor, from a zero state (no carry across calls):
-kernel K8 (``csrc/one_pole.cu``) on a CUDA tensor, :func:`one_pole_plain`
-on a CPU tensor.  The coefficients are the JAX package's Python doubles;
+``[R, T]`` float32 tensor, from a zero state, or from a carried state
+that the call updates in place (successive blocks of the same rows then
+come out as one call on their concatenation would): kernel K8
+(``csrc/one_pole.cu``) on a CUDA tensor, :func:`one_pole_plain` on a
+CPU tensor.  The coefficients are the JAX package's Python doubles;
 ``a`` enters the recurrence as float32 and ``1 − a`` is taken in double
 and then rounded, as XLA folds the JAX function's constants; like XLA's
 CPU backend, every step flushes subnormal values to zero (a silent
@@ -56,11 +58,12 @@ def _ftz(v: torch.Tensor) -> torch.Tensor:
     return torch.where(v.abs() < FLT_MIN, v * 0.0, v)
 
 
-def one_pole_plain(x: torch.Tensor, a: float, diff: bool = False
-                   ) -> torch.Tensor:
+def one_pole_plain(x: torch.Tensor, a: float, diff: bool = False,
+                   state: torch.Tensor | None = None) -> torch.Tensor:
     """The plain PyTorch version of K8: a loop over the last axis of
     ``x`` [R, T] float32 in the kernel's form, ``y = fma(f32(a), y,
-    f32(f32(1 − a) · x[n]))`` from ``y = 0``, every input and result
+    f32(f32(1 − a) · x[n]))`` from ``y = 0``, or from ``state`` ([R]
+    float32, which then takes the last ``y``), every input and result
     flushed to zero when subnormal; returns ``y``, or ``x − y`` when
     ``diff``."""
     af, bf = _coeffs(a)
@@ -68,55 +71,75 @@ def one_pole_plain(x: torch.Tensor, a: float, diff: bool = False
     bx = _ftz(x * torch.tensor(bf, dtype=torch.float32, device=x.device))
     a_t = torch.full(x.shape[:-1], af, dtype=torch.float32,
                      device=x.device)
-    y = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    y = (torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+         if state is None else _ftz(state.to(torch.float32)))
     out = torch.empty_like(x)
     for n in range(x.shape[-1]):
         y = _ftz(fma_f32_rn(a_t, y, bx[..., n]))
         out[..., n] = y
+    if state is not None and x.shape[-1]:
+        state.copy_(y)
     return _ftz(x - out) if diff else out
 
 
-def _one_pole_card(x: torch.Tensor, mode: int, a: float, a2: float = 0.0
-                   ) -> torch.Tensor:
+def _one_pole_card(x: torch.Tensor, mode: int, a: float, a2: float = 0.0,
+                   state: torch.Tensor | None = None) -> torch.Tensor:
     """Kernel K8 on ``x`` ``[R, T]`` float32 on the card: ``mode`` 0
     gives ``y``, 1 ``x − y``, 2 the cascade of pole ``a`` then pole
-    ``a2``.  Counts its launch on :func:`one_pole`."""
+    ``a2``; ``state`` ([R, 2] float32 on the card: each row's ``y`` and
+    the cascade's second filter's), when given, starts the filters and
+    takes their last values.  Counts its launch on :func:`one_pole`."""
     if x.dim() != 2:
         raise ValueError(f"x {tuple(x.shape)}: expected [R, T]")
     kernels.require(x, "x", torch.float32, contiguous=False)
     x = x.contiguous()
     R, T = x.shape
+    if state is not None:
+        kernels.require(state, "state", torch.float32)
+        if tuple(state.shape) != (R, 2) or state.device != x.device:
+            raise ValueError(f"state {tuple(state.shape)} on "
+                             f"{state.device}: expected [{R}, 2] on "
+                             f"{x.device}")
     out = torch.empty_like(x)
     if R and T:
         err = kernels.load().dsd_one_pole(
             x.data_ptr(), out.data_ptr(), R, T, *_coeffs(a), *_coeffs(a2),
-            mode, kernels.stream_handle(x))
+            mode, None if state is None else state.data_ptr(),
+            kernels.stream_handle(x))
         kernels.check(err, "one_pole")
         one_pole.launches += 1
     return out
 
 
-def one_pole(x: torch.Tensor, a: float, diff: bool = False) -> torch.Tensor:
+def one_pole(x: torch.Tensor, a: float, diff: bool = False,
+             state: torch.Tensor | None = None) -> torch.Tensor:
     """One-pole IIR over the last axis of ``x`` ``[R, T]`` float32: ``y``,
-    or ``x − y`` when ``diff``.  A CUDA tensor launches kernel K8; a CPU
+    or ``x − y`` when ``diff``, from ``state[:, 0]`` when a carried
+    ``[R, 2]`` state is given.  A CUDA tensor launches kernel K8; a CPU
     tensor runs :func:`one_pole_plain`."""
     if x.device.type == "cpu":
-        return one_pole_plain(x, a, diff)
-    return _one_pole_card(x, int(diff), a)
+        return one_pole_plain(x, a, diff,
+                              None if state is None else state[:, 0])
+    return _one_pole_card(x, int(diff), a, state=state)
 
 
 one_pole.launches = 0
 
 
-def one_pole_cascade(x: torch.Tensor, a: float, a2: float) -> torch.Tensor:
+def one_pole_cascade(x: torch.Tensor, a: float, a2: float,
+                     state: torch.Tensor | None = None) -> torch.Tensor:
     """The one-pole IIR of pole ``a`` and then that of pole ``a2`` over
     the last axis of ``x`` ``[R, T]`` float32, equal bit for bit to two
-    :func:`one_pole` calls.  A CUDA tensor launches kernel K8 once (both
-    recurrences in one pass); a CPU tensor runs :func:`one_pole_plain`
-    twice, its plain version."""
+    :func:`one_pole` calls (from ``state[:, 0]`` and ``state[:, 1]``
+    when a carried ``[R, 2]`` state is given).  A CUDA tensor launches
+    kernel K8 once (both recurrences in one pass); a CPU tensor runs
+    :func:`one_pole_plain` twice, its plain version."""
     if x.device.type == "cpu":
-        return one_pole_plain(one_pole_plain(x, a), a2)
-    return _one_pole_card(x, 2, a, a2)
+        if state is None:
+            return one_pole_plain(one_pole_plain(x, a), a2)
+        return one_pole_plain(one_pole_plain(x, a, state=state[:, 0]), a2,
+                              state=state[:, 1])
+    return _one_pole_card(x, 2, a, a2, state=state)
 
 
 def deemphasis_pole(fs: float, tau_us: float) -> float:
@@ -153,26 +176,28 @@ def audio_hpf(x: torch.Tensor, fs: float = 8000.0,
 
 
 def condition_audio(pcm: torch.Tensor, deemph: str = "",
-                    audio_lpf_hz: float = 0.0,
-                    gain: float = 0.0) -> torch.Tensor:
+                    audio_lpf_hz: float = 0.0, gain: float = 0.0,
+                    state: torch.Tensor | None = None) -> torch.Tensor:
     """The CLI's monitor-audio conditioning of decoded ``[C, T]`` 8 kHz
     PCM: the fixed output gain (``gain`` 0..50, 25 = unity) when it is
     positive, the ``DSD_NEO_DEEMPH`` de-emphasis (``"50"``, ``"75"`` or
     ``"nfm"``; ``""`` and ``"off"`` skip it) and the
     ``DSD_NEO_AUDIO_LPF`` one-pole low-pass when ``audio_lpf_hz`` is
     positive.  With both filters on, one :func:`one_pole_cascade` runs
-    them."""
+    them.  ``state`` ([C, 2] float32 on ``pcm``'s device, zeros before
+    the first block) carries the filters across successive blocks of the
+    same rows."""
     pcm = pcm.to(torch.float32)
     if gain > 0:
         pcm = pcm * (gain / 25.0)
     tau = DEEMPH_TAU_US.get(deemph)
-    if tau is not None and audio_lpf_hz > 0:
-        return one_pole_cascade(pcm, deemphasis_pole(8000.0, tau),
-                                lowpass_pole(8000.0, float(audio_lpf_hz)))
-    if tau is not None:
-        pcm = deemphasis(pcm, fs=8000.0, tau_us=tau)
-    if audio_lpf_hz > 0:
-        pcm = audio_lpf(pcm, fs=8000.0, fc=float(audio_lpf_hz))
+    poles = ([deemphasis_pole(8000.0, tau)] if tau is not None else []) \
+        + ([lowpass_pole(8000.0, float(audio_lpf_hz))]
+           if audio_lpf_hz > 0 else [])
+    if len(poles) == 2:
+        return one_pole_cascade(pcm, *poles, state=state)
+    if poles:
+        return one_pole(pcm, poles[0], state=state)
     return pcm
 
 

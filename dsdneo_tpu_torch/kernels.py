@@ -66,8 +66,8 @@ _SIGNATURES = {
     # bits, out, N, n, stream
     "dsd_conv_k3": [_P, _P, _I, _I, _P],
     # x, out, R, T, a, b, a2, b2, mode (0 y, 1 x - y, 2 the cascade),
-    # stream
-    "dsd_one_pole": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P],
+    # state ([R, 2] or null), stream
+    "dsd_one_pole": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _P, _P],
 }
 # host library: name → (argtypes, restype)
 _HOST_SIGNATURES = {

@@ -14,6 +14,10 @@ CPU.
     filters on (the cascade) against the JAX de-emphasis then low-pass
     in one ``jax.jit``, on audio whose silent stretch decays into the
     flushed subnormals;
+  - ``condition_audio`` and ``one_pole`` with a carried state over
+    successive blocks against one call on their concatenation, bit for
+    bit (the state is the port's own: the JAX filters start from zero
+    on every call);
   - the host classes (``AutoGain``, ``AudioGate``, ``AudioConcealer``):
     equal outputs and state over a sequence of blocks.
 """
@@ -128,6 +132,36 @@ def test_condition_audio_cascade_equals_the_jitted_filters(deemph, tau, lpf):
     np.testing.assert_array_equal(got.numpy(), want)
     # the silent stretch decays through the subnormals to flushed zeros
     assert (want[:, 1899] == 0).any()
+
+
+@pytest.mark.parametrize("deemph, lpf, diff", [
+    ("nfm", 3400, False), ("75", 0, False), ("", 2500, False),
+    ("", 0, True)])
+def test_carried_state_equals_one_call_on_the_concatenation(deemph, lpf,
+                                                             diff):
+    """Blocks of 700, 1 and 1299 samples with the state carried: the
+    cascade, each filter alone, and the DC block (``one_pole`` with
+    ``diff``) equal one call on the whole rows; the state holds the last
+    ``y`` (and the cascade's second filter's)."""
+    x = torch.as_tensor(_audio("silence"))
+    if diff:
+        a = P.lowpass_pole(8000.0, 30.0)
+        want = P.one_pole(x, a, diff=True)
+        run = lambda blk, st: P.one_pole(blk, a, diff=True,  # noqa: E731
+                                         state=st)
+    else:
+        want = P.condition_audio(x, deemph, lpf)
+        run = lambda blk, st: P.condition_audio(  # noqa: E731
+            blk, deemph, lpf, state=st)
+    state = torch.zeros((x.shape[0], 2), dtype=torch.float32)
+    got = torch.cat([run(x[:, i:j], state)
+                     for i, j in ((0, 700), (700, 701), (701, 2000))], 1)
+    assert torch.equal(got, want)
+    whole = torch.zeros_like(state)
+    run(x, whole)
+    assert torch.equal(state, whole)
+    assert run(x[:, :0], state).shape == (x.shape[0], 0)
+    assert torch.equal(state, whole)            # an empty block: no step
 
 
 def test_host_classes_equal_the_jax_package():

@@ -7,7 +7,9 @@ and dPMR PCM shapes, ragged lengths, one step, a row shorter than a
 tile, one row and 33, each also as a view 4 bytes off alignment (the
 bulk copies' 16-byte-aligned supersets), with a silent stretch (both
 flush subnormals to zero); the cascade (de-emphasis then low-pass in
-one launch) against two plain calls; every mode of the kernel; ``condition_audio`` on the card against the CPU; each path's
+one launch) against two plain calls; every mode of the kernel, also
+from a carried state over successive blocks; ``condition_audio`` on the
+card against the CPU; each path's
 card run against its CPU path on two channels, two blocks with the
 carry or the contexts kept: the same accepted frames, bits and error
 counts, the f16 PCM within 2e-3 of the peak (YSF, dPMR), the same blobs
@@ -135,6 +137,31 @@ def test_k8_every_mode(mode):
         want = (af.one_pole_plain(af.one_pole_plain(xt, 0.9), 0.4)
                 if mode == 2 else af.one_pole_plain(xt, 0.9, bool(mode)))
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [0, 1, 2])
+def test_k8_carries_its_state_across_blocks(mode):
+    """Each mode from a carried ``[R, 2]`` state over blocks of 1037, 1
+    and 2058 steps (ragged, one step, aligned after an odd start) equals
+    the plain version on the whole rows, and the state ends as the plain
+    version's."""
+    dev = _card()
+    x = _audio(41, 3096, seed=7 + mode)
+    xt = torch.as_tensor(x)
+    st_c = torch.zeros((41, 2), dtype=torch.float32, device=dev)
+    got = torch.cat([af._one_pole_card(_on_card(x[:, i:j].copy(), dev),
+                                       mode, 0.9, 0.4, state=st_c)
+                     for i, j in ((0, 1037), (1037, 1038), (1038, 3096))],
+                    1)
+    st_p = torch.zeros((41, 2), dtype=torch.float32)
+    want = (af.one_pole_cascade(xt, 0.9, 0.4, state=st_p) if mode == 2
+            else af.one_pole(xt, 0.9, bool(mode), state=st_p))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(st_c.cpu(), st_p)
+    with pytest.raises(ValueError):
+        af._one_pole_card(_on_card(x, dev), mode, 0.9, 0.4,
+                          state=torch.zeros((40, 2), device=dev))
 
 
 @pytest.mark.cuda

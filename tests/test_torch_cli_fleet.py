@@ -14,7 +14,10 @@ and write the same PCM here; the difference shows in the control
 channel's event positions, which the library test below pins.
 
 Equal means: the printed lines, and the sink's WAV within 2e-3 of its
-peak.
+peak.  With ``DSD_NEO_DEEMPH``/``DSD_NEO_AUDIO_LPF`` set, the port
+conditions the rows it writes (the JAX CLI writes them raw), its filter
+state carried across the 1 s blocks: its WAV is the library fleet's PCM
+conditioned in one call on each row's concatenated blocks, bit for bit.
 """
 
 import dataclasses
@@ -22,12 +25,14 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 pytest.importorskip("jax")     # the card's machine has none
 
 from dsdneo_tpu import cli as J  # noqa: E402
 from dsdneo_tpu.engine import fleettrunk as JF  # noqa: E402
 from dsdneo_tpu_torch import cli as P  # noqa: E402
+from dsdneo_tpu_torch.dsp.audio_filters import condition_audio  # noqa: E402
 from dsdneo_tpu_torch.engine import fleettrunk as PF  # noqa: E402
 from dsdneo_tpu_torch.engine import fleetvec as FV  # noqa: E402
 from dsdneo_tpu_torch.engine import serialvec as SV  # noqa: E402
@@ -52,9 +57,22 @@ def caps(tmp_path_factory):
         sample_format="cf32", sample_rate_hz=B,
         center_frequency_hz=int(FV.BENCH_CENTER)))
     out["bench"] = str(d / "bench.iq")
+    # 3 s of the cell with the call's dibits repeated as well: the call
+    # goes on past the second block
+    tv = FV.vector()
+    n = 3 * 4800
+    out["long_band"] = FV.place(
+        [(FV.c4fm48(np.resize(tv["bench_cc_dibits"], n), 1),
+          FV.BENCH_CC_OFF),
+         (FV.c4fm48(np.resize(tv["bench_vc_dibits"], n), 2),
+          FV.BENCH_VC_OFF)], FV.BENCH_FS, 3 * B).numpy()
+    write_iq_capture(str(d / "long.iq"), out["long_band"], IqMetadata(
+        sample_format="cf32", sample_rate_hz=B,
+        center_frequency_hz=int(FV.BENCH_CENTER)))
+    out["long"] = str(d / "long.iq")
     # 16 bins of 48 kHz: 2 s of the P25 call at +96 kHz, the bench CC at
     # −96 kHz
-    tv, sv = FV.vector(), SV.vector()
+    sv = SV.vector()
     wide = FV.place([(SV.p25_iq(sv, 2 * 4800), 96_000),
                      (FV.c4fm48(tv["bench_cc_dibits"], 1), -96_000)],
                     FV.BENCH_FS, 2 * B).numpy()
@@ -68,6 +86,30 @@ def caps(tmp_path_factory):
         sample_format="cf32", sample_rate_hz=48000))
     out["fleet"] = str(d / "fleet.iq")
     return out
+
+
+def library(band: np.ndarray) -> tuple[list, list]:
+    """The library fleet stepped over ``band`` as the CLI steps it: each
+    block's PCM (all rows) and the (block, row) pairs the CLI's sink
+    writes."""
+    f = PF.TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
+                        center_hz=FV.BENCH_CENTER, cc_device_pick=True,
+                        device="cpu")
+    blocks, written = [], []
+    for i in range(0, band.shape[0], B):
+        pcm = f.step(band[i:i + B])
+        if pcm.shape[1]:
+            written += [(len(blocks), r) for r in f.calls
+                        if np.abs(pcm[r]).mean() > 1e-4]
+            blocks.append(pcm)
+    return blocks, written
+
+
+def quantized(x: np.ndarray) -> np.ndarray:
+    """write_wav's quantizer: clipped to [-1, 1], times 32767,
+    truncated."""
+    return ((np.clip(x, -1.0, 1.0) * 32767.0).astype(np.int16)
+            / 32768.0).astype(np.float32)
 
 
 def test_trunk_wideband_against_jax_and_the_library(caps, tmp_path):
@@ -84,23 +126,41 @@ def test_trunk_wideband_against_jax_and_the_library(caps, tmp_path):
         "0 busy-drops over 3 blocks" in pr[2]
     assert_wav_close(os.path.join(jr[3], "voice.wav"),
                      os.path.join(pr[3], "voice.wav"))
-    # the library fleet, stepped as the CLI steps it
-    f = PF.TrunkedFleet(FV.BENCH_FS, [FV.BENCH_CC_OFF], 4,
-                        center_hz=FV.BENCH_CENTER, cc_device_pick=True,
-                        device="cpu")
-    band = caps["band"]
-    rows = []
-    for i in range(0, band.shape[0], B):
-        pcm = f.step(band[i:i + B])
-        if pcm.shape[1]:
-            rows += [pcm[r] for r in f.calls
-                     if np.abs(pcm[r]).mean() > 1e-4]
+    blocks, written = library(caps["band"])
     got = wav_frames(os.path.join(pr[3], "voice.wav"))[:, 0]
-    # write_wav's quantizer: clipped to [-1, 1], times 32767, truncated
-    want = (np.clip(np.concatenate(rows), -1.0, 1.0) * 32767.0).astype(
-        np.int16) / 32768.0
+    want = quantized(np.concatenate([blocks[b][r] for b, r in written]))
     assert got.shape == want.shape and got.size == 8640
-    assert np.array_equal(got, want.astype(np.float32))
+    assert np.array_equal(got, want)
+
+
+def test_trunk_wideband_conditioning_carries_across_blocks(
+        caps, tmp_path, monkeypatch):
+    """``DSD_NEO_DEEMPH=nfm DSD_NEO_AUDIO_LPF=3400`` on the port's
+    ``--trunk-wideband`` over 3 s of the bench cell with the granted
+    call's dibits repeated, so that the call is written in two blocks:
+    the WAV is the library fleet's rows, each concatenated over the
+    blocks and conditioned in one call, bit for bit.  Each block's row
+    ends in silence here (1,440 and 2,880 samples of its 8,640), in which
+    the filters decay to zero, so conditioning a block at a time gives
+    the same WAV on this band; the carry itself is held by
+    ``test_torch_audio_filters.py`` (CPU) and ``test_torch_burst_card.py``
+    (K8)."""
+    monkeypatch.setenv("DSD_NEO_DEEMPH", "nfm")
+    monkeypatch.setenv("DSD_NEO_AUDIO_LPF", "3400")
+    rc, _so, se = run(P.main, ["--platform", "cpu", "--iq-replay",
+                               caps["long"], "--trunk-wideband", SPEC,
+                               "-o", "wav:voice.wav"], str(tmp_path))
+    assert rc == 0 and "GRANT TG 101" in se
+    blocks, written = library(caps["long_band"])
+    assert [b for b, _r in written] == [0, 1]    # two blocks with PCM
+    rows = sorted({r for _b, r in written})
+    whole = condition_audio(torch.as_tensor(np.concatenate(
+        [blk[rows] for blk in blocks], axis=1)), "nfm", 3400).numpy()
+    edges = np.cumsum([0] + [blk.shape[1] for blk in blocks])
+    want = np.concatenate([whole[rows.index(r), edges[b]:edges[b + 1]]
+                           for b, r in written])
+    got = wav_frames(str(tmp_path / "voice.wav"))[:, 0]
+    assert got.size == 17280 and np.array_equal(got, quantized(want))
 
 
 def test_partial_block_keys_on_its_length():

@@ -5,8 +5,12 @@ to both CLIs' one-shot decode, and with ``--iq-loop``,
 sinks (``-o pcm:``, ``-o udp:``), and a discriminator-tap WAV file as
 live input (``-i file.wav``, the stream decoder's ``disc`` input).  Then
 the port's CLI alone on its socket inputs, judged by the decoded events:
-``-i udp:PORT`` and ``-i rtltcp:...`` with trunk following, a scan list,
-a rigctl tuner and ``--iq-capture``.
+``-i tcp:...`` (its printed lines equal to the JAX CLI's on the same
+bytes read from a WAV), ``-i rtltcp:...`` with trunk following, a scan
+list, a rigctl tuner and ``--iq-capture`` (on both lossless transports
+every LDU of the 2 s sent decodes, its IMBE frames the vector's clear
+voice bit for bit), and ``-i udp:PORT`` (datagrams a loaded host may
+drop: a floor of LDUs).
 
 Equal means: the printed lines (each package's own output directory
 replaced by one name), the PCM file and the UDP datagrams within 2e-3
@@ -29,6 +33,7 @@ from dsdneo_tpu import cli as J  # noqa: E402
 from dsdneo_tpu_torch import cli as P  # noqa: E402
 from dsdneo_tpu_torch.engine import livevec as LV  # noqa: E402
 from dsdneo_tpu_torch.engine import serialvec as SV  # noqa: E402
+from dsdneo_tpu_torch.engine import stream as ST  # noqa: E402
 from dsdneo_tpu_torch.io import rtl_tcp as PR  # noqa: E402
 from dsdneo_tpu_torch.io.audio_files import write_wav  # noqa: E402
 from dsdneo_tpu_torch.io.iq import IqMetadata, write_iq_capture  # noqa: E402
@@ -51,7 +56,39 @@ def caps(tmp_path_factory):
         out[name] = path
     out["wav"] = str(d / "disc.wav")
     write_wav(out["wav"], _disc_pcm(SV.p25_iq(tv, 2 * 4800)), 48000)
+    kid, key = int(tv["p25_ids"][4]), int(tv["p25_ids"][3])
+    out["keys"] = str(d / "keys.csv")
+    with open(out["keys"], "w") as f:               # the ADP key, decimal
+        f.write(f"id,key\n{kid},{key}\n")
     return out
+
+
+def _imbe_sinks(monkeypatch) -> list:
+    """Give every ``StreamDecoder`` the port builds from here on an IMBE
+    frame sink (the live path writes no ``.imb``); returns the sinks."""
+    sinks = []
+    init = ST.StreamDecoder.__init__
+
+    def with_sink(self, *a, **kw):
+        init(self, *a, **kw)
+        self.ctx.mbe_sink = SV.ImbeSink()
+        sinks.append(self.ctx.mbe_sink)
+
+    monkeypatch.setattr(ST.StreamDecoder, "__init__", with_sink)
+    return sinks
+
+
+def assert_every_ldu_exact(sinks, seconds: float) -> None:
+    """The live decoder's IMBE frames are the call's clear voice (the ADP
+    superframes decrypted with the key), all nine of every LDU that
+    lies whole in the first ``seconds`` sent."""
+    tv = SV.vector()
+    n_ldu = int(np.sum(tv["p25_ldu_pos"] + SV.P25_LDU_DIBITS
+                       <= seconds * 4800))
+    clear = np.unpackbits(tv["p25_clear88"], axis=-1)[..., :88]
+    assert len(sinks) == 1 and n_ldu >= 10
+    got = np.asarray(sinks[0].bits, np.uint8).reshape(-1, 88)
+    np.testing.assert_array_equal(got, clear.reshape(-1, 88)[:9 * n_ldu])
 
 
 def assert_pcm16_close(a: np.ndarray, b: np.ndarray) -> None:
@@ -171,9 +208,12 @@ def test_cli_udp_pcm_live_input(capsys):
     assert out.count("VOICE (9 IMBE frames)") >= 6
 
 
-def test_cli_tcp_pcm_live_input(caps, tmp_path):
+def test_cli_tcp_pcm_live_input(caps, tmp_path, monkeypatch):
     """``-i tcp:HOST:PORT``: a TCP server streams 2 s of the call's
-    discriminator tap as PCM16LE; the connection's end ends the run."""
+    discriminator tap as PCM16LE; the connection's end ends the run.
+    TCP loses nothing, so the printed lines equal the JAX CLI's on the
+    same samples read from a WAV, and every LDU's IMBE frames are the
+    vector's."""
     pcm = _disc_pcm(SV.p25_iq(SV.vector(), 2 * 4800)).tobytes()
     srv = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
     srv.bind(("127.0.0.1", 0))
@@ -190,13 +230,19 @@ def test_cli_tcp_pcm_live_input(caps, tmp_path):
 
     t = threading.Thread(target=serve, daemon=True)
     t.start()
+    sinks = _imbe_sinks(monkeypatch)
     rc, so, se = run(P.main, ["--platform", "cpu", "-f1", "-i",
                               f"tcp:127.0.0.1:{srv.getsockname()[1]}",
-                              "--duration", "20"], str(tmp_path))
+                              "--duration", "20", "--keys-dec",
+                              caps["keys"]], str(tmp_path / "port"))
     t.join(timeout=10)
     assert rc == 0 and not t.is_alive()
-    assert "NAC/CC: 293" in so
-    assert so.count("VOICE (9 IMBE frames)") >= 6
+    assert_every_ldu_exact(sinks, 2.0)
+    jrc, jso, _jse = run(J.main, ["--platform", "cpu", "-f1", "-i",
+                                  caps["wav"], "--keys-dec", caps["keys"]],
+                         str(tmp_path / "jax"))
+    assert jrc == 0 and "NAC/CC: 293" in jso
+    assert so == jso
 
 
 def _fake_rigctl():
@@ -235,7 +281,7 @@ def _fake_rigctl():
     return srv.getsockname()[1], lines, t
 
 
-def test_cli_rtltcp_fs4_capture_shift(capsys, monkeypatch, tmp_path):
+def test_cli_rtltcp_fs4_capture_shift(caps, capsys, monkeypatch, tmp_path):
     """``-i rtltcp:HOST:PORT:FREQ`` through the port's CLI with the
     default +fs/4 capture shift (the case of ``tests/test_rtl_tcp.py``):
     the server streams the P25 call as an offset-tuned tuner sees it (the
@@ -245,7 +291,8 @@ def test_cli_rtltcp_fs4_capture_shift(capsys, monkeypatch, tmp_path):
     ``--trunk-scan`` target list, a rigctl tuner (``-U``) and
     ``--iq-capture``: the follower and scanner are wired, the rigctl
     server is reached, and the capture's sidecar is written when the
-    run ends (the JAX CLI never closes the writer, so it writes none)."""
+    run ends (the JAX CLI never closes the writer, so it writes none).
+    rtl_tcp loses nothing: every LDU's IMBE frames are the vector's."""
     tv = SV.vector()
     raw = np.frombuffer(LV.cu8(SV.p25_iq(tv, 2 * 4800)), np.uint8)
     i, q = raw[0::2], raw[1::2]
@@ -262,12 +309,13 @@ def test_cli_rtltcp_fs4_capture_shift(capsys, monkeypatch, tmp_path):
                        "site-b,p25,852000000\n")
     cap = str(tmp_path / "live.iq")
     monkeypatch.setenv("DSDNEO_RTLTCP_RATE", "48000")
+    sinks = _imbe_sinks(monkeypatch)
     try:
         rc = P.main(["--platform", "cpu", "-f1", "-i",
                        f"rtltcp:127.0.0.1:{srv.port}:851000000",
                        "--duration", "5", "--trunk", "--trunk-scan",
                        str(targets), "-U", str(rig_port), "--iq-capture",
-                       cap])
+                       cap, "--keys-dec", caps["keys"]])
     finally:
         srv.close()
     rig_t.join(timeout=10)
@@ -275,7 +323,8 @@ def test_cli_rtltcp_fs4_capture_shift(capsys, monkeypatch, tmp_path):
     cap_out = capsys.readouterr()
     out = cap_out.out
     assert "NAC/CC: 293" in out
-    assert out.count("VOICE (9 IMBE frames)") >= 6
+    assert_every_ldu_exact(sinks, 2.0)
+    assert out.count("VOICE (9 IMBE frames)") == 10
     assert f"trunk-scan: 2 targets from {targets}" in cap_out.err
     tuned = [v for c, v in srv.commands if c == PR.CMD_SET_FREQ]
     assert 851_012_000 in tuned          # the channel + fs/4
