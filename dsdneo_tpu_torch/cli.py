@@ -10,10 +10,10 @@ stderr, as the reference does.
 One flag differs: ``--platform`` is ``cuda`` (the default; ``default``
 means the same) or ``cpu``.  Every decode runs on that device: the card
 unless ``--platform cpu`` is given, and without a card the CLI exits 1
-naming it, never decoding on the CPU instead.  ``tpu`` is refused.  The
-branches not ported yet (the HTTP and terminal frontends, the wizard,
-Rdio upload, M17 transmit, auto-PPM and the tuner autogain) exit 2 with
-one line naming the ``ROADMAP.md`` item that ports them.
+naming it, never decoding on the CPU instead.  ``tpu`` is refused.
+The frontends (``--frontend http``, ``--frontend terminal``/``-N``) only
+watch: the decode under them runs on that device all the same.  M17
+transmit (``-fZ``/``-fP``/``-fB``) is host code and needs no device.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ import sys
 import numpy as np
 
 from dsdneo_tpu_torch.engine.modes import FLAG_TO_MODE
+
+# what -N / --frontend terminal says when curses finds no terminal
+NO_TERMINAL = "--frontend terminal: curses found no terminal to draw on"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -649,9 +652,17 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
 
     spec = args.input
     duration = args.duration
+    httpf = [None]                # live HTTP frontend, set by _drive_live
+    from collections import deque
+    live_events = deque(maxlen=400)   # tail for the live terminal UI
 
     def on_event(e):
+        live_events.append(e.line)
         print(e.line)
+        if httpf[0] is not None:
+            # structured push: feeds the event line ring AND the
+            # /calls call-history segmentation
+            httpf[0].push_decode_event(e)
         if args.event_log:
             with open(args.event_log, "a") as f:
                 f.write(e.line.rstrip("\n") + "\n")
@@ -684,6 +695,15 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
             device=device)
         eng.level_warn_db = args.input_level_warn_db
         eng.input_volume = args.input_volume
+        if args.frontend == "http":
+            # remote frontend: snapshots + commands over HTTP (the
+            # reference's Qt/QML view-model polling, app_control/http)
+            from dsdneo_tpu_torch.app_control.http import HttpFrontend
+            httpf[0] = HttpFrontend(eng.metrics, eng.commands,
+                                    port=args.http_port).start()
+            httpf[0].fs_sym = float(eng.decoder.mode.symbol_rate)
+            print(f"http frontend: http://127.0.0.1:{httpf[0].port}/",
+                  file=sys.stderr)
         if cfg is not None:
             eng.snr_squelch_db = cfg.snr_sql_db
             eng.dc_block = cfg.iq_dc_block
@@ -707,7 +727,21 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
         except (OSError, SdrUnavailable) as e:
             print(f"dsd-neo-tpu: live source unavailable: {e}",
                   file=sys.stderr)
+            if httpf[0] is not None:
+                httpf[0].stop()
             return 1
+        if (cfg is not None and cfg.tuner_autogain
+                and hasattr(dev, "set_gain")):
+            # DSD_NEO_TUNER_AUTOGAIN*: closed-loop tuner gain
+            from dsdneo_tpu_torch.io.auto_gain import TunerAutogain
+            eng.auto_gain = TunerAutogain(
+                dev.set_gain,
+                probe_ms=cfg.tuner_autogain_probe_ms,
+                seed_db=cfg.tuner_autogain_seed_db,
+                spec_snr_db=cfg.tuner_autogain_spec_snr_db,
+                inband_ratio=cfg.tuner_autogain_inband_ratio,
+                up_step_db=cfg.tuner_autogain_up_step_db,
+                up_persist=cfg.tuner_autogain_up_persist)
         rig = None
         if args.rigctl_port:
             # external tuner control through a rigctl TCP server
@@ -798,6 +832,16 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
                 print(f"scanner: {n} channels from the -C map",
                       file=sys.stderr)
             eng.scanner = sc
+        if args.auto_ppm:
+            from dsdneo_tpu_torch.io.auto_ppm import AutoPpm
+            eng.auto_ppm = AutoPpm(
+                dev.set_ppm, float(freq), snr_gate_db=args.auto_ppm_snr,
+                freeze=bool(cfg is not None and cfg.auto_ppm_freeze),
+                pwr_gate_db=(cfg.auto_ppm_pwr_db if cfg else -80.0),
+                deadband_ppm=(cfg.auto_ppm_zerolock_ppm if cfg else 0.55),
+                zerolock_hz=(cfg.auto_ppm_zerolock_hz if cfg else 0.0))
+        if cfg is not None:
+            eng.afc_status_gate = cfg.p25_afc_status_gate
         eng.on_ppm = dev.set_ppm
         eng.freq_hz = float(freq)
         # graceful SIGTERM stop, unless the embedder owns shutdown
@@ -814,13 +858,27 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
         dev.start()
         eng.start()
         try:
+            drawn = False
             t0 = _time.time()
-            while duration <= 0 or _time.time() - t0 < duration:
-                _time.sleep(0.2)
+            if args.frontend == "terminal":
+                # live curses frontend: app_control snapshot polling +
+                # menu commands into the engine queue (ui_async.c)
+                from dsdneo_tpu_torch.ui.terminal import run_live
+                drawn = run_live(eng, duration=duration, events=live_events)
+                if not drawn:
+                    print(f"dsd-neo-tpu: {NO_TERMINAL}; decoding without "
+                          "it", file=sys.stderr)
+            if not drawn:
+                while duration <= 0 or _time.time() - t0 < duration:
+                    _time.sleep(0.2)
         except KeyboardInterrupt:
             pass
         eng.stop()
         dev.close()
+        if httpf[0] is not None:
+            # the JAX CLI leaves its server running until the process
+            # ends; here it stops with the engine
+            httpf[0].stop()
         if eng.capture is not None:
             # the JAX CLI leaves the writer open: its sidecar (rates,
             # retune journal) is never written
@@ -953,6 +1011,113 @@ def _run_live(args, keyring, tg_policy, chan_map, recorder,
     return 2
 
 
+def _fleet_http_serve(args, fleet, block, fs: float) -> int:
+    """--fleet --frontend http: loop the replay block at realtime pace
+    and serve the fleet console (channel grid, per-channel events,
+    call history, command queue) over the HTTP frontend — the
+    reference's Qt/QML view-model polling applied to fleet scale."""
+    import time as _time
+
+    from dsdneo_tpu_torch.app_control.commands import AppCommand, CommandQueue
+    from dsdneo_tpu_torch.app_control.http import HttpFrontend
+    from dsdneo_tpu_torch.app_control.snapshot import MetricsHub
+
+    hub, q = MetricsHub(), CommandQueue()
+    grid_cache: list[list] = [[]]
+    httpf = HttpFrontend(hub, q, grid_provider=lambda: grid_cache[0],
+                         port=args.http_port).start()
+    print(f"http frontend: http://127.0.0.1:{httpf.port}/ "
+          f"({fleet.total_channels} channels)", file=sys.stderr)
+    block_s = block.shape[1] / fs
+    t0 = _time.time()
+    # publish the channel list immediately (all idle) so the console
+    # renders during the first block
+    grid_cache[0] = fleet.channel_dicts()
+    try:
+        while True:
+            t_blk = _time.time()
+            fleet.decode_block(block)
+            # grid BEFORE clearing events (state derives from tails)
+            grid_cache[0] = fleet.channel_dicts()
+            for g in fleet.groups:
+                p = g.pipeline
+                if not hasattr(p, "events"):
+                    continue
+                rate = float(getattr(getattr(p, "mode", None),
+                                     "symbol_rate", 4800.0))
+                for i in range(g.count):
+                    evs = p.events(i)
+                    for e in evs:
+                        httpf.push_decode_event(e, fs_sym=rate)
+                    evs.clear()        # bounded ctxs across loops
+            m = getattr(fleet.groups[0].pipeline, "mode",
+                        None) if fleet.groups else None
+            hub.publish(stream_active=True, blocks=fleet.blocks,
+                        symbol_rate_hz=int(getattr(m, "symbol_rate",
+                                                   4800)))
+            if any(c.cmd is AppCommand.STOP for c in q.drain()):
+                break
+            if args.duration > 0 and _time.time() - t0 >= args.duration:
+                break
+            _time.sleep(max(0.0, block_s - (_time.time() - t_blk)))
+    except KeyboardInterrupt:
+        pass
+    finally:
+        httpf.stop()
+    print(f"fleet: {fleet.blocks} blocks over "
+          f"{fleet.total_channels} channels", file=sys.stderr)
+    return 0
+
+
+def _run_m17_tx(args) -> int:
+    """Generate an M17 transmission as a baseband I/Q capture.
+
+    The reference encoders (src/protocol/m17/m17.c encodeM17STR/PKT/BRT)
+    emit 48 kHz RF audio; here the dibit stream is 4FSK-modulated at
+    48 kHz (10 samples/symbol) and written as a cf32 capture that the
+    decode path — ours or the reference's — can replay.  Host code
+    (numpy): no device.
+    """
+    from dsdneo_tpu_torch.protocol.m17 import encoder as m17tx
+
+    can, src, dst = 7, "DSD-NEO", "BROADCAST"
+    parts = args.m17dat.upper().split(":")
+    if parts and parts[0] == "M17":
+        if len(parts) > 1 and parts[1].isdigit():
+            can = min(int(parts[1]), 15)
+        if len(parts) > 2 and parts[2]:
+            src = parts[2][:9]
+        if len(parts) > 3 and parts[3]:
+            dst = parts[3][:9]
+
+    if args.tx_mode == "str":
+        voice = np.zeros((args.tx_frames, 128), dtype=np.uint8)
+        dibits = m17tx.encode_stream_transmission(dst, src, voice, can=can)
+        desc = f"M17 Stream  CAN:{can} SRC:{src} DST:{dst} ({args.tx_frames} frames)"
+    elif args.tx_mode == "pkt":
+        text = args.m17_sms or "dsd-neo-tpu M17 packet test"
+        dibits = m17tx.encode_packet_transmission(dst, src, text, can=can)
+        desc = f"M17 Packet  CAN:{can} SRC:{src} DST:{dst} SMS:{text!r}"
+    else:
+        dibits = m17tx.encode_bert_transmission(args.tx_frames)
+        desc = f"M17 BERT ({args.tx_frames} frames)"
+
+    iq = m17tx.dibits_to_baseband(dibits, sps=10, dev=0.15)
+    print(f"M17 Encoder: {desc}", file=sys.stderr)
+    print(f"M17 Encoder: {len(dibits)} symbols, {len(iq)} samples @48000",
+          file=sys.stderr)
+    if args.audio_out.startswith("iq:"):
+        from dsdneo_tpu_torch.io.iq import IqMetadata, write_iq_capture
+        write_iq_capture(args.audio_out[3:], iq,
+                         IqMetadata(sample_format="cf32", sample_rate_hz=48000))
+        print(f"M17 Encoder: wrote {args.audio_out[3:]}", file=sys.stderr)
+    elif args.audio_out != "null":
+        print("M17 Encoder: use -o iq:PATH to write the capture",
+              file=sys.stderr)
+        return 2
+    return 0
+
+
 def _prescan_argv(argv: list[str]) -> list[str]:
     """Rewrite reference-style fused tokens argparse can't express:
     ``-fh344``/``-fH434`` (EDACS mode + AFS bit split, reference
@@ -967,32 +1132,12 @@ def _prescan_argv(argv: list[str]) -> list[str]:
     return out
 
 
-def _deferred(args, cfg) -> tuple[str, str] | None:
-    """The first flag of ``args`` (or knob of ``cfg``) whose branch the
-    port does not run yet, with the ``ROADMAP.md`` queue 1 item that
-    ports it; None when every requested branch is ported."""
-    live_sdr = args.input.startswith(("rtltcp:", "rtlusb", "soapy:"))
-    checks = [
-        ("--frontend http", "5a", args.frontend == "http"),
-        ("--frontend terminal", "5b", args.frontend == "terminal"),
-        ("--wizard", "6a", args.wizard),
-        ("--rdio-api-url", "6a", bool(args.rdio_api_url) or (
-            bool(cfg.rdio_api_url) and bool(args.calls_dir))),
-        ("--auto-ppm", "6a", args.auto_ppm or (cfg.auto_ppm and live_sdr)),
-        ("DSD_NEO_TUNER_AUTOGAIN", "6a", cfg.tuner_autogain and live_sdr),
-        ("M17 transmit (-fZ/-fP/-fB, -M, --m17-sms)", "6b",
-         bool(args.tx_mode or args.m17dat or args.m17_sms)),
-    ]
-    for name, item, on in checks:
-        if on:
-            return name, item
-    return None
-
-
-def _refuse(held: tuple[str, str]) -> int:
-    print(f"dsd-neo-tpu: {held[0]} is not ported to dsdneo_tpu_torch yet "
-          f"(ROADMAP.md queue 1, item {held[1]})", file=sys.stderr)
-    return 2
+def _close_uploader(recorder) -> None:
+    """Let the Rdio uploader post what the finished calls queued before
+    the process ends (the JAX CLI leaves its daemon worker to die with
+    the process, dropping uploads still queued)."""
+    if getattr(recorder, "uploader", None) is not None:
+        recorder.uploader.close()
 
 
 def _device(args):
@@ -1114,6 +1259,8 @@ def main(argv: list[str] | None = None) -> int:
         # correlation scores are <=~1.0, so threshold 2.0 makes the
         # frame-sync hunt a no-op (reference -fA: not a hunt candidate)
         args.sync_threshold = 2.0
+    if getattr(args, "tx_mode", None):
+        return _run_m17_tx(args)
     # DSD_NEO_CONFIG names the INI to load when -c/--config was not
     # given; DSD_NEO_NO_BOOTSTRAP suppresses the wizard/INI bootstrap
     # chain entirely (embedders drive configuration themselves)
@@ -1124,9 +1271,6 @@ def main(argv: list[str] | None = None) -> int:
         args.config = ""
     elif not args.config and _env_cfg.config_path:
         args.config = _env_cfg.config_path
-    held = _deferred(args, _env_cfg)
-    if held is not None:
-        return _refuse(held)
     if args.platform == "tpu":
         print("dsd-neo-tpu: --platform tpu: this CLI runs on cuda or cpu",
               file=sys.stderr)
@@ -1153,6 +1297,23 @@ def main(argv: list[str] | None = None) -> int:
             from dsdneo_tpu_torch.io.audio_files import write_wav
             write_wav(args.audio_out[4:], np.concatenate(pcms), 8000)
         return 0
+    if args.wizard:
+        from dsdneo_tpu_torch.runtime.wizard import run_wizard
+
+        def ask(prompt, default):
+            try:
+                v = input(f"{prompt} [{default}]: ")
+            except EOFError:
+                return default
+            return v or default
+
+        w = run_wizard(ask, say=lambda ln: print(ln, file=sys.stderr))
+        args.mode = w.mode
+        args.iq_replay = args.iq_replay or w.iq_replay
+        if w.audio_out != "null":
+            args.audio_out = w.audio_out
+        if w.stream_s > 0:
+            args.stream = w.stream_s
     if not args.iq_replay and not args.input:
         print("dsd-neo-tpu: no input source (use --iq-replay or -i)",
               file=sys.stderr)
@@ -1172,9 +1333,6 @@ def main(argv: list[str] | None = None) -> int:
         for e in errs:
             print(f"dsd-neo-tpu: config: {e}", file=sys.stderr)
     cfg = rtcfg.load_env(cfg)
-    held = _deferred(args, cfg)          # the INI may set the same knobs
-    if held is not None:
-        return _refuse(held)
     if args.no_cosine_filter:
         # -l: bypass the input channel low-pass (reference
         # opts->use_cosine_filter = 0)
@@ -1267,6 +1425,11 @@ def main(argv: list[str] | None = None) -> int:
     if args.calls_dir:
         from dsdneo_tpu_torch.core.calls import CallRecorder
         recorder = CallRecorder(args.calls_dir, mode=args.mode)
+        if args.rdio_api_url:
+            from dsdneo_tpu_torch.io.rdio import RdioUploader
+            recorder.uploader = RdioUploader(
+                args.rdio_api_url, args.rdio_api_key,
+                args.rdio_system_id or "1")
 
     tg_policy = None
     if args.group_csv:
@@ -1331,6 +1494,7 @@ def main(argv: list[str] | None = None) -> int:
             recorder.finish_all()
             print(f"calls exported: {len(recorder.finished)} -> "
                   f"{args.calls_dir}", file=sys.stderr)
+            _close_uploader(recorder)
         return 0
 
     if args.trunk_wideband:
@@ -1429,6 +1593,12 @@ def main(argv: list[str] | None = None) -> int:
                        axis=-1).astype(np.float32)
         block = np.broadcast_to(iq1[None],
                                 (fleet.total_channels,) + iq1.shape).copy()
+        if args.frontend == "http":
+            # graphical fleet console: loop the replay block at
+            # realtime pace, serve channel grid + events + calls over
+            # the app_control HTTP frontend (reference Qt/QML shape)
+            return _fleet_http_serve(args, fleet, block,
+                                     float(meta.sample_rate_hz))
         fleet.decode_block(block)
         for g in fleet.groups:
             if g.kind == "voice":
@@ -1495,14 +1665,50 @@ def main(argv: list[str] | None = None) -> int:
                     if np.iscomplexobj(samples) else \
                     samples * np.float32(args.input_volume)
             chunk = max(int(meta.sample_rate_hz * args.stream), 4800)
+            httpf = None
+            if args.frontend == "http":
+                # browser dashboard over the streamed replay; pacing
+                # defaults to realtime so the view is watchable
+                from dsdneo_tpu_torch.app_control.commands import CommandQueue
+                from dsdneo_tpu_torch.app_control.http import HttpFrontend
+                from dsdneo_tpu_torch.app_control.snapshot import MetricsHub
+                hub, cq = MetricsHub(), CommandQueue()
+                httpf = HttpFrontend(hub, cq,
+                                     port=args.http_port).start()
+                httpf.fs_sym = float(sd.mode.symbol_rate)
+                print(f"http frontend: http://127.0.0.1:{httpf.port}/",
+                      file=sys.stderr)
+                if args.iq_replay_rate <= 0:
+                    args.iq_replay_rate = 1.0
+            n_blk = 0
             for _rep in range(max(args.iq_loop, 1)):
                 for i in range(0, len(samples), chunk):
                     t0 = _time.perf_counter()
-                    sd.push(samples[i:i + chunk])
+                    evs = sd.push(samples[i:i + chunk])
                     if perf is not None:
                         perf.add(decode_ms=(_time.perf_counter() - t0) * 1e3,
                                  channels=1,
                                  symbols=int(chunk / sd._sps))
+                    if httpf is not None:
+                        n_blk += 1
+                        for e in evs:
+                            httpf.push_decode_event(e)
+                        extra = {}
+                        if n_blk % 8 == 1:
+                            z = samples[i:i + 4096]
+                            if z.size >= 256:
+                                sp = np.abs(np.fft.fftshift(np.fft.fft(z)))
+                                extra["spectrum_db"] = (20.0 * np.log10(
+                                    np.maximum(sp, 1e-9))
+                                ).astype(np.float32)[::16]
+                            soft = getattr(sd, "last_soft", None)
+                            if soft is not None and len(soft):
+                                extra["eye_symbols"] = np.asarray(
+                                    soft[:512], np.float32)
+                        hub.publish(stream_active=True, blocks=n_blk,
+                                    snr_db=sd.last_snr_db,
+                                    symbol_rate_hz=int(
+                                        sd.mode.symbol_rate), **extra)
                     if args.iq_replay_rate > 0:
                         # paced replay (reference --iq-replay-rate)
                         want = chunk / meta.sample_rate_hz \
@@ -1511,6 +1717,8 @@ def main(argv: list[str] | None = None) -> int:
                         if left > 0:
                             _time.sleep(left)
             sd.flush()
+            if httpf is not None:
+                httpf.stop()
             ctx = sd.ctx
         else:
             t0 = _time.perf_counter()
@@ -1529,10 +1737,28 @@ def main(argv: list[str] | None = None) -> int:
     except (OSError, ValueError) as e:
         print(f"dsd-neo-tpu: cannot replay {args.iq_replay}: {e}", file=sys.stderr)
         return 1
+    if args.frontend == "terminal":
+        from dsdneo_tpu_torch.ui.panes import history_from_events
+        from dsdneo_tpu_torch.ui.terminal import UiModel, run
+        audio_s = sum(len(c) for chunks in ctx.audio.values()
+                      for c in chunks) / 8000.0
+        drawn = run(UiModel(mode=args.mode, source=args.iq_replay,
+                    n_events=len(ctx.events),
+                    n_syncs=getattr(ctx, "n_syncs", 0),
+                    audio_s=audio_s,
+                    lines=[e.line for e in ctx.events],
+                    soft=getattr(ctx, "debug_soft", None),
+                    iq=getattr(ctx, "debug_iq", None),
+                    history=history_from_events(ctx.events),
+                    state=ctx.state, events=ctx.events))
+        if not drawn:
+            print(f"dsd-neo-tpu: {NO_TERMINAL}; nothing drawn",
+                  file=sys.stderr)
     if recorder is not None:
         recorder.finish_all()
         print(f"calls exported: {len(recorder.finished)} -> {args.calls_dir}",
               file=sys.stderr)
+        _close_uploader(recorder)
     for ev in ctx.events:
         print(ev.line, file=sys.stderr)
     if frame_log:

@@ -3,11 +3,12 @@
 The rebuild's analog of the reference's per-call WAV writer with
 auto-rename on call end (src/engine/engine.c:2494-2516) and the
 rdio-scanner style per-call upload queue (src/app_control/
-rdio_export.c); here the export target is a local directory.
+rdio_export.c); here the export target is a local directory, and
+an ``io.rdio.RdioUploader`` set as ``uploader`` posts each finished
+call.
 
 The port's own copy of ``dsdneo_tpu/core/calls.py`` (host Python,
-numpy), unchanged in its logic; the Rdio upload hook waits for
-``io/rdio.py``.
+numpy), unchanged in its logic.
 """
 
 from __future__ import annotations
@@ -103,6 +104,20 @@ class CallRecorder:
         with open(meta_path, "w") as f:
             json.dump(meta, f, indent=2)
             f.write("\n")
-        # the rdio-scanner upload hook (io/rdio.py, with its
-        # wall-clock start_time/stop_time sidecar) is not ported yet:
-        # the CLI refuses --rdio-api-url
+        # optional rdio-scanner upload hook (io.rdio.RdioUploader):
+        # the upload meta uses the Rdio-Scanner field names
+        # (start_time/stop_time/freq/srcList — io.rdio.write_rdio_meta,
+        # the reference's dsd_rdio_write_meta_json format), NOT the
+        # local sidecar's record format
+        if getattr(self, "uploader", None) is not None:
+            import time as _time
+            from dsdneo_tpu_torch.io.rdio import write_rdio_meta
+            dur = call.duration_s()
+            rdio_path = os.path.join(self.out_dir, stem + ".rdio.json")
+            write_rdio_meta(
+                rdio_path, start_time=_time.time() - dur,
+                stop_time=_time.time(), talkgroup=call.talkgroup,
+                source=call.source,
+                freq_hz=int(getattr(call, "freq_hz", 0) or 0),
+                system=call.system or self.mode)
+            self.uploader.submit(wav, rdio_path)

@@ -1,5 +1,5 @@
 """Decoded-audio conditioning: de-emphasis, DC block, audio low- and
-high-pass, gain.
+high-pass, gain, and the 8 → 48 kHz playback upsampler.
 
 Counterpart of ``dsdneo_tpu/dsp/audio_filters.py`` and of the CLI's
 monitor-audio conditioning (``cli._condition_audio``).  Every filter is
@@ -199,6 +199,13 @@ def condition_audio(pcm: torch.Tensor, deemph: str = "",
     if poles:
         return one_pole(pcm, poles[0], state=state)
     return pcm
+
+
+def upsample_8k_to_48k(pcm: torch.Tensor) -> torch.Tensor:
+    """8 kHz voice → 48 kHz playback rate (reference dsd_audio.c
+    upsample path), via the polyphase resampler, on ``pcm``'s device."""
+    from dsdneo_tpu_torch.dsp.resampler import resample
+    return resample(pcm, 8000, 48000)
 
 
 class AutoGain:

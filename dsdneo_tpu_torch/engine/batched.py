@@ -6,15 +6,22 @@ through kernel K1 (``ops.fir_discriminate``), the counterpart of the
 JAX package's ``use_pallas``, reading the interleaved block through two
 stride-2 views; on a CPU tensor through its plain version.
 Timing recovery, level tracking and slicing are plain PyTorch.
+``make_frontend_step`` builds the step of any decode mode of the mode
+table; which of K1 and its plain version runs is the device's choice,
+not a switch (the JAX function's ``use_pallas`` auto-pick).
 """
 
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 
 import torch
 
+from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.dsp import firdes
 from dsdneo_tpu_torch.dsp.frontend import floor_mod
+from dsdneo_tpu_torch.engine.modes import MODES
 from dsdneo_tpu_torch.ops.fir_discriminate import fir_discriminate
 
 
@@ -107,3 +114,30 @@ def slice_four_level(soft: torch.Tensor) -> torch.Tensor:
     outer = soft.abs() > 2.0
     return torch.where(neg, torch.where(outer, 3, 2),
                        torch.where(outer, 1, 0)).to(torch.uint8)
+
+
+@lru_cache(maxsize=8)
+def make_frontend_step(mode_name: str, B: int, fs: float = 48000.0,
+                       device=None):
+    """The ``[C, B]`` front-end step of a decode mode on ``device`` (the
+    card when none is given; raises when there is none): ``step(iq)``
+    takes ``[C, B, 2]`` float32 I/Q planes or ``[C, B]`` complex64 and
+    returns (dibits, soft symbols, power) as :func:`frontend_step` does,
+    with the mode's channel low-pass, symbol rate and slicer, and
+    ``n_sym = B // sps − 2``.  K1 runs on a CUDA device, its plain
+    version on the CPU."""
+    mode = MODES[mode_name]
+    dev = require_cuda() if device is None else torch.device(device)
+    sps = fs / mode.symbol_rate
+    n_sym = int(B // sps) - 2
+    taps = torch.as_tensor(firdes.channel_lpf(fs, mode.lpf_profile),
+                           device=dev)
+
+    def step(iq):
+        x = torch.as_tensor(iq, device=dev)
+        if x.is_complex():
+            x = torch.view_as_real(x.to(torch.complex64))
+        return frontend_step(x.to(torch.float32), taps, sps, n_sym,
+                             mode.four_level)
+
+    return step

@@ -99,9 +99,11 @@ class LiveEngine:
         self.fs4_rot = 1               # j^{+n}: pairs with a +fs/4 tune
         self.level_warn_db = -200.0
         self.level_warnings = 0
-        # the auto-PPM loop and the tuner autogain (io/auto_ppm.py,
-        # io/auto_gain.py) are not ported yet: the CLI refuses
-        # --auto-ppm and DSD_NEO_TUNER_AUTOGAIN
+        self.auto_ppm = None          # io.auto_ppm.AutoPpm
+        self.auto_gain = None         # io.auto_gain.TunerAutogain
+        # DSD_NEO_P25_AFC_STATUS_GATE: suppress auto-PPM training on
+        # frames not classified as infrastructure-originated
+        self.afc_status_gate = False
         # --perf-csv on the LIVE path (reference DSD_NEO_RTL_PERF_CSV,
         # rtl_perf.cpp counters): per-block decode time + ring drops
         self.perf = perf
@@ -136,6 +138,8 @@ class LiveEngine:
         if self.capture is not None:
             self.capture.record_event("retune",
                                       center_frequency_hz=int(freq_hz))
+        if self.auto_gain is not None:
+            self.auto_gain.on_retune()     # post-retune settle hold
         # DSD_NEO_RETUNE_DRAIN_MS: let the demod loop finish up to the
         # drain budget of already-buffered pre-retune samples before
         # the purge (tail audio is not cut mid-word)
@@ -278,6 +282,25 @@ class LiveEngine:
                 if max_blocks is not None and n >= max_blocks:
                     break
                 continue
+            if self.auto_ppm is not None:
+                # trained only past the mute window — tuner-settling
+                # transients must not shift the PPM loop; the estimate
+                # reads the block's host copy (no device round trip)
+                from dsdneo_tpu_torch.io.auto_ppm import estimate_cfo_hz
+                # advisory AFC status gate (DSD_NEO_P25_AFC_STATUS_GATE):
+                # when enabled, frames classified subscriber-originated
+                # or unknown must not train the PPM loop (reference
+                # rtl_sdr_fm.cpp:6884 over p25_status_symbol.c)
+                gate_ok = True
+                if self.afc_status_gate:
+                    cls = getattr(self.decoder.ctx.state,
+                                  "p25_ss_classification", None)
+                    gate_ok = cls == "infrastructure"
+                if gate_ok:
+                    self.auto_ppm.update(
+                        estimate_cfo_hz(samples, self.fs),
+                        getattr(self.decoder, "last_snr_db", 0.0),
+                        pwr_db=rms_db)
             # power squelch: below-threshold blocks aren't decoded at
             # all (reference demod_pipeline.cpp squelch gate)
             squelched = (20.0 * np.log10(max(rms, 1e-12)) < self.squelch_db
@@ -294,6 +317,10 @@ class LiveEngine:
                 self._squelched_s = 0.0
                 if self.scanner is not None:
                     self.scanner.on_activity()
+            if self.auto_gain is not None:
+                # DSD_NEO_TUNER_AUTOGAIN: closed-loop tuner gain from
+                # the block statistics (clip back-off / quiet step-up)
+                self.auto_gain.update(samples, squelch_open=not squelched)
             t_dec = time.perf_counter()
             events = [] if squelched else self.decoder.push(samples)
             if self.perf is not None:

@@ -8,9 +8,11 @@ Equal means: the printed lines (stdout and stderr, each package's own
 output directory replaced by one name), the event log (``-J``), the
 frame log, the ``.imb`` file byte for byte, the call records
 (``--calls-dir``: every field; the sidecar holds no wall-clock time, the
-Rdio sidecar that would is not ported) and every WAV within 2e-3 of its
-peak.  Each flag whose branch is not ported exits 2 with one line naming
-its ``ROADMAP.md`` item.
+Rdio sidecar, which does, is held in ``test_torch_cli_extras.py``) and
+every WAV within 2e-3 of its peak.  Every flag the port's CLI refused
+while its branch was not ported (the HTTP and terminal frontends, the
+wizard, Rdio upload, auto-PPM, the tuner autogain, M17 transmit) runs
+its branch here.
 """
 
 import contextlib
@@ -275,34 +277,196 @@ def test_deemphasis_and_low_pass_on_the_wav(caps, tmp_path, monkeypatch):
     assert float(np.max(np.abs(wav_frames(raw) - wav_frames(b)))) > 0.01
 
 
-DEFERRED = [
-    (["--frontend", "http"], "5a"),
-    (["--frontend", "terminal"], "5b"),
-    (["-N"], "5b"),
-    (["--wizard"], "6a"),
-    (["--rdio-api-url", "http://127.0.0.1:1/api"], "6a"),
-    (["--auto-ppm"], "6a"),
-    (["-fZ", "-M", "M17:7:AB1CD:ALL", "-o", "iq:x.iq"], "6b"),
-    (["--m17-sms", "hello"], "6b"),
-]
+def _rtl_payload(seconds: int, cfo_hz: float = 0.0, scale: float = 1.0
+                 ) -> bytes:
+    """The P25 call as an rtl_tcp server streams it (CU8), with a carrier
+    offset and a level."""
+    from dsdneo_tpu_torch.engine import livevec as LV
+    x = SV.p25_iq(SV.vector(), seconds * 4800)
+    x = x * np.exp(2j * np.pi * cfo_hz * np.arange(x.shape[0]) / 48000.0)
+    return LV.cu8((x * scale).astype(np.complex64))
 
 
-@pytest.mark.parametrize("argv,item", DEFERRED,
-                         ids=[" ".join(a[:2]) for a, _ in DEFERRED])
-def test_deferred_flags_exit_2_naming_their_item(caps, tmp_path, argv,
-                                                 item):
-    rc, so, se = run(P.main, ["--platform", "cpu", "--iq-replay",
-                              caps["p25"]] + argv, str(tmp_path))
-    assert rc == 2 and so == ""
-    assert se.count("\n") == 1
-    assert f"(ROADMAP.md queue 1, item {item})" in se
+class _Posts:
+    """A local HTTP server counting the multipart POSTs it is sent."""
+
+    def __init__(self):
+        import http.server
+        import threading
+        self.bodies = []
+        outer = self
+
+        class H(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers.get("Content-Length", 0))
+                outer.bodies.append(self.rfile.read(n))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *a):
+                pass
+        self.srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), H)
+        self.port = self.srv.server_address[1]
+        threading.Thread(target=self.srv.serve_forever, daemon=True).start()
+
+    def wait(self, n: int, timeout: float = 30.0) -> int:
+        import time
+        t0 = time.time()
+        while len(self.bodies) < n and time.time() - t0 < timeout:
+            time.sleep(0.05)
+        return len(self.bodies)
+
+    def close(self):
+        self.srv.shutdown()
+        self.srv.server_close()
 
 
-def test_tuner_autogain_on_a_live_sdr_exits_2(tmp_path, monkeypatch):
-    monkeypatch.setenv("DSD_NEO_TUNER_AUTOGAIN", "1")
-    rc, _, se = run(P.main, ["--platform", "cpu", "-i",
-                             "rtltcp:127.0.0.1:1"], str(tmp_path))
-    assert rc == 2 and "DSD_NEO_TUNER_AUTOGAIN" in se and "item 6a" in se
+def _norm_port(text: str) -> str:
+    import re
+    return re.sub(r"127\.0\.0\.1:\d+", "127.0.0.1:PORT", text)
+
+
+def _wizard_answers(monkeypatch, answers):
+    import builtins
+
+    def scripted(prompt=""):
+        for key, v in answers.items():
+            if prompt.startswith(key):
+                return v
+        return ""
+    monkeypatch.setattr(builtins, "input", scripted)
+
+
+def _live(argv, payload, monkeypatch, tmp_path, stdout=False):
+    """The port's CLI on ``-i rtltcp:`` against the fake server: (exit
+    code, stderr, the commands the server received), with its stdout
+    after the exit code where ``stdout``."""
+    from dsdneo_tpu_torch.io import rtl_tcp as PR
+    monkeypatch.setenv("DSDNEO_RTLTCP_RATE", "48000")
+    monkeypatch.setenv("DSD_NEO_DISABLE_FS4_SHIFT", "1")
+    srv = PR.FakeRtlTcpServer(payload)
+    try:
+        rc, so, se = run(P.main, ["--platform", "cpu", "-f1", "-i",
+                                  f"rtltcp:127.0.0.1:{srv.port}:851000000",
+                                  "--duration", "6"] + argv, str(tmp_path))
+    finally:
+        srv.close()
+    return (rc, so, se, list(srv.commands)) if stdout else \
+        (rc, se, list(srv.commands))
+
+
+FORMERLY_REFUSED = ["frontend-http", "frontend-terminal", "N", "wizard",
+                    "rdio-api-url", "auto-ppm", "tuner-autogain",
+                    "m17-stream", "m17-packet-sms", "m17-bert", "m17-dat"]
+
+
+@pytest.mark.parametrize("case", FORMERLY_REFUSED)
+def test_formerly_refused_flags_run_their_branch(caps, tmp_path,
+                                                 monkeypatch, case):
+    """Each flag the port's CLI refused until its branch was ported now
+    runs that branch on ``--platform cpu``.  Where the JAX CLI runs the
+    same input (every case but the two live-tuner ones, which need its
+    engine on a socket), the port's lines (the HTTP port the OS picked
+    read as ``PORT``) and files equal the JAX CLI's."""
+    p25 = ["-f1", "--iq-replay", caps["p25"]]
+    if case in ("auto-ppm", "tuner-autogain"):
+        from dsdneo_tpu_torch.io import rtl_tcp as PR
+        if case == "auto-ppm":
+            rc, se, cmds = _live(["--auto-ppm"], _rtl_payload(4, 1500.0),
+                                 monkeypatch, tmp_path)
+            ppm = [v for c, v in cmds if c == PR.CMD_SET_FREQ_CORRECTION]
+            # the 1.5 kHz offset (1.76 ppm at 851 MHz) asks a negative
+            # step of the loop's largest size, −2 (signed on the wire)
+            assert ppm and ppm[0] == (-2) & 0xFFFFFFFF
+        else:
+            monkeypatch.setenv("DSD_NEO_TUNER_AUTOGAIN", "1")
+            rc, se, cmds = _live([], _rtl_payload(2, scale=4.0),
+                                 monkeypatch, tmp_path)
+            assert (PR.CMD_SET_GAIN, 300) in cmds     # seeded at 30 dB
+        assert rc == 0 and "NAC/CC: 293" not in se
+        return
+    posts = None
+    if case == "frontend-http":
+        argv = p25 + ["--stream", "0.5", "--frontend", "http",
+                      "--http-port", "0", "--iq-replay-rate", "40"]
+    elif case == "frontend-terminal":
+        argv = p25 + ["--frontend", "terminal"]
+    elif case == "N":
+        argv = p25 + ["-N", "-o", "wav:{out}/n.wav"]
+    elif case == "wizard":
+        _wizard_answers(monkeypatch, {"mode": "2", "I/Q": caps["p25"],
+                                      "audio": "wav:w.wav"})
+        argv = ["--wizard"]
+    elif case == "rdio-api-url":
+        posts = _Posts()
+        argv = p25 + ["--calls-dir", "{out}/calls", "--rdio-api-url",
+                      f"http://127.0.0.1:{posts.port}/api/call-upload",
+                      "--rdio-api-key", "k", "--rdio-system-id", "9"]
+    elif case == "m17-stream":
+        argv = ["-fZ", "-M", "M17:7:AB1CD:ALL", "-o", "iq:{out}/s.iq"]
+    elif case == "m17-packet-sms":
+        argv = ["-fP", "--m17-sms", "hello", "-o", "iq:{out}/s.iq"]
+    elif case == "m17-bert":
+        argv = ["-fB", "--tx-frames", "8", "-o", "iq:{out}/s.iq"]
+    else:          # -M without a transmit mode: a plain decode
+        argv = p25 + ["-M", "M17:7:AB1CD:ALL", "--m17-sms", "hi"]
+    try:
+        jr, pr = both(tmp_path, argv)
+        if posts is not None:
+            n = len(os.listdir(os.path.join(pr[3], "calls")))
+            # the JAX CLI leaves its uploader's worker running: wait for
+            # both packages' posts (one a call: the WAV and its sidecar
+            # make two files, the Rdio sidecar a third)
+            assert posts.wait(2 * (n // 3)) == 2 * (n // 3) >= 2
+    finally:
+        if posts is not None:
+            posts.close()
+    assert pr[0] == jr[0] == 0
+    assert _norm_port(pr[1]) == _norm_port(jr[1])
+    # where curses finds no terminal the port says so in one more line
+    pse = "".join(ln for ln in pr[2].splitlines(keepends=True)
+                  if P.NO_TERMINAL not in ln)
+    assert _norm_port(pse) == _norm_port(jr[2])
+    files = sorted(os.listdir(jr[3]))
+    assert sorted(os.listdir(pr[3])) == files
+    for f in files:
+        a, b = os.path.join(jr[3], f), os.path.join(pr[3], f)
+        if f.endswith(".wav"):
+            assert_wav_close(a, b)
+        elif f.endswith((".iq", ".json")):
+            with open(a, "rb") as x, open(b, "rb") as y:
+                assert x.read() == y.read(), f
+    if case == "frontend-http":
+        assert "http frontend: http://127.0.0.1:PORT/" in _norm_port(pr[2])
+    if case == "wizard":
+        assert "dsd-neo-tpu setup wizard" in pr[2] and "w.wav" in files
+    if case.startswith("m17") and case != "m17-dat":
+        assert "M17 Encoder: wrote {out}/s.iq" in pr[2]
+    if case in ("frontend-terminal", "N", "wizard", "m17-dat",
+                "rdio-api-url"):
+        assert "NAC/CC: 293" in pr[2]
+
+
+@pytest.mark.parametrize("path", ["replay", "live"])
+def test_terminal_frontend_says_when_it_drew_nothing(caps, tmp_path,
+                                                     monkeypatch, path):
+    """When curses finds no terminal, ``-N`` says so on stderr and the
+    decode runs as it does without a frontend: the replay's lines, and
+    on the live path the engine decoding for its ``--duration``."""
+    from dsdneo_tpu_torch.ui import terminal
+    monkeypatch.setattr(terminal, "run", lambda *a, **k: False)
+    monkeypatch.setattr(terminal, "run_live", lambda *a, **k: False)
+    if path == "replay":
+        rc, _so, se = run(P.main, ["--platform", "cpu", "-f1", "--iq-replay",
+                                   caps["p25"], "-N"], str(tmp_path))
+        assert f"dsd-neo-tpu: {P.NO_TERMINAL}; nothing drawn" in se
+        assert "NAC/CC: 293" in se
+    else:
+        rc, so, se, _cmds = _live(["-N"], _rtl_payload(2), monkeypatch,
+                                  tmp_path, stdout=True)
+        assert f"dsd-neo-tpu: {P.NO_TERMINAL}; decoding without it" in se
+        assert "Sync: +P25p1" in so         # the live path's event lines
+    assert rc == 0
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

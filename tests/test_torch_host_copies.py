@@ -2,16 +2,22 @@
 against the port's copies.
 
 Every test of ``tests/test_events.py``, ``test_native_ring.py``,
-``test_lcn_calc.py``, ``test_env_knobs_batch6.py``,
-``test_env_knobs_batch7.py``, ``test_audio_playback.py``, ``test_io.py``
-and ``test_app_control.py`` is loaded from its file with every name of
-the JAX package (``dsdneo_tpu.``) pointed at the port
-(``dsdneo_tpu_torch.``) and run with its fixtures: the same inputs, and
-the JAX test's own assertions, on ``core/events``, the ingest ring,
-``engine/lcn_calc``, ``io/rtl_tcp``, ``runtime/rt_sched``,
-``io/sdr_device`` (against the JAX test's compiled librtlsdr stub),
-``io/audio_out``, ``io/audio_files``, ``io/symbol_capture``,
-``io/net``, ``io/mbe_files``, ``core/talkgroup`` and ``app_control``.
+``test_lcn_calc.py``, ``test_env_knobs_batch4.py``,
+``test_env_knobs_batch6.py``, ``test_env_knobs_batch7.py``,
+``test_audio_playback.py``, ``test_io.py``, ``test_app_control.py``,
+``test_ui_panes.py``, ``test_m17_tx.py`` and ``test_http_frontend.py``
+is loaded from its file with every name of the JAX package
+(``dsdneo_tpu.``) pointed at the port (``dsdneo_tpu_torch.``) and run
+with its fixtures: the same inputs, and the JAX test's own assertions,
+on ``core/events``, the ingest ring, ``engine/lcn_calc``,
+``runtime/config``, ``engine/trunk``, ``io/auto_ppm``, ``io/rtl_tcp``,
+``runtime/rt_sched``, ``io/sdr_device`` (against the JAX test's
+compiled librtlsdr stub), ``io/auto_gain``, ``io/audio_out``,
+``io/audio_files``, ``io/symbol_capture``, ``io/net``,
+``io/mbe_files``, ``io/serial_control`` (on a pty pair), ``io/rdio``
+(against a local server), ``core/talkgroup``, ``app_control`` with its
+HTTP frontend (on ports the OS picks), ``ui/menu``, ``ui/panes``,
+``ui/terminal``'s views and ``protocol/m17/encoder``.
 The JAX package's own run of the same tests is the rest of Tier-1.
 The tests that need JAX arrays, an absent capture fixture, the JAX CLI,
 a device-less ``LiveEngine`` or a module the port has not taken yet are
@@ -34,37 +40,41 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # file -> the tests left out, each with why (every other test runs)
 LEFT_OUT = {
-    "test_events.py": {
-        # ui/panes is not ported (ROADMAP queue 1, item 5b)
-        "test_history_adapter_enriches_alias_and_gps"},
+    "test_events.py": set(),
     "test_native_ring.py": set(),
     "test_lcn_calc.py": set(),
     "test_env_knobs_batch6.py": {
         # its 50 ms receive timeout races the fake server's thread on a
         # loaded host (the JAX copy fails so too)
         "test_tcp_max_timeouts_gives_up"},
-    "test_env_knobs_batch7.py": {
-        # io/auto_gain is not ported (ROADMAP queue 1, item 6a)
-        "test_autogain_seeds_then_backs_off_on_clipping",
-        "test_autogain_steps_up_on_quiet_clean_signal",
-        "test_autogain_gate_blocks_empty_channel",
-        "test_autogain_retune_hold"},
+    "test_env_knobs_batch7.py": set(),
     "test_audio_playback.py": {
         # holds the upsampler to the JAX resampler on JAX arrays
         "test_streaming_upsampler_matches_one_shot"},
     "test_io.py": {
-        # a /root/reference fixture through the JAX CLI; io/serial_control
-        # and io/rdio are not ported (ROADMAP queue 1, item 6a)
-        "test_cli_group_policy_mutes_blocked_tg", "test_serial_control_pty",
-        "test_rdio_uploader_multipart"},
+        # a capture fixture the repository lacks, through the JAX CLI
+        "test_cli_group_policy_mutes_blocked_tg"},
     "test_app_control.py": {
         # LiveEngine without a device (the port's takes the card; its
-        # command drain is held to the JAX engine in test_torch_live.py),
-        # and ui/menu, not ported (ROADMAP queue 1, item 5b)
+        # command drain is held to the JAX engine in test_torch_live.py)
         "test_live_engine_commands_and_snapshots",
-        "test_live_engine_drains_all_menu_commands",
-        "test_menu_navigation_and_input_dispatch",
-        "test_menu_mode_submenu_lists_all_modes"},
+        "test_live_engine_drains_all_menu_commands"},
+    "test_ui_panes.py": {
+        # a capture fixture the repository lacks, through decode_samples
+        "test_history_from_events_fixture",
+        # LiveEngine without a device (held on the CPU engine in
+        # test_torch_frontends.py)
+        "test_run_live_headless"},
+    "test_m17_tx.py": {
+        # decode_samples without a device (the port's takes the card;
+        # held on the CPU in test_torch_m17_tx.py)
+        "test_m17_modulated_loopback"},
+    "test_env_knobs_batch4.py": {
+        # FleetMonitor without a device (the port's takes the card)
+        "test_fleet_mt_pool"},
+    "test_http_frontend.py": {
+        # a capture fixture the repository lacks, through the CLI
+        "test_fleet_http_console_cli", "test_stream_http_dashboard_cli"},
 }
 
 

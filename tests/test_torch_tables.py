@@ -20,6 +20,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 PORT_MODULES = (
+    "dsdneo_tpu_torch.app_control.http", "dsdneo_tpu_torch.ui.menu",
+    "dsdneo_tpu_torch.ui.terminal", "dsdneo_tpu_torch.ui.panes",
+    "dsdneo_tpu_torch.runtime.wizard", "dsdneo_tpu_torch.io.rdio",
+    "dsdneo_tpu_torch.io.auto_gain", "dsdneo_tpu_torch.io.auto_ppm",
+    "dsdneo_tpu_torch.io.serial_control",
+    "dsdneo_tpu_torch.protocol.m17.encoder",
+    "dsdneo_tpu_torch.vocoder.batch",
     "dsdneo_tpu_torch", "dsdneo_tpu_torch.device", "dsdneo_tpu_torch.params",
     "dsdneo_tpu_torch.kernels", "dsdneo_tpu_torch.dsp.frontend",
     "dsdneo_tpu_torch.ops.fir_discriminate",
