@@ -2,7 +2,9 @@
 """Drive the PyTorch port's paths once on one CUDA card: eight voice paths,
 five control-channel monitors, two event pipelines, the serial decode
 path, the wideband band and the closed-loop trunked fleet, the CLI and
-the live one-tuner path, the CLI's frontends and extras.
+the live one-tuner path, the CLI's frontends and extras, and the
+multi-GPU slice (the sharded steps and the sharded trunked fleet over
+``torch.distributed``).
 
     python3 chip_smoke.py
 
@@ -77,6 +79,11 @@ The paths, each at 320 channels through the entry points a user calls:
     grant with ``engine.trunk.TrunkFollower`` and ``TrunkSM`` (one
     tuner), and fed by ``io.rtl_tcp.RtlTcpClient`` through the ingest
     ring.
+  - the multi-GPU slice: ``parallel.mesh``'s sharded steps (P25, DMR and
+    P25p2 voice, P25 CC) at 320 channels and the sharded trunked fleet
+    ``parallel.trunkfleet.ShardedTrunkedFleet`` of 64 systems in five
+    modes, on a world of one rank under NCCL (the machine has one card)
+    and on two ranks sharing it under gloo; K1, K2, K4, K5.
 
 Phases, in order; any failure exits non-zero:
 
@@ -85,8 +92,10 @@ Phases, in order; any failure exits non-zero:
      built from ``dsdneo_tpu_torch/csrc``, the input blocks of the three
      paths: 320 distinct channels each (own leading offset and noise
      seed; on CQPSK also an own carrier offset within ±300 Hz) built
-     from the test vectors in ``dsdneo_tpu_torch/data``; the AMBE
-     families' leads are 0-96 random dibits; the build log must show
+     from the test vectors in ``dsdneo_tpu_torch/data`` (each family's
+     two blocks over a pool of threads, one chunk of channels a task,
+     bit for bit the blocks of one call; each family's seconds are
+     printed); the AMBE families' leads are 0-96 random dibits; the build log must show
      every instance of K4, K5, K6, K7 and K8 without local memory (no
      stack frame, no spills);
   2. each kernel against its plain PyTorch version on the card, at the
@@ -365,7 +374,44 @@ Phases, in order; any failure exits non-zero:
      host path on the card equal to the CPU's) and ``frontend_sync``'s
      dibits against ``frontend_dispatch``'s.
 
-The last lines of standard output are the card's name and power limit,
+ 12. the multi-GPU slice (``mesh_phase``): ``dryrun_multichip(1)`` (one
+     rank on the card under NCCL in a fresh process, every step of the
+     JAX dryrun's contract with its checks); then a world of one rank
+     under NCCL in this process: the P25 voice (24 candidates a
+     channel), DMR voice (24), P25p2 voice (32) and P25 CC (64) steps on
+     the first blocks of phase 3's and phase 5's paths at 320 channels,
+     judged (every LDU and superframe a block holds whole picked, every
+     whole TSDU's three TSBKs with the vector's payload bytes and a
+     CRC-ok count of three each, every P2 slot stream voiced), channels
+     0-1 against the port's CPU path (picks and blobs equal, PCM within
+     2e-3 of the peak), timed (step ms, realtime multiple, device busy
+     share); ``ShardedTrunkedFleet`` of 64 systems of 768 kHz CU8
+     (``engine.fleetvec.system_band``: each system its own lead and
+     noise; 1 CC and 4 voice rows; 1 s blocks: two of signal and a
+     silent one) in the modes p25p1, dmr, nxdn48, edacs and p25_mixed:
+     every system granted in block 0 (both slots in p25_mixed), its
+     granted row voiced and the parked rows silent in block 1, every
+     call released at 3 s, no drop; p25p1's first 8 systems each equal
+     to ``TrunkedFleet(cc_device_pick=True)`` on its band (offsets
+     after every block, one grant, one release: what the JAX pair
+     agree on, ``tests/test_torch_trunkmesh.py``), the other modes'
+     first 2 systems equal to the port's CPU path (log, offsets, PCM
+     within 2e-3 of the peak); each mode timed (the P25 fleet also
+     profiled); the launch counters set
+     to 0 before the steps and read after the fleets (the kernels
+     line's ``"mesh"``: K1, K2, K4, K5 launched, the others not); K1 at
+     the fleet's CC rows [64, 47999] and voice rows [256, 47999], K2 at
+     [320, 216] and [256, 72], K4 at 61,440 and 768 words, K5 at 512
+     CACs held to their plain versions; then two ranks sharing the card
+     under gloo (fresh processes, the inputs through memory-mapped
+     files): the four steps and the P25 fleet equal to the world of one
+     (picks, valid blobs, masks, fleet metrics, log, offsets, stats;
+     PCM of rank 0's rows within 1e-6 of the peak: the synthesizers'
+     noise phase follows a row's index in its shard), with rank 0's
+     step times.
+
+Each phase prints its start and its time.  The last lines of standard
+output are the card's name and power limit,
 a JSON object describing the kernels, and the contract line
 ``{"ok": true, "device": {...}}``.
 """
@@ -482,6 +528,21 @@ WB_BAD_SHARE = 1e-3
 # JAX contract's 2e-2 holding on its shorter fixture only
 HOST_PCM_REL = 3e-2
 # kernel names in a profile
+# phase 12, the multi-GPU slice: systems of the sharded fleet; the
+# capacity (candidates a channel) of each channel step, enough for every
+# sync a 3 s block holds (P2: about a third of its 72 sync matches);
+# each fleet mode's (max_tsdus, max_ldus) as tests/test_trunkmesh.py
+# sizes them, but p25p1's LDUs (the bench call's other frames outscore
+# its LDUs in four top places of a 1 s block) and p25_mixed's, which
+# holds both slots' grants and every sync match of a 1 s block; the Phase 2 band's WACN, SYSID, NAC; the P25 systems held
+# to the single-device fleet; the systems held to the CPU path
+MESH_S = 64
+MESH_K = {"voice": 24, "dmr_voice": 24, "p2_voice": 32, "p25_cc": 64}
+MESH_FLEET_K = {"p25p1": (4, 8), "dmr": (8, 8), "nxdn48": (8, 12),
+                "edacs": (8, 2), "p25_mixed": (16, 24)}
+MESH_P2 = (0x92065, 0x0D5, 0x293)
+MESH_SINGLE = 8
+MESH_CPU_S = 2
 OURS = ("fir_disc", "imbe_pred", "adpcm_enc", "rs_syndromes", "p25_trellis",
         "conv_k5", "conv_k3", "one_pole")
 
@@ -511,6 +572,27 @@ def k7_mma_table(n: int, nroots: int, fcr: int):
     jj = (s % spb) * 32 + reg * 16 + (lane & 3) * 4 + t
     return np.ascontiguousarray(h[s // spb, jj, i, lane >> 2]
                                 .astype(np.uint8))
+
+
+def par_block(fn, tv, leads, seeds, n_samples: int, **kw):
+    """``fn(tv, leads, seeds, n_samples, **kw)``, a ``[C, n, 2]`` block
+    that ``fn`` builds channel by channel (a ``vector_block``), built over
+    chunks of channels in a pool of threads (numpy's array work releases
+    the GIL) and joined: bit for bit the block of one call."""
+    import numpy as np
+    from concurrent.futures import ThreadPoolExecutor
+    k = os.cpu_count() or 1
+    leads, seeds = np.asarray(leads), np.asarray(seeds)
+    chunks = [ix for ix in np.array_split(np.arange(len(leads)), 2 * k)
+              if len(ix)]
+
+    def part(ix):
+        kw2 = dict(kw)
+        if kw.get("cfo_hz") is not None:
+            kw2["cfo_hz"] = np.asarray(kw["cfo_hz"])[ix]
+        return fn(tv, leads[ix], seeds[ix], n_samples, **kw2)
+    with ThreadPoolExecutor(k) as ex:
+        return np.concatenate(list(ex.map(part, chunks)))
 
 
 def cuda_ms(fn, reps: int, warm: int = 1) -> float:
@@ -2498,7 +2580,501 @@ def extras_phase(ident: str, dev, counted, show, check_k1, c4fm,
     return counts
 
 
-def hold_k2(dev, tables, show, Cx: int, Tn: int) -> None:
+def _sync(dev) -> None:
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh_fleet_spec(mode: str, S: int):
+    """Phase 12's sharded fleet of ``S`` systems in ``mode``: (its
+    keyword arguments without the mesh, [(lead, noise seed)] of every
+    system).  The sizes are those of ``tests/test_trunkmesh.py``."""
+    import numpy as np
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    from dsdneo_tpu_torch.engine.trunk import ChannelMap
+    center, ch, _prefix = FV.SYSTEM_MODES[mode]
+    cc_off, vc_off = FV.system_offsets(FV.vector(), mode)
+    cm = None
+    if ch is not None:
+        cm = ChannelMap()
+        cm.entries[ch] = center + vc_off
+    max_tsdus, max_ldus = MESH_FLEET_K[mode]
+    kw = dict(n_systems=S, fs=FV.MODE_FS, B=int(FV.MODE_FS),
+              cc_offsets_hz=[cc_off] * S, n_voice_rows=4, centers_hz=center,
+              mode=mode, hangtime_s=0.6, grant_grace_s=0.5, chan_map=cm,
+              max_tsdus=max_tsdus, max_ldus=max_ldus,
+              p2_params=MESH_P2 if mode == "p25_mixed" else None)
+    rng = np.random.default_rng(SEED + 12 + list(MESH_FLEET_K).index(mode))
+    systems = [(int(rng.integers(0, 97)), int(rng.integers(1 << 20)))
+               for _ in range(S)]
+    return kw, systems
+
+
+def mesh_blocks(mode: str, systems, dev) -> list:
+    """The 1 s CU8 blocks ``[len(systems), 768000, 2]`` on ``dev`` of
+    ``systems``' bands (``fleetvec.system_band``: own lead and noise),
+    two of signal, then a silent block as float32 zero planes (CU8 has
+    no zero: its midpoint carries a DC offset that an analog row would
+    hear)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    tv = FV.vector()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as ex:
+        bands = list(ex.map(lambda ls: FV.cu8_planes(FV.system_band(
+            tv, mode, ls[0], ls[1], device=dev)), systems))
+    bands = torch.stack(bands)
+    nb = int(FV.MODE_FS)
+    return [bands[:, :nb], bands[:, nb:2 * nb],
+            torch.zeros((len(systems), nb, 2), dtype=torch.float32,
+                        device=dev)]
+
+
+def mesh_steps(mesh, x: dict):
+    """Phase 12's four channel steps at full width over the rank's rows
+    of ``x`` (global ``[C, B, 2]`` arrays or tensors, ``MESH_K`` the
+    capacities): {name: (step, the rank's input)}."""
+    from dsdneo_tpu_torch.parallel import mesh as PM
+    C_all = x["voice"].shape[0]
+    made = {
+        "voice": PM.make_sharded_voice_step(
+            mesh, C_all, x["voice"].shape[1], max_ldus=MESH_K["voice"]),
+        "dmr_voice": PM.make_sharded_dmr_voice_step(
+            mesh, C_all, x["dmr_voice"].shape[1],
+            max_sf=MESH_K["dmr_voice"]),
+        "p2_voice": PM.make_sharded_p2_voice_step(
+            mesh, C_all, x["p2_voice"].shape[1],
+            max_frames=MESH_K["p2_voice"]),
+        "p25_cc": PM.make_sharded_p25_cc_step(
+            mesh, C_all, x["p25_cc"].shape[1], max_tsdus=MESH_K["p25_cc"])}
+    return {k: (st, shard(x[k])) for k, (st, shard) in made.items()}
+
+
+def mesh_run_steps(mesh, steps: dict) -> dict:
+    """Each step once: {name: (its outputs but the fleet metric, gathered
+    in rank order; the fleet metric; the voice picks gathered, or
+    None)}."""
+    from dsdneo_tpu_torch.parallel import dist as pdist
+    out = {}
+    for name, (st, xs) in steps.items():
+        res = st(xs)
+        picks = getattr(getattr(st, "body", None), "picks", None)
+        out[name] = (tuple(pdist.gather_rows(mesh, r) for r in res[:-1]),
+                     res[-1].item(),
+                     None if picks is None else pdist.gather_rows(mesh,
+                                                                  picks))
+    return out
+
+
+def mesh_time(fn, arg, dev, n: int = 3) -> float:
+    """Seconds per call of ``fn(arg)`` after one warm call, each call
+    synchronized."""
+    fn(arg)
+    _sync(dev)
+    t = time.perf_counter()
+    for _ in range(n):
+        fn(arg)
+        _sync(dev)
+    return (time.perf_counter() - t) / n
+
+
+def mesh_fleet_run(mesh, mode: str, blocks, S: int) -> dict:
+    """The sharded fleet of ``S`` systems over ``blocks`` (all systems'
+    rows, or the rank's): PCM and offsets after every step gathered,
+    each step's wall ms, the fleet's gathered view."""
+    from dsdneo_tpu_torch.parallel import dist as pdist
+    from dsdneo_tpu_torch.parallel.trunkfleet import ShardedTrunkedFleet
+    kw, _systems = mesh_fleet_spec(mode, S)
+    f = ShardedTrunkedFleet(mesh, **kw)
+    pcm, offs, ms = [], [], []
+    for b in blocks:
+        _sync(mesh.device)
+        t = time.perf_counter()
+        p = f.step(b)
+        ms.append((time.perf_counter() - t) * 1e3)
+        pcm.append(pdist.gather_rows(mesh, p))
+        offs.append(pdist.gather_rows(mesh, f.offs))
+    return {"fleet": f, "pcm": pcm, "offs": offs, "ms": ms,
+            "view": f.gather()}
+
+
+def mesh_gloo_rank(mesh, paths: dict, S: int) -> dict | None:
+    """One rank of phase 12's gloo run: the four channel steps on the
+    rank's rows of the inputs saved at ``paths`` (memory-mapped), each
+    timed, and the P25 sharded fleet on the rank's systems; rank 0
+    returns the gathered outputs and its times."""
+    import numpy as np
+    x = {k: np.load(p, mmap_mode="r") for k, p in paths.items()}
+    steps = mesh_steps(mesh, x)
+    out = mesh_run_steps(mesh, steps)
+    ms = {k: mesh_time(st, xs, mesh.device, 2) * 1e3
+          for k, (st, xs) in steps.items()}
+    del steps
+    _kw, systems = mesh_fleet_spec("p25p1", S)
+    mine = systems[mesh.rows(S, "system")]
+    fl = mesh_fleet_run(mesh, "p25p1", mesh_blocks("p25p1", mine,
+                                                   mesh.device), S)
+    fl.pop("fleet")
+    return {"steps": out, "ms": ms, "fleet": fl} if mesh.rank == 0 else None
+
+
+def judge_mesh_steps(out: dict, mi: dict) -> str:
+    """The channel steps' outputs against the vectors: every channel's
+    LDUs and DMR superframes picked as the block holds them whole, the
+    valid TSDUs those the block holds whole with the vector's TSBKs and
+    a CRC-ok count of three each, every P2 slot stream voiced."""
+    import numpy as np
+    n_ldu = out["voice"][2].sum(axis=1)
+    if not np.array_equal(n_ldu, mi["want_ldus"]):
+        bad = np.flatnonzero(n_ldu != mi["want_ldus"])
+        raise RuntimeError(f"mesh voice step: LDUs picked on channels "
+                           f"{bad[:8]}: {n_ldu[bad[:8]]}, the vector's "
+                           f"{mi['want_ldus'][bad[:8]]}")
+    n_sf = out["dmr_voice"][2].sum(axis=1)
+    d_n = np.array([len(w[0]) for w in mi["d_want"]])
+    if not np.array_equal(n_sf, d_n):
+        bad = np.flatnonzero(n_sf != d_n)
+        raise RuntimeError(f"mesh DMR step: superframes picked on channels "
+                           f"{bad[:8]}: {n_sf[bad[:8]]}, the vector's "
+                           f"{d_n[bad[:8]]}")
+    ct, mtv, m_leads, m_nsym = mi["cc"]
+    (blob, valid), cc_ok, _ = out["p25_cc"]
+    n_tsdu = 0
+    for c in range(blob.shape[0]):
+        want = [js for _t, (js, whole) in cc_expected(
+            "p25", ct, mtv, int(m_leads[c]), m_nsym).items() if whole]
+        got = blob[c][valid[c]].reshape(-1, 3, 38)
+        if got.shape[0] != len(want):
+            raise RuntimeError(f"mesh CC step: channel {c} took "
+                               f"{got.shape[0]} TSDUs, the block holds "
+                               f"{len(want)} whole")
+        pays = [bytes(mtv["payloads"][j]) for js in want for j in js]
+        # the candidates come best first: the TSBKs compared as multisets
+        if not ((got[:, :, 12] == 1).all() and sorted(
+                map(bytes, got[:, :, :12].reshape(-1, 12))) == sorted(pays)):
+            raise RuntimeError(f"mesh CC step: channel {c}'s TSBKs differ "
+                               "from the vector's")
+        n_tsdu += len(want)
+    if cc_ok != 3 * n_tsdu:
+        raise RuntimeError(f"mesh CC step: fleet CRC-ok count {cc_ok}, "
+                           f"{3 * n_tsdu} TSBKs whole")
+    if not (np.abs(out["p2_voice"][0][0]).max(axis=1) > 1e-3).all():
+        raise RuntimeError("mesh P2 step: silent slot streams")
+    return (f"every channel's LDUs {int(n_ldu.min())}..{int(n_ldu.max())} "
+            f"and DMR superframes {int(n_sf.min())}..{int(n_sf.max())} "
+            f"picked as the vectors hold them whole, {n_tsdu} TSDUs with "
+            f"the vector's TSBKs (CRC-ok count {cc_ok}), all "
+            f"{out['p2_voice'][0][0].shape[0]} P2 slot streams voiced")
+
+
+def judge_mesh_fleet(mode: str, res: dict, S: int) -> None:
+    """A mode's sharded fleet over its three blocks: every system's grant
+    (both slots for ``p25_mixed``) taken in block 0 with its voice row on
+    the granted channel and the others parked, the granted rows voiced
+    in block 1 and the parked rows silent, every call released at 3 s
+    and every row parked, no drop."""
+    import numpy as np
+    from dsdneo_tpu_torch.engine import fleetvec as FV
+    _cc_off, vc_off = FV.system_offsets(FV.vector(), mode)
+    n_calls = 2 if mode == "p25_mixed" else 1
+    st = res["view"].stats
+    o0 = res["offs"][0]
+    e1 = np.abs(res["pcm"][1]).mean(axis=2)          # [S, R_v]
+    bad = {"not granted in block 0": np.flatnonzero(
+               (o0[:, 1] != vc_off) | (o0[:, 2:] != o0[:, :1]).any(1)),
+           "not parked at 3 s": np.flatnonzero(
+               (res["offs"][2] != res["offs"][2][:, :1]).any(1)),
+           "granted rows silent": np.flatnonzero(
+               (e1[:, :n_calls] <= 1e-3).any(1)),
+           "parked rows voiced": np.flatnonzero(
+               (e1[:, n_calls:] != 0).any(1))}
+    bad = {k: v[:8].tolist() for k, v in bad.items() if v.size}
+    if (bad or st.grants != n_calls * S or st.releases != st.grants
+            or st.busy_drops or st.unresolved or st.policy_drops
+            or any(r["state"] not in ("cc", "idle")
+                   for r in res["view"].rows)):
+        raise RuntimeError(f"mesh fleet {mode}: {st}; systems {bad}")
+
+
+def compare_mesh_runs(two: dict, one: dict, p25_one: dict, S: int) -> float:
+    """The gloo run's outputs (``two``) against the world of one's: voice
+    picks, valid blobs, masks and the fleet metrics equal; the PCM of
+    rank 0's rows within 1e-6 of the peak (the synthesizers' noise phase
+    follows a row's index in its shard); the P25 fleet's log, stats and
+    offsets equal and rank 0's systems' PCM within 1e-6 of the peak.
+    Returns the largest PCM difference over its peak."""
+    import numpy as np
+    worst = 0.0
+
+    def close(a, b):
+        nonlocal worst
+        peak = max(float(np.abs(b).max()), 1e-12)
+        d = float(np.abs(a - b).max()) / peak
+        worst = max(worst, d)
+        return d <= 1e-6
+
+    for name, (arrs, metric, picks) in two["steps"].items():
+        a1, m1, p1 = one[name]
+        same = ((picks is None or np.array_equal(picks, p1))
+                and abs(metric - m1) <= 1e-6 * max(abs(m1), 1e-12))
+        if name == "p25_cc":
+            v = a1[1]
+            same = same and np.array_equal(arrs[1], v) and np.array_equal(
+                arrs[0][v], a1[0][v])
+        else:
+            half = arrs[0].shape[0] // 2
+            same = same and close(arrs[0][:half], a1[0][:half])
+        if not same:
+            raise RuntimeError(f"mesh gloo run: {name} differs from the "
+                               "world of one")
+    fl = two["fleet"]
+    half = S // 2
+    if not (fl["view"].log == p25_one["view"].log
+            and fl["view"].stats == p25_one["view"].stats
+            and all(np.array_equal(a, b)
+                    for a, b in zip(fl["offs"], p25_one["offs"]))
+            and all(close(a[:half], b[:half])
+                    for a, b in zip(fl["pcm"], p25_one["pcm"]))):
+        raise RuntimeError("mesh gloo run: the P25 fleet differs from the "
+                           "world of one")
+    return worst
+
+
+def mesh_phase(ident: str, dev, counted, show, check_k1, mi: dict) -> dict:
+    """Phase 12: the multi-GPU slice (``parallel.mesh``,
+    ``parallel.trunkfleet``) on the one card: ``dryrun_multichip(1)``;
+    in this process a world of one rank under NCCL runs the four channel
+    steps at full width and ``ShardedTrunkedFleet`` of ``MESH_S``
+    systems in each mode, judged, held to the port's CPU path (the P25
+    fleet to ``TrunkedFleet(cc_device_pick=True)``), timed; K1, K2, K4
+    and K5 held to their plain versions at the path's shapes; then two
+    ranks sharing the card under gloo, equal to the world of one.
+    Returns the kernels' launches on the path."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.engine.fleettrunk import (TrunkedFleet,
+                                                    make_row_extractor_body)
+    from dsdneo_tpu_torch.parallel import dist as pdist
+    from dsdneo_tpu_torch.parallel import mesh as PM
+    k1fn, k2fn, k3fn, k7fn, k4fn, k5fn, k6fn, k8fn = counted
+    t_phase = time.perf_counter()
+
+    def at() -> str:
+        return f"{time.perf_counter() - t_phase:.1f} s into phase 12"
+
+    # -- the multi-chip dry run on one rank under NCCL ------------------
+    t1 = time.perf_counter()
+    dry = PM.dryrun_multichip(1)[0]
+    log(f"mesh: dryrun_multichip(1) (one rank on cuda:0 under NCCL, a "
+        f"fresh process): every step ran with its shape, finiteness and "
+        f"count checks; fleet power {dry['frontend_power']:.4f}, CC ok "
+        f"{dry['cc_ok']}, PCM shapes {dry['pcm_shapes']}; "
+        f"{time.perf_counter() - t1:.1f} s [{ident}; {at()}]")
+
+    # -- a world of one rank under NCCL in this process ----------------
+    t1 = time.perf_counter()
+    mesh = pdist.init_mesh(0, 1, f"tcp://127.0.0.1:{pdist.free_port()}",
+                           dev)
+    if mesh.backend != "nccl":
+        raise RuntimeError(f"mesh: backend {mesh.backend}, not NCCL")
+    x = {k: mi[k] for k in ("voice", "dmr_voice", "p2_voice", "p25_cc")}
+    Cm = x["voice"].shape[0]
+    blocks = {}
+    for mode in MESH_FLEET_K:
+        _kw, systems = mesh_fleet_spec(mode, MESH_S)
+        blocks[mode] = mesh_blocks(mode, systems, dev)
+    t_bands = time.perf_counter() - t1
+    for fn in counted:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    steps = mesh_steps(mesh, x)
+    out = mesh_run_steps(mesh, steps)
+    fleets = {mode: mesh_fleet_run(mesh, mode, blocks[mode], MESH_S)
+              for mode in MESH_FLEET_K}
+    torch.cuda.synchronize()
+    launches = {"mesh": check_launches(
+        "mesh path (the four channel steps, then the sharded fleet in five "
+        "modes, one rank under NCCL)", counted, (k1fn, k2fn, k4fn, k5fn),
+        (k3fn, k7fn, k6fn, k8fn))}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"mesh path: the steps and the fleets ran once [{at()}]")
+
+    # -- the channel steps: judged, against the CPU on channels 0-1, timed
+    judged = judge_mesh_steps(out, mi)
+    tab = {"voice": params.load("cpu"), "dmr_voice": params.load_dmr("cpu"),
+           "p2_voice": params.load_tdma("p25p2", "cpu"),
+           "p25_cc": params.load_cc("p25", "cpu")}
+    make = {"voice": PM._p25_voice_body, "dmr_voice": PM._dmr_voice_body,
+            "p2_voice": PM._p2_voice_body, "p25_cc": PM._p25_cc_body}
+    for name, (st, xs) in steps.items():
+        t2 = time.perf_counter()
+        body = make[name](2, xs.shape[1], FS, MESH_K[name],
+                          tables=tab[name])
+        ref = [r.numpy() for r in body(xs[:2].cpu())]
+        got = out[name][0]
+        if name == "p25_cc":
+            # an invalid candidate's blob decodes the drop row's gather
+            # (the shard's last channel), so the blobs of the valid ones
+            e = 0.0
+            v = ref[1]
+            ok = (np.array_equal(got[1][:2], v)
+                  and np.array_equal(got[0][:2][v], ref[0][v]))
+        else:
+            rows = ref[0].shape[0]            # P2: two slots a channel
+            e = float(np.abs(got[0][:rows] - ref[0]).max())
+            ok = (np.array_equal(out[name][2][:2], body.picks.numpy())
+                  and e <= 2e-3 * float(np.abs(ref[0]).max()))
+        if not ok:
+            raise RuntimeError(f"mesh {name}: channels 0-1 differ from the "
+                               f"CPU path ({e})")
+        cpu_s = time.perf_counter() - t2
+        sec = mesh_time(st, xs, dev)
+        busy_ms, top = device_busy(lambda: st(xs), 1)
+        block_s = xs.shape[1] / FS
+        log(f"mesh {name} step at [{Cm}, {xs.shape[1]}] ({block_s:.4f} s "
+            f"blocks, K={MESH_K[name]}): {sec * 1e3:.1f} ms = "
+            f"{Cm * block_s / sec:.1f}x realtime; device busy "
+            f"{busy_ms:.2f} ms = {100 * busy_ms / (sec * 1e3):.1f}%; "
+            f"channels 0-1 vs the CPU path ({cpu_s:.1f} s): max abs err "
+            f"{e:.2e} (tol 2e-3 * peak; picks and blobs equal); top: "
+            + ", ".join(f"{k[:32]} {v:.3f}" for k, v in top.items())
+            + f" [{ident}; {at()}]")
+    log(f"mesh channel steps judged: {judged} [{at()}]")
+
+    # -- the sharded fleet in each mode ----------------------------------
+    cpu = pdist.cpu_mesh(mesh)
+    for mode, res in fleets.items():
+        judge_mesh_fleet(mode, res, MESH_S)
+        t2 = time.perf_counter()
+        if mode == "p25p1":
+            # the single-device fleet with the device pick on each of the
+            # first systems: the same offsets after every block, one
+            # grant and one release (tests/test_torch_trunkmesh.py holds
+            # the JAX pair to the same)
+            kw, _s = mesh_fleet_spec(mode, 1)
+            for s in range(MESH_SINGLE):
+                one = TrunkedFleet(kw["fs"], kw["cc_offsets_hz"], 4,
+                                   center_hz=kw["centers_hz"],
+                                   hangtime_s=0.6, grant_grace_s=0.5,
+                                   cc_device_pick=True, device=dev)
+                for i, b in enumerate(blocks[mode]):
+                    one.step(b[s])
+                    if one.offs.tolist() != res["offs"][i][s].tolist():
+                        raise RuntimeError(
+                            f"mesh fleet p25p1: system {s} block {i}: "
+                            f"offsets {res['offs'][i][s].tolist()}, the "
+                            f"single-device fleet's {one.offs.tolist()}")
+                if (one.stats.grants, one.stats.releases) != (1, 1):
+                    raise RuntimeError(f"mesh fleet p25p1: system {s}'s "
+                                       f"single-device fleet {one.stats}")
+            held = (f"systems 0-{MESH_SINGLE - 1} each equal to "
+                    f"TrunkedFleet(cc_device_pick=True) on its band "
+                    f"(offsets after every block, 1 grant, 1 release)")
+        else:
+            # the port's CPU path on the first systems (their rows keep
+            # their local indices, so the AMBE noise phases are the same)
+            ref = mesh_fleet_run(cpu, mode, [b[:MESH_CPU_S].cpu()
+                                             for b in blocks[mode]],
+                                 MESH_CPU_S)
+            lines = [ln for ln in res["view"].log
+                     if int(ln.split(" sys ")[1].split()[0]) < MESH_CPU_S]
+            pe = max(float(np.abs(a[:MESH_CPU_S] - b).max())
+                     / max(float(np.abs(b).max()), 1e-9)
+                     for a, b in zip(res["pcm"], ref["pcm"]))
+            if not (lines == ref["view"].log and all(
+                    np.array_equal(a[:MESH_CPU_S], b)
+                    for a, b in zip(res["offs"], ref["offs"]))
+                    and pe <= 2e-3):
+                raise RuntimeError(f"mesh fleet {mode}: systems 0-"
+                                   f"{MESH_CPU_S - 1} differ from the CPU "
+                                   f"path (PCM {pe:.2e} of the peak)")
+            held = (f"systems 0-{MESH_CPU_S - 1} equal to the port's CPU "
+                    f"path (log, offsets after every block; PCM within "
+                    f"{pe:.2e} of its peak, tol 2e-3)")
+        t_held = time.perf_counter() - t2
+        f, st = res["fleet"], res["view"].stats
+        # the step: the mean of the judged blocks after the first (which
+        # sets up the FFT plans); the P25 fleet also profiled
+        sec = sum(res["ms"][1:]) / len(res["ms"][1:]) / 1e3
+        busy = "not profiled (the P25 fleet is)"
+        if mode == "p25p1":
+            busy_ms, _top = device_busy(lambda: f.step(blocks[mode][1]), 1)
+            busy = (f"device busy {busy_ms:.2f} ms a step "
+                    f"({100 * busy_ms / (sec * 1e3):.1f}%)")
+        log(f"mesh fleet {mode}: {MESH_S} systems of 768 kHz CU8 (own lead "
+            f"and noise), 1 CC and 4 voice rows each, 1 s blocks: "
+            f"{st.grants} grants, {st.releases} releases at 3 s, parked "
+            f"rows silent, no drops; {held} ({t_held:.1f} s); the judged "
+            f"steps " + "/".join(f"{m:.1f}" for m in res["ms"])
+            + f" ms: {sec * 1e3:.1f} ms a step after the first = "
+            f"{MESH_S / sec:.1f}x realtime in systems "
+            f"({16 * MESH_S / sec:.0f}x in 48 kHz bins); {busy} "
+            f"[{ident}; {at()}]")
+    log(f"mesh path: the {MESH_S} bands of 5 modes built in {t_bands:.1f} "
+        f"s; peak device memory {peak / 1e9:.3f} GB ({mem0 / 1e9:.3f} GB "
+        f"allocated before the path) [{ident}; {at()}]")
+
+    # -- K1, K2, K4, K5 at the path's new shapes ------------------------
+    res = fleets["p25p1"]
+    ex = make_row_extractor_body(16)
+    rows = torch.stack([ex(blocks["p25p1"][1][s], torch.as_tensor(
+        res["offs"][0][s], device=dev)) for s in range(MESH_S)])
+    planes = torch.view_as_real(rows)                    # [S, 5, B', 2]
+    taps = mi["tables"].taps
+    check_k1(planes[:, 0].contiguous(), taps,
+             shape=list(planes[:, 0].shape[:2]))
+    check_k1(planes[:, 1:].reshape(-1, *planes.shape[2:]).contiguous(),
+             taps, shape=[MESH_S * 4, planes.shape[2]])
+    hold_k2(dev, mi["tables"], show, Cm, MESH_K["voice"] * 9,
+            "the mesh voice step's steps")
+    hold_k2(dev, mi["tables"], show, MESH_S * 4,
+            MESH_FLEET_K["p25p1"][1] * 9, "the sharded fleet's voice rows")
+    hold_k4(dev, show, 3 * Cm * MESH_K["p25_cc"], "the mesh CC step's TSDUs")
+    hold_k4(dev, show, 3 * MESH_S * MESH_FLEET_K["p25p1"][0],
+            "the sharded fleet's TSDUs")
+    hold_k5(dev, show, params.load_cc("nxdn48", dev),
+            MESH_S * MESH_FLEET_K["nxdn48"][0],
+            "the sharded NXDN fleet's CACs a block")
+    log(f"mesh path: K1, K2, K4, K5 held at its shapes [{at()}]")
+    p25_one = fleets["p25p1"]
+    p25_one.pop("fleet")
+    del rows, planes, steps, fleets, blocks, res
+    pdist.close_mesh(mesh)
+    torch.cuda.empty_cache()
+
+    # -- two ranks sharing the card under gloo --------------------------
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="mesh_")
+    try:
+        paths = {}
+        for k, v in x.items():
+            paths[k] = os.path.join(tmp, f"{k}.npy")
+            np.save(paths[k], v.cpu().numpy())
+        two = pdist.spawn(mesh_gloo_rank, 2, paths, MESH_S,
+                          device=str(dev), backend="gloo")[0]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    worst = compare_mesh_runs(two, out, p25_one, MESH_S)
+    log(f"mesh gloo run (2 ranks sharing {dev}, fresh processes): the four "
+        f"channel steps and the P25 fleet equal to the world of one (picks, "
+        f"valid blobs, masks, fleet metrics, log, offsets, stats; rank 0's "
+        f"PCM rows within {worst:.2e} of the peak, tol 1e-6); rank 0's "
+        f"step ms " + ", ".join(f"{k} {v:.1f}" for k, v in two["ms"].items())
+        + ", the fleet's " + "/".join(f"{m:.1f}" for m in two["fleet"]["ms"])
+        + f"; {time.perf_counter() - t1:.1f} s [{ident}; {at()}]")
+    return launches
+
+
+def hold_k2(dev, tables, show, Cx: int, Tn: int,
+            what: str = "the wideband path's steps") -> None:
     """K2 against its plain version on random grids of ``[Cx, Tn]``."""
     import torch
     from dsdneo_tpu_torch.vocoder import device as vdev
@@ -2523,8 +3099,8 @@ def hold_k2(dev, tables, show, Cx: int, Tn: int) -> None:
     plain_ms = cuda_ms(lambda: vdev.prediction_scan_plain(*args, *consts), 2)
     b_ms, b_by = bound(nbytes(*args, *got),
                        Cx * Tn * 56 * K2_FLOP_PER_HARMONIC)
-    log(f"K2 imbe_pred [{Cx},{Tn}] (the wideband path's steps): max_abs_err "
-        f"{err:.3e} (tol rtol 1e-5, atol 1e-5)")
+    log(f"K2 imbe_pred [{Cx},{Tn}] ({what}): max_abs_err {err:.3e} (tol "
+        f"rtol 1e-5, atol 1e-5)")
     show("imbe_pred", err, k_ms, plain_ms, b_ms, b_by, shape=[Cx, Tn])
 
 
@@ -2548,7 +3124,8 @@ def hold_k4(dev, show, n: int, what: str) -> None:
          form="uint8 bits")
 
 
-def hold_k5(dev, show, cc, n: int) -> None:
+def hold_k5(dev, show, cc, n: int,
+            what: str = "the NXDN fleet's CACs a block") -> None:
     """K5 against its plain version on ``n`` random CAC words with the
     CAC's weight row broadcast (the NXDN fleet's control channel)."""
     import torch
@@ -2562,8 +3139,8 @@ def hold_k5(dev, show, cc, n: int) -> None:
     k_ms = cuda_ms(lambda: fdev.conv_k5_decode_batch(sym, wt), 20)
     plain_ms = cuda_ms(lambda: fdev.conv_k5_decode_plain(sym, wt), 1)
     b_ms, b_by = bound(nbytes(sym, wt[0], got), 0)
-    log(f"K5 conv_k5 [{n},350] (the NXDN fleet's CACs a block): bits equal "
-        f"the plain version's (tol 0)")
+    log(f"K5 conv_k5 [{n},350] ({what}): bits equal the plain version's "
+        f"(tol 0)")
     show("conv_k5", 0.0, k_ms, plain_ms, b_ms, b_by, shape=[n, 350],
          form="broadcast weight row")
 
@@ -2604,12 +3181,25 @@ def main() -> int:
     from dsdneo_tpu_torch.vocoder import device as vdev
 
     t_start = time.perf_counter()
+    marks = []
+
+    def mark(name=None):
+        """Log the previous phase's time and the start of phase ``name``
+        (none at the end)."""
+        now = time.perf_counter() - t_start
+        if marks:
+            log(f"phase {marks[-1][0]} took {now - marks[-1][1]:.1f} s")
+        if name is not None:
+            marks.append((name, now))
+            log(f"phase {name} starts at {now:.1f} s")
+
     dev = device.require_cuda()
     ident = device.card_identity().splitlines()[0]
     log(ident)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device_count {torch.cuda.device_count()}")
     no_reference_modules()
+    mark("1 (the kernels' build and the set-up)")
     # full float32 for every matmul the paths take; the convolution of the
     # CQPSK path (fir_complex) switches cuDNN's TF32 off itself, and its
     # check in phase 2 runs with the process's switch on
@@ -2708,17 +3298,37 @@ def main() -> int:
     rng = np.random.default_rng(SEED)
     leads = rng.integers(30, len(tv["lead"]) + 1, size=C)
     seeds = rng.permutation(1 << 20)[:2 * C]
-    blocks = [torch.as_tensor(encode.vector_block(tv, leads, seeds[i::2], B)
-                              ).to(dev) for i in range(2)]
+    setup_s = {}
+    t_part = [t0]
+
+    def lap(name):
+        now = time.perf_counter()
+        setup_s[name] = setup_s.get(name, 0.0) + now - t_part[0]
+        t_part[0] = now
+
+    lap("tables")
+    blocks = [torch.as_tensor(par_block(encode.vector_block, tv, leads,
+                                        seeds[i::2], B)).to(dev)
+              for i in range(2)]
     want_ldus = np.array([encode.expected_ldus(tv, int(l), n_sym)
                           for l in leads])
     # CQPSK: the same vector, own carrier offset per channel; the
     # differential demodulator gives its first symbol up, so every sync
     # sits one dibit earlier
     cfo = rng.uniform(-CFO_MAX_HZ, CFO_MAX_HZ, size=C)
-    q_blocks = [torch.as_tensor(encode.vector_block(
-        tv, leads, seeds[i::2], B, modulation="cqpsk", cfo_hz=cfo)).to(dev)
-        for i in range(2)]
+    lap("P25")
+    # the pool's blocks are the serial blocks: the first P25 block built
+    # once more in one call, compared and timed
+    serial0 = encode.vector_block(tv, leads, seeds[0::2], B)
+    if not np.array_equal(serial0, blocks[0].cpu().numpy()):
+        raise RuntimeError("set-up: the thread pool's P25 block differs "
+                           "from the serial build")
+    del serial0
+    lap("the P25 block again, serially")
+    q_blocks = [torch.as_tensor(par_block(
+        encode.vector_block, tv, leads, seeds[i::2], B, modulation="cqpsk",
+        cfo_hz=cfo)).to(dev) for i in range(2)]
+    lap("CQPSK")
     q_want_ldus = np.array([encode.expected_ldus(tv, int(l) - 1, n_sym)
                             for l in leads])
     # DMR: the 8-superframe stream, own leading offset per channel
@@ -2729,8 +3339,10 @@ def main() -> int:
     d_n_sym = d_B // 10 - 2
     d_leads = rng.integers(0, DMR_MAX_LEAD + 1, size=C)
     d_seeds = rng.permutation(1 << 20)[:2 * C]
-    d_blocks = [torch.as_tensor(dmr_encode.vector_block(
-        dtv, d_leads, d_seeds[i::2], d_B)).to(dev) for i in range(2)]
+    d_blocks = [torch.as_tensor(par_block(
+        dmr_encode.vector_block, dtv, d_leads, d_seeds[i::2], d_B)).to(dev)
+        for i in range(2)]
+    lap("DMR")
     d_want = [dmr_encode.expected_frames(dtv, int(l), d_n_sym)
               for l in d_leads]
     # X2, P2, NXDN48: the vectors of data/tdma_tables.npz, own lead of
@@ -2738,9 +3350,10 @@ def main() -> int:
     def tdma_blocks(tv, sps, n_samples, modulate, n_ch=C):
         leads = rng.integers(0, TDMA_MAX_LEAD + 1, size=n_ch)
         sd = rng.permutation(1 << 20)[:2 * n_ch]
-        return tv, leads, [torch.as_tensor(dmr_encode.vector_block(
-            tv, leads, sd[i::2], n_samples, sps=sps, modulate=modulate,
-            lead_dibits=tv.get("lead"))).to(dev) for i in range(2)]
+        return tv, leads, [torch.as_tensor(par_block(
+            dmr_encode.vector_block, tv, leads, sd[i::2], n_samples,
+            sps=sps, modulate=modulate, lead_dibits=tv.get("lead"))).to(dev)
+            for i in range(2)]
 
     xtab = params.load_tdma("x2tdma", dev)
     x_B = len(xtab.test_vector()["dibits"]) * 8
@@ -2749,18 +3362,22 @@ def main() -> int:
     x_n_sym = x_B // 8 - 2
     x_want = [dmr_encode.expected_frames(xtv, int(l), x_n_sym)
               for l in x_leads]
+    lap("X2")
     ptab = params.load_tdma("p25p2", dev)
     p_B = len(ptab.test_vector()["dibits"]) * 8
     ptv, p_leads, p_blocks = tdma_blocks(ptab.test_vector(), 8, p_B,
                                          encode.tdma_fm_iq)
+    lap("P2")
     ntab = params.load_tdma("nxdn48", dev)
     n_B = int(FS * BLOCK_S)
     ntv, n_leads, n_blocks = tdma_blocks(ntab.test_vector(), 20, n_B,
                                          nxdn_encode.modulator("nxdn48"))
+    lap("NXDN48")
     adp = {k[4:]: v for k, v in ptab.test_vector().items()
            if k.startswith("adp_")}
     a_B = len(adp["dibits"]) * 8
     _atv, _a_leads, a_blocks = tdma_blocks(adp, 8, a_B, encode.tdma_fm_iq)
+    lap("ADP")
     # the control-channel monitors: the vectors of data/cc_tables.npz,
     # 3 s blocks, own lead of 0-96 dibits (a suffix of the vector's
     # filler, which scores no false sync) and own noise per channel
@@ -2773,6 +3390,7 @@ def main() -> int:
         mtv, m_leads, m_blocks = tdma_blocks(ct.test_vector(), sps, B,
                                              modulate)
         mon[kind] = (ct, mtv, m_leads, m_blocks, B // sps - 2)
+        lap(f"{kind} CC")
     # the event pipelines: the bursty streams of data/event_tables.npz,
     # 3 s blocks, own lead of 0-96 dibits of dead air and own noise per
     # channel
@@ -2785,6 +3403,7 @@ def main() -> int:
         etv, e_leads, e_blocks = tdma_blocks(et.test_vector(), 10, B,
                                              modulate)
         ev[kind] = (et, etv, e_leads, e_blocks, B // 10 - 2)
+        lap(kind)
     # the paths of data/burst_tables.npz: YSF and dPMR (bursty voice, a
     # lead of dead air) and the continuous EDACS control channel (the
     # lead is a frame's tail); every fourth channel (c % 4 == 3) of dPMR
@@ -2803,6 +3422,13 @@ def main() -> int:
             for xb in b_blocks:
                 xb[inv_rows, :, 1] *= -1.0
         burst[kind] = (bt, btv, b_leads, b_blocks, B // sps - 2)
+        lap(kind)
+    # phase 12's inputs: the first blocks of four of the paths above
+    mesh_in = {"voice": blocks[0], "want_ldus": want_ldus,
+               "dmr_voice": d_blocks[0], "d_want": d_want,
+               "p2_voice": p_blocks[0], "p25_cc": mon["p25"][3][0],
+               "cc": (mon["p25"][0], mon["p25"][1], mon["p25"][2],
+                      mon["p25"][4]), "tables": tables}
     log(f"set-up {time.perf_counter() - t0:.1f} s: C={C}; P25 B={B} "
         f"({BLOCK_S} s) n_sym={n_sym}, LDUs per channel "
         f"{want_ldus.min()}..{want_ldus.max()} (CQPSK "
@@ -2823,9 +3449,16 @@ def main() -> int:
         f"({int(burst['ysf'][1]['voice'].sum())} voice), dPMR "
         f"{len(burst['dpmr'][1]['starts'])} parts, EDACS "
         f"{len(burst['edacs'][1]['starts'])} frames")
+    log("set-up parts (s; each family's two blocks built over "
+        f"{os.cpu_count()} threads): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in setup_s.items())
+        + f"; the first P25 block serially "
+        f"{setup_s['the P25 block again, serially']:.1f} s against "
+        f"{setup_s['P25'] / 2:.1f} s a block over the pool, bit for bit "
+        f"the same")
 
     # -- 2. kernels against their plain versions ---------------------------
-    log(f"phase 2 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("2")
     report = {}
     clk = sm_clock_mhz()
 
@@ -3149,7 +3782,7 @@ def main() -> int:
             log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 3. the paths at C=320 ----------------------------------------------
-    log(f"phase 3 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("3")
     counted = (k1mod.fir_discriminate, vdev.prediction_scan,
                audio_wire.adpcm_compress, fdev.rs_syndromes_batch,
                fdev.p25_12_decode_batch, fdev.conv_k5_decode_batch,
@@ -3697,7 +4330,7 @@ def main() -> int:
     del n_blocks
 
     # -- 4. ADP: the encrypted P2 stream with its key, at C channels ------
-    log(f"phase 4 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("4")
     n_sf, _seed, _alg, kid, key, _mi = (int(v) for v in adp["params"])
     keys = KeyRing()
     keys.scalar[kid] = key
@@ -3928,7 +4561,7 @@ def main() -> int:
             log(f"SASS {os.path.basename(so)} {stem}: {line}")
 
     # -- 5. the control-channel monitors at C=320 ------------------------
-    log(f"phase 5 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("5")
     from dsdneo_tpu_torch.engine import ccbatch
     from dsdneo_tpu_torch.fec import conv, trellis
 
@@ -4429,7 +5062,7 @@ def main() -> int:
     del pipe, mon
 
     # -- 5b. the P25 Phase 2 TDMA control channel at C=320 -----------------
-    log(f"phase 5b starts at {time.perf_counter() - t_start:.1f} s")
+    mark("5b")
     # the JAX bench's stream (bench.py:604): 6 superframes of scrambled
     # SACCH MAC PDUs (IDEN_UP TDMA, the TG 101 grant, NET_STS), 2.1767 s;
     # own lead of 0-96 dibits of filler and own noise per channel, from a
@@ -4601,7 +5234,7 @@ def main() -> int:
     del pipe, cpu_pipe, pc_blocks
 
     # -- 6. the event pipelines at C=320 -----------------------------------
-    log(f"phase 6 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("6")
     from dsdneo_tpu_torch.engine import demod
     from dsdneo_tpu_torch.engine.dstarbatch import BatchedDstarPipeline
     from dsdneo_tpu_torch.engine.m17batch import (GOLAY_ERR_MAX,
@@ -4913,7 +5546,7 @@ def main() -> int:
     del pipe, ev
 
     # -- 7. YSF, dPMR and the EDACS monitor at C=320 -----------------------
-    log(f"phase 7 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("7")
     from dsdneo_tpu_torch.engine.ccbatch import BatchedEdacsControlPipeline
     from dsdneo_tpu_torch.engine.dpmrbatch import BatchedDpmrVoicePipeline
     from dsdneo_tpu_torch.engine.ysfbatch import (VOTE_ERR_MAX,
@@ -5059,30 +5692,38 @@ def main() -> int:
     del pipe, ev, burst
 
     # -- 8. the serial decode path (decode_samples) -------------------------
-    log(f"phase 8 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("8")
     launches["serial"] = serial_phase(ident, dev, blocks[0], counted)
     c4fm = blocks[0]                      # kept for phase 11
     del blocks
 
     # -- 9. the wideband band and the closed-loop trunked fleet -------------
-    log(f"phase 9 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("9")
     torch.cuda.empty_cache()
     launches.update(fleet_phase(ident, dev, counted, show, check_k1,
                                 check_k3, three_tones, tables))
 
     # -- 10. the CLI and the live one-tuner path ------------------------------
-    log(f"phase 10 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("10")
     torch.cuda.empty_cache()
     launches.update(cli_phase(ident, dev, counted))
     no_reference_modules()
 
     # -- 11. the CLI's frontends and extras, the batched host leftovers ----
-    log(f"phase 11 starts at {time.perf_counter() - t_start:.1f} s")
+    mark("11")
     torch.cuda.empty_cache()
     launches.update(extras_phase(ident, dev, counted, show, check_k1, c4fm,
                                  tables))
     del c4fm
     no_reference_modules()
+
+    # -- 12. the multi-GPU slice: parallel.mesh, parallel.trunkfleet -------
+    mark("12")
+    torch.cuda.empty_cache()
+    launches.update(mesh_phase(ident, dev, counted, show, check_k1, mesh_in))
+    del mesh_in
+    no_reference_modules()
+    mark()
 
     log(f"whole run {time.perf_counter() - t_start:.1f} s, the build and "
         "the set-up included")

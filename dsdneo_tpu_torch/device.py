@@ -13,12 +13,17 @@ import numpy as np
 import torch
 
 
-def require_cuda() -> torch.device:
-    """The first CUDA device; raises when PyTorch sees no card."""
+def require_cuda(index: int = 0) -> torch.device:
+    """CUDA device ``index`` (the first by default: a rank of the sharded
+    steps asks for its own); raises when PyTorch sees no card, or fewer
+    than ``index + 1``."""
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: torch.cuda.is_available() is "
                            "False (this path runs on the card only)")
-    return torch.device("cuda", 0)
+    n = torch.cuda.device_count()
+    if not 0 <= index < n:
+        raise RuntimeError(f"no CUDA device {index}: PyTorch sees {n}")
+    return torch.device("cuda", index)
 
 
 def card_identity() -> str:

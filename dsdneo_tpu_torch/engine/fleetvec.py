@@ -192,6 +192,70 @@ BANDS = {"dmr": dmr_band, "nxdn48": nxdn_band, "edacs": edacs_band,
          "p2": p2_band}
 
 
+# the sharded fleet's mode → (band centre, the granted channel number or
+# None (the iden table resolves it), the fleet_tables prefix)
+SYSTEM_MODES = {"p25p1": (BENCH_CENTER, None, "bench"),
+                "dmr": (460_000_000.0, 24, "dmr"),
+                "nxdn48": (451_000_000.0, 0x0A5, "nxdn"),
+                "edacs": (860_000_000.0, 7, "edacs"),
+                "p25_mixed": (851_000_000.0, None, "p2")}
+
+
+def system_offsets(tv: dict[str, np.ndarray], mode: str) -> tuple[int, int]:
+    """(CC offset, granted voice offset) of a mode's band, in Hz."""
+    if mode == "p25p1":
+        return BENCH_CC_OFF, BENCH_VC_OFF
+    cc, vc = tv[f"{SYSTEM_MODES[mode][2]}_offs"]
+    return int(cc), int(vc)
+
+
+def system_band(tv: dict[str, np.ndarray], mode: str, lead: int, seed: int,
+                device="cpu") -> torch.Tensor:
+    """One system's 2 s band at 768 kHz for the sharded fleet: the band
+    of ``mode`` (``bench_band``, ``dmr_band``, ``nxdn_band``,
+    ``edacs_band``, ``p2_band``) with ``lead`` random dibits before both
+    carriers' streams (the tone of EDACS delayed by as many symbols) and
+    white noise of seeds ``seed`` and ``seed + 1``."""
+    rng = np.random.default_rng(seed)
+    pre = lambda d: np.concatenate(  # noqa: E731
+        [rng.integers(0, 4, lead).astype(np.uint8), d])
+    n = int(MODE_SECONDS * MODE_FS)
+    cc_off, vc_off = system_offsets(tv, mode)
+    if mode == "p25p1":
+        cc = np.resize(tv["bench_cc_dibits"], int(MODE_SECONDS * 4800))
+        parts = [(p25_encode.c4fm_iq(pre(cc), 10, FS48, 1800.0, SNR_DB,
+                                     seed), cc_off),
+                 (p25_encode.c4fm_iq(pre(tv["bench_vc_dibits"]), 10, FS48,
+                                     1800.0, SNR_DB, seed + 1), vc_off)]
+    elif mode == "dmr":
+        parts = [(p25_encode.c4fm_iq(pre(tv["dmr_cc_dibits"]), 10, FS48,
+                                     1800.0, SNR_DB, seed), cc_off),
+                 (p25_encode.c4fm_iq(pre(tv["dmr_vc_dibits"]), 10, FS48,
+                                     1800.0, SNR_DB, seed + 1), vc_off)]
+    elif mode == "nxdn48":
+        mod = nxdn_encode.modulator("nxdn48")
+        parts = [(_noisy(mod(pre(tv["nxdn_cc_dibits"]), 20), seed), cc_off),
+                 (_noisy(mod(pre(tv["nxdn_vc_dibits"]), 20), seed + 1),
+                  vc_off)]
+    elif mode == "edacs":
+        n48 = int(MODE_SECONDS * FS48)
+        t = np.arange(n48) / FS48
+        tone = np.exp(1j * 2 * np.pi * 2500.0 * np.cumsum(
+            np.sin(2 * np.pi * EDACS_TONE_HZ * t)) / FS48)
+        tone[:lead * 5] = 0
+        parts = [(_noisy(edacs_encode.fm_iq(pre(tv["edacs_cc_dibits"])),
+                         seed), cc_off),
+                 (_noisy(tone, seed + 1), vc_off)]
+    elif mode == "p25_mixed":
+        parts = [(p25_encode.c4fm_iq(pre(tv["p2_cc_dibits"]), 10, FS48,
+                                     1800.0, SNR_DB, seed), cc_off),
+                 (_noisy(p25_encode.tdma_fm_iq(pre(tv["p2_vc_dibits"]), 8),
+                         seed + 1), vc_off)]
+    else:
+        raise ValueError(f"no system band for mode {mode!r}")
+    return place(parts, MODE_FS, n, device)
+
+
 def extractor_gain(fs: float, offs, device="cpu") -> np.ndarray:
     """The row extractor's gain at each offset, in dB against a tone at a
     bank bin's centre: a 0.1 s tone at the offset, extracted on its row.

@@ -83,7 +83,10 @@ PORT_MODULES = (
     "dsdneo_tpu_torch.dsp.channelizer", "dsdneo_tpu_torch.engine.fleettrunk",
     "dsdneo_tpu_torch.engine.fleetvec", "dsdneo_tpu_torch.engine.wideband",
     "dsdneo_tpu_torch.engine.fleet", "dsdneo_tpu_torch.engine.analogbatch",
-    "dsdneo_tpu_torch.parallel.mesh", "dsdneo_tpu_torch.ui.panes",
+    "dsdneo_tpu_torch.parallel.mesh", "dsdneo_tpu_torch.parallel",
+    "dsdneo_tpu_torch.parallel.dist", "dsdneo_tpu_torch.parallel.trunkfleet",
+    "dsdneo_tpu_torch.parallel.__main__",
+    "dsdneo_tpu_torch.ui.panes",
     "dsdneo_tpu_torch.engine.decoder", "dsdneo_tpu_torch.engine.serialvec",
     "dsdneo_tpu_torch.fec.bptc", "dsdneo_tpu_torch.fec.trellis34",
     "dsdneo_tpu_torch.protocol.dmr", "dsdneo_tpu_torch.protocol.dmr.bs",
