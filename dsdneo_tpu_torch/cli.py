@@ -1640,10 +1640,13 @@ def main(argv: list[str] | None = None) -> int:
         return 0
 
     from dsdneo_tpu_torch.engine.decoder import decode_capture
+    from dsdneo_tpu_torch.runtime import trace
     perf = None
     if perf_csv:
         from dsdneo_tpu_torch.runtime.log import PerfProbe
         perf = PerfProbe(perf_csv, interval_s=cfg.perf_interval_ms / 1e3)
+    # the decode's spans fill the probe's time columns
+    trace.attach(perf)
     try:
         import time as _time
         if args.stream > 0:
@@ -1684,11 +1687,10 @@ def main(argv: list[str] | None = None) -> int:
             for _rep in range(max(args.iq_loop, 1)):
                 for i in range(0, len(samples), chunk):
                     t0 = _time.perf_counter()
-                    evs = sd.push(samples[i:i + chunk])
+                    with trace.span("live.decode", i // chunk):
+                        evs = sd.push(samples[i:i + chunk])
                     if perf is not None:
-                        perf.add(decode_ms=(_time.perf_counter() - t0) * 1e3,
-                                 channels=1,
-                                 symbols=int(chunk / sd._sps))
+                        perf.add(channels=1, symbols=int(chunk / sd._sps))
                     if httpf is not None:
                         n_blk += 1
                         for e in evs:
@@ -1721,22 +1723,22 @@ def main(argv: list[str] | None = None) -> int:
                 httpf.stop()
             ctx = sd.ctx
         else:
-            t0 = _time.perf_counter()
-            ctx = decode_capture(args.iq_replay, args.mode,
-                                 sync_threshold=args.sync_threshold,
-                                 verbose=args.verbose, cqpsk=args.cqpsk,
-                                 p2_params=p2, call_recorder=recorder,
-                                 keyring=keyring, mbe_sink=mbe_sink,
-                                 m17_udp=m17_udp,
-                                 state_attrs=_state_attrs(args, tg_policy,
-                                                          chan_map),
-                                 device=device)
+            with trace.span("live.decode"):
+                ctx = decode_capture(
+                    args.iq_replay, args.mode,
+                    sync_threshold=args.sync_threshold,
+                    verbose=args.verbose, cqpsk=args.cqpsk, p2_params=p2,
+                    call_recorder=recorder, keyring=keyring,
+                    mbe_sink=mbe_sink, m17_udp=m17_udp,
+                    state_attrs=_state_attrs(args, tg_policy, chan_map),
+                    device=device)
             if perf is not None:
-                perf.add(decode_ms=(_time.perf_counter() - t0) * 1e3,
-                         channels=1, symbols=0)
+                perf.add(channels=1, symbols=0)
     except (OSError, ValueError) as e:
         print(f"dsd-neo-tpu: cannot replay {args.iq_replay}: {e}", file=sys.stderr)
         return 1
+    finally:
+        trace.detach(perf)
     if args.frontend == "terminal":
         from dsdneo_tpu_torch.ui.panes import history_from_events
         from dsdneo_tpu_torch.ui.terminal import UiModel, run

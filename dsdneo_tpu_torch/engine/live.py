@@ -19,11 +19,11 @@ attached, and reset the stream decoder's carry.
 from __future__ import annotations
 
 import threading
-import time
 
 import numpy as np
 
 from dsdneo_tpu_torch.engine.stream import StreamDecoder
+from dsdneo_tpu_torch.runtime import trace
 
 
 class LiveEngine:
@@ -105,7 +105,8 @@ class LiveEngine:
         # frames not classified as infrastructure-originated
         self.afc_status_gate = False
         # --perf-csv on the LIVE path (reference DSD_NEO_RTL_PERF_CSV,
-        # rtl_perf.cpp counters): per-block decode time + ring drops
+        # rtl_perf.cpp counters): per-block ingest and decode time +
+        # ring drops
         self.perf = perf
         self._perf_drops = 0
         self._stop = False
@@ -215,7 +216,16 @@ class LiveEngine:
 
     # -- consumer loop (the reference's demod thread) -----------------------
     def run(self, max_blocks: int | None = None) -> int:
-        """Drain the ring blockwise until stopped; returns blocks decoded."""
+        """Drain the ring blockwise until stopped; returns blocks decoded.
+        With ``perf``, the loop's spans ``live.ingest`` (the ring read)
+        and ``live.decode`` (the decoder's push) fill its time columns."""
+        trace.attach(self.perf)
+        try:
+            return self._drain(max_blocks)
+        finally:
+            trace.detach(self.perf)
+
+    def _drain(self, max_blocks: int | None) -> int:
         # env-gated SCHED_FIFO + CPU affinity (reference rt_sched.cpp);
         # degrades gracefully without privileges
         from dsdneo_tpu_torch.runtime.rt_sched import apply_rt_policy
@@ -226,9 +236,10 @@ class LiveEngine:
             if self._stop:
                 break
             rot = self.fs4_rot if self.fs4_shift else 0
-            planes = self.ring.read_block_cu8(
-                self.block, rotate=(rot if self.combine_rot else 0),
-                timeout_ms=300)
+            with trace.span("live.ingest", n):
+                planes = self.ring.read_block_cu8(
+                    self.block, rotate=(rot if self.combine_rot else 0),
+                    timeout_ms=300)
             if planes is None:
                 # a just-applied purge also yields None; only stop when
                 # the ring is actually drained (bounded-run mode)
@@ -321,12 +332,11 @@ class LiveEngine:
                 # DSD_NEO_TUNER_AUTOGAIN: closed-loop tuner gain from
                 # the block statistics (clip back-off / quiet step-up)
                 self.auto_gain.update(samples, squelch_open=not squelched)
-            t_dec = time.perf_counter()
-            events = [] if squelched else self.decoder.push(samples)
+            with trace.span("live.decode", n):
+                events = [] if squelched else self.decoder.push(samples)
             if self.perf is not None:
                 drops_now = self.ring.drops
                 self.perf.add(
-                    decode_ms=(time.perf_counter() - t_dec) * 1e3,
                     channels=1, symbols=len(samples) / (self.fs / 4800),
                     drops=drops_now - self._perf_drops)
                 self._perf_drops = drops_now

@@ -46,6 +46,7 @@ from dsdneo_tpu_torch.dsp.cqpsk import demod_cqpsk
 from dsdneo_tpu_torch.engine.batched import frontend_step, slice_four_level
 from dsdneo_tpu_torch.ops.audio_wire import wire_expand
 from dsdneo_tpu_torch.params import MAX_L, TILE_BYTES
+from dsdneo_tpu_torch.runtime import trace
 from dsdneo_tpu_torch.fec.device import imbe_ecc_batch
 from dsdneo_tpu_torch.symbols import framesync
 from dsdneo_tpu_torch.vocoder.batch import (BatchedImbeDecoder,
@@ -150,6 +151,7 @@ class BatchedP25VoicePipeline:
         self._dev_rep_state = None
         self.last_frames = None
         self.last_steps = None
+        self.blocks = 0
         # the host path's prediction state (decode_block_host)
         self.imbe_dec = BatchedImbeDecoder(C)
         self._defs = [d for d in framesync.SYNC_DEFS
@@ -192,25 +194,33 @@ class BatchedP25VoicePipeline:
 
     def frontend_dispatch(self, iq):
         """Queue the front end, sync filter and NID decode of one block:
-        returns the device handle (dibits, idx, vq, dq, msg, n_sym)."""
-        x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
-        B = x.shape[1]
-        n_sym = int(B // self.sps) - 2
-        t = self.tables
-        dibits, soft, _power = self._front(x, n_sym)
-        sc = correlate_syncs_device(soft, t.sync_levels)       # [C, P, T']
-        best_def = torch.argmax(sc, dim=1).to(torch.uint8)
-        bs = torch.amax(sc, dim=1)
-        k_cand = min(self.SYNC_TOPK, n_sym - t.sync_len + 1)
-        vals, idx = torch.sort(bs, dim=1, descending=True, stable=True)
-        vals, idx = vals[:, :k_cand], idx[:, :k_cand]
-        vq = torch.clamp(vals * 127.0, 0, 255).to(torch.uint8)
-        dq = torch.gather(best_def, 1, idx)
-        k_nid = min(self.NID_TOPK, k_cand)
-        C = dibits.shape[0]
-        rows = torch.arange(C, device=self.device)[:, None].expand(C, k_nid)
-        msg = self._nid_msgs(dibits, rows.reshape(-1),
-                             idx[:, :k_nid].reshape(-1)).reshape(C, k_nid)
+        returns the device handle (dibits, idx, vq, dq, msg, n_sym).
+        Numbers the block for the tracer's spans (``blocks``)."""
+        blk = self.blocks
+        self.blocks += 1
+        trace.count("p25.blocks", 1, blk)
+        with trace.span("p25.h2d", blk):
+            x = torch.as_tensor(iq, dtype=torch.float32, device=self.device)
+        with trace.span("p25.frontend_enqueue", blk):
+            B = x.shape[1]
+            n_sym = int(B // self.sps) - 2
+            t = self.tables
+            dibits, soft, _power = self._front(x, n_sym)
+            sc = correlate_syncs_device(soft, t.sync_levels)   # [C, P, T']
+            best_def = torch.argmax(sc, dim=1).to(torch.uint8)
+            bs = torch.amax(sc, dim=1)
+            k_cand = min(self.SYNC_TOPK, n_sym - t.sync_len + 1)
+            vals, idx = torch.sort(bs, dim=1, descending=True, stable=True)
+            vals, idx = vals[:, :k_cand], idx[:, :k_cand]
+            vq = torch.clamp(vals * 127.0, 0, 255).to(torch.uint8)
+            dq = torch.gather(best_def, 1, idx)
+            k_nid = min(self.NID_TOPK, k_cand)
+            C = dibits.shape[0]
+            rows = torch.arange(C, device=self.device)[:, None].expand(
+                C, k_nid)
+            msg = self._nid_msgs(dibits, rows.reshape(-1),
+                                 idx[:, :k_nid].reshape(-1)).reshape(C, k_nid)
+        trace.tag(dibits, blk)
         return dibits, idx, vq, dq, msg, n_sym
 
     def frontend_finish(self, fe, cofetch=None):
@@ -220,10 +230,11 @@ class BatchedP25VoicePipeline:
         copied to the host with the candidates; then returns (that tuple,
         them as numpy), as the JAX package's ``device_get`` does."""
         dibits, idx, vq, dq, msg, n_sym = fe
-        out = (dibits, idx.cpu().numpy().astype(np.int64),
-               vq.cpu().numpy(), dq.cpu().numpy(),
-               msg.cpu().numpy().astype(np.int32), n_sym)
-        return out if cofetch is None else (out, to_host(cofetch))
+        with trace.span("p25.candidates_d2h", trace.block_of(dibits)):
+            out = (dibits, idx.cpu().numpy().astype(np.int64),
+                   vq.cpu().numpy(), dq.cpu().numpy(),
+                   msg.cpu().numpy().astype(np.int32), n_sym)
+            return out if cofetch is None else (out, to_host(cofetch))
 
     def frontend_sync_device(self, iq):
         """Front end, sync filter and NID decode with the candidates on
@@ -481,8 +492,23 @@ class BatchedP25VoicePipeline:
         decode; keeps the prediction, synthesis and repeat carries on the
         card for the next block."""
         dibits_dev, idx, vq, dq, msg, n_sym = fe6
-        ac, at, fch, forder = self.pick_ldus(idx, vq, dq, msg, n_sym,
-                                             dibits_dev=dibits_dev)
+        blk = trace.block_of(dibits_dev)
+        with trace.span("p25.pick", blk):
+            ac, at, fch, forder = self.pick_ldus(idx, vq, dq, msg, n_sym,
+                                                 dibits_dev=dibits_dev)
+        with trace.span("p25.decode_enqueue", blk):
+            pcm = self._decode_enqueue(dibits_dev, ac, at, fch, forder)
+        if pcm is not None:
+            trace.count("p25.frames", len(fch), blk)
+            trace.count("p25.synth_slots", self.C * self.last_steps, blk)
+            trace.tag(pcm, blk)
+        return pcm
+
+    def _decode_enqueue(self, dibits_dev, ac, at, fch, forder):
+        """Dispatch the voice decode of the accepted LDUs (channel ``ac``,
+        sync position ``at``; frame channel ``fch``, frame step
+        ``forder``) and hand the carries on; returns the wire on the card,
+        None where no LDU was accepted."""
         L = ac.shape[0]
         if L == 0:
             self.last_frames = None
@@ -531,10 +557,13 @@ class BatchedP25VoicePipeline:
         """Copy a ``decode_block_async`` result (or the host copy a
         ``cofetch`` made of it) to the host and expand it to ``[C, N]``
         float32 PCM."""
-        wire = to_host(handle)
+        blk = trace.block_of(handle)
+        with trace.span("p25.pcm_d2h", blk):
+            wire = to_host(handle)
         if wire is None or wire.size == 0:
             return np.zeros((self.C, 0), dtype=np.float32)
-        return wire_expand(wire, self.pcm_fmt, self.C)
+        with trace.span("p25.pcm_expand", blk):
+            return wire_expand(wire, self.pcm_fmt, self.C)
 
     def voice_state(self):
         """The (prediction, synthesis, repeat) carries; None before the

@@ -26,6 +26,7 @@ from dsdneo_tpu_torch.dsp.channelizer import (channel_frequencies, channelize,
 from dsdneo_tpu_torch.engine.decoder import decode_samples
 from dsdneo_tpu_torch.engine.fleettrunk import halfband_taps
 from dsdneo_tpu_torch.protocol import base as proto_base
+from dsdneo_tpu_torch.runtime import trace
 
 CHANNEL_RATE = 48000.0
 
@@ -52,29 +53,33 @@ def _n_channels(fs: float, n_ch: int | None) -> int:
     return n_ch
 
 
-def _complex_on(samples, dev) -> torch.Tensor:
+def _complex_on(samples, dev, block: int | None = None) -> torch.Tensor:
     """A wideband block (``[B]`` complex or ``[B, 2]`` float32 planes, a
-    host array or a tensor) as a complex64 tensor on ``dev``."""
-    x = samples
-    if isinstance(x, np.ndarray):
-        if np.iscomplexobj(x):
-            # complex host blocks travel as float32 planes
-            x = np.stack([x.real, x.imag], axis=-1).astype(np.float32)
-        x = torch.from_numpy(np.ascontiguousarray(x))
-    x = x.to(dev)
-    if not x.is_complex():
-        x = torch.complex(x[..., 0].contiguous(), x[..., 1].contiguous())
-    return x.to(torch.complex64)
+    host array or a tensor) as a complex64 tensor on ``dev``; the
+    tracer's span ``band.h2d`` of ``block``."""
+    with trace.span("band.h2d", block):
+        x = samples
+        if isinstance(x, np.ndarray):
+            if np.iscomplexobj(x):
+                # complex host blocks travel as float32 planes
+                x = np.stack([x.real, x.imag], axis=-1).astype(np.float32)
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        x = x.to(dev)
+        if not x.is_complex():
+            x = torch.complex(x[..., 0].contiguous(),
+                              x[..., 1].contiguous())
+        return x.to(torch.complex64)
 
 
 def channelize_band_device(samples, fs: float, n_ch: int | None = None,
-                           *, device=None):
+                           *, device=None, block: int | None = None):
     """The band's ``[n_ch, B']`` 48 kHz basebands as a complex64 tensor on
     the device (for the batched pipelines to take in place), and the
-    channel centre offsets in Hz."""
+    channel centre offsets in Hz.  ``block``: the number the band's
+    block carries in the tracer's spans."""
     n_ch = _n_channels(fs, n_ch)
     dev = require_cuda() if device is None else device
-    x = _complex_on(samples, dev)
+    x = _complex_on(samples, dev, block)
     ch2 = channelize_os2(x, n_ch, taps_per_branch=12)
     hb = torch.as_tensor(halfband_taps(), device=x.device)
     return (frontend.decimate2_halfband(ch2, hb).contiguous(),
@@ -138,9 +143,12 @@ def decode_wideband_voice_batched(samples, fs: float,
     Returns (PCM ``[n_ch, T]`` float32, channel offsets in Hz)."""
     from dsdneo_tpu_torch.engine.voicebatch import BatchedP25VoicePipeline
     dev = require_cuda() if device is None else device
-    ch, freqs = channelize_band_device(samples, fs, n_ch, device=dev)
+    n_ch = _n_channels(fs, n_ch)
     if pipe is None:
-        pipe = BatchedP25VoicePipeline(int(ch.shape[0]), fs=CHANNEL_RATE,
+        pipe = BatchedP25VoicePipeline(n_ch, fs=CHANNEL_RATE,
                                        sync_threshold=sync_threshold,
                                        pcm_fmt=pcm_fmt, device=dev)
+    # the band serves the block the pipeline numbers next
+    ch, freqs = channelize_band_device(samples, fs, n_ch, device=dev,
+                                       block=pipe.blocks)
     return pipe.decode_block(torch.view_as_real(ch)), freqs

@@ -62,7 +62,11 @@ def error(msg, *a):
 @dataclass
 class PerfProbe:
     """Per-step timing accumulator flushed to CSV on an interval —
-    the host-loop equivalent of the reference's RtlPerfCounters."""
+    the host-loop equivalent of the reference's RtlPerfCounters.  Its
+    time columns total the tracer's spans (``runtime.trace``) while it
+    is attached there (:data:`SPAN_COLUMNS`); ``add`` closes a step."""
+
+    SPAN_COLUMNS = {"live.ingest": "ingest_ms", "live.decode": "decode_ms"}
 
     path: str
     interval_s: float = 1.0
@@ -97,6 +101,12 @@ class PerfProbe:
             self._f.flush()
             self._last_flush = now
             self.reset()
+
+    def on_span(self, name: str, block, t0_ns: int, t1_ns: int) -> None:
+        """A closed span of the tracer, added to the column it feeds."""
+        col = self.SPAN_COLUMNS.get(name)
+        if col is not None:
+            self._acc[col] = self._acc.get(col, 0.0) + (t1_ns - t0_ns) / 1e6
 
     def flush_now(self) -> None:
         """Write the accumulated row regardless of the interval (end of

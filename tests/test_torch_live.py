@@ -327,11 +327,11 @@ def test_live_engine_knobs_against_jax(knobs):
 def test_live_engine_perf_probe_against_jax(tmp_path):
     """``--perf-csv`` on the live path: one CSV row a block (interval 0),
     the block, channel, symbol and ring-drop columns equal (the times
-    are the host's own)."""
+    are the host's own); the port's ring reads fill ``ingest_ms``."""
     from dsdneo_tpu.runtime import log as JLOG
     from dsdneo_tpu_torch.runtime import log as PLOG
     call = LV.cu8(SV.p25_iq(SV.vector(), 2 * 4800))
-    rows = {}
+    rows, ingest = {}, {}
     for name, L, LOG in (("jax", JL, JLOG), ("port", PL, PLOG)):
         path = str(tmp_path / f"{name}.csv")
         probe = LOG.PerfProbe(path, interval_s=0.0)
@@ -346,8 +346,10 @@ def test_live_engine_perf_probe_against_jax(tmp_path):
         keep = [head.index(k) for k in ("steps", "channels", "symbols",
                                         "drops")]
         rows[name] = (head, [[r[i] for i in keep] for r in lines[1:]])
+        ingest[name] = [float(r[head.index("ingest_ms")]) for r in lines[1:]]
     assert rows["port"] == rows["jax"]
     assert len(rows["port"][1]) == 8
+    assert all(v > 0 for v in ingest["port"]), ingest["port"]
 
 
 def test_live_engine_commands_against_jax():
