@@ -7,10 +7,14 @@ it never falls back to the CPU.
 
 from __future__ import annotations
 
+import functools
 import subprocess
 
-import numpy as np
 import torch
+
+# tensors to numpy arrays as ``jax.device_get`` fetches; a tensor whose
+# copy to the host was queued waits for that copy alone
+from dsdneo_tpu_torch.runtime.handoff import to_host  # noqa: F401
 
 
 def require_cuda(index: int = 0) -> torch.device:
@@ -36,12 +40,9 @@ def card_identity() -> str:
     return out.stdout.strip()
 
 
-def to_host(x):
-    """Tensors to numpy arrays, as ``jax.device_get`` fetches: a tensor
-    (on any device) becomes an array, a tuple or list of them a tuple of
-    arrays; arrays and None pass through."""
-    if x is None or isinstance(x, np.ndarray):
-        return x
-    if isinstance(x, (tuple, list)):
-        return tuple(to_host(v) for v in x)
-    return x.cpu().numpy()
+@functools.lru_cache(maxsize=None)
+def f32_scalar(value: float, device) -> torch.Tensor:
+    """``value`` as a float32 0-d tensor on ``device``, made once per
+    device: a tensor made from a Python number each call is a blocking
+    copy to the card.  Shared; never write to it."""
+    return torch.tensor(value, dtype=torch.float32, device=device)

@@ -39,6 +39,15 @@ def prototype_taps(n_ch: int, taps_per_branch: int = 8,
     return out * n_ch
 
 
+@lru_cache(maxsize=16)
+def _branch_taps(n_ch: int, taps_per_branch: int, cutoff: float,
+                 device) -> torch.Tensor:
+    """The prototype's taps as ``[P, n_ch]`` branch rows on ``device``,
+    made once per device."""
+    h = prototype_taps(n_ch, taps_per_branch, cutoff)
+    return torch.as_tensor(h.reshape(taps_per_branch, n_ch), device=device)
+
+
 def _branch_fir(plane: torch.Tensor, hp: torch.Tensor, m: int
                 ) -> torch.Tensor:
     """``y[t, i] = Σ_p hp[p, i] · plane[t − p, i]`` over ``[..., m, N]``
@@ -56,11 +65,9 @@ def channelize(x: torch.Tensor, n_ch: int, taps_per_branch: int = 8,
     """Complex ``[..., B]`` → complex64 ``[..., n_ch, B // n_ch]``: the
     critically sampled DFT bank, channel k centred at k·fs/n_ch (past
     n_ch/2 wrapping to negative frequencies)."""
-    h = prototype_taps(n_ch, taps_per_branch, cutoff)
-    P = taps_per_branch
     m = x.shape[-1] // n_ch
     xp = x[..., :m * n_ch].reshape(*x.shape[:-1], m, n_ch)
-    hp = torch.as_tensor(h.reshape(P, n_ch), device=x.device)
+    hp = _branch_taps(n_ch, taps_per_branch, cutoff, x.device)
     y = torch.complex(_branch_fir(xp.real, hp, m),
                       _branch_fir(xp.imag, hp, m))
     ch = torch.fft.fft(y, dim=-1)                      # [..., m, n_ch]

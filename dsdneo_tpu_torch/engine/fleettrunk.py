@@ -42,6 +42,7 @@ from dsdneo_tpu_torch.device import require_cuda, to_host
 from dsdneo_tpu_torch.dsp import firdes
 from dsdneo_tpu_torch.dsp.channelizer import channelize_os2
 from dsdneo_tpu_torch.dsp.frontend import decimate2_halfband
+from dsdneo_tpu_torch.runtime import handoff
 from dsdneo_tpu_torch.symbols.timing import cos_sin
 from dsdneo_tpu_torch.vocoder.synth import fma_f32
 
@@ -307,7 +308,6 @@ class TrunkedFleet:
         self.stats = FleetStats()
         self.log: list[str] = []
         self._next_block = None        # the prefetched block
-        self._copy_stream = None
         self._pipe_pending = None
         self.cc_device_pick = bool(cc_device_pick and mode == "p25p1"
                                    and not cqpsk)
@@ -512,13 +512,7 @@ class TrunkedFleet:
         if self.device.type != "cuda":
             return _Staged(host.to(self.device))
         host = host.pin_memory()
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            t = host.to(self.device, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self._copy_stream)
-        return _Staged(t, ev, host)
+        return _Staged(*handoff.copy_in(host, self.device), host)
 
     def _take(self, wide) -> torch.Tensor:
         """The block a step decodes, on the device: ``wide``, or the

@@ -15,6 +15,7 @@ card unless given ``device="cpu"``.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -26,7 +27,7 @@ from dsdneo_tpu_torch.dsp.channelizer import (channel_frequencies, channelize,
 from dsdneo_tpu_torch.engine.decoder import decode_samples
 from dsdneo_tpu_torch.engine.fleettrunk import halfband_taps
 from dsdneo_tpu_torch.protocol import base as proto_base
-from dsdneo_tpu_torch.runtime import trace
+from dsdneo_tpu_torch.runtime import handoff, trace
 
 CHANNEL_RATE = 48000.0
 
@@ -55,8 +56,9 @@ def _n_channels(fs: float, n_ch: int | None) -> int:
 
 def _complex_on(samples, dev, block: int | None = None) -> torch.Tensor:
     """A wideband block (``[B]`` complex or ``[B, 2]`` float32 planes, a
-    host array or a tensor) as a complex64 tensor on ``dev``; the
-    tracer's span ``band.h2d`` of ``block``."""
+    host array or a tensor) as a complex64 tensor on ``dev``, a pinned
+    block copied without blocking the host (``runtime.handoff.to_card``);
+    the tracer's span ``band.h2d`` of ``block``."""
     with trace.span("band.h2d", block):
         x = samples
         if isinstance(x, np.ndarray):
@@ -64,7 +66,7 @@ def _complex_on(samples, dev, block: int | None = None) -> torch.Tensor:
                 # complex host blocks travel as float32 planes
                 x = np.stack([x.real, x.imag], axis=-1).astype(np.float32)
             x = torch.from_numpy(np.ascontiguousarray(x))
-        x = x.to(dev)
+        x, _ = handoff.to_card(x, dev)
         if not x.is_complex():
             x = torch.complex(x[..., 0].contiguous(),
                               x[..., 1].contiguous())
@@ -81,9 +83,15 @@ def channelize_band_device(samples, fs: float, n_ch: int | None = None,
     dev = require_cuda() if device is None else device
     x = _complex_on(samples, dev, block)
     ch2 = channelize_os2(x, n_ch, taps_per_branch=12)
-    hb = torch.as_tensor(halfband_taps(), device=x.device)
-    return (frontend.decimate2_halfband(ch2, hb).contiguous(),
+    return (frontend.decimate2_halfband(ch2, _halfband(x.device))
+            .contiguous(),
             channel_frequencies(n_ch, fs))
+
+
+@lru_cache(maxsize=None)
+def _halfband(device) -> torch.Tensor:
+    """The halfband's taps on ``device``, made once per device."""
+    return torch.as_tensor(halfband_taps(), device=device)
 
 
 def channelize_band(samples, fs: float, n_ch: int | None = None,

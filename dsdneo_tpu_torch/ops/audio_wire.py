@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import kernels, params
+from dsdneo_tpu_torch.device import f32_scalar
 
 PCM_SCALE = 0.02        # synth output → wire full scale (vocoder.device)
 
@@ -117,8 +118,8 @@ def mulaw_compress(p: torch.Tensor) -> torch.Tensor:
     # the JAX package's division by log1p(255), compiled as a product
     # with the f32 reciprocal
     inv = np.float32(1.0) / np.float32(np.log1p(255.0))
-    y = torch.sign(p) * torch.log1p(255.0 * p.abs()) * torch.tensor(
-        inv, device=p.device)
+    y = torch.sign(p) * torch.log1p(255.0 * p.abs()) * f32_scalar(
+        float(inv), p.device)
     return torch.clamp((y + 1.0) * 127.5 + 0.5, 0, 255).to(torch.uint8)
 
 

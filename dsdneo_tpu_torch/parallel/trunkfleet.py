@@ -29,6 +29,7 @@ from dsdneo_tpu_torch.engine.fleettrunk import (CHANNEL_RATE, FleetStats,
                                                 VoiceCall, _Staged)
 from dsdneo_tpu_torch.parallel import dist as pdist
 from dsdneo_tpu_torch.parallel.mesh import make_sharded_trunk_step
+from dsdneo_tpu_torch.runtime import handoff
 
 
 @dataclass
@@ -145,7 +146,6 @@ class ShardedTrunkedFleet:
         self.log: list[str] = []
         self.sys_log: list[list[str]] = [[] for _ in range(self.Sl)]
         self._next_block = None        # the prefetched block
-        self._copy_stream = None
 
     def _say(self, s: int, text: str) -> None:
         """A log line of the rank's system ``s`` (global index in the
@@ -411,13 +411,7 @@ class ShardedTrunkedFleet:
         if self.device.type != "cuda":
             return _Staged(host.to(self.device))
         host = host.pin_memory()
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            t = host.to(self.device, non_blocking=True)
-            ev = torch.cuda.Event()
-            ev.record(self._copy_stream)
-        return _Staged(t, ev, host)
+        return _Staged(*handoff.copy_in(host, self.device), host)
 
     def _take(self, wide) -> torch.Tensor:
         if wide is None:

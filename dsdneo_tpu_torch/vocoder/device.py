@@ -19,6 +19,7 @@ CPU tensor it runs :func:`prediction_scan_plain`, a loop over steps.
 from __future__ import annotations
 
 import math
+from functools import lru_cache
 from typing import NamedTuple
 
 import torch
@@ -37,10 +38,19 @@ TONE_FREQ_STEP_HZ = 31.25
 TONE_AMP_STEP = 75.0
 
 
+@lru_cache(maxsize=None)
 def _weights(n: int, device) -> torch.Tensor:
-    """MSB-first bit weights ``[2^(n-1), ..., 1]`` as int64."""
+    """MSB-first bit weights ``[2^(n-1), ..., 1]`` as int64, made once
+    per device (shared: never write to it)."""
     return torch.tensor([1 << (n - 1 - i) for i in range(n)],
                         dtype=torch.int64, device=device)
+
+
+@lru_cache(maxsize=None)
+def _first_harmonic(device) -> torch.Tensor:
+    """``[56]`` float32, 1.0 at the first harmonic and 0.0 elsewhere,
+    made once per device (shared: never write to it)."""
+    return (torch.arange(MAX_L, device=device) == 0).to(torch.float32)
 
 
 def _headers(S: torch.Tensor, tables):
@@ -346,8 +356,7 @@ def _decode_from_frames(frames144, fch, forder, prev_logm, prev_L,
     tones = scat(tone_f)
     w0_ts = scat(w0_t * tone_f)
     amp_ts = scat(amp_t * tone_f)
-    e0 = torch.zeros((1, 1, MAX_L), dtype=torch.float32, device=dev)
-    e0[0, 0, 0] = 1.0
+    e0 = _first_harmonic(dev)
     ton = tones[:, :, None] > 0
     w0o = torch.where(tones > 0, w0_ts, w0o)
     voiced = torch.where(ton, e0, voiced)
@@ -468,8 +477,7 @@ def ambe_params_gated(bits49: torch.Tensor, errs: torch.Tensor, tables,
     for frames over the threshold, which the repeat gate then covers."""
     w0, _L, voiced, amps = ambe_decode_params(bits49, tables)
     is_tone, w0_t, amp_t = ambe_tone_params(bits49)
-    e0 = torch.zeros((1, MAX_L), dtype=torch.float32, device=bits49.device)
-    e0[0, 0] = 1.0
+    e0 = _first_harmonic(bits49.device)
     ton = is_tone[:, None]
     w0 = torch.where(is_tone, w0_t, w0)
     voiced = torch.where(ton, e0, voiced)

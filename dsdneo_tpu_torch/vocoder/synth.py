@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from dsdneo_tpu_torch import params
-from dsdneo_tpu_torch.device import require_cuda
+from dsdneo_tpu_torch.device import f32_scalar, require_cuda
 from dsdneo_tpu_torch.dsp.frontend import floor_mod
 from dsdneo_tpu_torch.params import MAX_L, TILE_BYTES
 
@@ -113,8 +113,7 @@ def _phase(w0, theta_in, w_in):
     # θ(n) = θ0 + Σ_{m<=n} ω(m), ω(m) = ω_prev + (ω - ω_prev)(m+1)/N
     # XLA compiles a division by a constant as a product with its
     # reciprocal; the port takes the same product
-    alpha = (n_idx + 1.0) * torch.tensor(1.0 / N, dtype=torch.float32,
-                                         device=dev)           # [N]
+    alpha = (n_idx + 1.0) * f32_scalar(1.0 / N, dev)          # [N]
     w_t = fma_f32((w0 - w_prev)[..., None], alpha,
                   w_prev[..., None])                           # [C,F,N]
     cum = blocked_cumsum(w_t)
@@ -158,7 +157,7 @@ def _synth_chunk(theta, alpha, w0, amps, voiced, noise_phase, w_in, a_in,
     # unvoiced bands: banded noise on the fixed 50 Hz grid
     L = amps.shape[-1]
     w0_safe = torch.clamp(w0, min=1e-3)[..., None]            # [c,F,1]
-    wbin = torch.tensor(2.0 * math.pi / N, dtype=torch.float32, device=dev)
+    wbin = f32_scalar(2.0 * math.pi / N, dev)
     l_raw = torch.floor(tables.synth_bin_w / w0_safe + 0.5).to(torch.int64)
     in_band = (l_raw >= 1) & (l_raw <= L)
     li = torch.clamp(l_raw, 1, L) - 1                         # [c,F,K]

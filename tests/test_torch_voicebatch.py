@@ -225,3 +225,153 @@ def test_nid_second_chance_decode_matches(tables, blocks):
     got = tp.nid_decode_positions(td, ch, pos)
     np.testing.assert_array_equal(got, want.astype(np.int64))
     assert set(int(m) & 0xF for m in got[:8]) == {5, 10}
+
+
+# -- stream-ordered hand-offs ------------------------------------------------
+HAND_LEADS = (30, 77, 5, 140)
+HAND_B = 72000
+
+
+def _hand_blocks(tv):
+    from dsdneo_tpu_torch.protocol.p25 import encode
+    return [encode.vector_block(tv, HAND_LEADS, (11 + k, 12 + k, 13 + k,
+                                                 14 + k), HAND_B)
+            for k in range(0, 40, 10)]
+
+
+def _pipelined(pipe, blocks):
+    """``portbench/entries/p25_pipelined.py``'s order: block N+1
+    dispatched before block N's candidates are fetched, block N−1's PCM
+    fetched after block N's decode is queued.  Returns each block's PCM,
+    a copy of each block's decoded frames (taken on the device) and the
+    first block's ``frontend_finish`` result with a copy of its arrays."""
+    pcm, frames = [], []
+    fe = pipe.frontend_dispatch(blocks[0])
+    prev = held = None
+    for i in range(len(blocks)):
+        nxt = (pipe.frontend_dispatch(blocks[i + 1])
+               if i + 1 < len(blocks) else None)
+        f = pipe.frontend_finish(fe)
+        if held is None:
+            held = (f, [np.array(a) for a in f[1:5]])
+        h = pipe.decode_from_frontend(f)
+        lf = pipe.last_frames
+        frames.append((lf[0].clone(), lf[1].clone(), lf[2], lf[3]))
+        if prev is not None:
+            pcm.append(pipe.fetch_pcm(prev))
+        prev, fe = h, nxt
+    pcm.append(pipe.fetch_pcm(prev))
+    return pcm, frames, held
+
+
+def _same_as_sequential(make, blocks, pcm, frames, held):
+    """Bit for bit what sequential ``decode_block`` calls give: the PCM,
+    every block's frames, the carries after the last block; and the held
+    candidates unchanged by the blocks after them."""
+    seq = make()
+    for k, b in enumerate(blocks):
+        np.testing.assert_array_equal(pcm[k], seq.decode_block(b))
+        lf = seq.last_frames
+        assert torch.equal(frames[k][0].cpu(), lf[0].cpu())
+        assert torch.equal(frames[k][1].cpu(), lf[1].cpu())
+        np.testing.assert_array_equal(frames[k][2], lf[2])
+        np.testing.assert_array_equal(frames[k][3], lf[3])
+    return seq
+
+
+def _carries_equal(a, b):
+    for pa, pb in zip(a.voice_state(), b.voice_state()):
+        for ta, tb in zip(pa, pb):
+            assert torch.equal(ta.cpu(), tb.cpu())
+
+
+def test_pipelined_order_matches_sequential_on_cpu(tables):
+    """On the CPU device the benchmark's pipelined order gives the PCM,
+    frames and carries of sequential ``decode_block`` calls; every hand-off
+    of a pageable numpy block takes the blocking path (the block in, the
+    candidates and the PCM out: 3 a block), and each result handed to the
+    host (2 a block) counts as waited for; a held ``frontend_finish``
+    result stays as it was."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsdneo_tpu_torch.engine.voicebatch import \
+        BatchedP25VoicePipeline as TP
+    from dsdneo_tpu_torch.runtime import trace
+    blocks = _hand_blocks(tables.test_vector())
+
+    def make():
+        return TP(4, pcm_fmt="f16", device="cpu", tables=tables)
+
+    pipe = make()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pcm, frames, held = _pipelined(pipe, blocks)
+    s = trace.last_session()
+    assert s.total("p25.blocking_handoffs") == 3 * len(blocks)
+    assert s.total("p25.handoffs") == s.total("p25.handoff_waited") \
+        == 2 * len(blocks)
+    assert s.total("p25.nid_roundtrips") == 0
+    seq = _same_as_sequential(make, blocks, pcm, frames, held)
+    _carries_equal(pipe, seq)
+    for a, b in zip(held[0][1:5], held[1]):
+        np.testing.assert_array_equal(a, b)
+    assert held[0][1].dtype == np.int64 and held[0][4].dtype == np.int32
+
+
+@pytest.mark.cuda
+def test_handoffs_on_the_card_do_not_synchronize():
+    """On the card, with a pinned block: ``frontend_dispatch`` and, for a
+    pick whose hits all fall in the top ``NID_TOPK``,
+    ``decode_from_frontend`` make no synchronizing call
+    (``torch.cuda.set_sync_debug_mode("error")``).  Four pinned blocks in
+    the benchmark's pipelined order give the PCM, frames and carries of
+    sequential ``decode_block`` calls bit for bit, take every hand-off the
+    stream-ordered way (candidates and PCM: 2 a block) and none the
+    blocking way, and leave a held ``frontend_finish`` result as it
+    was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from torch.profiler import ProfilerActivity, profile
+
+    from dsdneo_tpu_torch import params
+    from dsdneo_tpu_torch.engine.voicebatch import \
+        BatchedP25VoicePipeline as TP
+    from dsdneo_tpu_torch.runtime import trace
+    dev = torch.device("cuda", 0)
+    card = params.load(dev)
+    blocks = [torch.from_numpy(b).pin_memory()
+              for b in _hand_blocks(card.test_vector())]
+
+    def make():
+        return TP(4, pcm_fmt="adpcm", device=dev, tables=card)
+
+    make().decode_block(blocks[0])        # builds the kernels, constants
+    torch.cuda.synchronize()
+    pipe = make()
+    roundtrips = []
+    nid = pipe.nid_decode_positions
+    pipe.nid_decode_positions = lambda d, ch, pos: (
+        roundtrips.append(len(ch)), nid(d, ch, pos))[1]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fe = pipe.frontend_dispatch(blocks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    f = pipe.frontend_finish(fe)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = pipe.decode_from_frontend(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert roundtrips == []
+    assert pipe.fetch_pcm(h).shape[1] > 0
+
+    pipe = make()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pcm, frames, held = _pipelined(pipe, blocks)
+    s = trace.last_session()
+    assert s.total("p25.blocking_handoffs") == 0
+    assert s.total("p25.handoffs") == 2 * len(blocks)
+    seq = _same_as_sequential(make, blocks, pcm, frames, held)
+    _carries_equal(pipe, seq)
+    for a, b in zip(held[0][1:5], held[1]):
+        np.testing.assert_array_equal(a, b)
