@@ -7,4 +7,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.ms_a_block("p25.candidates_d2h")
+    return spans.ms_a_block("p25.candidates_d2h", blocks="p25.blocks")

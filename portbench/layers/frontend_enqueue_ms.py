@@ -7,4 +7,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.ms_a_block("p25.frontend_enqueue")
+    return spans.ms_a_block("p25.frontend_enqueue", blocks="p25.blocks")

@@ -8,4 +8,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.ms_a_block("p25.h2d", "band.h2d")
+    return spans.ms_a_block("p25.h2d", "band.h2d", blocks="p25.blocks")

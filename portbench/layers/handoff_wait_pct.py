@@ -10,4 +10,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.pct("p25.handoff_waited", "p25.handoffs")
+    return spans.pct("p25.handoff_waited", "p25.handoffs", blocks="p25.blocks")

@@ -6,4 +6,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.ms_a_block("p25.pcm_expand")
+    return spans.ms_a_block("p25.pcm_expand", blocks="p25.blocks")

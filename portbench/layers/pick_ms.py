@@ -7,4 +7,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.ms_a_block("p25.pick")
+    return spans.ms_a_block("p25.pick", blocks="p25.blocks")

@@ -7,4 +7,4 @@ from portbench import spans
 
 
 def read(ctx):
-    return spans.pct("p25.frames", "p25.synth_slots")
+    return spans.pct("p25.frames", "p25.synth_slots", blocks="p25.blocks")

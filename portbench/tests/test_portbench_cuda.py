@@ -1,5 +1,7 @@
 """Each cell for a few seconds on the card, as the benchmark runs it
-(``pytest portbench/tests -m cuda`` on a machine with one)."""
+(``pytest portbench/tests -m cuda`` on a machine with one): correct, the
+device's busy time read, and every kernel roofline that applies to the
+cell read within (0, 100]."""
 
 import json
 import subprocess
@@ -10,7 +12,8 @@ import torch
 
 from portbench import harness
 
-CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
+SPEC = harness.load_spec()
+CELLS = [w["name"] for w in SPEC["workloads"]]
 
 
 @pytest.mark.cuda
@@ -26,5 +29,11 @@ def test_cell_runs_on_the_card(cell):
     r = json.loads(p.stdout.strip().splitlines()[-1])
     assert r["correct"], r["checks"]
     assert r["device"]["platform"] == "gpu" and r["device"]["busy_s"] > 0
-    assert "fir_disc_roofline_pct" in r["metrics"]
-    assert 0 < r["metrics"]["fir_disc_roofline_pct"]["value"] <= 100
+    got = r["metrics"]
+    assert "device_busy_ms" in got
+    roof = [m["name"] for m in harness.resolve(SPEC, cell).per_layer
+            if "_roofline" in m["name"]]
+    assert roof, "no kernel roofline applies to the cell"
+    for name in roof:
+        assert name in got, name
+        assert 0 < got[name]["value"] <= 100, (name, got[name])

@@ -14,6 +14,8 @@ from portbench import guard, harness
 SPEC = harness.load_spec()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
+# the references that compute the P25 judge's numbers
+P25_REFERENCES = ("p25_pipelined", "wideband_batched")
 
 
 def test_every_name_resolves_to_its_files():
@@ -26,13 +28,18 @@ def test_every_name_resolves_to_its_files():
             harness.PKG, "traffic", f"{cell['traffic']}.json"))
         assert w.end_to_end and w.per_layer
         assert {m["name"] for m in w.end_to_end} >= {"setup_s"}
+        # the CPU tests' size of the cell
+        assert isinstance(w.cfg["small"], dict)
+        assert isinstance(w.mix["small"], dict)
     for c in SPEC["configs"]:
         assert c["file"] == f"portbench/configs/{c['name']}.json"
         with open(os.path.join(harness.ROOT, c["file"])) as f:
             cfg = json.load(f)
         assert cfg["name"] == c["name"] and cfg["source"] == c["source"]
-        assert set(cfg["limits"]) >= {"frames_diff", "pcm_rms_rel",
-                                      "carry_rel"}
+        assert cfg["limits"] and all(v >= 0 for v in cfg["limits"].values())
+        if cfg["reference"] in P25_REFERENCES:
+            assert set(cfg["limits"]) >= {"frames_diff", "pcm_rms_rel",
+                                          "carry_rel"}
     for m in SPEC["per_layer"]:
         assert callable(harness.reader(m["name"]))
     for m in SPEC["end_to_end"]:
@@ -46,7 +53,8 @@ def test_the_harness_names_no_configuration_kernel_or_stage():
     words = re.compile(r"p25|c4fm|wideband|band_|fir_disc|adpcm|imbe|"
                        r"frontend|pick|pcm|ldu|channeliz", re.I)
     for f in ("harness.py", "run.py", "trace.py", "stats.py", "compare.py",
-              "guard.py", "roofline.py", "control.py", "hostinfo.py"):
+              "guard.py", "roofline.py", "control.py", "hostinfo.py",
+              "spans.py"):
         with open(os.path.join(harness.PKG, f)) as fh:
             code = "\n".join(ln for ln in fh.read().splitlines()
                              if not ln.lstrip().startswith("#"))
@@ -91,7 +99,8 @@ def test_import_guard_compares_whole_top_level_names():
 
 def _run(cwd, env=None):
     return subprocess.run(
-        [sys.executable, "-m", "portbench.run", "--workload", "p25.keyed",
+        [sys.executable, "-m", "portbench.run", "--workload",
+         SPEC["workloads"][0]["name"],
          "--seed", "5", "--seconds", "1", "--trace", "0"], cwd=cwd,
         capture_output=True, text=True, timeout=300,
         env=dict(os.environ, **(env or {})))
