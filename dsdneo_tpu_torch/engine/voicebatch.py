@@ -75,14 +75,15 @@ def correlate_syncs_device(soft: torch.Tensor, levels: torch.Tensor
     return acc * f32_scalar(1.0 / (9.0 * n), soft.device)
 
 
-def _count_handoffs(took: handoff.Took, block: int | None) -> None:
-    """The pipeline's counters of one fetch from the card: results handed
-    over (``p25.handoffs``), those the host waited for
-    (``p25.handoff_waited``), blocking copies
-    (``p25.blocking_handoffs``)."""
-    trace.count("p25.handoffs", took.handoffs, block)
-    trace.count("p25.handoff_waited", took.waited, block)
-    trace.count("p25.blocking_handoffs", took.blocking, block)
+def _count_handoffs(took: handoff.Took, block: int | None,
+                    prefix: str = "p25") -> None:
+    """A pipeline's counters of one fetch from the card: results handed
+    over (``<prefix>.handoffs``), those the host waited for
+    (``<prefix>.handoff_waited``), blocking copies
+    (``<prefix>.blocking_handoffs``)."""
+    trace.count(f"{prefix}.handoffs", took.handoffs, block)
+    trace.count(f"{prefix}.handoff_waited", took.waited, block)
+    trace.count(f"{prefix}.blocking_handoffs", took.blocking, block)
 
 
 # -- P25p1 LDU layout -------------------------------------------------------

@@ -29,6 +29,7 @@ class BatchedX2VoicePipeline(BatchedDmrVoicePipeline):
 
     SYNC_NAMES = ("+X2-TDMA BS voice", "+X2-TDMA MS voice")
     SYNC_TOPK = 128
+    TRACE_PREFIX = "x2"
 
     def __init__(self, C: int, fs: float = 48000.0,
                  sync_threshold: float = 0.62, pcm_fmt: str = "f16", *,

@@ -15,20 +15,31 @@ encoders are bit-exact, so a byte can part only where that PCM rounds to
 another level; at least 99.9% (µ-law) and 99% (ADPCM) of the bytes are
 equal and the expanded PCM stays within one companding step (5% of the
 value + 1e-3) and an eighth of the peak.
+
+The hand-offs and the tracer need no JAX: the pipelined order against
+sequential calls, the spans and counters (``dmr.*``, and ``x2.*`` for
+X2-TDMA), and on the card (``-m cuda``) a pinned block's dispatch and
+decode under ``torch.cuda.set_sync_debug_mode("error")``.
 """
 
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
-jnp = pytest.importorskip("jax.numpy")     # the card's machine has none
-
-from dsdneo_tpu.engine import dmrbatch as jdmr
-from dsdneo_tpu.fec import device as jfec
+try:
+    from dsdneo_tpu.engine import dmrbatch as jdmr
+    from dsdneo_tpu.fec import device as jfec
+except ImportError:         # the card's machine has no JAX
+    jdmr = jfec = None
 from dsdneo_tpu_torch import params
 from dsdneo_tpu_torch.engine import dmrbatch as tdmr
 from dsdneo_tpu_torch.protocol.dmr import encode
+from dsdneo_tpu_torch.runtime import trace
 
+needs_jax = pytest.mark.skipif(jdmr is None, reason="needs the JAX package "
+                               "(the reference), absent on the card's "
+                               "machine")
 C = 2
 B = 54000                   # 1.125 s: 3 superframes on each slot
 LEADS = ((7, 40), (0, 25))  # per block, per channel
@@ -70,6 +81,7 @@ def fronts(tables, blocks):
             tp, tp.frontend_sync_device(blocks[0]))
 
 
+@needs_jax
 def test_sf_frame_offsets_and_modulator(tables):
     np.testing.assert_array_equal(tdmr._sf_frame_offsets(),
                                   jdmr._sf_frame_offsets())
@@ -79,6 +91,7 @@ def test_sf_frame_offsets_and_modulator(tables):
     np.testing.assert_array_equal(encode.dmr_fm_iq(dib), iq)
 
 
+@needs_jax
 def test_dmr_frontend_candidates_identical(fronts):
     """Every one of the 128 candidates per channel: position, quantized
     score, pattern and EMB error count.  The scores are float32 sums
@@ -94,6 +107,7 @@ def test_dmr_frontend_candidates_identical(fronts):
     assert tfe[1].dtype == np.int64 and tfe[4].dtype == np.uint8
 
 
+@needs_jax
 def test_dmr_pick_superframes_identical(fronts, tables):
     jp, jfe, tp, tfe = fronts
     jpick = jp.pick_superframes(*jfe[1:])
@@ -139,6 +153,7 @@ def runs(request, tables, blocks):
     return out
 
 
+@needs_jax
 @pytest.mark.parametrize("blk", [0, 1])
 def test_dmr_bits49_and_error_counts_identical(runs, tables, blk):
     jbits, jerrs = runs["jframes", blk]
@@ -155,6 +170,7 @@ def test_dmr_bits49_and_error_counts_identical(runs, tables, blk):
         assert (got == want).all(-1).mean() > 0.6
 
 
+@needs_jax
 @pytest.mark.parametrize("blk", [0, 1])
 def test_dmr_pcm_matches(runs, blk):
     fmt = runs["fmt"]
@@ -174,6 +190,7 @@ def test_dmr_pcm_matches(runs, blk):
         np.testing.assert_allclose(tp, jp, atol=peak / 8)
 
 
+@needs_jax
 def test_dmr_carries_and_one_row_reset(runs):
     """After each block the carries agree (theta, last ω0, repeat counts
     and flags to the bit; amplitudes rtol 1e-5); the reset between the
@@ -196,6 +213,7 @@ def test_dmr_carries_and_one_row_reset(runs):
     assert tst[0][0] != 0 and tst[2][0].any()
 
 
+@needs_jax
 def test_dmr_state_moves_across_and_full_reset(tables, blocks):
     """A JAX ``_vstate`` carried into the port continues the block as the
     JAX pipeline does; ``reset_voice_state()`` makes the next block equal
@@ -215,6 +233,7 @@ def test_dmr_state_moves_across_and_full_reset(tables, blocks):
                                   fresh.decode_block(blocks[0]))
 
 
+@needs_jax
 def test_dmr_inverted_polarity_stream(tables):
     """The FM negated: both pipelines take "-DMR BS voice" at the same
     positions and decode, after the dibit flip, the bits the upright
@@ -272,6 +291,7 @@ def _dmr_pulse(dibits, sps):
     return c4fm_clean(dibits, sps, 48000.0, serialvec.DMR_DEV_HZ)
 
 
+@needs_jax
 def test_dmr_c4fm_shaped_stream_every_frame_exact(tables):
     """The weak check's second half: the same ``synth_voice_stream``
     dibits through ``dmr_iq``'s pulse shape (not the Gaussian-edged FM
@@ -300,3 +320,212 @@ def test_dmr_c4fm_shaped_stream_every_frame_exact(tables):
             got = tbits[fch == c].reshape(-1, 18, 49)
             assert got.shape == want.shape
             np.testing.assert_array_equal(got, want)
+
+
+# -- the hand-offs and the tracer (no JAX) ------------------------------------
+SPANS = ("h2d", "frontend_enqueue", "candidates_d2h", "pick",
+         "decode_enqueue", "pcm_d2h", "pcm_expand")
+HAND_LEADS = ((7, 40), (0, 25), (96, 13))
+HAND_SEEDS = ((1, 2), (3, 4), (5, 6))
+
+
+@pytest.fixture(scope="module")
+def hand_blocks(tables):
+    """Three blocks as ``torch`` CPU tensors, the benchmark ring's type."""
+    tv = tables.test_vector()
+    return [torch.from_numpy(encode.vector_block(tv, HAND_LEADS[i],
+                                                 HAND_SEEDS[i], B))
+            for i in range(3)]
+
+
+def _pipelined(pipe, blocks):
+    """``portbench/entries/p25_pipelined.py``'s order, which the DMR
+    entry runs: block N+1 dispatched before block N's candidates are
+    fetched, block N−1's PCM fetched after block N's decode is queued.
+    Returns each block's PCM and a copy of what it decoded (frames,
+    superframes, the carry after it)."""
+    pcm, got = [], []
+    fe = pipe.frontend_dispatch(blocks[0])
+    prev = None
+    for i in range(len(blocks)):
+        nxt = (pipe.frontend_dispatch(blocks[i + 1])
+               if i + 1 < len(blocks) else None)
+        h = pipe.decode_from_frontend(pipe.frontend_finish(fe))
+        lf = pipe.last_frames
+        got.append(((lf[0].clone(), lf[1].clone(), lf[2], lf[3]),
+                    pipe.last_superframes,
+                    [t.clone() for part in pipe.voice_state() for t in part]))
+        if prev is not None:
+            pcm.append(pipe.fetch_pcm(prev))
+        prev, fe = h, nxt
+    pcm.append(pipe.fetch_pcm(prev))
+    return pcm, got
+
+
+@pytest.mark.parametrize("fmt", ["f16", "mulaw", "adpcm"])
+def test_dmr_pipelined_order_matches_sequential(tables, hand_blocks, fmt):
+    """On the CPU device the pipelined order gives the PCM, frames,
+    superframes and carries of sequential ``decode_block`` calls bit for
+    bit, in every wire format."""
+    def make():
+        return tdmr.BatchedDmrVoicePipeline(C, pcm_fmt=fmt, device="cpu",
+                                            tables=tables)
+    pcm, got = _pipelined(make(), hand_blocks)
+    seq = make()
+    for k, b in enumerate(hand_blocks):
+        np.testing.assert_array_equal(pcm[k], seq.decode_block(b))
+        frames, sfs, carry = got[k]
+        lf = seq.last_frames
+        assert torch.equal(frames[0], lf[0]) and torch.equal(frames[1], lf[1])
+        np.testing.assert_array_equal(frames[2], lf[2])
+        np.testing.assert_array_equal(frames[3], lf[3])
+        for a, b2 in zip(sfs, seq.last_superframes):
+            np.testing.assert_array_equal(a, b2)
+        for a, b2 in zip(carry, [t for part in seq.voice_state()
+                                 for t in part]):
+            assert torch.equal(a, b2)
+
+
+def test_dmr_counters_read_what_was_decoded(tables, hand_blocks):
+    """Under the profiler, in the pipelined order on the CPU device:
+    every hand-off takes the blocking path (the block in, the candidates
+    and the PCM out: 3 a block), each result handed to the host (2 a
+    block) counts as waited for, and the counters of superframes, frames
+    (18 a superframe) and synthesized slots read what was decoded."""
+    pipe = tdmr.BatchedDmrVoicePipeline(C, pcm_fmt="f16", device="cpu",
+                                        tables=tables)
+    with profile(activities=[ProfilerActivity.CPU]):
+        _pipelined(pipe, hand_blocks)
+    s = trace.last_session()
+    n = len(hand_blocks)
+    assert s.total("dmr.blocks") == n and pipe.blocks == n
+    assert s.total("dmr.blocking_handoffs") == 3 * n
+    assert s.total("dmr.handoffs") == s.total("dmr.handoff_waited") == 2 * n
+    n_sf = [[len(encode.expected_frames(tables.test_vector(), lead,
+                                        B // 10 - 2)[0]) for lead in leads]
+            for leads in HAND_LEADS]
+    assert s.total("dmr.superframes") == sum(map(sum, n_sf))
+    assert s.total("dmr.frames") == 18 * s.total("dmr.superframes")
+    # every channel's steps, padded to 36s
+    assert s.total("dmr.synth_slots") == sum(
+        C * -(-18 * max(k) // 36) * 36 for k in n_sf)
+
+
+def test_dmr_voice_state_is_the_carry(tables, hand_blocks):
+    pipe = tdmr.BatchedDmrVoicePipeline(C, device="cpu", tables=tables)
+    assert pipe.voice_state() == (None, None)
+    pipe.decode_block(hand_blocks[0])
+    synth, rep = pipe.voice_state()
+    assert (synth, rep) == pipe._vstate
+    assert len(synth) == 3 and len(rep) == 5
+    pipe.reset_voice_state()
+    assert pipe.voice_state() == (None, None)
+
+
+class _Sink:
+    def __init__(self):
+        self.spans = []
+
+    def on_span(self, name, block, t0, t1):
+        self.spans.append((name, block, t0, t1))
+
+
+def _one_block_spans(pipe, block):
+    """The spans a sink sees over one block, dispatch to PCM."""
+    sink = _Sink()
+    trace.attach(sink)
+    try:
+        pcm = pipe.fetch_pcm(pipe.decode_from_frontend(
+            pipe.frontend_finish(pipe.frontend_dispatch(block))))
+    finally:
+        trace.detach(sink)
+    return sink.spans, pcm
+
+
+def test_dmr_spans_once_a_block_with_its_number(tables, hand_blocks):
+    """Under a sink every ``dmr.*`` span is recorded once a block, with
+    the block's number, in the call order; the PCM is what an untraced
+    pipeline gives."""
+    pipe = tdmr.BatchedDmrVoicePipeline(C, device="cpu", tables=tables)
+    plain = tdmr.BatchedDmrVoicePipeline(C, device="cpu", tables=tables)
+    plain.decode_block(hand_blocks[0])
+    pipe.decode_block(hand_blocks[0])                    # block 0, untraced
+    spans, pcm = _one_block_spans(pipe, hand_blocks[1])  # block 1
+    assert [n for n, *_ in spans] == [f"dmr.{n}" for n in SPANS]
+    assert {b for _n, b, *_ in spans} == {1}
+    assert all(t0 <= t1 for *_x, t0, t1 in spans)
+    np.testing.assert_array_equal(pcm, plain.decode_block(hand_blocks[1]))
+
+
+def test_x2_records_its_own_prefix():
+    """``BatchedX2VoicePipeline`` inherits the hand-offs and records its
+    spans and counters as ``x2.*``, none as ``dmr.*``."""
+    from dsdneo_tpu_torch.engine.x2batch import BatchedX2VoicePipeline
+    from dsdneo_tpu_torch.protocol.p25.encode import tdma_fm_iq
+    xt = params.load_tdma("x2tdma", "cpu")
+    block = encode.vector_block(xt.test_vector(), (7, 40), (1, 2), 43200,
+                                sps=8, modulate=tdma_fm_iq)
+    pipe = BatchedX2VoicePipeline(C, device="cpu", tables=xt)
+    spans, pcm = _one_block_spans(pipe, block)
+    assert pcm.shape[1] > 0
+    assert [n for n, *_ in spans] == [f"x2.{n}" for n in SPANS]
+    with profile(activities=[ProfilerActivity.CPU]):
+        pipe.fetch_pcm(pipe.decode_block_async(block))
+    names = {n for n, _b, _k in trace.last_session().counts}
+    assert names == {f"x2.{n}" for n in (
+        "blocks", "blocking_handoffs", "handoffs", "handoff_waited",
+        "superframes", "frames", "synth_slots")}
+
+
+@pytest.mark.cuda
+def test_dmr_handoffs_on_the_card_do_not_synchronize():
+    """On the card, with a pinned block: ``frontend_dispatch`` and
+    ``decode_from_frontend`` make no synchronizing call
+    (``torch.cuda.set_sync_debug_mode("error")``).  Three pinned blocks
+    in the pipelined order give the PCM, frames and carries of
+    sequential ``decode_block`` calls bit for bit and take every
+    hand-off the stream-ordered way (candidates and PCM: 2 a block),
+    none the blocking way."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    card = params.load_dmr(dev)
+    tv = card.test_vector()
+    blocks = [torch.from_numpy(encode.vector_block(
+        tv, HAND_LEADS[i], HAND_SEEDS[i], B)).pin_memory()
+        for i in range(3)]
+
+    def make():
+        return tdmr.BatchedDmrVoicePipeline(C, pcm_fmt="adpcm", device=dev,
+                                            tables=card)
+
+    make().decode_block(blocks[0])        # builds the kernels, constants
+    torch.cuda.synchronize()
+    pipe = make()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fe = pipe.frontend_dispatch(blocks[0])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    f = pipe.frontend_finish(fe)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = pipe.decode_from_frontend(f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert pipe.fetch_pcm(h).shape[1] > 0
+
+    pipe = make()
+    with profile(activities=[ProfilerActivity.CPU]):
+        pcm, got = _pipelined(pipe, blocks)
+    s = trace.last_session()
+    assert s.total("dmr.blocking_handoffs") == 0
+    assert s.total("dmr.handoffs") == 2 * len(blocks)
+    seq = make()
+    for k, b in enumerate(blocks):
+        np.testing.assert_array_equal(pcm[k], seq.decode_block(b))
+        frames, _sfs, carry = got[k]
+        assert torch.equal(frames[0], seq.last_frames[0])
+        for a, b2 in zip(carry, [t for part in seq.voice_state()
+                                 for t in part]):
+            assert torch.equal(a, b2)
